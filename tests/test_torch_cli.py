@@ -1,6 +1,7 @@
 """PyTorch port, CLIs: the predict CLI against the JAX package's on one
-checkpoint, the HTTP server against the Predictor it wraps, and the flags of
-features not ported yet, which must be refused."""
+checkpoint, the HTTP server against the Predictor it wraps, the train CLI's
+flag surface against the JAX package's, a train CLI run on the CPU, and the
+flags of features not ported yet, which must be refused."""
 
 import io
 import json
@@ -14,11 +15,14 @@ import pytest
 import torch
 
 from vit_rpe_rope_tpu.cli import predict as jpredict
+from vit_rpe_rope_tpu.cli import train as jtrain
 from vit_rpe_rope_tpu.configs import ViTConfig as JaxViTConfig
 from vit_rpe_rope_tpu.models import vit as jvit
 from vit_rpe_rope_tpu.utils import checkpoint as jckpt
 from vit_rpe_rope_tpu_torch import serving
 from vit_rpe_rope_tpu_torch.cli import predict, serve
+from vit_rpe_rope_tpu_torch.cli import train
+from vit_rpe_rope_tpu_torch.data import datasets
 from vit_rpe_rope_tpu_torch.configs import ViTConfig
 from vit_rpe_rope_tpu_torch.data.datasets import NORMALIZATION
 from vit_rpe_rope_tpu_torch.models import vit
@@ -129,3 +133,52 @@ def test_http_error_paths(server_and_predictor):
     with pytest.raises(urllib.error.HTTPError) as exc:
         urllib.request.urlopen(url + "/nope", timeout=30)
     assert exc.value.code == 404
+
+
+def flag_surface(parser):
+    return {a.dest: (tuple(a.option_strings), a.default, a.choices, a.type,
+                     a.nargs, a.const)
+            for a in parser._actions if a.dest != "help"}
+
+
+def test_train_parser_matches_jax_parser():
+    got = flag_surface(train.build_parser())
+    want = flag_surface(jtrain.build_parser())
+    assert got.pop("device") == (("--device",), None, None, str, None, None)
+    assert got == want
+    args = train.build_parser().parse_args(["--no-poly_shared_heads"])
+    assert args.poly_shared_heads is False and args.dataset == "mnist"
+
+
+@pytest.mark.parametrize("flag", [
+    ["--model_parallel", "2"], ["--sequence_parallel", "2"],
+    ["--pipeline_parallel", "2"], ["--zero1"], ["--q_chunk", "64"],
+    ["--kv_chunk", "64"], ["--augment"], ["--remat"],
+    ["--drop_rate", "0.1"], ["--attn_drop_rate", "0.1"],
+    ["--drop_path_rate", "0.1"], ["--attention_impl", "flash_block"],
+    ["--profile_dir", "trace"], ["--debug_nans"],
+    ["--steps_per_dispatch", "4"]])
+def test_train_cli_refuses_unported_flags(flag, capsys):
+    with pytest.raises(SystemExit) as exc:
+        train.main(["--synthetic", *flag])
+    assert exc.value.code == 2
+    assert "not ported" in capsys.readouterr().err
+
+
+def test_train_cli_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
+    monkeypatch.setattr(
+        datasets, "get_dataset",
+        lambda dataset, data_dir, use_synthetic, seed: datasets.synthetic(
+            dataset, n_train=64, n_test=32, seed=seed))
+    summary = train.main([
+        "--dataset", "cifar10", "--synthetic", "--epochs", "1",
+        "--batch_size", "32", "--depth", "1", "--embed_dim", "32",
+        "--num_heads", "2", "--pos_encoding", "rope-mixed",
+        "--grad_accum", "2", "--steps_per_dispatch", "1",
+        "--log_dir", str(tmp_path / "logs"), "--ckpt_dir",
+        str(tmp_path / "ckpts"), "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "Done. Best Test Acc" in out and "devices: 1" in out
+    assert summary["log_file"].startswith(str(tmp_path / "logs" /
+                                              "cifar10_rope-mixed_"))
+    assert (tmp_path / "ckpts" / "cifar10_rope-mixed_last.npz").exists()

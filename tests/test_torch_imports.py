@@ -30,7 +30,10 @@ def port_modules():
 
 def test_port_modules_import_without_jax():
     modules = port_modules()
-    assert "vit_rpe_rope_tpu_torch.ops.flash_attention" in modules
+    for name in ("ops.flash_attention", "ops.fused_adamw", "ops.cuda_build",
+                 "train.loop", "train.train_step", "cli.train",
+                 "data.datasets", "utils.flatten", "utils.checkpoint"):
+        assert f"vit_rpe_rope_tpu_torch.{name}" in modules
     code = (
         "import importlib, re, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -66,9 +69,10 @@ def test_prefix_safe_pattern():
 
 def test_entry_points_refuse_cpu_without_request(monkeypatch, tmp_path):
     from vit_rpe_rope_tpu_torch import serving
-    from vit_rpe_rope_tpu_torch.cli import predict
-    from vit_rpe_rope_tpu_torch.configs import ViTConfig
+    from vit_rpe_rope_tpu_torch.cli import predict, train
+    from vit_rpe_rope_tpu_torch.configs import TrainConfig, ViTConfig
     from vit_rpe_rope_tpu_torch.models import vit
+    from vit_rpe_rope_tpu_torch.train import loop
     from vit_rpe_rope_tpu_torch.utils import checkpoint
     from vit_rpe_rope_tpu_torch.utils.device import resolve_device
 
@@ -88,4 +92,26 @@ def test_entry_points_refuse_cpu_without_request(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="--device cpu"):
         predict.main([ckpt, "--input", inputs, "--grid_size", "4",
                       "--num_heads", "2"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train.main(["--synthetic", "--log_dir", str(tmp_path / "logs"),
+                    "--ckpt_dir", str(tmp_path / "ckpts")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        loop.fit(cfg, TrainConfig(dataset="cifar10", synthetic_data=True,
+                                  log_dir=str(tmp_path / "logs"),
+                                  ckpt_dir=str(tmp_path / "ckpts")))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_sources_build_into_their_own_libraries():
+    """Each CUDA source has its own library, keyed by its text and the
+    shared header's (no nvcc here: only the names are checked)."""
+    from vit_rpe_rope_tpu_torch.ops import cuda_build, flash_attention
+    from vit_rpe_rope_tpu_torch.ops import fused_adamw
+
+    sources = (flash_attention.SOURCE, flash_attention.BWD_SOURCE,
+               fused_adamw.SOURCE)
+    paths = [cuda_build.library_path(s) for s in sources]
+    assert [p.name.split("-")[0] for p in paths] == ["attn_fwd", "attn_bwd",
+                                                     "adamw"]
+    assert all(p.parent == cuda_build.BUILD_DIR for p in paths)
+    assert all(s.exists() for s in sources)

@@ -1,7 +1,9 @@
 """PyTorch port, the CUDA kernels on the card: each kernel against its plain
-PyTorch twin on the same CUDA tensors. Every test here needs a CUDA device
-and skips without one (the kernels have no CPU mode; the twins are tested
-against the JAX package on the CPU in tests/test_torch_attention.py).
+PyTorch twin on the same CUDA tensors (attention forward and backward, fused
+AdamW). Every test here needs a CUDA device and skips without one (the
+kernels have no CPU mode; the twins are tested against the JAX package on
+the CPU in tests/test_torch_attention.py, test_torch_attention_bwd.py and
+test_torch_fused_adamw.py).
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine with only PyTorch:
@@ -10,7 +12,10 @@ machine with only PyTorch:
 
 Tolerance, kernel vs twin: 2e-3 for f32 inputs, 1e-2 for bf16 inputs (same
 rounding points; f32 sums in another order can round a p or an output at a
-bf16 boundary the other way)."""
+bf16 boundary the other way), abs + rel. The batch sums of the backward
+(dbias, dcos/dsin) are held to the same numbers relative to their largest
+entry, since each adds up B such differences. AdamW: 1e-6 (the same float32
+operations, rounded op by op on both sides)."""
 
 import dataclasses
 
@@ -20,6 +25,8 @@ import torch
 from vit_rpe_rope_tpu_torch.configs import ViTConfig
 from vit_rpe_rope_tpu_torch.models import vit
 from vit_rpe_rope_tpu_torch.ops import flash_attention as fa
+from vit_rpe_rope_tpu_torch.ops import fused_adamw
+from vit_rpe_rope_tpu_torch.ops import reference_attention
 
 REGIMES = ["none", "poly", "rel", "rope-axial", "rope-mixed"]
 TOL = {torch.float32: 2e-3, torch.bfloat16: 1e-2}
@@ -130,3 +137,131 @@ def test_model_kernel_path_matches_reference_path(cuda, pe_name):
         want = vit.apply(params, x, dataclasses.replace(
             cfg, attention_impl="reference"))
     torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+
+
+def close_to_largest(got, want, tol):
+    """|got - want| <= tol * max(1, max|want|) — for sums over the batch."""
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=0, atol=tol * scale)
+
+
+def run_bwd_and_compare(q, k, v, kw, dtype, seed=0):
+    h, n = q.shape[1], q.shape[2]
+    scale = q.shape[-1] ** -0.5
+    bias, cos, sin = fa.prepare_pe(h, n, q.device, **kw)
+    out = fa.attention_fwd(q, k, v, scale, bias, cos, sin)
+    gen = torch.Generator().manual_seed(seed + 11)
+    g = torch.randn(q.shape, generator=gen).to(q.device, dtype)
+    want_drot = cos is not None
+    args = (q, k, v, out, g, scale, bias, cos, sin)
+    before = fa.LAUNCHES_BWD
+    got = fa.attention_bwd(*args, want_dbias=bias is not None,
+                           want_drot=want_drot)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_BWD == before + 1
+    want = fa.attention_bwd_plain(*args, want_dbias=bias is not None,
+                                  want_drot=want_drot)
+    for x, y in zip(got[:3], want[:3]):
+        assert x.dtype == dtype and x.shape == q.shape
+        torch.testing.assert_close(x.float(), y.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+    for x, y in zip(got[3:], want[3:]):
+        assert (x is None) == (y is None)
+        if x is not None:
+            close_to_largest(x, y, TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("regime", REGIMES)
+def test_bwd_kernel_matches_twin_at_vit_s_shape(cuda, regime, dtype):
+    run_bwd_and_compare(*inputs(regime, (12, 6, 197, 64), dtype, cuda),
+                        dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 3, 17, 16), (3, 6, 65, 32),
+                                   (1, 2, 129, 128), (9, 2, 64, 64),
+                                   (1, 1, 1, 16)])
+def test_bwd_kernel_matches_twin_at_other_shapes(cuda, shape):
+    regime = "rel" if shape[2] > 1 else "none"
+    run_bwd_and_compare(*inputs(regime, shape, torch.float32, cuda, seed=2),
+                        torch.float32, seed=2)
+    if shape[2] > 1 and shape[3] % 4 == 0:
+        run_bwd_and_compare(*inputs("rope-mixed", shape, torch.float32, cuda,
+                                    seed=3), torch.float32, seed=3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime", REGIMES)
+def test_kernel_autograd_matches_reference_autograd(cuda, regime):
+    """Gradients through the autograd Function (both kernels) against
+    autograd through the unfused f32 oracle: bf16 rounding of q, k, g and
+    v on one side gives logits a relative error near 2^-8, which the
+    softmax carries into every gradient, so 5e-2 of the largest entry.
+    The polynomial coefficients are scaled by grid^-k here: at grid 14 the
+    degree-3 gradient weighs dbias by distance^3 (up to 17,576), and
+    unscaled coefficients saturate the softmax, so bf16 noise in dbias
+    would swamp the comparison."""
+    q, k, v, kw = inputs(regime, (4, 6, 197, 64), torch.float32, cuda,
+                         seed=4)
+    n = q.shape[2]
+    if "poly" in kw:
+        coeff, grid = kw["poly"]
+        powers = torch.arange(coeff.shape[1], device=cuda)
+        kw["poly"] = (coeff * float(grid) ** -powers.float(), grid)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    if "poly" in kw:
+        leaves.append(kw["poly"][0].requires_grad_())
+    if "rel" in kw:
+        leaves.append(kw["rel"].requires_grad_())
+    if regime == "rope-mixed":
+        leaves += [t.requires_grad_() for t in kw["freqs_cis"]]
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(5))
+    g = g.to(cuda)
+    fwd0, bwd0 = fa.LAUNCHES, fa.LAUNCHES_BWD
+    got = torch.autograd.grad(fa.flash_attention(q, k, v, 0.125, **kw),
+                              leaves, g)
+    assert (fa.LAUNCHES, fa.LAUNCHES_BWD) == (fwd0 + 1, bwd0 + 1)
+    ref_kw = {}
+    if "freqs_cis" in kw:
+        ref_kw["freqs_cis"] = kw["freqs_cis"]
+    else:
+        ref_kw["bias"] = fa._dense_bias(q.shape[1], n, cuda,
+                                        poly=kw.get("poly"),
+                                        rel=kw.get("rel"))
+    want = torch.autograd.grad(
+        reference_attention.attention(q, k, v, 0.125, **ref_kw), leaves, g)
+    for x, y in zip(got, want):
+        close_to_largest(x, y, 5e-2)
+
+
+@pytest.mark.gpu
+def test_adamw_kernel_matches_twin(cuda):
+    cfg = ViTConfig(img_size=32, patch_size=4, embed_dim=192, depth=2,
+                    num_heads=6, pos_encoding="relative")
+    gen = torch.Generator().manual_seed(6)
+    params = vit.init_params(gen, cfg, device=cuda)
+    twin = {k: v.clone() for k, v in params.items()}
+    init, update = fused_adamw.make_fused_adamw(
+        params, lambda step: 1e-3, weight_decay=0.05)
+    tinit, tupdate = fused_adamw.make_fused_adamw(
+        twin, lambda step: 1e-3, weight_decay=0.05,
+        step=fused_adamw.adamw_plain)
+    state, tstate = init(params), tinit(twin)
+    before = fused_adamw.LAUNCHES_ADAMW
+    for i in range(3):
+        grads = {k: torch.randn(v.shape, generator=gen).to(cuda)
+                 for k, v in params.items()}
+        # a transposed (non-contiguous) grad, as autograd can hand one over
+        grads["head.weight"] = grads["head.weight"].t().contiguous().t()
+        params, state = update(grads, state, params)
+        twin, tstate = tupdate(grads, tstate, twin)
+    torch.cuda.synchronize()
+    assert fused_adamw.LAUNCHES_ADAMW == before + 3
+    assert state[2] == tstate[2] == 3
+    for key in params:
+        for got, want in ((params[key], twin[key]),
+                          (state[0][key], tstate[0][key]),
+                          (state[1][key], tstate[1][key])):
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)

@@ -16,8 +16,9 @@ aliases (the one shared PE module is attached to every block's attention,
 as in the reference), so reference .pth files and the JAX package's
 checkpoints load into it strictly. Its forward is `apply`.
 
-Inputs are NHWC, as in the JAX package. This is the eval forward: dropout,
-remat and the training-only routes come with the training slice.
+Inputs are NHWC, as in the JAX package. `apply` is differentiable end to end
+(the attention kernels carry an autograd Function); dropout, drop-path and
+remat are not ported, and a training forward that asks for them raises.
 """
 
 from __future__ import annotations
@@ -180,7 +181,7 @@ def _logits_bias(pe_mod, params, cfg: ViTConfig):
 
 
 def _block_body(block_params: dict, x, cfg, bias, freqs_cis, impl):
-    """One pre-LN block (eval) on un-prefixed block params."""
+    """One pre-LN block on un-prefixed block params."""
     eps = cfg.layer_norm_eps
     h = _layer_norm(x, block_params["norm1.weight"],
                     block_params["norm1.bias"], eps)
@@ -190,8 +191,7 @@ def _block_body(block_params: dict, x, cfg, bias, freqs_cis, impl):
     # [B, N, 3E] product viewed as [3, B, H, N, Dh] needs no copy: q, k, v
     # are strided views the attention kernel reads in place.
     qkv = _linear(h, block_params["attn.qkv.weight"])
-    qkv = qkv.view(bsz, n, 3, nh, dh).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]
+    q, k, v = qkv.view(bsz, n, 3, nh, dh).permute(2, 0, 3, 1, 4).unbind(0)
     scale = dh ** -0.5
     if impl == "flash":
         attn_out = flash_attention.flash_attention(
@@ -211,8 +211,18 @@ def _block_body(block_params: dict, x, cfg, bias, freqs_cis, impl):
     return x + h
 
 
+def _refuse_unported_training(params, cfg: ViTConfig):
+    if not (cfg.has_dropout or cfg.remat) or not torch.is_grad_enabled():
+        return
+    if any(v.requires_grad for v in params.values()):
+        raise NotImplementedError(
+            "dropout / drop-path rates > 0 and remat are not ported to the "
+            "PyTorch package yet (training forward asked for them)")
+
+
 def forward_features(params, images, cfg: ViTConfig):
     """[B, H, W, C] images -> [B, L, E] token features after all blocks."""
+    _refuse_unported_training(params, cfg)
     pe_mod = pe_registry.get(cfg.pos_encoding)
     dtype = _DTYPES[cfg.compute_dtype]
     x = patch_embed(params, images.to(dtype), cfg)  # [B, S, E]
@@ -245,6 +255,31 @@ def apply(params, images, cfg: ViTConfig):
                     cfg.layer_norm_eps)
     logits = _linear(x[:, 0], params["head.weight"], params["head.bias"])
     return logits.float()
+
+
+# ---------------------------------------------------------------------------
+# Depth-stacked layout: blocks.{i}.X (i = 0..depth-1) as one "blocks.X"
+# [depth, ...] tensor. It fixes the key order of the optimizer moments'
+# canonical flat vectors on disk (utils.flatten.Flattener).
+# ---------------------------------------------------------------------------
+
+def stack_block_params(params: dict, cfg: ViTConfig) -> dict:
+    """Reference-keyed dict -> stacked dict (non-block keys first, in the
+    input's order, then blocks.X in BLOCK_PARAM_NAMES order)."""
+    out = {k: v for k, v in params.items() if not k.startswith("blocks.")}
+    for name in BLOCK_PARAM_NAMES:
+        out[f"blocks.{name}"] = torch.stack(
+            [params[f"blocks.{i}.{name}"] for i in range(cfg.depth)])
+    return out
+
+
+def unstack_block_params(stacked: dict, cfg: ViTConfig) -> dict:
+    out = {k: v for k, v in stacked.items() if not k.startswith("blocks.")}
+    for name in BLOCK_PARAM_NAMES:
+        arr = stacked[f"blocks.{name}"]
+        for i in range(cfg.depth):
+            out[f"blocks.{i}.{name}"] = arr[i]
+    return out
 
 
 # ---------------------------------------------------------------------------

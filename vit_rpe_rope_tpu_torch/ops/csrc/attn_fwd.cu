@@ -37,19 +37,11 @@
 // (few warps per SM, serial stage/barrier/product steps per tile), far from
 // its memory bound: wgmma / TMA pipelining is later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-using namespace nvcuda;
+#include "attn_common.cuh"
 
 namespace {
 
-constexpr int TQ = 64;  // query rows per CTA
-constexpr int TK = 64;  // keys per KV tile
-constexpr int WARPS = TQ / 16;
-constexpr int THREADS = WARPS * 32;
-constexpr float NEG_INF = -1e30f;
+using namespace attn;
 
 struct Params {
   const void* q;
@@ -66,7 +58,7 @@ struct Params {
 
 template <int D>
 struct Layout {
-  static constexpr int LDX = D + 8;                 // bf16 q/k/v tile rows
+  static constexpr int LDX = ldx<D>();              // bf16 q/k/v tile rows
   static constexpr int SW = D > TK ? D : TK;        // f32 slab width
   static constexpr int LDS = SW + 4;                // f32 score/output slab
   static constexpr int LDP = TK + 8;                // bf16 probabilities
@@ -80,101 +72,6 @@ struct Layout {
   static_assert(TILE_BYTES % 128 == 0 && (size_t(TQ) * LDS * 4) % 128 == 0,
                 "shared-memory sections must stay 128-byte aligned");
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// Stage rows [row0, row0 + 64) of one (batch, head) slice into shared memory
-// as bf16, rotated first when cos/sin are given. Rows >= N are zero.
-// Each thread issues the loads of CHUNK elements before it uses any of them,
-// so their latencies overlap. The rotation is rounded op by op (no FMA
-// contraction), as PyTorch's elementwise twin rounds it.
-template <int D, typename T>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
-                                           const T* __restrict__ src,
-                                           long long stride_n, int row0,
-                                           int n_tokens,
-                                           const float* __restrict__ cos_h,
-                                           const float* __restrict__ sin_h) {
-  constexpr int H2 = D / 2;
-  constexpr int LDX = Layout<D>::LDX;
-  constexpr int ITERS = TQ * H2 / THREADS;
-  constexpr int CHUNK = ITERS < 8 ? ITERS : 8;
-  static_assert(ITERS % CHUNK == 0, "staging loop must split into chunks");
-#pragma unroll
-  for (int it0 = 0; it0 < ITERS; it0 += CHUNK) {
-    float x1[CHUNK], x2[CHUNK], cs[CHUNK], sn[CHUNK];
-#pragma unroll
-    for (int u = 0; u < CHUNK; ++u) {
-      const int i = (it0 + u) * THREADS + threadIdx.x;
-      const int r = i / H2, c = i % H2, n = row0 + r;
-      x1[u] = 0.f;
-      x2[u] = 0.f;
-      cs[u] = 1.f;
-      sn[u] = 0.f;
-      if (n < n_tokens) {
-        const T* row = src + n * stride_n;
-        x1[u] = to_f32(row[c]);
-        x2[u] = to_f32(row[c + H2]);
-        if (cos_h != nullptr) {
-          cs[u] = cos_h[(long long)n * H2 + c];
-          sn[u] = sin_h[(long long)n * H2 + c];
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < CHUNK; ++u) {
-      const int i = (it0 + u) * THREADS + threadIdx.x;
-      const int r = i / H2, c = i % H2;
-      float y1 = x1[u], y2 = x2[u];
-      if (cos_h != nullptr) {
-        y1 = __fsub_rn(__fmul_rn(x1[u], cs[u]), __fmul_rn(x2[u], sn[u]));
-        y2 = __fadd_rn(__fmul_rn(x1[u], sn[u]), __fmul_rn(x2[u], cs[u]));
-      }
-      dst[r * LDX + c] = __float2bfloat16(y1);
-      dst[r * LDX + c + H2] = __float2bfloat16(y2);
-    }
-  }
-}
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragKt = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragV = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// s_w[16][TK] = q_w[16][D] . K^T for this warp's 16 query rows.
-template <int D>
-__device__ __forceinline__ void warp_scores(float* s_w, const FragA (&qa)[D / 16],
-                                            const __nv_bfloat16* k_s) {
-  constexpr int LDX = Layout<D>::LDX;
-#pragma unroll
-  for (int j = 0; j < TK / 16; ++j) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragKt kb;
-      wmma::load_matrix_sync(kb, k_s + j * 16 * LDX + kk * 16, LDX);
-      wmma::mma_sync(acc, qa[kk], kb, acc);
-    }
-    wmma::store_matrix_sync(s_w + j * 16, acc, Layout<D>::LDS, wmma::mem_row_major);
-  }
-}
-
-// Scaled, biased, masked logit of query row qi against key kj.
-__device__ __forceinline__ float logit(float acc, int qi, int kj, const Params& p,
-                                       const float* bias_h) {
-  if (kj >= p.N) return NEG_INF;
-  float s = __fmul_rn(acc, p.scale);
-  if (bias_h != nullptr && qi < p.N) s = __fadd_rn(s, bias_h[(long long)qi * p.N + kj]);
-  return s;
-}
 
 template <int D, typename T>
 __global__ void __launch_bounds__(THREADS) attn_fwd_kernel(const Params p) {
@@ -205,9 +102,7 @@ __global__ void __launch_bounds__(THREADS) attn_fwd_kernel(const Params p) {
   stage_tile<D, T>(q_s, qg, p.qs[2], q0, p.N, cos_h, sin_h);
   __syncthreads();
   FragA qa[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(qa[kk], q_s + warp * 16 * L::LDX + kk * 16, L::LDX);
+  load_rows<D>(qa, q_s + warp * 16 * L::LDX);
 
   // Row statistics: lane l owns row l/2 of the warp's 16 rows and half
   // (l % 2) of each tile's TK columns; the lane pair combines with one
@@ -224,12 +119,12 @@ __global__ void __launch_bounds__(THREADS) attn_fwd_kernel(const Params p) {
     __syncthreads();  // every warp is done with the previous K tile
     stage_tile<D, T>(k_s, kg, p.ks[2], k0, p.N, cos_h, sin_h);
     __syncthreads();
-    warp_scores<D>(s_w, qa, k_s);
+    warp_abt<D, L::LDS>(s_w, qa, k_s);
     __syncwarp();
     float mx = NEG_INF;
 #pragma unroll 8
     for (int j = 0; j < TK / 2; ++j)
-      mx = fmaxf(mx, logit(s_row[j], qi, k0 + col0 + j, p, bias_h));
+      mx = fmaxf(mx, logit(s_row[j], qi, k0 + col0 + j, p.N, p.scale, bias_h));
     m = fmaxf(m, fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1)));
     __syncwarp();
   }
@@ -246,28 +141,18 @@ __global__ void __launch_bounds__(THREADS) attn_fwd_kernel(const Params p) {
     stage_tile<D, T>(k_s, kg, p.ks[2], k0, p.N, cos_h, sin_h);
     stage_tile<D, T>(v_s, vg, p.vs[2], k0, p.N, nullptr, nullptr);
     __syncthreads();
-    warp_scores<D>(s_w, qa, k_s);
+    warp_abt<D, L::LDS>(s_w, qa, k_s);
     __syncwarp();
     float sum = 0.f;
 #pragma unroll 8
     for (int j = 0; j < TK / 2; ++j) {
-      const float e = expf(logit(s_row[j], qi, k0 + col0 + j, p, bias_h) - m);
+      const float e = expf(logit(s_row[j], qi, k0 + col0 + j, p.N, p.scale, bias_h) - m);
       sum += e;
       p_row[j] = __float2bfloat16(e);
     }
     l += sum + __shfl_xor_sync(0xffffffffu, sum, 1);
     __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
-      FragA pa;
-      wmma::load_matrix_sync(pa, p_w + kk * 16, L::LDP);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        FragV vb;
-        wmma::load_matrix_sync(vb, v_s + kk * 16 * L::LDX + n * 16, L::LDX);
-        wmma::mma_sync(o_acc[n], pa, vb, o_acc[n]);
-      }
-    }
+    warp_ab_acc<D, L::LDP>(o_acc, p_w, v_s);
   }
 
   // Epilogue: normalize after the PV product and write the input dtype.

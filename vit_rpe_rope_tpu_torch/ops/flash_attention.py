@@ -1,6 +1,8 @@
-"""Fused dense attention forward with in-kernel rope, on a hand-written CUDA
-kernel (ops/csrc/attn_fwd.cu) — the port of the JAX package's Pallas
-`_attn_kernel` and its driver `_forward`.
+"""Fused dense attention, forward and backward, with in-kernel rope, on
+hand-written CUDA kernels (ops/csrc/attn_fwd.cu, ops/csrc/attn_bwd.cu) — the
+port of the JAX package's Pallas `_attn_kernel` / `_dense_bwd_kernel` and
+their drivers `_forward` / `_bwd_dense`, with the `jax.custom_vjp` around
+them as a `torch.autograd.Function`.
 
 What is computed, for q, k, v [B, H, N, D]:
 
@@ -12,31 +14,37 @@ What is computed, for q, k, v [B, H, N, D]:
   bias added to the scaled logits (`_poly_bias_cols` / `_rel_bias_cols`
   build it from the coefficients / table below the streaming threshold);
 * products: operands rounded to bfloat16, accumulated in float32 — the
-  JAX kernel's regime; softmax statistics in float32; p rounded to bfloat16
-  for the PV product; the row sum divides AFTER the PV product;
-* output in the input dtype.
+  JAX kernels' regime; softmax statistics in float32. The forward rounds
+  p = exp(s - max) to bfloat16 for the PV product and divides by the row
+  sum AFTER it; the backward normalizes p BEFORE rounding it;
+* outputs in the input dtype; the backward's dbias and rotated-space
+  dqr/dkr in float32.
 
-`attention_fwd` is the kernel's wrapper: on a CUDA tensor it launches the
-kernel (and counts the launch in LAUNCHES), on a CPU tensor it runs
-`attention_plain`, the kernel's plain PyTorch twin. Nothing falls back: a
-CUDA call the kernel cannot take raises.
+`attention_fwd` / `attention_bwd` are the kernels' wrappers: on a CUDA
+tensor they launch the kernel (and count the launch in LAUNCHES /
+LAUNCHES_BWD), on a CPU tensor they run `attention_plain` /
+`attention_bwd_plain`, the kernels' plain PyTorch twins. Nothing falls
+back: a CUDA call the kernel cannot take raises.
 
-The streaming kernels of the JAX package (`_stream_kernel` and its
-backward) are not ported yet: above STREAMING_THRESHOLD, or where
+`flash_attention` takes the autograd Function when grad is enabled and an
+input requires it, and calls the forward wrapper directly otherwise. The
+gradient of a generated bias (polynomial coefficients, relative table)
+flows from dbias through torch autograd of the bias generator; learnable
+rope-mixed frequencies get theirs from dqr/dkr (`_rot_grads_to_dfreqs`).
+
+The streaming kernels of the JAX package (`_stream_kernel`,
+`_stream_bwd_fused_kernel` and the separate-pass `_bwd_streaming`
+kernels) are not ported yet: above STREAMING_THRESHOLD, or where
 `_dense_attn_fits` fails, `flash_attention` raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import subprocess
-import tempfile
-import threading
 
 import torch
+
+from vit_rpe_rope_tpu_torch.ops import cuda_build
 
 LANE = 128
 NEG_INF = -1e30
@@ -48,12 +56,12 @@ STREAMING_THRESHOLD = 2048
 # a run shows that its main path went through the kernel by reading it).
 LAUNCHES = 0
 
-SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "attn_fwd.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernel is instantiated for
+# Launches of the backward kernel (one per attention_bwd call on CUDA).
+LAUNCHES_BWD = 0
 
-_lib = None
-_lib_lock = threading.Lock()
+SOURCE = cuda_build.CSRC / "attn_fwd.cu"
+BWD_SOURCE = cuda_build.CSRC / "attn_bwd.cu"
+HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernels are instantiated for
 
 
 def _round_up(x: int, m: int) -> int:
@@ -159,56 +167,98 @@ def attention_plain(q, k, v, scale, bias=None, cos=None, sin=None,
     return (out / denom).to(q.dtype)
 
 
+def attention_bwd_plain(q, k, v, out, g, scale, bias=None, cos=None,
+                        sin=None, mm_dtype=torch.bfloat16, want_dbias=False,
+                        want_drot=False):
+    """The backward kernel's function in plain PyTorch, on unpadded tensors:
+    the rounding points of `_dense_bwd_kernel` (see the module docstring).
+
+    Arguments as attention_plain, plus the forward's output `out` and the
+    output cotangent `g` [B, H, N, D]. Returns (dq, dk, dv, dbias, dqr,
+    dkr): dq/dk/dv in the input dtype; dbias = sum over the batch of ds,
+    float32 [H, N, N], when want_dbias; dqr/dkr, float32 dq/dk before the
+    inverse rotation, when want_drot (else None)."""
+    qf, kf = q.float(), k.float()
+    if cos is not None:
+        qf = _rotate(qf, cos[None], sin[None])
+        kf = _rotate(kf, cos[None], sin[None])
+    qm = qf.to(mm_dtype).float()
+    km = kf.to(mm_dtype).float()
+    s = torch.matmul(qm, km.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias[None]
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    pd = p / p.sum(dim=-1, keepdim=True)
+    gf = g.float()
+    gm = gf.to(mm_dtype).float()
+    dv = torch.matmul(pd.to(mm_dtype).float().transpose(-1, -2), gm)
+    gv = torch.matmul(gm, v.to(mm_dtype).float().transpose(-1, -2))
+    delta = (gf * out.float()).sum(dim=-1, keepdim=True)
+    ds = pd * (gv - delta)
+    dsm = ds.to(mm_dtype).float()
+    dq = scale * torch.matmul(dsm, km)
+    dk = scale * torch.matmul(dsm.transpose(-1, -2), qm)
+    dbias = ds.sum(dim=0) if want_dbias else None
+    dqr, dkr = (dq, dk) if want_drot else (None, None)
+    if cos is not None:  # inverse rotation back to unrotated space
+        dq = _rotate(dq, cos[None], -sin[None])
+        dk = _rotate(dk, cos[None], -sin[None])
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias, dqr, dkr)
+
+
+def _rot_grads_to_dfreqs(q, k, dqr, dkr, freqs_cis):
+    """(dcos, dsin) for learnable per-head frequencies from rotated-space
+    gradients. With r = [x1·cos − x2·sin, x1·sin + x2·cos] and g = ∂L/∂r:
+      ∂L/∂cos = g1·x1 + g2·x2,   ∂L/∂sin = −g1·x2 + g2·x1,
+    summed over the batch, for both the q and k sides; the cls row (the
+    identity row of the kernel's tables) is dropped, so the result has the
+    caller's [S|H,S, D/2] layout."""
+    def side(x, gr):
+        d2 = x.shape[-1] // 2
+        x1, x2 = x[..., :d2], x[..., d2:]
+        g1, g2 = gr[..., :d2].float(), gr[..., d2:].float()
+        return (g1 * x1 + g2 * x2).sum(dim=0), (-g1 * x2 + g2 * x1).sum(dim=0)
+
+    dcos_q, dsin_q = side(q.float(), dqr)
+    dcos_k, dsin_k = side(k.float(), dkr)
+    s = freqs_cis[0].shape[-2]  # patch-token rows in the caller's layout
+    dcos = dcos_q[:, 1:1 + s] + dcos_k[:, 1:1 + s]
+    dsin = dsin_q[:, 1:1 + s] + dsin_k[:, 1:1 + s]
+    if freqs_cis[0].dim() == 2:  # shared across heads (axial layout)
+        dcos, dsin = dcos.sum(dim=0), dsin.sum(dim=0)
+    return dcos.to(freqs_cis[0].dtype), dsin.to(freqs_cis[1].dtype)
+
+
 # ---------------------------------------------------------------------------
-# The CUDA kernel: build, bind, launch
+# The CUDA kernels: bind, launch
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
+def _bind_fwd(lib):
+    lib.attn_fwd.restype = ctypes.c_int
+    lib.attn_fwd.argtypes = (
+        [ctypes.c_void_p] * 7                     # q k v out bias cos sin
+        + [ctypes.c_int] * 6                      # B H N D is_bf16 cos_heads
+        + [ctypes.POINTER(ctypes.c_longlong)]     # 12 strides
+        + [ctypes.c_float, ctypes.c_void_p])      # scale stream
 
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): nvcc is "
-                           "needed to build " + SOURCE.name)
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
 
-
-def build() -> pathlib.Path:
-    """Compile attn_fwd.cu for sm_90a into BUILD_DIR, keyed by a hash of the
-    source, unless that library exists already. Returns its path; the
-    compiler's resource report (-Xptxas -v) is kept beside it as .log."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"attn_fwd-{digest}.so"
-    if lib_path.exists():
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib_path)  # atomic: concurrent builders race safely
-    return lib_path
+def _bind_bwd(lib):
+    lib.attn_bwd_batch_group.restype = ctypes.c_int
+    lib.attn_bwd_batch_group.argtypes = ()
+    lib.attn_bwd.restype = ctypes.c_int
+    lib.attn_bwd.argtypes = (
+        [ctypes.POINTER(ctypes.c_void_p),         # 16 pointers
+         ctypes.POINTER(ctypes.c_longlong)]       # 24 strides
+        + [ctypes.c_int] * 7          # B H N D is_bf16 cos_heads groups
+        + [ctypes.c_float, ctypes.c_void_p])      # scale stream
 
 
 def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.attn_fwd.restype = ctypes.c_int
-            lib.attn_fwd.argtypes = (
-                [ctypes.c_void_p] * 7                     # q k v out bias cos sin
-                + [ctypes.c_int] * 6                      # B H N D is_bf16 cos_heads
-                + [ctypes.POINTER(ctypes.c_longlong)]     # 12 strides
-                + [ctypes.c_float, ctypes.c_void_p])      # scale stream
-            _lib = lib
-        return _lib
+    return cuda_build.load(SOURCE, _bind_fwd)
+
+
+def _bwd_library():
+    return cuda_build.load(BWD_SOURCE, _bind_bwd)
 
 
 def _check_cuda_inputs(q, k, v, bias, cos, sin):
@@ -282,31 +332,126 @@ def attention_fwd(q, k, v, scale, bias=None, cos=None, sin=None):
     return out
 
 
+def attention_bwd(q, k, v, out, g, scale, bias=None, cos=None, sin=None,
+                  want_dbias=False, want_drot=False):
+    """The backward kernel's wrapper; arguments and results as
+    attention_bwd_plain (bf16 products).
+
+    CPU tensors run the plain twin. CUDA tensors launch the kernel on the
+    current stream, or raise. dq, dk and dv are views of one [B, N, 3, H, D]
+    buffer (the layout of the model's qkv product)."""
+    global LAUNCHES_BWD
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, out, g, scale, bias, cos, sin,
+                                   want_dbias=want_dbias, want_drot=want_drot)
+    _check_cuda_inputs(q, k, v, bias, cos, sin)
+    for name, t in (("out", out), ("g", g)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q in shape, dtype and device")
+    if out.stride(-1) != 1:
+        raise ValueError("out must be contiguous in its last dim")
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    if want_dbias and bias is None:
+        raise ValueError("dbias needs the bias the forward was given")
+    b, h, n, d = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dqkv = torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
+    dq, dk, dv = (dqkv[:, :, i].transpose(1, 2) for i in range(3))
+    stats = torch.empty((3, b, h, n), **f32)
+    dqr = dkr = dbias = part = None
+    if want_drot:
+        dqr = torch.empty((b, h, n, d), **f32)
+        dkr = torch.empty((b, h, n, d), **f32)
+    lib = _bwd_library()
+    groups = -(-b // lib.attn_bwd_batch_group())
+    if want_dbias:
+        dbias = torch.empty((h, n, n), **f32)
+        if groups > 1:
+            part = torch.empty((groups, h, n, n), **f32)
+    tensors = (q, k, v, out, g, dq, dk, dv, dqr, dkr, bias, cos, sin, stats,
+               dbias, part)
+    ptrs = (ctypes.c_void_p * 16)(
+        *(t.data_ptr() if t is not None else None for t in tensors))
+    strides = (ctypes.c_longlong * 24)(
+        *(s for t in tensors[:8] for s in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        err = lib.attn_bwd(
+            ptrs, strides, b, h, n, d, int(q.dtype == torch.bfloat16),
+            cos.shape[0] if cos is not None else 0, groups, float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attn_bwd launch failed: CUDA error {err}")
+    LAUNCHES_BWD += 1
+    return dq, dk, dv, dbias, dqr, dkr
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The JAX package's custom_vjp around the dense kernels: forward
+    `attention_fwd`, backward `attention_bwd`. bias is the materialized f32
+    [H, N, N] bias (or None); cos/sin the caller's raw [S|H,S, D/2] tables
+    (or None), prepared for the kernels inside."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, cos_raw, sin_raw, scale):
+        cos = sin = None
+        if cos_raw is not None:
+            cos, sin = _kernel_freqs((cos_raw, sin_raw), q.shape[1],
+                                     q.shape[2], q.device)
+        out = attention_fwd(q, k, v, scale, bias, cos, sin)
+        ctx.save_for_backward(q, k, v, out, bias, cos, sin, cos_raw, sin_raw)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, bias, cos, sin, cos_raw, sin_raw = ctx.saved_tensors
+        want_drot = cos_raw is not None and any(ctx.needs_input_grad[4:6])
+        dq, dk, dv, dbias, dqr, dkr = attention_bwd(
+            q, k, v, out, g, ctx.scale, bias, cos, sin,
+            want_dbias=ctx.needs_input_grad[3], want_drot=want_drot)
+        dcos = dsin = None
+        if want_drot:
+            dcos, dsin = _rot_grads_to_dfreqs(q, k, dqr, dkr,
+                                              (cos_raw, sin_raw))
+        return dq, dk, dv, dbias, dcos, dsin, None
+
+
 # ---------------------------------------------------------------------------
-# Public entry: routing and bias / rope preparation (the JAX `_forward`)
+# Public entry: routing and bias / rope preparation (the JAX `_forward` and
+# the dense branch of `_bwd`)
 # ---------------------------------------------------------------------------
 
 def flash_attention(q, k, v, scale, bias=None, freqs_cis=None, poly=None,
                     rel=None):
-    """Fused attention over [B, H, N, D] -> [B, H, N, D].
+    """Fused attention over [B, H, N, D] -> [B, H, N, D], differentiable.
 
     bias: [H, N, N]; freqs_cis: (cos, sin) [S|H,S, D/2] over the N-1 patch
     tokens; poly: (coeff_hk [H, deg+1], grid_size); rel: table [H, 2N-1].
     bias, poly and rel are mutually exclusive."""
     _, h, n, _ = q.shape
     has_biasish = bias is not None or poly is not None or rel is not None
+    inputs = [q, k, v, bias, rel, poly[0] if poly is not None else None,
+              *(freqs_cis or ())]
+    training = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in inputs)
     if n > STREAMING_THRESHOLD or not _dense_attn_fits(h, n, has_biasish):
         raise NotImplementedError(
             f"attention at N={n}, H={h} takes the streaming route, whose "
-            f"kernel (_stream_kernel) is not ported yet")
+            f"kernels (_stream_kernel; in training _stream_bwd_fused_kernel "
+            f"and _bwd_streaming) are not ported yet")
+    if training:
+        bias = _dense_bias(h, n, q.device, bias, poly, rel)
+        cos_raw, sin_raw = freqs_cis if freqs_cis is not None else (None, None)
+        return FlashAttentionFunction.apply(q, k, v, bias, cos_raw, sin_raw,
+                                            scale)
     bias, cos, sin = prepare_pe(h, n, q.device, bias, freqs_cis, poly, rel)
     return attention_fwd(q, k, v, scale, bias, cos, sin)
 
 
-def prepare_pe(h, n, device, bias=None, freqs_cis=None, poly=None, rel=None):
-    """flash_attention's PE arguments -> the kernel's (bias, cos, sin):
-    a contiguous f32 [H, N, N] bias (materialized from poly / rel) and
-    contiguous f32 [1|H, N, D/2] rope tables with the cls identity row."""
+def _dense_bias(h, n, device, bias=None, poly=None, rel=None):
+    """The one materialized bias of bias / poly / rel: a contiguous f32
+    [H, N, N] tensor (differentiable in the coefficients / table) or None."""
     if sum(x is not None for x in (bias, poly, rel)) > 1:
         raise ValueError("bias/poly/rel are mutually exclusive")
     if poly is not None:
@@ -315,12 +460,24 @@ def prepare_pe(h, n, device, bias=None, freqs_cis=None, poly=None, rel=None):
                                coeff_hk.shape[1] - 1)
     elif rel is not None:
         bias = _rel_bias_cols(rel, n, 0, n)
-    if bias is not None:
-        bias = bias.to(device=device, dtype=torch.float32).contiguous()
+    if bias is None:
+        return None
+    return bias.to(device=device, dtype=torch.float32).contiguous()
+
+
+def _kernel_freqs(freqs_cis, h, n, device):
+    """(cos, sin) [S|H,S, D/2] -> contiguous f32 [1|H, N, D/2] tables with
+    the cls identity row."""
+    cos, sin = _prep_freqs(freqs_cis, h, n, torch.float32, broadcast=False)
+    return cos.to(device).contiguous(), sin.to(device).contiguous()
+
+
+def prepare_pe(h, n, device, bias=None, freqs_cis=None, poly=None, rel=None):
+    """flash_attention's PE arguments -> the kernels' (bias, cos, sin): a
+    contiguous f32 [H, N, N] bias (materialized from poly / rel) and
+    contiguous f32 [1|H, N, D/2] rope tables with the cls identity row."""
+    bias = _dense_bias(h, n, device, bias, poly, rel)
     cos = sin = None
     if freqs_cis is not None:
-        cos, sin = _prep_freqs(freqs_cis, h, n, torch.float32,
-                               broadcast=False)
-        cos = cos.to(device).contiguous()
-        sin = sin.to(device).contiguous()
+        cos, sin = _kernel_freqs(freqs_cis, h, n, device)
     return bias, cos, sin

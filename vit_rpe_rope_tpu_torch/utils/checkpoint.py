@@ -4,6 +4,11 @@ A checkpoint is one flat state dict under the reference's state_dict keys:
 an .npz (the JAX package's format) or a torch .pth (the reference's). Both
 load here; `save` writes .npz with the per-block alias keys, so the key set
 equals the reference's.
+
+The resumable train state (`save_train_state` / `load_train_state`) is the
+JAX package's `_last.npz` format: the params, the optimizer state's leaves
+as "__opt.{i}", then "__epoch" and "__best_acc". Files written by either
+package resume in the other.
 """
 
 from __future__ import annotations
@@ -59,3 +64,37 @@ def split_state(state: dict, buffer_keys) -> tuple[dict, dict]:
     bufs = {k: torch.from_numpy(np.array(v)) for k, v in state.items()
             if k in buffer_keys}
     return params, bufs
+
+
+def save_train_state(path: str, params: dict, opt_leaves, epoch: int,
+                     best_acc: float) -> str:
+    """Full resumable train state: params + the optimizer state's leaves (in
+    the JAX package's order, see train.loop) + loop progress."""
+    state = {k: _to_numpy(v) for k, v in params.items()}
+    for i, leaf in enumerate(opt_leaves):
+        state[f"__opt.{i}"] = _to_numpy(leaf)
+    state["__epoch"] = np.asarray(epoch, np.int64)
+    state["__best_acc"] = np.asarray(best_acc, np.float64)
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **state)
+    return path
+
+
+def load_train_state(path: str, n_opt_leaves: int):
+    """-> (params as CPU tensors, optimizer leaves as numpy arrays,
+    next_epoch, best_acc). Raises when the file stores another number of
+    optimizer leaves than the caller's optimizer has."""
+    state = load_state(path)
+    params = {k: torch.from_numpy(np.array(v)) for k, v in state.items()
+              if not k.startswith("__")}
+    n_stored = sum(1 for k in state if k.startswith("__opt."))
+    if n_stored != n_opt_leaves:
+        raise ValueError(
+            f"{path} stores {n_stored} optimizer leaves but the current "
+            f"optimizer expects {n_opt_leaves} (a file of another optimizer "
+            f"or format); delete the stale _last.npz (or retrain) to proceed")
+    leaves = [state[f"__opt.{i}"] for i in range(n_opt_leaves)]
+    return (params, leaves, int(state["__epoch"]) + 1,
+            float(state["__best_acc"]))

@@ -1,7 +1,8 @@
-"""Params of the JAX package -> the port's state_dict.
+"""Params and optimizer state of the JAX package -> the port's.
 
 The JAX package keeps params in a flat dict under the reference's keys and
-torch layouts already, so converting is keys, aliases, buffers and dtype."""
+torch layouts already, so converting is keys, aliases, buffers and dtype.
+Its AdamW moments are dicts of the same keys (optax, make_fused_adamw)."""
 
 from __future__ import annotations
 
@@ -24,3 +25,14 @@ def params_from_jax(np_params: dict, cfg) -> dict:
             v = v.astype(np.float32)
         params[k] = torch.from_numpy(v)
     return vit.full_state(params, cfg)
+
+
+def adamw_state_from_jax(mu: dict, nu: dict, count) -> tuple:
+    """JAX AdamW moments ({key: array} mu and nu, moved to the host) and step
+    count -> the state of the port's ops.fused_adamw.make_fused_adamw:
+    (mu, nu, count) with float32 CPU tensors and an int."""
+    def to_torch(tree):
+        return {k: torch.from_numpy(np.array(v, np.float32))
+                for k, v in tree.items()}
+
+    return to_torch(mu), to_torch(nu), int(np.asarray(count))
