@@ -173,9 +173,24 @@ def test_routing_predicate_matches_jax():
 
 @pytest.mark.parametrize("h,n", [(1, 2049), (8, 1500)])
 def test_streaming_route_raises_until_ported(h, n):
+    """What the streaming route (above the threshold, or where the dense
+    tiles do not fit) still refuses: training a generated relative table
+    above STREAMING_THRESHOLD tokens. The eval forward runs; up to the
+    threshold the table trains through a materialized bias."""
     x = torch.zeros(1, h, n, 16)
-    with pytest.raises(NotImplementedError, match="_stream_kernel"):
-        tfa.flash_attention(x, x, x, 0.25)
+    table = torch.zeros(h, 2 * n - 1, requires_grad=True)
+    out = tfa.flash_attention(x, x, x, 0.25)
+    assert out.shape == x.shape and not out.any()
+    with torch.no_grad():
+        assert tfa.flash_attention(x, x, x, 0.25, rel=table).shape == x.shape
+    if n > tfa.STREAMING_THRESHOLD:
+        with pytest.raises(NotImplementedError,
+                           match="_stream_bwd_fused_kernel"):
+            tfa.flash_attention(x, x, x, 0.25, rel=table)
+    else:
+        out = tfa.flash_attention(x, x, x, 0.25, rel=table)
+        (dtable,) = torch.autograd.grad(out.sum(), table)
+        assert dtable.shape == table.shape
 
 
 def test_bias_poly_rel_are_exclusive():

@@ -217,9 +217,23 @@ def test_rot_grads_to_dfreqs_matches_jax(ndim):
 
 @pytest.mark.parametrize("h,n", [(1, 2049), (8, 1500)])
 def test_training_on_the_streaming_route_raises(h, n):
+    """Training on the streaming route raises only where it needs the
+    one-pass kernel's in-kernel parameter gradients: generated polynomial
+    coefficients above STREAMING_THRESHOLD tokens. Without a PE it trains."""
     x = torch.zeros(1, h, n, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="_stream_bwd_fused_kernel"):
-        tfa.flash_attention(x, x, x, 0.25)
+    out = tfa.flash_attention(x, x, x, 0.25)
+    assert type(out.grad_fn).__name__ == "StreamingAttentionFunctionBackward"
+    (dx,) = torch.autograd.grad(out.sum(), x)
+    assert dx.shape == x.shape and torch.isfinite(dx).all()
+    coeff = torch.zeros(h, 4, requires_grad=True)
+    if n > tfa.STREAMING_THRESHOLD:
+        with pytest.raises(NotImplementedError,
+                           match="_stream_bwd_fused_kernel"):
+            tfa.flash_attention(x, x, x, 0.25, poly=(coeff, 45))
+    else:
+        out = tfa.flash_attention(x, x, x, 0.25, poly=(coeff, 45))
+        (dcoeff,) = torch.autograd.grad(out.sum(), coeff)
+        assert dcoeff.shape == coeff.shape
 
 
 def test_eval_path_skips_the_autograd_function():

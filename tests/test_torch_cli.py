@@ -18,6 +18,7 @@ from vit_rpe_rope_tpu.cli import predict as jpredict
 from vit_rpe_rope_tpu.cli import train as jtrain
 from vit_rpe_rope_tpu.configs import ViTConfig as JaxViTConfig
 from vit_rpe_rope_tpu.models import vit as jvit
+from vit_rpe_rope_tpu.ops import flash_attention as jfa
 from vit_rpe_rope_tpu.utils import checkpoint as jckpt
 from vit_rpe_rope_tpu_torch import serving
 from vit_rpe_rope_tpu_torch.cli import predict, serve
@@ -26,6 +27,7 @@ from vit_rpe_rope_tpu_torch.data import datasets
 from vit_rpe_rope_tpu_torch.configs import ViTConfig
 from vit_rpe_rope_tpu_torch.data.datasets import NORMALIZATION
 from vit_rpe_rope_tpu_torch.models import vit
+from vit_rpe_rope_tpu_torch.ops import flash_attention as tfa
 from vit_rpe_rope_tpu_torch.utils import checkpoint
 
 KW = dict(img_size=32, patch_size=8, embed_dim=64, depth=2, num_heads=4,
@@ -56,6 +58,31 @@ def test_predict_cli_matches_jax_cli(tmp_path, capsys):
     assert "relative ViT d64 depth 2 heads 4" in out
     acc = 100.0 * float((got == labels).mean())
     assert f"accuracy: {acc:.2f}% (12 examples)" in out
+
+
+def test_predict_cli_matches_jax_cli_on_the_streaming_route(tmp_path, capsys,
+                                                            monkeypatch):
+    """A relative checkpoint at N=145 (img 48, patch 4; the grid comes from
+    the table's shape) above a threshold lowered to 128 in both packages:
+    both CLIs classify through their streaming kernels ("auto" is the
+    kernel above the threshold in the JAX package too) with the bias
+    generated from the table."""
+    monkeypatch.setattr(jfa, "STREAMING_THRESHOLD", 128)
+    monkeypatch.setattr(tfa, "STREAMING_THRESHOLD", 128)
+    cfg = JaxViTConfig(**dict(KW, img_size=48, patch_size=4))
+    params = jvit.init_params(jax.random.PRNGKey(1), cfg)
+    ckpt = jckpt.save(str(tmp_path / "cifar10_relative_best.npz"), params,
+                      jvit.buffers(cfg), aliases=jvit.reference_alias_keys(cfg))
+    inputs, _, _ = write_inputs(tmp_path)
+    want = jpredict.main([ckpt, "--input", inputs, "--batch_size", "5"])
+    capsys.readouterr()
+    before = tfa.LAUNCHES_STREAM_FWD
+    got = predict.main([ckpt, "--input", inputs, "--batch_size", "5",
+                        "--device", "cpu"])
+    assert tfa.LAUNCHES_STREAM_FWD == before  # the CPU runs the twin
+    out = capsys.readouterr().out
+    np.testing.assert_array_equal(got, want)
+    assert "relative ViT d64 depth 2 heads 4 patch 4 @ 48px" in out
 
 
 @pytest.mark.parametrize("flag", [["--export", "m.bin"], ["--artifact", "a"],

@@ -8,7 +8,8 @@ another order); kernel path (bf16 products) 2e-3 on logits, as for the
 attention kernel alone; golden fixtures 1e-4, as the JAX package's own
 golden test; bfloat16 compute 5e-2 on logits of magnitude ~0.5 (bf16
 rounds each of ~40 ops to 8 bits, and the two frameworks round at other
-places)."""
+places); the streaming route above a lowered threshold 2e-3 on logits (the
+port's twin and the JAX kernel round p against the same running max)."""
 
 import dataclasses
 import os
@@ -21,8 +22,10 @@ import torch
 
 from vit_rpe_rope_tpu.configs import ViTConfig as JaxViTConfig
 from vit_rpe_rope_tpu.models import vit as jvit
+from vit_rpe_rope_tpu.ops import flash_attention as jfa
 from vit_rpe_rope_tpu_torch.configs import ViTConfig
 from vit_rpe_rope_tpu_torch.models import vit
+from vit_rpe_rope_tpu_torch.ops import flash_attention as tfa
 from vit_rpe_rope_tpu_torch.utils import checkpoint
 from vit_rpe_rope_tpu_torch.utils.convert import params_from_jax
 
@@ -80,6 +83,65 @@ def test_kernel_path_matches_jax_flash_at_n65(pe_name):
     with torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+
+
+def lower_streaming_threshold(monkeypatch, value=128):
+    """The threshold above which both packages stream, lowered in both so a
+    small model takes the route of a long sequence."""
+    monkeypatch.setattr(jfa, "STREAMING_THRESHOLD", value)
+    monkeypatch.setattr(tfa, "STREAMING_THRESHOLD", value)
+
+
+@pytest.mark.parametrize("pe_name", PE_NAMES)
+def test_streaming_route_matches_jax_flash_above_threshold(pe_name,
+                                                           monkeypatch):
+    """N=145 (img 48, patch 4) above a threshold of 128: the streaming
+    kernel's twin against the JAX forward through `_stream_kernel`, with the
+    polynomial and relative bias generated in the kernel on both sides."""
+    lower_streaming_threshold(monkeypatch)
+    kw = small_kw(pe_name, img_size=48, patch_size=4, poly_shared_heads=False)
+    jcfg, jp, np_params = jax_params(kw, seed=3)
+    tcfg = ViTConfig(**dict(kw, attention_impl="auto"))
+    model, _ = port_model(np_params, tcfg)
+    x = images((2, 48, 48, 3), seed=3)
+    want = np.asarray(jvit.apply(
+        jp, jnp.asarray(x), dataclasses.replace(jcfg, attention_impl="flash")))
+    calls = []
+    stream_fwd = tfa.attention_stream_fwd
+
+    def recording(*args):
+        calls.append(args[4:])  # bias, cos, sin, poly, rel
+        return stream_fwd(*args)
+
+    monkeypatch.setattr(tfa, "attention_stream_fwd", recording)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+    assert len(calls) == tcfg.depth
+    bias, _, _, poly, rel = calls[0]
+    assert bias is None  # no [H, N, N] tensor in the forward
+    assert (poly is not None) == (pe_name == "polynomial")
+    assert (rel is not None) == (pe_name == "relative")
+
+
+@pytest.mark.parametrize("pe_name", ["polynomial", "relative"])
+def test_logits_bias_marker_follows_the_threshold(pe_name, monkeypatch):
+    from vit_rpe_rope_tpu_torch import pe as pe_registry
+
+    cfg = ViTConfig(**small_kw(pe_name, img_size=48, patch_size=4,
+                               attention_impl="auto"))
+    params = vit.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    pe_mod = pe_registry.get(pe_name)
+    dense = vit._logits_bias(pe_mod, params, cfg)
+    assert tuple(dense.shape) == (4, 145, 145)
+    lower_streaming_threshold(monkeypatch)
+    marker = vit._logits_bias(pe_mod, params, cfg)
+    assert isinstance(marker, tuple) and len(marker) == 1
+    assert marker[0].shape[0] == 4 and marker[0].dim() == 2
+    reference = vit._logits_bias(
+        pe_mod, params, dataclasses.replace(cfg, attention_impl="reference"))
+    torch.testing.assert_close(reference, dense, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("pe_name", ["none", "relative", "rope-mixed"])

@@ -18,6 +18,7 @@ import torch
 from vit_rpe_rope_tpu import serving as jserving
 from vit_rpe_rope_tpu.configs import ViTConfig as JaxViTConfig
 from vit_rpe_rope_tpu.models import vit as jvit
+from vit_rpe_rope_tpu.ops import flash_attention as jfa
 from vit_rpe_rope_tpu.train import train_step as jts
 from vit_rpe_rope_tpu.utils import checkpoint as jckpt
 from vit_rpe_rope_tpu.viz import introspect as jintro
@@ -25,6 +26,7 @@ from vit_rpe_rope_tpu_torch import serving
 from vit_rpe_rope_tpu_torch.configs import ViTConfig
 from vit_rpe_rope_tpu_torch.data.datasets import NATIVE_SIZE, NORMALIZATION
 from vit_rpe_rope_tpu_torch.models import vit
+from vit_rpe_rope_tpu_torch.ops import flash_attention as tfa
 from vit_rpe_rope_tpu_torch.train import train_step as ts
 from vit_rpe_rope_tpu_torch.utils import checkpoint
 from vit_rpe_rope_tpu_torch.viz import introspect
@@ -45,10 +47,10 @@ def uint8_images(n, size=32, seed=0):
                                                 dtype=np.uint8)
 
 
-def compare_predictors(kw, n_images=5, seed=0):
+def compare_predictors(kw, n_images=5, seed=0, size=32):
     jcfg, jp = jax_params(dict(kw, attention_impl="flash"), seed)
     tcfg = ViTConfig(**dict(kw, attention_impl="auto"))
-    u8 = uint8_images(n_images, seed=seed)
+    u8 = uint8_images(n_images, size=size, seed=seed)
     want = jserving.Predictor.from_params(jp, jcfg, MEAN, STD, 32).logits(u8)
     pred = serving.Predictor.from_params(
         {k: np.asarray(v) for k, v in jp.items()}, tcfg, MEAN, STD, 32,
@@ -75,6 +77,33 @@ def test_predictor_matches_jax_when_upsampling():
     """img 64, patch 16: the 32 px CIFAR input is resized in the predictor."""
     compare_predictors(dict(img_size=64, patch_size=16, embed_dim=64, depth=2,
                             num_heads=4, pos_encoding="relative"), seed=2)
+
+
+@pytest.mark.parametrize("pe_name", ["relative", "polynomial", "rope-axial"])
+def test_predictor_matches_jax_above_streaming_threshold(pe_name, monkeypatch):
+    """N=145 (img 48, patch 4; the 32 px input upsampled) above a threshold
+    lowered to 128 in both packages: the streaming route end to end."""
+    monkeypatch.setattr(jfa, "STREAMING_THRESHOLD", 128)
+    monkeypatch.setattr(tfa, "STREAMING_THRESHOLD", 128)
+    compare_predictors(dict(img_size=48, patch_size=4, embed_dim=64, depth=2,
+                            num_heads=4, pos_encoding=pe_name), seed=3)
+
+
+def test_predictor_takes_images_at_the_model_size():
+    """Images already at the model's size pass through without a resize
+    (the JAX package's preprocess built for that native size is the
+    yardstick); larger ones are refused like any downsampling."""
+    kw = dict(img_size=64, patch_size=16, embed_dim=64, depth=1, num_heads=4,
+              pos_encoding="none")
+    jcfg, jp = jax_params(dict(kw, attention_impl="flash"))
+    u8 = uint8_images(3, size=64, seed=4)
+    want = jserving.Predictor.from_params(jp, jcfg, MEAN, STD, 64).logits(u8)
+    pred = serving.Predictor.from_params(
+        {k: np.asarray(v) for k, v in jp.items()}, ViTConfig(**kw), MEAN, STD,
+        32, device="cpu")
+    np.testing.assert_allclose(pred.logits(u8), want, rtol=2e-3, atol=2e-3)
+    with pytest.raises(NotImplementedError, match="downsampling"):
+        pred.logits(uint8_images(1, size=96))
 
 
 @pytest.mark.parametrize("native,img", [(32, 224), (28, 224), (32, 64),

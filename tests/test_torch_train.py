@@ -28,11 +28,13 @@ from vit_rpe_rope_tpu.configs import TrainConfig as JaxTrainConfig
 from vit_rpe_rope_tpu.configs import ViTConfig as JaxViTConfig
 from vit_rpe_rope_tpu.configs import cosine_lr_by_epoch as jax_cosine
 from vit_rpe_rope_tpu.models import vit as jvit
+from vit_rpe_rope_tpu.ops import flash_attention as jfa
 from vit_rpe_rope_tpu.parallel.mesh import DATA_AXIS, NamedSharding, P, make_mesh
 from vit_rpe_rope_tpu.train import train_step as jts
 from vit_rpe_rope_tpu_torch.configs import TrainConfig, ViTConfig, cosine_lr_by_epoch
 from vit_rpe_rope_tpu_torch.data import datasets
 from vit_rpe_rope_tpu_torch.models import vit
+from vit_rpe_rope_tpu_torch.ops import flash_attention as tfa
 from vit_rpe_rope_tpu_torch.train import loop
 from vit_rpe_rope_tpu_torch.train import train_step as ts
 
@@ -143,6 +145,69 @@ def test_one_step_grads_match_jax(pe, impl, patch):
                                rtol=TOL[impl])
     for key, g in zip(tparams, got):
         close_to_largest(g.numpy(), want[key], TOL[impl], err_msg=key)
+
+
+@pytest.mark.parametrize("pe,img,threshold", [("rope-mixed", 48, 128),
+                                              ("relative", 96, None)])
+def test_one_step_grads_match_jax_on_the_streaming_route(pe, img, threshold,
+                                                         monkeypatch):
+    """The loss and every gradient leaf through the streaming forward and
+    the separate-pass backward. rope-mixed: N=145 above a threshold lowered
+    to 128 in both packages (dqr/dkr -> frequency gradients). relative:
+    N=577 with 2 heads, where `_dense_attn_fits` fails below the real
+    threshold, so both packages stream with the MATERIALIZED bias and the
+    table's gradient comes from the dbias pass."""
+    if threshold is not None:
+        monkeypatch.setattr(jfa, "STREAMING_THRESHOLD", threshold)
+        monkeypatch.setattr(tfa, "STREAMING_THRESHOLD", threshold)
+    kw = cfg_kw(pos_encoding=pe, attention_impl="flash", img_size=img,
+                patch_size=4)
+    jcfg, cfg = JaxViTConfig(**kw), ViTConfig(**kw)
+    assert cfg.seq_len > tfa.STREAMING_THRESHOLD or not tfa._dense_attn_fits(
+        cfg.num_heads, cfg.seq_len, pe == "relative")
+    jparams, tparams = both_params(kw, seed=4)
+    bundle, pre_args = batch(seed=4)
+    idx = np.array([2, 3, 5, 7, -1, 11], np.int64)
+    imgs, labels, mask = jts._gather_batch(
+        jnp.asarray(bundle.train_x), jnp.asarray(bundle.train_y),
+        jnp.asarray(idx, jnp.int32))
+    jpre = jts.make_preprocess(jcfg, *pre_args)
+
+    def loss_fn(p):
+        return jts._loss_and_metrics(p, imgs, labels, mask, jcfg, jpre)[0] / 5
+
+    want_loss, want = jax.value_and_grad(loss_fn)(jparams)
+    timgs, tlabels, tmask = ts._gather_batch(
+        torch.from_numpy(bundle.train_x), torch.from_numpy(bundle.train_y),
+        torch.from_numpy(idx))
+    loss = ts._loss_and_metrics(tparams, timgs, tlabels, tmask, cfg,
+                                ts.make_preprocess(cfg, *pre_args))[0] / 5
+    got = torch.autograd.grad(loss, list(tparams.values()))
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
+                               rtol=TOL["flash"])
+    for key, g in zip(tparams, got):
+        close_to_largest(g.numpy(), want[key], TOL["flash"], err_msg=key)
+
+
+@pytest.mark.parametrize("pe", ["polynomial", "relative"])
+def test_training_a_generated_bias_raises(pe, monkeypatch):
+    """Above the threshold the polynomial / relative bias is generated in
+    the kernel; its parameter gradient needs the one-pass backward, which is
+    not ported: the train step raises and names it, the eval step runs."""
+    monkeypatch.setattr(tfa, "STREAMING_THRESHOLD", 128)
+    kw = cfg_kw(pos_encoding=pe, attention_impl="auto", img_size=48,
+                patch_size=4)
+    cfg = ViTConfig(**kw)
+    _, tparams = both_params(kw, seed=5)
+    bundle, pre_args = batch(seed=5)
+    pre = ts.make_preprocess(cfg, *pre_args)
+    data = (torch.from_numpy(bundle.train_x), torch.from_numpy(bundle.train_y),
+            torch.arange(8)[None])
+    metrics = ts.make_eval_step(cfg, pre)(tparams, 0, *data)
+    assert torch.isfinite(metrics).all() and float(metrics[2]) == 8
+    step = ts.make_train_step(cfg, port_sgd(0.1), pre)
+    with pytest.raises(NotImplementedError, match="_stream_bwd_fused_kernel"):
+        step(tparams, None, 0, *data)
 
 
 @pytest.mark.parametrize("impl", ["reference", "flash"])

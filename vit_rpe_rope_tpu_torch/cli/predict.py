@@ -1,7 +1,8 @@
 """Inference CLI: classify an .npz of uint8 images with a checkpoint.
 
-  --input images.npz   npz with 'images' (uint8 NHWC or HWC) and optional
-                       'labels' to score accuracy
+  --input images.npz   npz with 'images' (uint8 NHWC or HWC, at the
+                       dataset's native size or already at the model's
+                       size) and optional 'labels' to score accuracy
 
 The model architecture is reconstructed from the checkpoint's shapes alone
 (viz.introspect.infer_vit_config), so reference-trained .pth files work

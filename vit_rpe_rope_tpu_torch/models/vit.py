@@ -175,8 +175,17 @@ def _attention_impl(cfg: ViTConfig) -> str:
 
 
 def _logits_bias(pe_mod, params, cfg: ViTConfig):
-    """Materialized [H, L, L] attention bias (the dense route; the streaming
-    route's in-kernel bias generation is not ported)."""
+    """Materialized [H, L, L] attention bias — or, when the streaming
+    attention kernel will run above its threshold with a polynomial or
+    relative PE, a 1-tuple marker (coeff_hk,) / (table,) telling _block_body
+    to let the kernel GENERATE the bias from the coefficients / table, so
+    that no [H, L, L] tensor exists in the forward."""
+    if (cfg.pos_encoding in ("polynomial", "relative")
+            and _attention_impl(cfg) == "flash"
+            and cfg.seq_len > flash_attention.STREAMING_THRESHOLD):
+        if cfg.pos_encoding == "polynomial":
+            return (pe_mod.coeff_per_head(params, cfg),)
+        return (pe_mod.table_per_head(params, cfg),)
     return pe_mod.attn_bias(params, cfg)
 
 
@@ -194,8 +203,14 @@ def _block_body(block_params: dict, x, cfg, bias, freqs_cis, impl):
     q, k, v = qkv.view(bsz, n, 3, nh, dh).permute(2, 0, 3, 1, 4).unbind(0)
     scale = dh ** -0.5
     if impl == "flash":
-        attn_out = flash_attention.flash_attention(
-            q, k, v, scale, bias=bias, freqs_cis=freqs_cis)
+        if isinstance(bias, tuple):  # generated-bias marker (_logits_bias)
+            gen = ({"poly": (bias[0], cfg.grid_size)}
+                   if cfg.pos_encoding == "polynomial" else {"rel": bias[0]})
+            attn_out = flash_attention.flash_attention(
+                q, k, v, scale, freqs_cis=freqs_cis, **gen)
+        else:
+            attn_out = flash_attention.flash_attention(
+                q, k, v, scale, bias=bias, freqs_cis=freqs_cis)
     else:
         attn_out = reference_attention.attention(
             q, k, v, scale, bias=bias, freqs_cis=freqs_cis)
@@ -235,7 +250,7 @@ def forward_features(params, images, cfg: ViTConfig):
     if pe_mod.KIND == PE_KIND_EMBED_ADDITIVE:
         x = pe_mod.add_embedding(params, x)
     elif pe_mod.KIND == PE_KIND_LOGITS_BIAS:
-        bias = _logits_bias(pe_mod, params, cfg)  # [H, L, L] once per forward
+        bias = _logits_bias(pe_mod, params, cfg)  # once per forward
     elif pe_mod.KIND == PE_KIND_QK_ROTATION:
         freqs_cis = pe_mod.freqs_cis(params, cfg, device=x.device)
 

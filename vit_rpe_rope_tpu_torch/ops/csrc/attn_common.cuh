@@ -1,7 +1,8 @@
-// Pieces shared by the dense attention kernels (attn_fwd.cu, attn_bwd.cu):
-// tile sizes, the bf16 staging of q/k/v/g tiles with the in-kernel rope
-// rotation, the WMMA fragment types, the warp-level A.B^T product and the
-// scaled, biased, masked logit.
+// Pieces shared by the attention kernels (attn_fwd.cu, attn_bwd.cu and the
+// streaming attn_stream_fwd.cu, attn_stream_bwd.cu): tile sizes, the bf16
+// staging of q/k/v/g tiles with the in-kernel rope rotation, the WMMA
+// fragment types, the warp-level A.B^T product, the scaled, biased, masked
+// logit of the dense kernels, the gradient epilogue and the launch helper.
 
 #pragma once
 
@@ -147,6 +148,61 @@ __device__ __forceinline__ float logit(float acc, int qi, int kj, int n_tokens,
   if (bias_h != nullptr && qi < n_tokens)
     s = __fadd_rn(s, bias_h[(long long)qi * n_tokens + kj]);
   return s;
+}
+
+template <typename T>
+__device__ __forceinline__ const T* slice(const void* base, const long long* s,
+                                          int b, int h) {
+  return static_cast<const T*>(base) + b * s[0] + h * s[1];
+}
+
+// scale * acc for one row of a [16, D] f32 slab, written in f32 (before the
+// rotation, when dr is given) and, rotated back with -sin, in the input
+// dtype. Rows >= N are skipped.
+template <int D, typename T>
+__device__ __forceinline__ void write_grad_rows(const float* s_w, int ld,
+                                                int row_w, int n_tokens,
+                                                float scale, T* dst,
+                                                long long dst_stride,
+                                                float* dr,
+                                                const float* cos_h,
+                                                const float* sin_h) {
+  constexpr int H2 = D / 2;
+  const int lane = threadIdx.x % 32;
+  for (int r = 0; r < 16; ++r) {
+    const int row = row_w + r;
+    if (row >= n_tokens) break;
+    T* out = dst + row * dst_stride;
+    for (int c = lane; c < H2; c += 32) {
+      const float x1 = __fmul_rn(scale, s_w[r * ld + c]);
+      const float x2 = __fmul_rn(scale, s_w[r * ld + c + H2]);
+      if (dr != nullptr) {
+        dr[(long long)row * D + c] = x1;
+        dr[(long long)row * D + c + H2] = x2;
+      }
+      float y1 = x1, y2 = x2;
+      if (cos_h != nullptr) {
+        const float cs = cos_h[(long long)row * H2 + c];
+        const float sn = -sin_h[(long long)row * H2 + c];
+        y1 = __fsub_rn(__fmul_rn(x1, cs), __fmul_rn(x2, sn));
+        y2 = __fadd_rn(__fmul_rn(x1, sn), __fmul_rn(x2, cs));
+      }
+      store(out + c, y1);
+      store(out + c + H2, y2);
+    }
+  }
+}
+
+// Launch `kernel` with `smem` bytes of dynamic shared memory; returns the
+// launch's error.
+template <typename K, typename P>
+cudaError_t launch_kernel(K kernel, dim3 grid, size_t smem, const P& p,
+                          cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace attn

@@ -1,8 +1,16 @@
-"""Fused dense attention, forward and backward, with in-kernel rope, on
-hand-written CUDA kernels (ops/csrc/attn_fwd.cu, ops/csrc/attn_bwd.cu) — the
-port of the JAX package's Pallas `_attn_kernel` / `_dense_bwd_kernel` and
-their drivers `_forward` / `_bwd_dense`, with the `jax.custom_vjp` around
-them as a `torch.autograd.Function`.
+"""Fused attention, forward and backward, with in-kernel rope, on
+hand-written CUDA kernels — the port of the JAX package's Pallas attention
+kernels and the functions that launch them, with the `jax.custom_vjp`
+around them as `torch.autograd.Function`s. Two routes, chosen as the JAX
+package chooses them (`STREAMING_THRESHOLD`, `_dense_attn_fits`):
+
+* dense, one tile per row of queries (`_attn_kernel` / `_dense_bwd_kernel`,
+  launched by `_forward` / `_bwd_dense`): ops/csrc/attn_fwd.cu, attn_bwd.cu;
+* streaming, an online softmax over key tiles that saves the per-row
+  logsumexp for a backward in separate dq, dk/dv and dbias passes
+  (`_stream_kernel`, `_stream_bwd_dq_kernel`, `_stream_bwd_dkv_kernel`,
+  `_stream_bwd_dbias_kernel`, launched by `_forward_streaming_impl` /
+  `_bwd_streaming`): ops/csrc/attn_stream_fwd.cu, attn_stream_bwd.cu.
 
 What is computed, for q, k, v [B, H, N, D]:
 
@@ -12,30 +20,44 @@ What is computed, for q, k, v [B, H, N, D]:
   (`_prep_freqs`);
 * bias (relative / polynomial): an optional materialized [H, N, N] float32
   bias added to the scaled logits (`_poly_bias_cols` / `_rel_bias_cols`
-  build it from the coefficients / table below the streaming threshold);
+  build it from the coefficients / table); the streaming kernels can also
+  GENERATE it per element from the coefficients or the table, so that no
+  [H, N, N] tensor exists above the streaming threshold;
 * products: operands rounded to bfloat16, accumulated in float32 — the
-  JAX kernels' regime; softmax statistics in float32. The forward rounds
-  p = exp(s - max) to bfloat16 for the PV product and divides by the row
-  sum AFTER it; the backward normalizes p BEFORE rounding it;
+  JAX kernels' regime; softmax statistics in float32. The dense forward
+  rounds p = exp(s - max) to bfloat16 against the FINAL row max and divides
+  by the row sum after the PV product; the streaming forward rounds p
+  against the RUNNING max of the key tiles seen so far, so its result
+  depends on the tile width (the twins take it as an argument). The dense
+  backward normalizes p before rounding it; the streaming backward forms
+  p = exp(s - lse) from the forward's logsumexp and recomputes no max;
 * outputs in the input dtype; the backward's dbias and rotated-space
-  dqr/dkr in float32.
+  dqr/dkr, and the streaming forward's lse [B, H, N], in float32.
 
-`attention_fwd` / `attention_bwd` are the kernels' wrappers: on a CUDA
-tensor they launch the kernel (and count the launch in LAUNCHES /
-LAUNCHES_BWD), on a CPU tensor they run `attention_plain` /
-`attention_bwd_plain`, the kernels' plain PyTorch twins. Nothing falls
-back: a CUDA call the kernel cannot take raises.
+`attention_fwd` / `attention_bwd` / `attention_stream_fwd` /
+`attention_stream_bwd` are the kernels' wrappers: on a CUDA tensor they
+launch the kernel (and count the launch in LAUNCHES / LAUNCHES_BWD /
+LAUNCHES_STREAM_FWD / LAUNCHES_STREAM_DQ, LAUNCHES_STREAM_DKV and
+LAUNCHES_STREAM_DBIAS, each where its kernel is launched), on a CPU tensor they run `attention_plain` / `attention_bwd_plain` /
+`attention_stream_plain` / `attention_stream_bwd_plain`, the kernels' plain
+PyTorch twins. Nothing falls back: a CUDA call the kernel cannot take raises.
 
-`flash_attention` takes the autograd Function when grad is enabled and an
-input requires it, and calls the forward wrapper directly otherwise. The
-gradient of a generated bias (polynomial coefficients, relative table)
-flows from dbias through torch autograd of the bias generator; learnable
-rope-mixed frequencies get theirs from dqr/dkr (`_rot_grads_to_dfreqs`).
+`flash_attention` takes the route's autograd Function when grad is enabled
+and an input requires it, and calls the forward wrapper directly otherwise.
+The gradient of a materialized bias built from polynomial coefficients or a
+relative table flows from dbias through torch autograd of the bias
+generator; learnable rope-mixed frequencies get theirs from dqr/dkr
+(`_rot_grads_to_dfreqs`).
 
-The streaming kernels of the JAX package (`_stream_kernel`,
-`_stream_bwd_fused_kernel` and the separate-pass `_bwd_streaming`
-kernels) are not ported yet: above STREAMING_THRESHOLD, or where
-`_dense_attn_fits` fails, `flash_attention` raises.
+Not ported yet: the JAX package's one-pass streaming backward
+(`_stream_bwd_fused_kernel`) and its in-kernel coefficient / table
+gradients (`_stream_bwd_dcoeff_kernel`, `_stream_bwd_dtable_kernel`).
+Modes the JAX package sends to the one-pass kernel without a generated
+parameter gradient (none, absolute, rope-axial) take the separate passes
+here: the same identities and rounding points, another order of sums.
+Training a polynomial or relative bias that is GENERATED in the kernel
+(above STREAMING_THRESHOLD tokens) raises NotImplementedError; up to the
+threshold such a bias is materialized and trains through dbias.
 """
 
 from __future__ import annotations
@@ -49,7 +71,7 @@ from vit_rpe_rope_tpu_torch.ops import cuda_build
 LANE = 128
 NEG_INF = -1e30
 
-# Sequences longer than this take the JAX package's streaming kernels.
+# Sequences longer than this take the streaming kernels.
 STREAMING_THRESHOLD = 2048
 
 # Launches of the CUDA kernel since the count was last reset (plain int:
@@ -59,8 +81,24 @@ LAUNCHES = 0
 # Launches of the backward kernel (one per attention_bwd call on CUDA).
 LAUNCHES_BWD = 0
 
+# Launches of the streaming kernels: the forward, the dq kernel, the dk/dv
+# kernel and the dbias kernel, each counted where it is launched.
+LAUNCHES_STREAM_FWD = 0
+LAUNCHES_STREAM_DQ = 0
+LAUNCHES_STREAM_DKV = 0
+LAUNCHES_STREAM_DBIAS = 0
+
+# Key-tile widths of the streaming route: the JAX package's (the twins'
+# default, so that the CPU path rounds p where the JAX kernel does) and the
+# CUDA kernels' (what a twin is given when a kernel is held to it).
+KV_TILE = 512
+STREAM_TILE = 64
+MAX_POLY_TERMS = 8  # polynomial terms (degree + 1) the CUDA kernels hold
+
 SOURCE = cuda_build.CSRC / "attn_fwd.cu"
 BWD_SOURCE = cuda_build.CSRC / "attn_bwd.cu"
+STREAM_SOURCE = cuda_build.CSRC / "attn_stream_fwd.cu"
+STREAM_BWD_SOURCE = cuda_build.CSRC / "attn_stream_bwd.cu"
 HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernels are instantiated for
 
 
@@ -230,6 +268,139 @@ def _rot_grads_to_dfreqs(q, k, dqr, dkr, freqs_cis):
 
 
 # ---------------------------------------------------------------------------
+# The streaming route's plain twins
+# ---------------------------------------------------------------------------
+
+def _check_rel_covers(rel, n):
+    """The generated relative bias indexes its table per element; a table
+    that covers fewer tokens than the sequence would be read out of range."""
+    if rel is not None and n > (rel.shape[1] + 1) // 2:
+        raise ValueError(f"relative table covers L={(rel.shape[1] + 1) // 2} "
+                         f"tokens < sequence {n}")
+
+
+def _bias_cols(n, start, width, bias=None, poly=None, rel=None):
+    """[H, N, width] float32 bias of all query rows against the key columns
+    [start, start+width): a slice of the materialized bias, or generated from
+    poly=(coeff_hk, grid) / the rel table; None without any."""
+    if bias is not None:
+        return bias[:, :, start:start + width]
+    if poly is not None:
+        coeff_hk, grid = poly
+        return _poly_bias_cols(coeff_hk, int(grid), n, start, width,
+                               coeff_hk.shape[1] - 1, n_valid=n)
+    if rel is not None:
+        return _rel_bias_cols(rel, n, start, width)
+    return None
+
+
+def _rotated_operands(q, k, cos, sin, mm_dtype):
+    """q and k rotated in float32 and rounded to the product dtype."""
+    qf, kf = q.float(), k.float()
+    if cos is not None:
+        qf = _rotate(qf, cos[None], sin[None])
+        kf = _rotate(kf, cos[None], sin[None])
+    return qf.to(mm_dtype).float(), kf.to(mm_dtype).float()
+
+
+def attention_stream_plain(q, k, v, scale, bias=None, cos=None, sin=None,
+                           poly=None, rel=None, kv_tile=KV_TILE,
+                           mm_dtype=torch.bfloat16):
+    """The streaming forward kernel's function in plain PyTorch, on unpadded
+    tensors: an online softmax over key tiles of `kv_tile`, p rounded
+    against the running max. Arguments as attention_plain, plus the
+    generated biases poly=(coeff_hk [H, deg+1], grid) and rel [H, 2L-1].
+    Returns (out [B, H, N, D] in the input dtype, lse [B, H, N] float32)."""
+    n = q.shape[2]
+    qm, km = _rotated_operands(q, k, cos, sin, mm_dtype)
+    vm = v.to(mm_dtype).float()
+    m = torch.full(q.shape[:3], NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for start in range(0, n, kv_tile):
+        kt = km[:, :, start:start + kv_tile]
+        s = torch.matmul(qm, kt.transpose(-1, -2)) * scale
+        cols = _bias_cols(n, start, kt.shape[2], bias, poly, rel)
+        if cols is not None:
+            s = s + cols[None]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.matmul(p.to(mm_dtype).float(),
+                          vm[:, :, start:start + kv_tile])
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    return (acc / l[..., None]).to(q.dtype), m + torch.log(l)
+
+
+def streaming_lse(q, k, scale, bias=None, cos=None, sin=None, poly=None,
+                  rel=None):
+    """Per-row logsumexp [B, H, N] recomputed over key tiles with float32
+    products (the JAX package's `_streaming_lse`): what
+    attention_stream_bwd uses when a direct caller has no saved lse."""
+    n = q.shape[2]
+    qf, kf = _rotated_operands(q, k, cos, sin, torch.float32)
+    m = torch.full(q.shape[:3], NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    for start in range(0, n, KV_TILE):
+        kt = kf[:, :, start:start + KV_TILE]
+        s = torch.matmul(qf, kt.transpose(-1, -2)) * scale
+        cols = _bias_cols(n, start, kt.shape[2], bias, poly, rel)
+        if cols is not None:
+            s = s + cols[None]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new[..., None]).sum(-1)
+        m = m_new
+    return m + torch.log(l)
+
+
+def attention_stream_bwd_plain(q, k, v, out, g, lse, scale, bias=None,
+                               cos=None, sin=None, poly=None, rel=None,
+                               kv_tile=KV_TILE, mm_dtype=torch.bfloat16,
+                               want_dbias=False, want_drot=False):
+    """The streaming backward kernels' function in plain PyTorch, on
+    unpadded tensors, over key tiles of `kv_tile` (nothing [N, N] is held):
+    p = exp(s - lse) from the forward's lse, the rounding points of the
+    module docstring. Arguments and results as attention_bwd_plain, plus
+    lse [B, H, N] float32 and the generated biases of
+    attention_stream_plain (whose parameter gradients are not computed)."""
+    n = q.shape[2]
+    qm, km = _rotated_operands(q, k, cos, sin, mm_dtype)
+    vm = v.to(mm_dtype).float()
+    gf = g.float()
+    gm = gf.to(mm_dtype).float()
+    delta = (gf * out.float()).sum(dim=-1, keepdim=True)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(dq), torch.empty_like(dq)
+    dbias = None
+    if want_dbias:
+        dbias = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
+    for start in range(0, n, kv_tile):
+        tile = slice(start, start + kv_tile)
+        kt, vt = km[:, :, tile], vm[:, :, tile]
+        s = torch.matmul(qm, kt.transpose(-1, -2)) * scale
+        cols = _bias_cols(n, start, kt.shape[2], bias, poly, rel)
+        if cols is not None:
+            s = s + cols[None]
+        p = torch.exp(s - lse[..., None])
+        gv = torch.matmul(gm, vt.transpose(-1, -2))
+        ds = p * (gv - delta)
+        dsm = ds.to(mm_dtype).float()
+        dq = dq + scale * torch.matmul(dsm, kt)
+        dk[:, :, tile] = scale * torch.matmul(dsm.transpose(-1, -2), qm)
+        dv[:, :, tile] = torch.matmul(p.to(mm_dtype).float().transpose(-1, -2),
+                                      gm)
+        if want_dbias:
+            dbias[:, :, tile] = ds.sum(dim=0)
+    dqr, dkr = (dq, dk) if want_drot else (None, None)
+    if cos is not None:  # inverse rotation back to unrotated space
+        dq = _rotate(dq, cos[None], -sin[None])
+        dk = _rotate(dk, cos[None], -sin[None])
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias, dqr, dkr)
+
+
+# ---------------------------------------------------------------------------
 # The CUDA kernels: bind, launch
 # ---------------------------------------------------------------------------
 
@@ -253,12 +424,36 @@ def _bind_bwd(lib):
         + [ctypes.c_float, ctypes.c_void_p])      # scale stream
 
 
+def _bind_stream(*names):
+    def bind(lib):
+        for name in names:
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),    # pointers
+                           ctypes.POINTER(ctypes.c_longlong),  # strides
+                           ctypes.POINTER(ctypes.c_int),       # _stream_dims
+                           ctypes.c_float, ctypes.c_void_p]    # scale stream
+        if "attn_stream_bwd_dbias" in names:
+            lib.attn_stream_bwd_batch_group.restype = ctypes.c_int
+            lib.attn_stream_bwd_batch_group.argtypes = ()
+    return bind
+
+
 def _library():
     return cuda_build.load(SOURCE, _bind_fwd)
 
 
 def _bwd_library():
     return cuda_build.load(BWD_SOURCE, _bind_bwd)
+
+
+def _stream_library():
+    return cuda_build.load(STREAM_SOURCE, _bind_stream("attn_stream_fwd"))
+
+
+def _stream_bwd_library():
+    return cuda_build.load(STREAM_BWD_SOURCE, _bind_stream(
+        "attn_stream_bwd_dq", "attn_stream_bwd_dkv", "attn_stream_bwd_dbias"))
 
 
 def _check_cuda_inputs(q, k, v, bias, cos, sin):
@@ -386,6 +581,153 @@ def attention_bwd(q, k, v, out, g, scale, bias=None, cos=None, sin=None,
     return dq, dk, dv, dbias, dqr, dkr
 
 
+def _check_generated(q, poly, rel):
+    """The generated biases as the CUDA kernels take them: (coeff [H, terms]
+    contiguous f32 or None, grid, table [H, 2L-1] contiguous f32 or None)."""
+    h = q.shape[1]
+    coeff, grid, table = None, 0, None
+    if poly is not None:
+        coeff, grid = poly
+        if (coeff.dim() != 2 or coeff.shape[0] != h or int(grid) < 1
+                or not 1 <= coeff.shape[1] <= MAX_POLY_TERMS):
+            raise ValueError(f"poly must be (coeff [H, 1..{MAX_POLY_TERMS}], "
+                             f"grid >= 1); got {tuple(coeff.shape)}, {grid}")
+        coeff = coeff.detach().to(q.device, torch.float32).contiguous()
+    if rel is not None:
+        if rel.dim() != 2 or rel.shape[0] != h or rel.shape[1] % 2 != 1:
+            raise ValueError(f"rel must be a [H, 2L-1] table; got "
+                             f"{tuple(rel.shape)}")
+        table = rel.detach().to(q.device, torch.float32).contiguous()
+    return coeff, int(grid), table
+
+
+def _stream_dims(q, cos, coeff, grid, table, groups=0):
+    """The integer arguments of the streaming kernels' C entry points, in
+    the order of attn::Dim (csrc/attn_stream.cuh). This call covers the whole
+    sequence: global offsets (0, 0), every key valid."""
+    b, h, n, d = q.shape
+    return (ctypes.c_int * 13)(
+        b, h, n, d, int(q.dtype == torch.bfloat16),
+        cos.shape[0] if cos is not None else 0,
+        coeff.shape[1] if coeff is not None else 0, grid,
+        (table.shape[1] + 1) // 2 if table is not None else 0,
+        0, 0, n, groups)
+
+
+def _pointers(*tensors):
+    return (ctypes.c_void_p * len(tensors))(
+        *(t.data_ptr() if t is not None else None for t in tensors))
+
+
+def _strides(*tensors):
+    return (ctypes.c_longlong * (3 * len(tensors)))(
+        *(s for t in tensors for s in t.stride()[:3]))
+
+
+def attention_stream_fwd(q, k, v, scale, bias=None, cos=None, sin=None,
+                         poly=None, rel=None):
+    """The streaming forward kernel's wrapper; arguments and results
+    (out, lse) as attention_stream_plain (bf16 products).
+
+    CPU tensors run the plain twin with the JAX package's key tile. CUDA
+    tensors launch the kernel (key tile STREAM_TILE) on the current stream,
+    or raise. out is [B, H, N, D] laid out as [B, N, H, D] in memory."""
+    global LAUNCHES_STREAM_FWD
+    _check_rel_covers(rel, q.shape[2])
+    if q.device.type == "cpu":
+        return attention_stream_plain(q, k, v, scale, bias, cos, sin, poly,
+                                      rel)
+    _check_cuda_inputs(q, k, v, bias, cos, sin)
+    coeff, grid, table = _check_generated(q, poly, rel)
+    b, h, n, d = q.shape
+    out = torch.empty((b, n, h, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    lib = _stream_library()
+    with torch.cuda.device(q.device):
+        err = lib.attn_stream_fwd(
+            _pointers(q, k, v, out, lse, bias, cos, sin, coeff, table),
+            _strides(q, k, v, out), _stream_dims(q, cos, coeff, grid, table),
+            float(scale), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attn_stream_fwd launch failed: CUDA error {err}")
+    LAUNCHES_STREAM_FWD += 1
+    return out, lse
+
+
+def attention_stream_bwd(q, k, v, out, g, lse, scale, bias=None, cos=None,
+                         sin=None, poly=None, rel=None, want_dbias=False,
+                         want_drot=False):
+    """The streaming backward kernels' wrapper; arguments and results as
+    attention_stream_bwd_plain (bf16 products). lse=None recomputes it
+    (streaming_lse), for callers without the forward's.
+
+    CPU tensors run the plain twin with the JAX package's key tile. CUDA
+    tensors launch the dq kernel, the dk/dv kernel and, with want_dbias, the
+    dbias kernel on the current stream, or raise. dq, dk and dv are views of
+    one [B, N, 3, H, D] buffer."""
+    global LAUNCHES_STREAM_DQ, LAUNCHES_STREAM_DKV, LAUNCHES_STREAM_DBIAS
+    _check_rel_covers(rel, q.shape[2])
+    if want_dbias and bias is None:
+        raise ValueError("dbias needs the bias the forward was given")
+    if lse is None:
+        lse = streaming_lse(q, k, scale, bias, cos, sin, poly, rel)
+    if q.device.type == "cpu":
+        return attention_stream_bwd_plain(
+            q, k, v, out, g, lse, scale, bias, cos, sin, poly, rel,
+            want_dbias=want_dbias, want_drot=want_drot)
+    _check_cuda_inputs(q, k, v, bias, cos, sin)
+    coeff, grid, table = _check_generated(q, poly, rel)
+    for name, t in (("out", out), ("g", g)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q in shape, dtype and device")
+    b, h, n, d = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if lse.shape != (b, h, n) or lse.dtype != torch.float32 or \
+            lse.device != q.device:
+        raise ValueError("lse must be a float32 [B, H, N] tensor on q's "
+                         "device")
+    lse = lse.contiguous()
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    delta = (g.float() * out.float()).sum(dim=-1)
+    dqkv = torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
+    dq, dk, dv = (dqkv[:, :, i].transpose(1, 2) for i in range(3))
+    dqr = dkr = dbias = part = None
+    if want_drot:
+        dqr = torch.empty((b, h, n, d), **f32)
+        dkr = torch.empty((b, h, n, d), **f32)
+    lib = _stream_bwd_library()
+    groups = -(-b // lib.attn_stream_bwd_batch_group())
+    if want_dbias:
+        dbias = torch.empty((h, n, n), **f32)
+        if groups > 1:
+            part = torch.empty((groups, h, n, n), **f32)
+    args = (_pointers(q, k, v, g, lse, delta, dq, dk, dv, dqr, dkr, bias, cos,
+                      sin, coeff, table, dbias, part),
+            _strides(q, k, v, g, dq, dk, dv),
+            _stream_dims(q, cos, coeff, grid, table, groups), float(scale))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.attn_stream_bwd_dq(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"attn_stream_bwd_dq launch failed: CUDA "
+                               f"error {err}")
+        LAUNCHES_STREAM_DQ += 1
+        err = lib.attn_stream_bwd_dkv(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"attn_stream_bwd_dkv launch failed: CUDA "
+                               f"error {err}")
+        LAUNCHES_STREAM_DKV += 1
+        if want_dbias:
+            err = lib.attn_stream_bwd_dbias(*args, stream)
+            if err != 0:
+                raise RuntimeError(f"attn_stream_bwd_dbias launch failed: "
+                                   f"CUDA error {err}")
+            LAUNCHES_STREAM_DBIAS += 1
+    return dq, dk, dv, dbias, dqr, dkr
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """The JAX package's custom_vjp around the dense kernels: forward
     `attention_fwd`, backward `attention_bwd`. bias is the materialized f32
@@ -417,6 +759,44 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, dbias, dcos, dsin, None
 
 
+class StreamingAttentionFunction(torch.autograd.Function):
+    """The JAX package's custom_vjp around the streaming kernels: forward
+    `attention_stream_fwd`, which saves the per-row logsumexp, backward
+    `attention_stream_bwd` in separate passes. Arguments as
+    FlashAttentionFunction, plus the generated biases coeff (with grid) and
+    table, which get no gradient here."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, cos_raw, sin_raw, coeff, table, grid,
+                scale):
+        cos = sin = None
+        if cos_raw is not None:
+            cos, sin = _kernel_freqs((cos_raw, sin_raw), q.shape[1],
+                                     q.shape[2], q.device)
+        poly = (coeff, grid) if coeff is not None else None
+        out, lse = attention_stream_fwd(q, k, v, scale, bias, cos, sin, poly,
+                                        table)
+        ctx.save_for_backward(q, k, v, out, lse, bias, cos, sin, cos_raw,
+                              sin_raw, coeff, table)
+        ctx.scale, ctx.grid = scale, grid
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (q, k, v, out, lse, bias, cos, sin, cos_raw, sin_raw, coeff,
+         table) = ctx.saved_tensors
+        want_drot = cos_raw is not None and any(ctx.needs_input_grad[4:6])
+        poly = (coeff, ctx.grid) if coeff is not None else None
+        dq, dk, dv, dbias, dqr, dkr = attention_stream_bwd(
+            q, k, v, out, g, lse, ctx.scale, bias, cos, sin, poly, table,
+            want_dbias=ctx.needs_input_grad[3], want_drot=want_drot)
+        dcos = dsin = None
+        if want_drot:
+            dcos, dsin = _rot_grads_to_dfreqs(q, k, dqr, dkr,
+                                              (cos_raw, sin_raw))
+        return dq, dk, dv, dbias, dcos, dsin, None, None, None, None
+
+
 # ---------------------------------------------------------------------------
 # Public entry: routing and bias / rope preparation (the JAX `_forward` and
 # the dense branch of `_bwd`)
@@ -428,21 +808,42 @@ def flash_attention(q, k, v, scale, bias=None, freqs_cis=None, poly=None,
 
     bias: [H, N, N]; freqs_cis: (cos, sin) [S|H,S, D/2] over the N-1 patch
     tokens; poly: (coeff_hk [H, deg+1], grid_size); rel: table [H, 2N-1].
-    bias, poly and rel are mutually exclusive."""
+    bias, poly and rel are mutually exclusive. Shapes up to
+    STREAMING_THRESHOLD tokens that `_dense_attn_fits` take the dense
+    kernels, with poly / rel materialized; every other shape streams, with
+    poly / rel generated in the kernel."""
     _, h, n, _ = q.shape
+    if sum(x is not None for x in (bias, poly, rel)) > 1:
+        raise ValueError("bias/poly/rel are mutually exclusive")
     has_biasish = bias is not None or poly is not None or rel is not None
-    inputs = [q, k, v, bias, rel, poly[0] if poly is not None else None,
-              *(freqs_cis or ())]
+    generator = poly[0] if poly is not None else rel
+    inputs = [q, k, v, bias, generator, *(freqs_cis or ())]
     training = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in inputs)
+    cos_raw, sin_raw = freqs_cis if freqs_cis is not None else (None, None)
     if n > STREAMING_THRESHOLD or not _dense_attn_fits(h, n, has_biasish):
-        raise NotImplementedError(
-            f"attention at N={n}, H={h} takes the streaming route, whose "
-            f"kernels (_stream_kernel; in training _stream_bwd_fused_kernel "
-            f"and _bwd_streaming) are not ported yet")
+        if not training:
+            bias, cos, sin = prepare_pe(h, n, q.device, bias, freqs_cis)
+            return attention_stream_fwd(q, k, v, scale, bias, cos, sin, poly,
+                                        rel)[0]
+        if generator is not None and generator.requires_grad:
+            if n > STREAMING_THRESHOLD:
+                raise NotImplementedError(
+                    f"training a generated polynomial / relative bias at "
+                    f"N={n} > {STREAMING_THRESHOLD} needs the one-pass "
+                    f"streaming backward with in-kernel parameter gradients "
+                    f"(_stream_bwd_fused_kernel), which is not ported yet")
+            # Up to the threshold the [H, N, N] bias is small: materialize
+            # it and train the coefficients / table through dbias.
+            bias, poly, rel = _dense_bias(h, n, q.device, bias, poly, rel), \
+                None, None
+        elif bias is not None:
+            bias = _dense_bias(h, n, q.device, bias)
+        coeff, grid = poly if poly is not None else (None, 0)
+        return StreamingAttentionFunction.apply(
+            q, k, v, bias, cos_raw, sin_raw, coeff, rel, int(grid), scale)
     if training:
         bias = _dense_bias(h, n, q.device, bias, poly, rel)
-        cos_raw, sin_raw = freqs_cis if freqs_cis is not None else (None, None)
         return FlashAttentionFunction.apply(q, k, v, bias, cos_raw, sin_raw,
                                             scale)
     bias, cos, sin = prepare_pe(h, n, q.device, bias, freqs_cis, poly, rel)

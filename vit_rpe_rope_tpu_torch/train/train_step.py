@@ -38,22 +38,27 @@ def make_optimizer(tcfg: TrainConfig, steps_per_epoch: int, template: dict):
 
 
 def make_preprocess(cfg: ViTConfig, mean, std, native_size: int):
-    """uint8 [B, h, w, C] -> normalized float32 [B, img, img, C].
+    """uint8 [B, h, w, C] -> normalized float32 [B, img, img, C], for images
+    at the dataset's native size or already at the model's size.
 
     Upsampling is bilinear with half-pixel centers (align_corners=False),
     which is what jax.image.resize(..., "bilinear") computes when it
     enlarges. Shrinking is refused: jax.image.resize antialiases when it
     shrinks, and that filter is not ported."""
-    if cfg.img_size < native_size:
-        raise NotImplementedError(
-            f"img_size {cfg.img_size} < native size {native_size}: "
-            f"antialiased downsampling is not ported")
+    def refuse_downsampling(size):
+        if cfg.img_size < size:
+            raise NotImplementedError(
+                f"img_size {cfg.img_size} < image size {size}: "
+                f"antialiased downsampling is not ported")
+
+    refuse_downsampling(native_size)
     mean = torch.as_tensor(mean, dtype=torch.float32)
     std = torch.as_tensor(std, dtype=torch.float32)
 
     def preprocess(images_u8):
+        refuse_downsampling(images_u8.shape[1])
         x = images_u8.float() / 255.0
-        if native_size != cfg.img_size:
+        if images_u8.shape[1] != cfg.img_size:
             x = F.interpolate(x.permute(0, 3, 1, 2),
                               size=(cfg.img_size, cfg.img_size),
                               mode="bilinear", align_corners=False)
