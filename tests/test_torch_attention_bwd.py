@@ -217,23 +217,33 @@ def test_rot_grads_to_dfreqs_matches_jax(ndim):
 
 @pytest.mark.parametrize("h,n", [(1, 2049), (8, 1500)])
 def test_training_on_the_streaming_route_raises(h, n):
-    """Training on the streaming route raises only where it needs the
-    one-pass kernel's in-kernel parameter gradients: generated polynomial
-    coefficients above STREAMING_THRESHOLD tokens. Without a PE it trains."""
+    """Training on the streaming route raises nowhere any more (it raised
+    for generated polynomial coefficients above STREAMING_THRESHOLD tokens
+    until the one-pass backward was ported): above the threshold, and below
+    it where the dense tiles do not fit, it trains without a PE and with a
+    generated polynomial bias, whose coefficients' gradient agrees with
+    autograd through the materialized bias (same kernels' twins for q, k, v;
+    2e-3 of the largest entry: float32 sums of ds in another order)."""
+    rng = np.random.default_rng(16)
     x = torch.zeros(1, h, n, 16, requires_grad=True)
     out = tfa.flash_attention(x, x, x, 0.25)
     assert type(out.grad_fn).__name__ == "StreamingAttentionFunctionBackward"
     (dx,) = torch.autograd.grad(out.sum(), x)
     assert dx.shape == x.shape and torch.isfinite(dx).all()
-    coeff = torch.zeros(h, 4, requires_grad=True)
-    if n > tfa.STREAMING_THRESHOLD:
-        with pytest.raises(NotImplementedError,
-                           match="_stream_bwd_fused_kernel"):
-            tfa.flash_attention(x, x, x, 0.25, poly=(coeff, 45))
-    else:
-        out = tfa.flash_attention(x, x, x, 0.25, poly=(coeff, 45))
-        (dcoeff,) = torch.autograd.grad(out.sum(), coeff)
-        assert dcoeff.shape == coeff.shape
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(
+        (1, h, n, 16)).astype(np.float32)) for _ in range(4))
+    coeff = torch.from_numpy(
+        rng.standard_normal((h, 4)).astype(np.float32)
+        * 45.0 ** -np.arange(4, dtype=np.float32)).requires_grad_()
+    out = tfa.flash_attention(q, k, v, 0.25, poly=(coeff, 45))
+    assert type(out.grad_fn).__name__ == "StreamingAttentionFunctionBackward"
+    (dcoeff,) = torch.autograd.grad(out, coeff, g)
+    bias = tfa._dense_bias(h, n, "cpu", poly=(coeff, 45))
+    (want,) = torch.autograd.grad(
+        tfa.flash_attention(q, k, v, 0.25, bias=bias), coeff, g)
+    assert dcoeff.shape == coeff.shape
+    torch.testing.assert_close(dcoeff, want, rtol=0,
+                               atol=2e-3 * float(want.abs().max()))
 
 
 def test_eval_path_skips_the_autograd_function():

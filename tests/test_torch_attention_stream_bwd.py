@@ -11,10 +11,10 @@ Tolerances:
   (both round the operands, p and ds to bf16; one at a rounding boundary can
   round the other way after a last-ulp difference in exp()); the batch sums
   (dbias, dcos, dsin) 2e-3 of their largest entry;
-* autograd end to end vs jax.vjp: the same numbers. For none and rope-axial
-  the JAX package takes its one-pass kernel where the port takes separate
-  passes: the same identities and rounding points, float32 sums in another
-  order, which the tolerance covers;
+* autograd end to end vs jax.vjp: the same numbers. none and rope-axial
+  take the one-pass backward in both packages (its twin is held to the JAX
+  kernel by tests/test_torch_attention_stream_bwd_fused.py), a materialized
+  bias and rope-mixed the separate passes;
 * twin (f32 products) vs autograd through the f32 oracle: 1e-4 (float32
   sums over 290 keys in another order).
 """
@@ -211,8 +211,8 @@ def test_stream_bwd_wrapper_on_cpu_is_the_twin_and_recomputes_lse():
 @pytest.mark.parametrize("regime", ["poly", "rel"])
 def test_frozen_generated_bias_trains_q_k_v(regime, monkeypatch):
     """Above the threshold a generated bias whose parameters need no
-    gradient runs the separate passes with the bias generated again; the
-    result is the materialized-bias backward's."""
+    gradient runs the one-pass backward with the bias generated again; the
+    result is the separate passes' on the materialized bias."""
     both_thresholds(monkeypatch)
     shape = (1, 2, 145, 16)
     q, k, v, extra = stream_inputs(regime, shape, seed=24)

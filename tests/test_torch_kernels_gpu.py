@@ -4,7 +4,8 @@ forward and backward, fused AdamW). Every test here needs a CUDA device and
 skips without one (the kernels have no CPU mode; the twins are tested
 against the JAX package on the CPU in tests/test_torch_attention.py,
 test_torch_attention_bwd.py, test_torch_attention_stream.py,
-test_torch_attention_stream_bwd.py and test_torch_fused_adamw.py).
+test_torch_attention_stream_bwd.py, test_torch_attention_stream_bwd_fused.py
+and test_torch_fused_adamw.py).
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine with only PyTorch:
@@ -18,8 +19,14 @@ bf16 boundary the other way), abs + rel. The batch sums of the backward
 entry, since each adds up B such differences. The streaming kernels are held
 to their twins at the kernels' own key tile (fa.STREAM_TILE), which fixes
 the running max that p is rounded against; lse to 1e-4 (float32 sums in
-another order). AdamW: 1e-6 (the same float32 operations, rounded op by op
-on both sides)."""
+another order). The one-pass backward and the dcoeff / dtable passes are
+held to their twins as a share of each output's largest entry: p = exp(s -
+lse) needs no running max, so the twin's tiles only reorder float32 sums, and
+what is left are bf16 roundings of p and ds that flip after a last-ulp
+difference (dq, dk, dv: 4e-3 f32 / 1.6e-2 bf16 inputs, as the separate
+passes); the parameter gradients, float32 sums of ds that nearly cancel,
+1e-3 of their largest entry. AdamW: 1e-6 (the same float32 operations,
+rounded op by op on both sides)."""
 
 import dataclasses
 
@@ -371,12 +378,20 @@ def test_stream_kernels_read_strided_qkv_views(cuda):
         torch.testing.assert_close(x, y, rtol=4e-3, atol=4e-3)
 
 
+def stream_counts():
+    return (fa.LAUNCHES_STREAM_FWD, fa.LAUNCHES_STREAM_DQ,
+            fa.LAUNCHES_STREAM_DKV, fa.LAUNCHES_STREAM_DBIAS,
+            fa.LAUNCHES_STREAM_FUSED, fa.LAUNCHES_STREAM_DCOEFF,
+            fa.LAUNCHES_STREAM_DTABLE)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("regime", ["none", "rel", "poly", "rope-mixed"])
 def test_streaming_autograd_matches_reference_autograd(cuda, regime):
     """flash_attention at N=577, H=6 (the dense tiles do not fit, so it
-    streams; rel and poly train through a materialized bias and the dbias
-    kernel) against autograd through the unfused f32 oracle: 5e-2 of the
+    streams; none, rel= and poly= take the one-pass backward, which also
+    sums the table's / the coefficients' gradient; rope-mixed the separate
+    passes) against autograd through the unfused f32 oracle: 5e-2 of the
     largest entry, as for the dense kernels."""
     q, k, v, kw = inputs(regime, (2, 6, 577, 64), torch.float32, cuda, seed=4)
     if "poly" in kw:
@@ -392,17 +407,14 @@ def test_streaming_autograd_matches_reference_autograd(cuda, regime):
         leaves += [t.requires_grad_() for t in kw["freqs_cis"]]
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(5))
     g = g.to(cuda)
-    counts = (fa.LAUNCHES_STREAM_FWD, fa.LAUNCHES_STREAM_DQ,
-              fa.LAUNCHES_STREAM_DKV, fa.LAUNCHES_STREAM_DBIAS, fa.LAUNCHES,
-              fa.LAUNCHES_BWD)
+    counts = stream_counts() + (fa.LAUNCHES, fa.LAUNCHES_BWD)
     got = torch.autograd.grad(fa.flash_attention(q, k, v, 0.125, **kw),
                               leaves, g)
     has_bias = regime in ("rel", "poly")
-    assert (fa.LAUNCHES_STREAM_FWD, fa.LAUNCHES_STREAM_DQ,
-            fa.LAUNCHES_STREAM_DKV, fa.LAUNCHES_STREAM_DBIAS, fa.LAUNCHES,
-            fa.LAUNCHES_BWD) == (
-        counts[0] + 1, counts[1] + 1, counts[2] + 1,
-        counts[3] + int(has_bias), counts[4], counts[5])
+    separate = int(regime == "rope-mixed")
+    assert stream_counts() + (fa.LAUNCHES, fa.LAUNCHES_BWD) == (
+        counts[0] + 1, counts[1] + separate, counts[2] + separate, counts[3],
+        counts[4] + 1 - separate, counts[5], counts[6], counts[7], counts[8])
     ref_kw = {}
     if "freqs_cis" in kw:
         ref_kw["freqs_cis"] = kw["freqs_cis"]
@@ -418,18 +430,181 @@ def test_streaming_autograd_matches_reference_autograd(cuda, regime):
 @pytest.mark.gpu
 def test_generated_bias_above_the_threshold(cuda):
     """N=2305 > STREAMING_THRESHOLD: the eval forward generates the bias in
-    the kernel and agrees with the materialized one; training the table
-    raises and names the kernel that is missing."""
+    the kernel and agrees with the materialized one; training the table /
+    the coefficients takes the one-pass backward (no dq, dk/dv or dbias
+    launch) and agrees with the separate passes on the materialized bias,
+    whose dbias goes back through the generator's autograd."""
     shape = (1, 2, 2305, 32)
     for regime in ("poly", "rel"):
         q, k, v, kw = inputs(regime, shape, torch.float32, cuda, seed=6)
+        if regime == "poly":  # keep the degree-3 term of order 1 at grid 48
+            coeff, grid = kw["poly"]
+            powers = torch.arange(coeff.shape[1], device=cuda).float()
+            kw["poly"] = (coeff * float(grid) ** -powers, grid)
         with torch.no_grad():
             got = fa.flash_attention(q, k, v, 0.2, **kw)
             bias = fa._dense_bias(2, 2305, cuda, **kw)
             want = fa.flash_attention(q, k, v, 0.2, bias=bias)
         torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
         param = kw["poly"][0] if regime == "poly" else kw["rel"]
-        param.requires_grad_()
-        with pytest.raises(NotImplementedError,
-                           match="_stream_bwd_fused_kernel"):
-            fa.flash_attention(q, k, v, 0.2, **kw)
+        leaves = [t.requires_grad_() for t in (q, k, v, param)]
+        g = torch.randn(shape, generator=torch.Generator().manual_seed(7))
+        g = g.to(cuda)
+        counts = stream_counts()
+        got = torch.autograd.grad(fa.flash_attention(q, k, v, 0.2, **kw),
+                                  leaves, g)
+        assert stream_counts() == (counts[0] + 1, counts[1], counts[2],
+                                   counts[3], counts[4] + 1, counts[5],
+                                   counts[6])
+        bias = fa._dense_bias(2, 2305, cuda, **kw)
+        want = torch.autograd.grad(fa.flash_attention(q, k, v, 0.2, bias=bias),
+                                   leaves, g)
+        for x, y in zip(got[:3], want[:3]):
+            close_to_largest(x, y, 4e-3)
+        close_to_largest(got[3], want[3], 1e-3)
+
+
+FUSED_REGIMES = ["none", "rope-axial", "poly", "rel"]
+FUSED_TOL = {torch.float32: 4e-3, torch.bfloat16: 1.6e-2}
+PARAM_TOL = 1e-3
+
+
+def share_of_largest(got, want, tol):
+    """|got - want| <= tol * max|want| (no absolute floor)."""
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=tol * float(want.float().abs().max()))
+
+
+def fused_inputs(regime, shape, dtype, device, seed):
+    """q, k, v, g, the forward kernel's lse, delta and the PE arguments."""
+    q, k, v, kw = stream_inputs(regime, shape, dtype, device, seed)
+    scale = shape[-1] ** -0.5
+    out, lse = fa.attention_stream_fwd(q, k, v, scale, **kw)
+    gen = torch.Generator().manual_seed(seed + 11)
+    g = torch.randn(shape, generator=gen).to(device, dtype)
+    delta = (g.float() * out.float()).sum(dim=-1)
+    return (q, k, v, g, lse, delta, scale), kw
+
+
+def compare_fused(got, want, regime, dtype):
+    for x, y in zip(got[:3], want[:3]):
+        assert x.dtype == torch.float32 and x.shape == y.shape
+        share_of_largest(x, y, FUSED_TOL[dtype])
+    assert (got[3] is None) == (regime != "poly")
+    assert (got[4] is None) == (regime != "rel")
+    for x, y in zip(got[3:], want[3:]):
+        if x is not None:
+            share_of_largest(x, y, PARAM_TOL)
+
+
+def run_fused_and_compare(regime, shape, dtype, device, seed=0):
+    """The one-pass kernel against its twin, and a second launch against the
+    first, bit for bit."""
+    args, kw = fused_inputs(regime, shape, dtype, device, seed)
+    counts = stream_counts()
+    got = fa.attention_stream_bwd_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert stream_counts() == counts[:4] + (counts[4] + 1,) + counts[5:]
+    want = fa.attention_stream_bwd_fused_plain(*args, q_tile=512, kv_tile=256,
+                                               **kw)
+    compare_fused(got, want, regime, dtype)
+    again = fa.attention_stream_bwd_fused(*args, **kw)
+    for x, y in zip(got, again):
+        assert (x is None and y is None) or torch.equal(x, y)
+    assert got[0]._base is got[1]._base is got[2]._base  # one dqkv buffer
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("regime", FUSED_REGIMES)
+def test_fused_bwd_kernel_matches_twin_at_vit_s_384_shape(cuda, regime,
+                                                           dtype):
+    run_fused_and_compare(regime, (2, 6, 577, 64), dtype, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 3, 70, 16), (1, 4, 1100, 32),
+                                   (1, 2, 129, 128), (9, 2, 64, 64),
+                                   (1, 1, 1, 16)])
+def test_fused_bwd_kernel_matches_twin_at_other_shapes(cuda, shape):
+    run_fused_and_compare("none", shape, torch.float32, cuda, seed=2)
+    if shape[2] > 1:
+        for regime in ("rope-axial", "poly", "rel"):
+            run_fused_and_compare(regime, shape, torch.float32, cuda, seed=3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("regime", FUSED_REGIMES)
+def test_fused_bwd_kernel_in_forced_segments(cuda, regime, dtype, monkeypatch):
+    """256-key segments at N=1100: five launches (the last ragged), rope
+    applied outside the sweep, against the unsegmented twin."""
+    args, kw = fused_inputs(regime, (1, 4, 1100, 32), dtype, cuda, 4)
+    want = fa.attention_stream_bwd_fused_plain(*args, q_tile=512, kv_tile=256,
+                                               **kw)
+    monkeypatch.setattr(fa, "_fused_kv_seg_cols", lambda b, h, n, d: 256)
+    before = fa.LAUNCHES_STREAM_FUSED
+    got = fa.attention_stream_bwd_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_STREAM_FUSED == before + 5
+    compare_fused(got, want, regime, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime", ["none", "poly", "rel"])
+def test_chunk_bwd_kernel_at_offsets_matches_twin(cuda, regime):
+    """Query rows [300, 1100) against the 333 keys from global token 450 (a
+    shorter, ragged key chunk), strided views of the full tensors."""
+    (q, k, v, g, lse, delta, scale), kw = fused_inputs(
+        regime, (2, 4, 1100, 32), torch.float32, cuda, 5)
+    pe = {key: kw[key] for key in ("poly", "rel") if key in kw}
+    rows, cols = slice(300, 1100), slice(450, 783)
+    args = (q[:, :, rows], k[:, :, cols], v[:, :, cols], g[:, :, rows],
+            lse[:, :, rows], delta[:, :, rows], scale)
+    before = fa.LAUNCHES_STREAM_FUSED
+    got = fa.streaming_chunk_bwd(*args, 300, 450, 1100, **pe)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_STREAM_FUSED == before + 1
+    want = fa.attention_stream_bwd_fused_plain(
+        *args, q_tile=512, kv_tile=256, n_valid=1100, row0=300, col0=450,
+        **pe)
+    assert got[0].shape == (2, 4, 800, 32) and got[1].shape == (2, 4, 333, 32)
+    for x, y in zip(got[:3], want[:3]):
+        share_of_largest(x, y, FUSED_TOL[torch.float32])
+    dparam = want[3] if regime == "poly" else want[4]
+    assert (got[3] is None) == (dparam is None)
+    if dparam is not None:
+        share_of_largest(got[3], dparam, PARAM_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("regime", ["poly", "rel"])
+def test_dparam_kernels_match_twin(cuda, regime, dtype):
+    """The separate-pass backward with want_dparam: the dq and dk/dv kernels
+    and the dcoeff / dtable kernel, each launched once."""
+    shape = (2, 6, 577, 64)
+    q, k, v, kw = stream_inputs(regime, shape, dtype, cuda, 6)
+    scale = shape[-1] ** -0.5
+    out, lse = fa.attention_stream_fwd(q, k, v, scale, **kw)
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(17))
+    g = g.to(cuda, dtype)
+    counts = stream_counts()
+    got = fa.attention_stream_bwd(q, k, v, out, g, lse, scale,
+                                  want_dparam=True, **kw)
+    torch.cuda.synchronize()
+    poly = int(regime == "poly")
+    assert stream_counts() == (counts[0], counts[1] + 1, counts[2] + 1,
+                               counts[3], counts[4], counts[5] + poly,
+                               counts[6] + 1 - poly)
+    want = fa.attention_stream_bwd_plain(
+        q, k, v, out, g, lse, scale, kv_tile=fa.STREAM_TILE, want_dparam=True,
+        **kw)
+    assert len(got) == len(want) == 8
+    for x, y in zip(got[6:], want[6:]):
+        assert (x is None) == (y is None)
+        if x is not None:
+            share_of_largest(x, y, PARAM_TOL)
+    again = fa.attention_stream_bwd(q, k, v, out, g, lse, scale,
+                                    want_dparam=True, **kw)
+    assert torch.equal(got[7 - poly], again[7 - poly])

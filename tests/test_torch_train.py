@@ -152,7 +152,7 @@ def test_one_step_grads_match_jax(pe, impl, patch):
 def test_one_step_grads_match_jax_on_the_streaming_route(pe, img, threshold,
                                                          monkeypatch):
     """The loss and every gradient leaf through the streaming forward and
-    the separate-pass backward. rope-mixed: N=145 above a threshold lowered
+    the separate-pass backward (the modes that keep it). rope-mixed: N=145 above a threshold lowered
     to 128 in both packages (dqr/dkr -> frequency gradients). relative:
     N=577 with 2 heads, where `_dense_attn_fits` fails below the real
     threshold, so both packages stream with the MATERIALIZED bias and the
@@ -191,23 +191,56 @@ def test_one_step_grads_match_jax_on_the_streaming_route(pe, img, threshold,
 
 @pytest.mark.parametrize("pe", ["polynomial", "relative"])
 def test_training_a_generated_bias_raises(pe, monkeypatch):
-    """Above the threshold the polynomial / relative bias is generated in
-    the kernel; its parameter gradient needs the one-pass backward, which is
-    not ported: the train step raises and names it, the eval step runs."""
+    """Above the threshold (lowered to 128 in both packages; N=145) the
+    polynomial / relative bias is generated in the kernels and its parameter
+    gradient is summed in the one-pass backward. Training it raised until
+    that kernel was ported; now the eval step runs, the loss and every
+    gradient leaf (the coefficients / the table included) agree with
+    jax.value_and_grad on the JAX package, and an SGD train step moves every
+    leaf by -lr times that gradient."""
+    monkeypatch.setattr(jfa, "STREAMING_THRESHOLD", 128)
     monkeypatch.setattr(tfa, "STREAMING_THRESHOLD", 128)
     kw = cfg_kw(pos_encoding=pe, attention_impl="auto", img_size=48,
                 patch_size=4)
     cfg = ViTConfig(**kw)
-    _, tparams = both_params(kw, seed=5)
+    jcfg = JaxViTConfig(**dict(kw, attention_impl="flash"))
+    jparams, tparams = both_params(kw, seed=5)
     bundle, pre_args = batch(seed=5)
     pre = ts.make_preprocess(cfg, *pre_args)
     data = (torch.from_numpy(bundle.train_x), torch.from_numpy(bundle.train_y),
             torch.arange(8)[None])
     metrics = ts.make_eval_step(cfg, pre)(tparams, 0, *data)
     assert torch.isfinite(metrics).all() and float(metrics[2]) == 8
+
+    imgs, labels, mask = jts._gather_batch(
+        jnp.asarray(bundle.train_x), jnp.asarray(bundle.train_y),
+        jnp.arange(8, dtype=jnp.int32))
+    jpre = jts.make_preprocess(jcfg, *pre_args)
+
+    def loss_fn(p):
+        return jts._loss_and_metrics(p, imgs, labels, mask, jcfg, jpre)[0] / 8
+
+    want_loss, want = jax.value_and_grad(loss_fn)(jparams)
+    timgs, tlabels, tmask = ts._gather_batch(*data[:2], data[2][0])
+    loss = ts._loss_and_metrics(tparams, timgs, tlabels, tmask, cfg, pre)[0] / 8
+    got = torch.autograd.grad(loss, list(tparams.values()))
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
+                               rtol=TOL["flash"])
+    pe_keys = [key for key in tparams if key.startswith("pos_embed.")]
+    assert pe_keys
+    for key, g in zip(tparams, got):
+        close_to_largest(g.numpy(), want[key], TOL["flash"], err_msg=key)
+    for key in pe_keys:  # the generated bias' parameters do get a gradient
+        assert float(np.abs(np.asarray(want[key])).max()) > 0
+
+    before = {key: value.detach().clone() for key, value in tparams.items()}
     step = ts.make_train_step(cfg, port_sgd(0.1), pre)
-    with pytest.raises(NotImplementedError, match="_stream_bwd_fused_kernel"):
-        step(tparams, None, 0, *data)
+    tparams, _, metrics = step(tparams, None, 0, *data)
+    assert torch.isfinite(metrics).all()
+    for key in tparams:
+        close_to_largest((tparams[key].detach() - before[key]).numpy(),
+                         -0.1 * np.asarray(want[key]), TOL["flash"],
+                         err_msg=key)
 
 
 @pytest.mark.parametrize("impl", ["reference", "flash"])

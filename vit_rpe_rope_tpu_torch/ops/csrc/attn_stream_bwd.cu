@@ -42,8 +42,8 @@
 //                 does not depend on the schedule.
 // The passes are those of attn_bwd.cu without its statistics pass: p comes
 // from the saved lse. Accumulators stay in WMMA fragments (no rescaling in a
-// backward). wgmma / TMA pipelining, and sharing s, p and ds between the
-// passes (the one-pass `_stream_bwd_fused_kernel`), are later work.
+// backward). The one-pass backward that shares s, p and ds between the
+// gradients is attn_stream_bwd_fused.cu; wgmma / TMA pipelining is later work.
 
 #include "attn_stream.cuh"
 
@@ -77,24 +77,7 @@ struct Params {
 };
 
 template <int D>
-struct Layout {
-  static constexpr int LDX = ldx<D>();
-  static constexpr int SW = D > TK ? D : TK;  // f32 slab width
-  static constexpr int LDS = SW + 4;
-  static constexpr int LDP = TK + 8;          // bf16 [16, 64] row blocks
-  static constexpr size_t TILE_BYTES = size_t(TQ) * LDX * 2;
-  static constexpr size_t SLAB_BYTES = size_t(TQ) * LDS * 4;
-  static constexpr size_t P_BYTES = size_t(TQ) * LDP * 2;
-  static constexpr size_t T0 = 0;  // four bf16 tiles
-  static constexpr size_t S_OFF = 4 * TILE_BYTES;
-  static constexpr size_t U_OFF = S_OFF + SLAB_BYTES;
-  static constexpr size_t P_OFF = U_OFF + SLAB_BYTES;
-  static constexpr size_t R_OFF = P_OFF + P_BYTES;
-  static constexpr size_t BYTES = R_OFF + P_BYTES;
-  static_assert(TILE_BYTES % 128 == 0 && SLAB_BYTES % 128 == 0 &&
-                    P_BYTES % 128 == 0,
-                "shared-memory sections must stay 128-byte aligned");
-};
+using Layout = BwdLayout<D>;
 
 // dq for one (batch, head, 64-query tile), over all key tiles.
 template <int D, typename T>

@@ -7,10 +7,19 @@ package chooses them (`STREAMING_THRESHOLD`, `_dense_attn_fits`):
 * dense, one tile per row of queries (`_attn_kernel` / `_dense_bwd_kernel`,
   launched by `_forward` / `_bwd_dense`): ops/csrc/attn_fwd.cu, attn_bwd.cu;
 * streaming, an online softmax over key tiles that saves the per-row
-  logsumexp for a backward in separate dq, dk/dv and dbias passes
-  (`_stream_kernel`, `_stream_bwd_dq_kernel`, `_stream_bwd_dkv_kernel`,
-  `_stream_bwd_dbias_kernel`, launched by `_forward_streaming_impl` /
-  `_bwd_streaming`): ops/csrc/attn_stream_fwd.cu, attn_stream_bwd.cu.
+  logsumexp (`_stream_kernel`, launched by `_forward_streaming_impl`):
+  ops/csrc/attn_stream_fwd.cu. Its backward is one pass that computes dq,
+  dk, dv and the gradient of a generated bias' parameters from one sweep
+  over the logits (`_stream_bwd_fused_kernel`, launched by
+  `_bwd_streaming_fused`, over key segments by `_bwd_fused_segmented`, on a
+  key chunk at global offsets by `streaming_chunk_bwd`):
+  ops/csrc/attn_stream_bwd_fused.cu; or, with a materialized bias (dbias) or
+  learnable rope frequencies (dqr/dkr), separate dq, dk/dv and dbias passes
+  (`_stream_bwd_dq_kernel`, `_stream_bwd_dkv_kernel`,
+  `_stream_bwd_dbias_kernel`, launched by `_bwd_streaming`, whose direct
+  callers also get the generated bias' parameter gradient from
+  `_stream_bwd_dcoeff_kernel` / `_stream_bwd_dtable_kernel`):
+  ops/csrc/attn_stream_bwd.cu and attn_stream_bwd_fused.cu.
 
 What is computed, for q, k, v [B, H, N, D]:
 
@@ -35,29 +44,27 @@ What is computed, for q, k, v [B, H, N, D]:
   dqr/dkr, and the streaming forward's lse [B, H, N], in float32.
 
 `attention_fwd` / `attention_bwd` / `attention_stream_fwd` /
-`attention_stream_bwd` are the kernels' wrappers: on a CUDA tensor they
-launch the kernel (and count the launch in LAUNCHES / LAUNCHES_BWD /
-LAUNCHES_STREAM_FWD / LAUNCHES_STREAM_DQ, LAUNCHES_STREAM_DKV and
-LAUNCHES_STREAM_DBIAS, each where its kernel is launched), on a CPU tensor they run `attention_plain` / `attention_bwd_plain` /
-`attention_stream_plain` / `attention_stream_bwd_plain`, the kernels' plain
-PyTorch twins. Nothing falls back: a CUDA call the kernel cannot take raises.
+`attention_stream_bwd` / `attention_stream_bwd_fused` are the kernels'
+wrappers: on a CUDA tensor they launch the kernel (and count the launch in
+LAUNCHES / LAUNCHES_BWD / LAUNCHES_STREAM_FWD / LAUNCHES_STREAM_DQ,
+LAUNCHES_STREAM_DKV, LAUNCHES_STREAM_DBIAS, LAUNCHES_STREAM_DCOEFF and
+LAUNCHES_STREAM_DTABLE / LAUNCHES_STREAM_FUSED, each where its kernel is
+launched), on a CPU tensor they run `attention_plain` /
+`attention_bwd_plain` / `attention_stream_plain` /
+`attention_stream_bwd_plain` / `attention_stream_bwd_fused_plain`, the
+kernels' plain PyTorch twins. Nothing falls back: a CUDA call the kernel
+cannot take raises.
 
 `flash_attention` takes the route's autograd Function when grad is enabled
 and an input requires it, and calls the forward wrapper directly otherwise.
-The gradient of a materialized bias built from polynomial coefficients or a
-relative table flows from dbias through torch autograd of the bias
-generator; learnable rope-mixed frequencies get theirs from dqr/dkr
-(`_rot_grads_to_dfreqs`).
-
-Not ported yet: the JAX package's one-pass streaming backward
-(`_stream_bwd_fused_kernel`) and its in-kernel coefficient / table
-gradients (`_stream_bwd_dcoeff_kernel`, `_stream_bwd_dtable_kernel`).
-Modes the JAX package sends to the one-pass kernel without a generated
-parameter gradient (none, absolute, rope-axial) take the separate passes
-here: the same identities and rounding points, another order of sums.
-Training a polynomial or relative bias that is GENERATED in the kernel
-(above STREAMING_THRESHOLD tokens) raises NotImplementedError; up to the
-threshold such a bias is materialized and trains through dbias.
+On the dense route the gradient of a bias built from polynomial coefficients
+or a relative table flows from dbias through torch autograd of the bias
+generator; on the streaming route the one-pass kernel sums it per element
+(no [H, N, N] tensor). Learnable rope-mixed frequencies get theirs from
+dqr/dkr (`_rot_grads_to_dfreqs`). The streaming route takes the one-pass
+backward where the JAX package's `_bwd` does: without a materialized bias
+and without learnable frequencies (none, absolute, rope-axial, a generated
+polynomial or relative bias), at any sequence length.
 """
 
 from __future__ import annotations
@@ -88,17 +95,32 @@ LAUNCHES_STREAM_DQ = 0
 LAUNCHES_STREAM_DKV = 0
 LAUNCHES_STREAM_DBIAS = 0
 
+# Launches of the one-pass streaming backward (one per key segment) and of
+# the separate-pass coefficient / table gradient kernels.
+LAUNCHES_STREAM_FUSED = 0
+LAUNCHES_STREAM_DCOEFF = 0
+LAUNCHES_STREAM_DTABLE = 0
+
 # Key-tile widths of the streaming route: the JAX package's (the twins'
 # default, so that the CPU path rounds p where the JAX kernel does) and the
 # CUDA kernels' (what a twin is given when a kernel is held to it).
 KV_TILE = 512
 STREAM_TILE = 64
 MAX_POLY_TERMS = 8  # polynomial terms (degree + 1) the CUDA kernels hold
+# Tiles of the one-pass backward's twin on the CPU path: the JAX package's.
+# (p = exp(s - lse) needs no running max, so here the tiles change only the
+# order of the float32 sums.)
+FUSED_Q_TILE = 256
+# The one-pass kernel keeps each 64-key tile's share of dq in an f32 slab of
+# the size of dq; its wrapper sweeps the keys in segments that keep this
+# scratch within the budget.
+FUSED_SCRATCH_BYTES = 1 << 30
 
 SOURCE = cuda_build.CSRC / "attn_fwd.cu"
 BWD_SOURCE = cuda_build.CSRC / "attn_bwd.cu"
 STREAM_SOURCE = cuda_build.CSRC / "attn_stream_fwd.cu"
 STREAM_BWD_SOURCE = cuda_build.CSRC / "attn_stream_bwd.cu"
+STREAM_FUSED_SOURCE = cuda_build.CSRC / "attn_stream_bwd_fused.cu"
 HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernels are instantiated for
 
 
@@ -136,6 +158,15 @@ def _prep_freqs(freqs_cis, num_heads, n_pad, dtype, broadcast=True):
     return cos.to(dtype), sin.to(dtype)
 
 
+def _poly_dist(rows, cols, grid):
+    """[rows, cols] float32 L1 distance between the patch coordinates
+    ((t-1) % grid, (t-1) // grid) of token rows and token columns."""
+    xq, yq = (rows - 1) % grid, torch.div(rows - 1, grid, rounding_mode="floor")
+    xk, yk = (cols - 1) % grid, torch.div(cols - 1, grid, rounding_mode="floor")
+    return ((xq[:, None] - xk[None, :]).abs()
+            + (yq[:, None] - yk[None, :]).abs()).float()
+
+
 def _poly_bias_cols(coeff_hk, grid, n_rows, start, width, degree,
                     row_start=0, n_valid=None):
     """[H, n_rows, width] polynomial bias for token rows
@@ -144,10 +175,7 @@ def _poly_bias_cols(coeff_hk, grid, n_rows, start, width, degree,
     device = coeff_hk.device
     rows = row_start + torch.arange(n_rows, device=device)
     cols = start + torch.arange(width, device=device)
-    xq, yq = (rows - 1) % grid, torch.div(rows - 1, grid, rounding_mode="floor")
-    xk, yk = (cols - 1) % grid, torch.div(cols - 1, grid, rounding_mode="floor")
-    dist = ((xq[:, None] - xk[None, :]).abs()
-            + (yq[:, None] - yk[None, :]).abs()).float()
+    dist = _poly_dist(rows, cols, grid)
     powers = torch.stack([dist ** kk for kk in range(degree + 1)], dim=-1)
     bias = torch.einsum("nwk,hk->hnw", powers, coeff_hk.float())
     mask = (rows[:, None] > 0) & (cols[None, :] > 0)
@@ -358,14 +386,21 @@ def streaming_lse(q, k, scale, bias=None, cos=None, sin=None, poly=None,
 def attention_stream_bwd_plain(q, k, v, out, g, lse, scale, bias=None,
                                cos=None, sin=None, poly=None, rel=None,
                                kv_tile=KV_TILE, mm_dtype=torch.bfloat16,
-                               want_dbias=False, want_drot=False):
+                               want_dbias=False, want_drot=False,
+                               want_dparam=False):
     """The streaming backward kernels' function in plain PyTorch, on
     unpadded tensors, over key tiles of `kv_tile` (nothing [N, N] is held):
     p = exp(s - lse) from the forward's lse, the rounding points of the
-    module docstring. Arguments and results as attention_bwd_plain, plus
-    lse [B, H, N] float32 and the generated biases of
-    attention_stream_plain (whose parameter gradients are not computed)."""
+    module docstring. Arguments as attention_bwd_plain, plus lse [B, H, N]
+    float32 and the generated biases of attention_stream_plain. Returns
+    (dq, dk, dv, dbias, dqr, dkr, dcoeff, dtable): the first six as
+    attention_bwd_plain; with want_dparam, the gradient of the generated
+    bias' parameters from the float32 ds, dcoeff [H, deg+1] float32 for
+    poly= or dtable [H, 2L-1] float32 for rel= (else None)."""
     n = q.shape[2]
+    dcoeff, dtable = _dparam_zeros(poly if want_dparam else None,
+                                   rel if want_dparam else None, q.device)
+    rows = torch.arange(n, device=q.device)
     qm, km = _rotated_operands(q, k, cos, sin, mm_dtype)
     vm = v.to(mm_dtype).float()
     gf = g.float()
@@ -393,11 +428,114 @@ def attention_stream_bwd_plain(q, k, v, out, g, lse, scale, bias=None,
                                       gm)
         if want_dbias:
             dbias[:, :, tile] = ds.sum(dim=0)
+        if want_dparam:
+            cols = torch.arange(start, start + kt.shape[2], device=q.device)
+            _add_dparam(dcoeff, dtable, ds, rows, cols, cols < n, n, poly)
     dqr, dkr = (dq, dk) if want_drot else (None, None)
     if cos is not None:  # inverse rotation back to unrotated space
         dq = _rotate(dq, cos[None], -sin[None])
         dk = _rotate(dk, cos[None], -sin[None])
-    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias, dqr, dkr)
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias, dqr, dkr,
+            dcoeff, dtable)
+
+
+def _dparam_zeros(poly, rel, device):
+    """Zeroed float32 (dcoeff, dtable) for the generated bias given."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.zeros(poly[0].shape, **f32) if poly is not None else None,
+            torch.zeros(rel.shape, **f32) if rel is not None else None)
+
+
+def _add_dparam(dcoeff, dtable, ds, rows, cols, kmask, n_valid, poly):
+    """Add one tile's share of the generated bias' parameter gradient, in
+    place: ds [B, H, rows, cols] float32 at GLOBAL token rows / cols, kmask
+    the keys that were not masked. dcoeff[h, m] gets the sum of ds * dist^m
+    over patch tokens against patch tokens below n_valid; dtable[h, row -
+    col + L - 1] the sum of ds over rows below n_valid and unmasked keys."""
+    if dcoeff is not None:
+        valid = ((rows[:, None] > 0) & (cols[None, :] > 0)
+                 & (rows[:, None] < n_valid) & (cols[None, :] < n_valid))
+        dsz = torch.where(valid, ds, torch.zeros((), device=ds.device)).sum(0)
+        dist = _poly_dist(rows, cols, int(poly[1]))
+        pw = torch.ones_like(dist)
+        for m in range(dcoeff.shape[1]):
+            dcoeff[:, m] += (dsz * pw).sum(dim=(1, 2))
+            pw = pw * dist
+    if dtable is not None:
+        valid = (rows[:, None] < n_valid) & kmask[None, :]
+        dsz = torch.where(valid, ds, torch.zeros((), device=ds.device)).sum(0)
+        ell = (dtable.shape[1] + 1) // 2
+        idx = (rows[:, None] - cols[None, :] + ell - 1).clamp(
+            0, dtable.shape[1] - 1)
+        dtable.index_add_(1, idx.reshape(-1), dsz.reshape(dsz.shape[0], -1))
+
+
+def attention_stream_bwd_fused_plain(q, k, v, g, lse, delta, scale, cos=None,
+                                     sin=None, poly=None, rel=None,
+                                     q_tile=FUSED_Q_TILE, kv_tile=KV_TILE,
+                                     n_valid=None, row0=0, col0=0,
+                                     chunk_cols=None, mm_dtype=torch.bfloat16):
+    """The one-pass streaming backward kernel's function in plain PyTorch,
+    on unpadded tensors, over (q_tile, kv_tile) tiles: s, p and ds of a tile
+    are formed once and feed dq, dk, dv and the generated bias' parameter
+    gradient.
+
+    q, g [B, H, N, D]; k, v [B, H, Nc, D], a key chunk whose first key is
+    global token col0 (q's first row is global token row0); lse and delta =
+    sum_d g * out [B, H, N] float32, of the whole softmax row. Keys at
+    global indices >= n_valid (default N) or at local indices >= chunk_cols
+    are masked. cos/sin [1|H, N, D/2] rotate q and k (whole sequences only:
+    Nc == N, no offsets). Rounding as the JAX kernel: q, k rotated in float32
+    then rounded to mm_dtype, p and ds rounded to mm_dtype before the three
+    gradient products, the parameter sums from the float32 ds.
+    Returns (dq, dk, dv, dcoeff, dtable) in float32; dcoeff [H, deg+1] with
+    poly=, dtable [H, 2L-1] with rel=, else None."""
+    n, nc = q.shape[2], k.shape[2]
+    n_valid = n if n_valid is None else int(n_valid)
+    if cos is not None and (nc != n or row0 or col0):
+        raise ValueError("rope tables rotate whole sequences: the keys must "
+                         "be q's own, at offsets (0, 0)")
+    width = nc if chunk_cols is None else min(nc, int(chunk_cols))
+    qm, km = _rotated_operands(q, k, cos, sin, mm_dtype)
+    vm = v.to(mm_dtype).float()
+    gm = g.float().to(mm_dtype).float()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.zeros(q.shape, **f32)
+    dk, dv = torch.zeros(k.shape, **f32), torch.zeros(k.shape, **f32)
+    dcoeff, dtable = _dparam_zeros(poly, rel, q.device)
+    for qs in range(0, n, q_tile):
+        qt = slice(qs, min(qs + q_tile, n))
+        rows = row0 + torch.arange(qt.start, qt.stop, device=q.device)
+        for ks in range(0, nc, kv_tile):
+            kt = slice(ks, min(ks + kv_tile, nc))
+            cols_l = torch.arange(kt.start, kt.stop, device=q.device)
+            cols = col0 + cols_l
+            kmask = (cols < n_valid) & (cols_l < width)
+            s = torch.matmul(qm[:, :, qt], km[:, :, kt].transpose(-1, -2)) \
+                * scale
+            if poly is not None:
+                s = s + _poly_bias_cols(
+                    poly[0], int(poly[1]), len(rows), col0 + ks, len(cols),
+                    poly[0].shape[1] - 1, row_start=row0 + qs,
+                    n_valid=n_valid)[None]
+            if rel is not None:
+                s = s + _rel_bias_cols(rel, len(rows), col0 + ks, len(cols),
+                                       row_start=row0 + qs)[None]
+            s = torch.where(kmask, s, torch.full((), NEG_INF, **f32))
+            p = torch.exp(s - lse[:, :, qt, None])
+            gv = torch.matmul(gm[:, :, qt], vm[:, :, kt].transpose(-1, -2))
+            ds = p * (gv - delta[:, :, qt, None])
+            dsm = ds.to(mm_dtype).float()
+            dv[:, :, kt] += torch.matmul(
+                p.to(mm_dtype).float().transpose(-1, -2), gm[:, :, qt])
+            dk[:, :, kt] += scale * torch.matmul(dsm.transpose(-1, -2),
+                                                 qm[:, :, qt])
+            dq[:, :, qt] += scale * torch.matmul(dsm, km[:, :, kt])
+            _add_dparam(dcoeff, dtable, ds, rows, cols, kmask, n_valid, poly)
+    if cos is not None:  # inverse rotation back to unrotated space
+        dq = _rotate(dq, cos[None], -sin[None])
+        dk = _rotate(dk, cos[None], -sin[None])
+    return dq, dk, dv, dcoeff, dtable
 
 
 # ---------------------------------------------------------------------------
@@ -456,14 +594,24 @@ def _stream_bwd_library():
         "attn_stream_bwd_dq", "attn_stream_bwd_dkv", "attn_stream_bwd_dbias"))
 
 
-def _check_cuda_inputs(q, k, v, bias, cos, sin):
+def _stream_fused_library():
+    return cuda_build.load(STREAM_FUSED_SOURCE, _bind_stream(
+        "attn_stream_bwd_fused", "attn_stream_bwd_dcoeff",
+        "attn_stream_bwd_dtable"))
+
+
+def _check_cuda_inputs(q, k, v, bias, cos, sin, key_chunk=False):
+    """Raise on what the attention kernels do not take. key_chunk: k and v
+    may hold another number of tokens than q (the one-pass backward)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k, v must lie on one CUDA device")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"attn_fwd takes float32 or bfloat16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k, v must share one dtype")
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+    kv_shape = q.shape[:2] + k.shape[2:3] + q.shape[3:] if key_chunk \
+        else q.shape
+    if q.dim() != 4 or k.shape != kv_shape or v.shape != kv_shape:
         raise ValueError(f"q, k, v must be [B, H, N, D] of one shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
@@ -471,7 +619,7 @@ def _check_cuda_inputs(q, k, v, bias, cos, sin):
     if d not in HEAD_DIMS:
         raise ValueError(f"attn_fwd is built for head dims {HEAD_DIMS}; "
                          f"got {d}")
-    if min(b, h, n) < 1 or b > 65535 or h > 65535:
+    if min(b, h, n, k.shape[2]) < 1 or b > 65535 or h > 65535:
         raise ValueError(f"unsupported shape {tuple(q.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
@@ -601,17 +749,21 @@ def _check_generated(q, poly, rel):
     return coeff, int(grid), table
 
 
-def _stream_dims(q, cos, coeff, grid, table, groups=0):
+def _stream_dims(q, cos, coeff, grid, table, groups=0, row0=0, col0=0,
+                 n_valid=None, nk=None, kv_valid=None):
     """The integer arguments of the streaming kernels' C entry points, in
-    the order of attn::Dim (csrc/attn_stream.cuh). This call covers the whole
-    sequence: global offsets (0, 0), every key valid."""
+    the order of attn::Dim (csrc/attn_stream.cuh). By default the call covers
+    the whole sequence: global offsets (0, 0), every key valid, as many keys
+    as query rows."""
     b, h, n, d = q.shape
-    return (ctypes.c_int * 13)(
+    nk = n if nk is None else nk
+    return (ctypes.c_int * 15)(
         b, h, n, d, int(q.dtype == torch.bfloat16),
         cos.shape[0] if cos is not None else 0,
         coeff.shape[1] if coeff is not None else 0, grid,
         (table.shape[1] + 1) // 2 if table is not None else 0,
-        0, 0, n, groups)
+        row0, col0, n if n_valid is None else n_valid, groups, nk,
+        nk if kv_valid is None else kv_valid)
 
 
 def _pointers(*tensors):
@@ -657,25 +809,30 @@ def attention_stream_fwd(q, k, v, scale, bias=None, cos=None, sin=None,
 
 def attention_stream_bwd(q, k, v, out, g, lse, scale, bias=None, cos=None,
                          sin=None, poly=None, rel=None, want_dbias=False,
-                         want_drot=False):
-    """The streaming backward kernels' wrapper; arguments and results as
-    attention_stream_bwd_plain (bf16 products). lse=None recomputes it
+                         want_drot=False, want_dparam=False):
+    """The separate-pass streaming backward's wrapper; arguments and results
+    as attention_stream_bwd_plain (bf16 products). lse=None recomputes it
     (streaming_lse), for callers without the forward's.
 
     CPU tensors run the plain twin with the JAX package's key tile. CUDA
     tensors launch the dq kernel, the dk/dv kernel and, with want_dbias, the
-    dbias kernel on the current stream, or raise. dq, dk and dv are views of
-    one [B, N, 3, H, D] buffer."""
+    dbias kernel and, with want_dparam and poly= / rel=, the dcoeff / dtable
+    kernel on the current stream, or raise. dq, dk and dv are views of one
+    [B, N, 3, H, D] buffer."""
     global LAUNCHES_STREAM_DQ, LAUNCHES_STREAM_DKV, LAUNCHES_STREAM_DBIAS
+    global LAUNCHES_STREAM_DCOEFF, LAUNCHES_STREAM_DTABLE
     _check_rel_covers(rel, q.shape[2])
     if want_dbias and bias is None:
         raise ValueError("dbias needs the bias the forward was given")
+    if want_dparam and poly is None and rel is None:
+        raise ValueError("a parameter gradient needs poly= or rel=")
     if lse is None:
         lse = streaming_lse(q, k, scale, bias, cos, sin, poly, rel)
     if q.device.type == "cpu":
         return attention_stream_bwd_plain(
             q, k, v, out, g, lse, scale, bias, cos, sin, poly, rel,
-            want_dbias=want_dbias, want_drot=want_drot)
+            want_dbias=want_dbias, want_drot=want_drot,
+            want_dparam=want_dparam)
     _check_cuda_inputs(q, k, v, bias, cos, sin)
     coeff, grid, table = _check_generated(q, poly, rel)
     for name, t in (("out", out), ("g", g)):
@@ -725,7 +882,180 @@ def attention_stream_bwd(q, k, v, out, g, lse, scale, bias=None, cos=None,
                 raise RuntimeError(f"attn_stream_bwd_dbias launch failed: "
                                    f"CUDA error {err}")
             LAUNCHES_STREAM_DBIAS += 1
-    return dq, dk, dv, dbias, dqr, dkr
+        dcoeff = dtable = None
+        if want_dparam:
+            dparam, part = _dparam_scratch(q, n, coeff, table)
+            fused_args = (
+                _pointers(q, k, v, g, lse, delta, None, None, None, None,
+                          dparam, part, cos, sin, coeff, table), args[1],
+                _stream_dims(q, cos, coeff, grid, table), float(scale))
+            if coeff is not None:
+                err = _stream_fused_library().attn_stream_bwd_dcoeff(
+                    *fused_args, stream)
+                dcoeff = dparam
+            else:
+                err = _stream_fused_library().attn_stream_bwd_dtable(
+                    *fused_args, stream)
+                dtable = dparam
+            if err != 0:
+                raise RuntimeError(f"attn_stream_bwd_dcoeff / dtable launch "
+                                   f"failed: CUDA error {err}")
+            if coeff is not None:
+                LAUNCHES_STREAM_DCOEFF += 1
+            else:
+                LAUNCHES_STREAM_DTABLE += 1
+    return dq, dk, dv, dbias, dqr, dkr, dcoeff, dtable
+
+
+def _dparam_scratch(q, nk, coeff, table):
+    """(dparam, its per-CTA partial sums) as attn_stream_bwd_fused.cu lays
+    them out for q's rows against nk keys, or (None, None)."""
+    b, h, n, _ = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    n_kt = -(-nk // STREAM_TILE)
+    if coeff is not None:
+        return (torch.empty(coeff.shape, **f32),
+                torch.empty((b, h, n_kt, MAX_POLY_TERMS), **f32))
+    if table is not None:
+        return (torch.empty(table.shape, **f32),
+                torch.empty((b, h, n_kt, _round_up(n, STREAM_TILE)
+                             + STREAM_TILE), **f32))
+    return None, None
+
+
+def _fused_kv_seg_cols(b, h, n, d):
+    """The most keys one launch of the one-pass kernel takes: each 64-key
+    tile holds an f32 [B, H, N rounded up to 64, D] slab of dq partial sums,
+    and the slabs of one launch stay within FUSED_SCRATCH_BYTES (at least
+    one tile)."""
+    slab = b * h * _round_up(n, STREAM_TILE) * d * 4
+    return STREAM_TILE * max(1, FUSED_SCRATCH_BYTES // slab)
+
+
+def attention_stream_bwd_fused(q, k, v, g, lse, delta, scale, cos=None,
+                               sin=None, poly=None, rel=None, n_valid=None,
+                               row0=0, col0=0, chunk_cols=None,
+                               out_dtype=torch.float32):
+    """The one-pass streaming backward kernel's wrapper; arguments and
+    results (dq, dk, dv, dcoeff, dtable) as attention_stream_bwd_fused_plain
+    (bf16 products), dq / dk / dv in out_dtype.
+
+    A key extent wider than `_fused_kv_seg_cols` is swept in segments
+    (`_bwd_fused_segmented`). Otherwise CPU tensors run the plain twin with
+    the JAX package's tiles, and CUDA tensors launch the kernel on the
+    current stream, or raise. With as many keys as query rows, dq, dk and dv
+    are views of one [B, N, 3, H, D] buffer."""
+    global LAUNCHES_STREAM_FUSED
+    b, h, n, d = q.shape
+    nc = k.shape[2]
+    n_valid = n if n_valid is None else int(n_valid)
+    row0, col0 = int(row0), int(col0)
+    _check_rel_covers(rel, n_valid)
+    if poly is not None and rel is not None:
+        raise ValueError("poly and rel are mutually exclusive")
+    if cos is not None and (nc != n or row0 or col0):
+        raise ValueError("rope tables rotate whole sequences: the keys must "
+                         "be q's own, at offsets (0, 0)")
+    width = nc if chunk_cols is None else min(nc, int(chunk_cols))
+    seg_cols = _fused_kv_seg_cols(b, h, n, d)
+    if width > seg_cols:
+        return _bwd_fused_segmented(q, k, v, g, lse, delta, scale, cos, sin,
+                                    poly, rel, n_valid, row0, col0, width,
+                                    seg_cols, out_dtype)
+    if q.device.type == "cpu":
+        dq, dk, dv, dcoeff, dtable = attention_stream_bwd_fused_plain(
+            q, k, v, g, lse, delta, scale, cos, sin, poly, rel,
+            n_valid=n_valid, row0=row0, col0=col0, chunk_cols=chunk_cols)
+        return (dq.to(out_dtype), dk.to(out_dtype), dv.to(out_dtype), dcoeff,
+                dtable)
+    _check_cuda_inputs(q, k, v, None, cos, sin, key_chunk=True)
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError("g must match q in shape, dtype and device")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != (b, h, n) or t.dtype != torch.float32
+                or t.device != q.device):
+            raise ValueError(f"{name} must be a float32 [B, H, N] tensor on "
+                             f"q's device")
+    coeff, grid, table = _check_generated(q, poly, rel)
+    lse, delta = lse.contiguous(), delta.contiguous()
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if nc == n:
+        dqkv = torch.empty((b, n, 3, h, d), **f32)
+        dq, dk, dv = (dqkv[:, :, i].transpose(1, 2) for i in range(3))
+    else:
+        dq, dk, dv = (torch.empty((b, rows, h, d), **f32).transpose(1, 2)
+                      for rows in (n, nc, nc))
+    n_kt = -(-nc // STREAM_TILE)
+    dq_part = torch.empty((n_kt, b, h, _round_up(n, STREAM_TILE), d), **f32)
+    dparam, part = _dparam_scratch(q, nc, coeff, table)
+    with torch.cuda.device(q.device):
+        err = _stream_fused_library().attn_stream_bwd_fused(
+            _pointers(q, k, v, g, lse, delta, dq, dk, dv, dq_part, dparam,
+                      part, cos, sin, coeff, table),
+            _strides(q, k, v, g, dq, dk, dv),
+            _stream_dims(q, cos, coeff, grid, table, row0=row0, col0=col0,
+                         n_valid=n_valid, nk=nc, kv_valid=width),
+            float(scale), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attn_stream_bwd_fused launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES_STREAM_FUSED += 1
+    if nc == n and out_dtype != torch.float32:
+        dqkv = dqkv.to(out_dtype)  # one pass over the three gradients
+        dq, dk, dv = (dqkv[:, :, i].transpose(1, 2) for i in range(3))
+    return (dq.to(out_dtype), dk.to(out_dtype), dv.to(out_dtype),
+            dparam if coeff is not None else None,
+            dparam if table is not None else None)
+
+
+def _bwd_fused_segmented(q, k, v, g, lse, delta, scale, cos, sin, poly, rel,
+                         n_valid, row0, col0, width, seg_cols, out_dtype):
+    """The one-pass backward over key segments of seg_cols keys at global
+    column offsets (the JAX package's `_bwd_fused_segmented`): dq and the
+    parameter gradients are summed over the segments in float32, each
+    segment of dk and dv is written once. Fixed-frequency rope is applied
+    once outside the sweep: q and k are rotated (in float32) before it, dq
+    and dk rotated back after it."""
+    if cos is not None:
+        q = _rotate(q.float(), cos[None], sin[None])
+        k = _rotate(k.float(), cos[None], sin[None])
+        v, g = v.float(), g.float()  # one dtype for the kernel; exact
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.zeros(q.shape, **f32)
+    dk, dv = torch.zeros(k.shape, **f32), torch.zeros(k.shape, **f32)
+    dcoeff, dtable = _dparam_zeros(poly, rel, q.device)
+    for s0 in range(0, width, seg_cols):
+        seg = slice(s0, min(s0 + seg_cols, width))
+        dq_s, dk_s, dv_s, dc_s, dt_s = attention_stream_bwd_fused(
+            q, k[:, :, seg], v[:, :, seg], g, lse, delta, scale, None, None,
+            poly, rel, n_valid, row0, col0 + s0)
+        dq += dq_s
+        dk[:, :, seg], dv[:, :, seg] = dk_s, dv_s
+        if dcoeff is not None:
+            dcoeff += dc_s
+        if dtable is not None:
+            dtable += dt_s
+    if cos is not None:
+        dq = _rotate(dq, cos[None], -sin[None])
+        dk = _rotate(dk, cos[None], -sin[None])
+    return dq.to(out_dtype), dk.to(out_dtype), dv.to(out_dtype), dcoeff, dtable
+
+
+def streaming_chunk_bwd(q, k, v, g, lse, delta, scale, row0, col0, n_valid,
+                        poly=None, rel=None):
+    """One chunk's share of the streaming backward (the JAX package's
+    `streaming_chunk_bwd`): the gradients of this shard's q rows (first row
+    at global token row0) against one key chunk (first key at global token
+    col0), with the lse and delta of the WHOLE softmax row and n_valid the
+    global token count. Returns (dq partial [B, H, N, D], dk and dv of the
+    chunk [B, H, Nc, D], the chunk's share of dcoeff / dtable or None), all
+    float32, from one launch of the one-pass kernel."""
+    dq, dk, dv, dcoeff, dtable = attention_stream_bwd_fused(
+        q, k, v, g, lse, delta, scale, None, None, poly, rel, n_valid, row0,
+        col0)
+    return dq, dk, dv, dcoeff if dcoeff is not None else dtable
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -761,10 +1091,12 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 class StreamingAttentionFunction(torch.autograd.Function):
     """The JAX package's custom_vjp around the streaming kernels: forward
-    `attention_stream_fwd`, which saves the per-row logsumexp, backward
-    `attention_stream_bwd` in separate passes. Arguments as
+    `attention_stream_fwd`, which saves the per-row logsumexp; backward as
+    the streaming branch of `_bwd`: the one-pass `attention_stream_bwd_fused`
+    without a materialized bias and without learnable (3-D) frequencies,
+    else `attention_stream_bwd` in separate passes. Arguments as
     FlashAttentionFunction, plus the generated biases coeff (with grid) and
-    table, which get no gradient here."""
+    table, whose gradients are summed in the kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, cos_raw, sin_raw, coeff, table, grid,
@@ -785,16 +1117,32 @@ class StreamingAttentionFunction(torch.autograd.Function):
     def backward(ctx, g):
         (q, k, v, out, lse, bias, cos, sin, cos_raw, sin_raw, coeff,
          table) = ctx.saved_tensors
-        want_drot = cos_raw is not None and any(ctx.needs_input_grad[4:6])
         poly = (coeff, ctx.grid) if coeff is not None else None
-        dq, dk, dv, dbias, dqr, dkr = attention_stream_bwd(
-            q, k, v, out, g, lse, ctx.scale, bias, cos, sin, poly, table,
-            want_dbias=ctx.needs_input_grad[3], want_drot=want_drot)
         dcos = dsin = None
-        if want_drot:
-            dcos, dsin = _rot_grads_to_dfreqs(q, k, dqr, dkr,
-                                              (cos_raw, sin_raw))
-        return dq, dk, dv, dbias, dcos, dsin, None, None, None, None
+        if bias is None and (cos_raw is None or cos_raw.dim() == 2):
+            delta = (g.float() * out.float()).sum(dim=-1)
+            dq, dk, dv, dcoeff, dtable = attention_stream_bwd_fused(
+                q, k, v, g, lse, delta, ctx.scale, cos, sin, poly, table,
+                out_dtype=q.dtype)
+            dbias = None
+            if ctx.needs_input_grad[4]:  # fixed frequencies: an exact zero
+                dcos = torch.zeros_like(cos_raw)
+            if ctx.needs_input_grad[5]:
+                dsin = torch.zeros_like(sin_raw)
+        else:
+            want_drot = cos_raw is not None and any(ctx.needs_input_grad[4:6])
+            dq, dk, dv, dbias, dqr, dkr, dcoeff, dtable = attention_stream_bwd(
+                q, k, v, out, g, lse, ctx.scale, bias, cos, sin, poly, table,
+                want_dbias=ctx.needs_input_grad[3], want_drot=want_drot,
+                want_dparam=any(ctx.needs_input_grad[6:8]))
+            if want_drot:
+                dcos, dsin = _rot_grads_to_dfreqs(q, k, dqr, dkr,
+                                                  (cos_raw, sin_raw))
+        if dcoeff is not None:
+            dcoeff = dcoeff.to(coeff.dtype)
+        if dtable is not None:
+            dtable = dtable.to(table.dtype)
+        return dq, dk, dv, dbias, dcos, dsin, dcoeff, dtable, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -811,7 +1159,7 @@ def flash_attention(q, k, v, scale, bias=None, freqs_cis=None, poly=None,
     bias, poly and rel are mutually exclusive. Shapes up to
     STREAMING_THRESHOLD tokens that `_dense_attn_fits` take the dense
     kernels, with poly / rel materialized; every other shape streams, with
-    poly / rel generated in the kernel."""
+    poly / rel generated in the kernels, forward and backward."""
     _, h, n, _ = q.shape
     if sum(x is not None for x in (bias, poly, rel)) > 1:
         raise ValueError("bias/poly/rel are mutually exclusive")
@@ -826,18 +1174,7 @@ def flash_attention(q, k, v, scale, bias=None, freqs_cis=None, poly=None,
             bias, cos, sin = prepare_pe(h, n, q.device, bias, freqs_cis)
             return attention_stream_fwd(q, k, v, scale, bias, cos, sin, poly,
                                         rel)[0]
-        if generator is not None and generator.requires_grad:
-            if n > STREAMING_THRESHOLD:
-                raise NotImplementedError(
-                    f"training a generated polynomial / relative bias at "
-                    f"N={n} > {STREAMING_THRESHOLD} needs the one-pass "
-                    f"streaming backward with in-kernel parameter gradients "
-                    f"(_stream_bwd_fused_kernel), which is not ported yet")
-            # Up to the threshold the [H, N, N] bias is small: materialize
-            # it and train the coefficients / table through dbias.
-            bias, poly, rel = _dense_bias(h, n, q.device, bias, poly, rel), \
-                None, None
-        elif bias is not None:
+        if bias is not None:
             bias = _dense_bias(h, n, q.device, bias)
         coeff, grid = poly if poly is not None else (None, 0)
         return StreamingAttentionFunction.apply(
