@@ -78,7 +78,21 @@ exits nonzero without a card, or when any phase fails. Phases:
    bound and SDPA's backward, and the dcoeff / dtable kernels; train steps
    of the long-sequence model at N=4097 and N=16385 in rope-mixed,
    rope-axial, polynomial and relative, and of ViT-S/16@384; profiler
-   breakdowns of the N=4097 steps.
+   breakdowns of the N=4097 steps;
+15. bounded-program stepping: the chunk forward kernel (q rows against a
+   key chunk at global offsets) against its twin in three regimes (none,
+   generated polynomial and relative bias), f32 and bf16, at a small padded
+   sequence and at the bounded step's shapes at N=65,537, and at (r0, 0)
+   against the rows of the whole-sequence kernel bit for bit; the bounded
+   step (q-chunks of 16,384) against the monolithic step at N=65,537 (the
+   long-sequence model at 1024 px, batch 1) in rope-axial, polynomial and
+   relative, with exact launch counts; key segments of 32,768 against none;
+   grad_accum 2 against one batch of 4 at N=4,097; one epoch of the
+   long-sequence model through the train CLI with --q_chunk 2048 in
+   rope-axial, exact launch counts, the best checkpoint served; times: the
+   chunk kernel, its twin, its bound and SDPA at (1, 4, 16,384 rows, 66,048
+   keys, 32), the bounded and monolithic steps at N=65,537 and a profiler
+   breakdown of the bounded step.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -188,6 +202,29 @@ FUSED_TOL = 4e-3
 PARAM_TOL = 1e-3
 FUSED_REGIMES = ("none", "rope-axial", "poly", "rel")
 FUSED_TWIN_TILES = dict(q_tile=1024, kv_tile=512)
+# The bounded train step (phase 15): the long-sequence model at N=65,537
+# (1024 px, batch 1, f32; scripts/bench_longseq.py's CONFIGS[65537]) in
+# q-chunks of 16,384 rows (n_pad 66,048: four chunks of 16,384 and one of
+# 512).
+BOUNDED = dict(LONGSEQ, img_size=1024)
+BOUNDED_Q_CHUNK = 16384
+# Bounded step vs the monolithic step on the same batch and init, both with
+# bf16 products: the loss, relative; every gradient as a share of its
+# largest entry. The chunk forward computes each valid row as the
+# whole-sequence forward does; what differs is the float32 order of the
+# backward's sums (key segments of 8,192 per q-chunk against 1,984 over the
+# whole sequence), the compute-dtype rounding of the chunk partials, and
+# the padded shapes of the O(N) matmuls.
+BOUNDED_LOSS_TOL = 1e-4
+BOUNDED_GRAD_TOL = 5e-3
+# The epoch through the train CLI with --q_chunk 2048 runs at half the CLI's
+# learning rate. At lr 1e-3, batch 4 (a constant rate: the cosine steps per
+# epoch) the long-sequence rope-axial model trains at the edge of stability
+# on this task: a late loss spike ended the bounded epoch at 89.57% test
+# accuracy with seed 0, 96.99% with seed 1 and 100.00% with seed 2, the
+# monolithic epoch at 99.92% (seed 0) and 100.00% (seed 1); at lr 5e-4 both
+# reach 100.00% with seed 0 (scripts/torch_bounded_epochs.py on an H100).
+BOUNDED_EPOCH_LR = 5e-4
 
 
 def log(*args):
@@ -629,7 +666,7 @@ def reset_counts(fa, fused_adamw):
     fa.LAUNCHES_STREAM_FWD = fa.LAUNCHES_STREAM_DQ = 0
     fa.LAUNCHES_STREAM_DKV = fa.LAUNCHES_STREAM_DBIAS = 0
     fa.LAUNCHES_STREAM_FUSED = fa.LAUNCHES_STREAM_DCOEFF = 0
-    fa.LAUNCHES_STREAM_DTABLE = 0
+    fa.LAUNCHES_STREAM_DTABLE = fa.LAUNCHES_STREAM_CHUNK_FWD = 0
 
 
 def read_counts(fa, fused_adamw):
@@ -639,6 +676,7 @@ def read_counts(fa, fused_adamw):
     counts = {"attn_fwd": fa.LAUNCHES, "attn_bwd": fa.LAUNCHES_BWD,
               "adamw": fused_adamw.LAUNCHES_ADAMW}
     stream = {"attn_stream_fwd": fa.LAUNCHES_STREAM_FWD,
+              "attn_stream_chunk_fwd": fa.LAUNCHES_STREAM_CHUNK_FWD,
               "attn_stream_bwd_dq": fa.LAUNCHES_STREAM_DQ,
               "attn_stream_bwd_dkv": fa.LAUNCHES_STREAM_DKV,
               "attn_stream_bwd_dbias": fa.LAUNCHES_STREAM_DBIAS,
@@ -649,19 +687,41 @@ def read_counts(fa, fused_adamw):
     return counts
 
 
-def train_through_cli(pe_name, modules, model=None, batch=128, bar=None):
-    """Phases 8 and 13 for one PE mode: the train CLI on synthetic CIFAR-10
-    for one epoch (run in a scratch directory, so the default logs/ and
-    checkpoints/ land there), with every count reset just before and read
-    just after; then the best checkpoint through the Predictor. `model` is
-    None for the CLI's defaults (ViT-tiny/4, dense kernels, held to
+def bounded_launches(fa, batch, heads, head_dim, n, q_chunk, kv_chunk=0):
+    """(chunk forwards, one-pass backward launches) of one block of the
+    bounded step at N=n: one forward per q-chunk, and per (q-chunk, key
+    segment) pair as many backward launches as _fused_kv_seg_cols cuts its
+    keys into."""
+    n_pad = fa._round_up(n, 512)
+    q_chunk = fa._round_up(q_chunk, 512)
+    rows = [min(q_chunk, n_pad - s) for s in range(0, n_pad, q_chunk)]
+    kv_chunk = fa._round_up(kv_chunk, 512) if kv_chunk else n_pad
+    cols = [min(kv_chunk, n_pad - c) for c in range(0, n_pad, kv_chunk)]
+    return len(rows), sum(
+        -(-width // fa._fused_kv_seg_cols(batch, heads, r, head_dim))
+        for r in rows for width in cols)
+
+
+def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
+                      q_chunk=None, lr=None):
+    """Phases 8, 13 and 15 for one PE mode: the train CLI on synthetic
+    CIFAR-10 for one epoch (run in a scratch directory, so the default logs/
+    and checkpoints/ land there), with every count reset just before and
+    read just after; then the best checkpoint through the Predictor. `model`
+    is None for the CLI's defaults (ViT-tiny/4, dense kernels, held to
     LEARN_BAR) or the ViTConfig fields of a model on the streaming route,
-    which is held to `bar` when one is given."""
+    which is held to `bar` when one is given. q_chunk: train and evaluate
+    through the bounded-program driver (--q_chunk). lr: --lr, else the
+    CLI's default."""
     fa, fused_adamw, train_cli, serving, datasets = modules
     argv = ["--dataset", "cifar10", "--synthetic", "--epochs", "1",
             "--pos_encoding", pe_name, "--batch_size", str(batch)]
     for key, value in (model or {}).items():
         argv += [f"--{key}", str(value)]
+    if q_chunk:
+        argv += ["--q_chunk", str(q_chunk)]
+    if lr is not None:
+        argv += ["--lr", str(lr)]
     depth = model["depth"] if model else 6
     grid = model["img_size"] // model["patch_size"] if model else None
     heads = model["num_heads"] if model else 6
@@ -700,6 +760,16 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None):
                 fwd: depth * (steps + evals)}
     if model is None:
         expected["attn_bwd"] = depth * steps
+    elif q_chunk:
+        # The bounded driver: chunk forwards in every train and eval step,
+        # the one-pass backward per (q-chunk, key segment), no
+        # whole-sequence forward.
+        del expected[fwd]
+        n_fwd, n_bwd = bounded_launches(fa, batch, heads,
+                                        model["embed_dim"] // heads,
+                                        grid * grid + 1, q_chunk)
+        expected["attn_stream_chunk_fwd"] = depth * n_fwd * (steps + evals)
+        expected["attn_stream_bwd_fused"] = depth * n_bwd * steps
     else:
         # As the JAX package routes: a bias up to 2048 tokens is
         # materialized (separate passes + dbias), rope-mixed learns its
@@ -1619,6 +1689,326 @@ def time_fused_kernels(fa, device):
     return fused_rows, param_rows
 
 
+def chunk_case(fa, regime, dtype, seed, device, shape, rows, cols, n_valid):
+    """The chunk kernel and its twin (at the kernel's key tile) on one chunk
+    of a padded sequence: q rows `rows` against the keys `cols` (global
+    indices), n_valid valid tokens. Returns {output: (max_abs_err, ok,
+    share)}."""
+    q, k, v, kw, _ = stream_inputs(fa, regime, shape, dtype, seed, device)
+    pe = {key: kw[key] for key in ("poly", "rel") if key in kw}
+    args = (q[:, :, rows[0]:rows[1]], k[:, :, cols[0]:cols[1]],
+            v[:, :, cols[0]:cols[1]], shape[-1] ** -0.5)
+    out, lse = fa.streaming_chunk_fwd(*args, rows[0], cols[0], n_valid, **pe)
+    torch.cuda.synchronize()
+    want, want_lse = fa.attention_stream_plain(
+        *args, kv_tile=fa.STREAM_TILE, row0=rows[0], col0=cols[0],
+        n_valid=n_valid, **pe)
+    lse_err = float((lse - want_lse).abs().max())
+    return {"out": share_err(out, want, STREAM_TOL[dtype]),
+            "lse": (lse_err, lse_err <= LSE_TOL and
+                    bool(torch.isfinite(lse).all()), lse_err)}
+
+
+def check_chunk_vs_twin(fa, device):
+    """Phase 15a: the chunk forward kernel against its twin in three
+    regimes: at a small padded sequence (1,100 valid tokens of 1,536 rows,
+    rows [512, 1536) against the 1,033 keys from token 300), f32 and bf16;
+    at the bounded step's own shapes at N=65,537 (the second q-chunk of
+    16,384 rows and the last of 512, 511 of them padded, against all 66,048
+    keys). Then at (r0, 0) against every key of a whole sequence, against
+    the rows of attention_stream_fwd on the same tensors, bit for bit.
+    Returns the worst f32 error of out."""
+    worst, failed = 0.0, []
+    cases = [((2, 4, 1536, 32), dtype, regime, (512, 1536), (300, 1333), 1100)
+             for dtype in (torch.float32, torch.bfloat16)
+             for regime in ("none", "poly", "rel")]
+    big = (1, 4, 66048, 32)
+    cases += [(big, torch.float32, regime, rows, (0, 66048), 65537)
+              for regime in ("none", "poly", "rel")
+              for rows in ((16384, 32768), (65536, 66048))]
+    for i, (shape, dtype, regime, rows, cols, n_valid) in enumerate(cases):
+        res = chunk_case(fa, regime, dtype, 700 + i, device, shape, rows,
+                         cols, n_valid)
+        ok = all(r[1] for r in res.values())
+        log(f"chunk fwd vs twin  rows {rows} keys {cols} of {n_valid} valid "
+            f"D={shape[3]} {str(dtype)[6:]:8s} {regime:5s} "
+            + " ".join(f"{k}={v[0]:.2e}({v[2]:.1e})" for k, v in res.items())
+            + f" tol(share of largest)={STREAM_TOL[dtype]:g} lse "
+            f"{LSE_TOL:g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append((regime, rows, cols, dtype))
+        if dtype == torch.float32:
+            worst = max(worst, res["out"][0])
+        torch.cuda.empty_cache()
+    for i, (dtype, regime) in enumerate(
+            (dtype, regime) for dtype in (torch.float32, torch.bfloat16)
+            for regime in ("none", "poly", "rel")):
+        q, k, v, kw, _ = stream_inputs(fa, regime, (4, 4, 4097, 32), dtype,
+                                       720 + i, device)
+        pe = {key: kw[key] for key in ("poly", "rel") if key in kw}
+        whole, whole_lse = fa.attention_stream_fwd(q, k, v, 32 ** -0.5, **pe)
+        got, lse = fa.streaming_chunk_fwd(q[:, :, 2048:], k, v, 32 ** -0.5,
+                                          2048, 0, 4097, **pe)
+        torch.cuda.synchronize()
+        same = (torch.equal(got, whole[:, :, 2048:])
+                and torch.equal(lse, whole_lse[:, :, 2048:]))
+        log(f"chunk fwd at (2048, 0) vs attention_stream_fwd rows, N=4097 "
+            f"{str(dtype)[6:]:8s} {regime:5s} bit-identical: "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            failed.append((regime, "bit identity", dtype))
+    if failed:
+        raise AssertionError(f"chunk forward kernel disagrees: {failed}")
+    return worst
+
+
+def bounded_inputs(vit, ts, datasets, cfg, batch, device, seed=15):
+    """Seeded params, preprocess and a batch of random uint8 images at the
+    model's size, labels 0, 1, ..."""
+    mean, std = datasets.NORMALIZATION["cifar10"]
+    pre = ts.make_preprocess(cfg, mean, std, cfg.img_size)
+    params = vit.init_params(torch.Generator().manual_seed(seed), cfg,
+                             device=device)
+    images = np.random.default_rng(seed).integers(
+        0, 256, (batch, cfg.img_size, cfg.img_size, 3), dtype=np.uint8)
+    labels = torch.arange(batch, device=device) % 10
+    return params, pre, torch.from_numpy(images).to(device), labels
+
+
+def bounded_grads(modules, cfg, params, pre, images, labels, expected,
+                  **kw):
+    """One bounded step (AdamW on a copy of params) with the counts reset
+    just before and read just after, held to `expected`. Returns (loss,
+    gradients, counts)."""
+    fa, fused_adamw, ts, make_bounded_step, TrainConfig = modules
+    tcfg = TrainConfig(dataset="cifar10")
+    copy = {k: v.detach().clone() for k, v in params.items()}
+    init, update = ts.make_optimizer(tcfg, 100, copy)
+    step = make_bounded_step(cfg, tcfg, update, pre, debug_grads=True, **kw)
+    state = init(copy)
+    reset_counts(fa, fused_adamw)
+    _, _, metrics, grads = step(copy, state, 0, images, labels)
+    counts = read_counts(fa, fused_adamw)
+    if counts != expected:
+        raise AssertionError(f"bounded step launches {counts} differ from "
+                             f"{expected}")
+    return float(metrics[0]), grads, counts
+
+
+def monolithic_grads(ts, cfg, params, pre, images, labels):
+    """The loss and gradients of the port's monolithic route (the
+    whole-sequence streaming forward and the one-pass backward)."""
+    p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    mask = torch.ones(labels.shape, device=labels.device)
+    loss_sum, _ = ts._loss_and_metrics(p, images, labels, mask, cfg, pre)
+    loss = loss_sum / labels.shape[0]
+    grads = torch.autograd.grad(loss, list(p.values()))
+    return float(loss.detach()), dict(zip(p, grads))
+
+
+def compare_grads(label, loss, grads, want_loss, want):
+    """Loss relative error and the worst gradient share of its largest
+    entry, held to BOUNDED_LOSS_TOL / BOUNDED_GRAD_TOL."""
+    loss_err = abs(loss - want_loss) / abs(want_loss)
+    shares = {key: share_err(grads[key], want[key], BOUNDED_GRAD_TOL)
+              for key in want}
+    worst_key = max(shares, key=lambda key: shares[key][2])
+    worst = shares[worst_key][2]
+    ok = (loss_err <= BOUNDED_LOSS_TOL and set(grads) == set(want)
+          and all(r[1] for r in shares.values()) and math.isfinite(loss))
+    log(f"  {label}: loss {loss:.6f} vs {want_loss:.6f} (rel {loss_err:.2e}, "
+        f"tol {BOUNDED_LOSS_TOL:g}); worst gradient {worst_key} "
+        f"{worst:.2e} of its largest entry (tol {BOUNDED_GRAD_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the two steps disagree")
+    return dict(loss=loss, want_loss=want_loss, loss_rel_err=loss_err,
+                worst_grad_share=worst, worst_grad=worst_key)
+
+
+def check_bounded_steps(modules, vit, datasets, ViTConfig, device):
+    """Phase 15b-d. The bounded step against the monolithic step at
+    N=65,537 (rope-axial, polynomial, relative), on the same batch and init,
+    with exact launch counts; the relative step with key segments of 32,768
+    against the unsegmented one; grad_accum 2 on two batches of 2 against
+    one step on the batch of 4 at N=4,097."""
+    fa, fused_adamw, ts, _, _ = modules
+    out = {}
+    heads, dh = BOUNDED["num_heads"], BOUNDED["embed_dim"] // BOUNDED[
+        "num_heads"]
+    for pe_name in ("rope-axial", "polynomial", "relative"):
+        cfg = ViTConfig(**BOUNDED, pos_encoding=pe_name)
+        params, pre, images, labels = bounded_inputs(vit, ts, datasets, cfg,
+                                                     1, device)
+        n_fwd, n_bwd = bounded_launches(fa, 1, heads, dh, cfg.seq_len,
+                                        BOUNDED_Q_CHUNK)
+        expected = {"attn_fwd": 0, "attn_bwd": 0, "adamw": 1,
+                    "attn_stream_chunk_fwd": cfg.depth * n_fwd,
+                    "attn_stream_bwd_fused": cfg.depth * n_bwd}
+        loss, grads, counts = bounded_grads(modules, cfg, params, pre, images,
+                                            labels, expected,
+                                            q_chunk=BOUNDED_Q_CHUNK)
+        log(f"  bounded step {pe_name} N={cfg.seq_len}: launches {counts}")
+        want_loss, want = monolithic_grads(ts, cfg, params, pre, images,
+                                           labels)
+        out[pe_name] = compare_grads(f"bounded vs monolithic {pe_name} "
+                                     f"N={cfg.seq_len}", loss, grads,
+                                     want_loss, want)
+        out[pe_name]["launches"] = counts
+        del want
+        if pe_name == "relative":
+            n_fwd, n_bwd = bounded_launches(fa, 1, heads, dh, cfg.seq_len,
+                                            BOUNDED_Q_CHUNK, 32768)
+            expected.update(attn_stream_chunk_fwd=cfg.depth * n_fwd,
+                            attn_stream_bwd_fused=cfg.depth * n_bwd)
+            seg_loss, seg_grads, counts = bounded_grads(
+                modules, cfg, params, pre, images, labels, expected,
+                q_chunk=BOUNDED_Q_CHUNK, kv_chunk=32768)
+            log(f"  bounded step relative kv_chunk=32768: launches {counts}")
+            out["relative kv_chunk=32768"] = compare_grads(
+                "key segments of 32,768 vs unsegmented, relative", seg_loss,
+                seg_grads, loss, grads)
+            out["relative kv_chunk=32768"]["launches"] = counts
+        del params, grads, images
+        torch.cuda.empty_cache()
+    cfg = ViTConfig(**LONGSEQ, pos_encoding="relative")
+    params, pre, images, labels = bounded_inputs(vit, ts, datasets, cfg, 4,
+                                                 device)
+    n_fwd, n_bwd = bounded_launches(fa, 2, heads, dh, cfg.seq_len, 2048)
+    expected = {"attn_fwd": 0, "attn_bwd": 0, "adamw": 1,
+                "attn_stream_chunk_fwd": 2 * cfg.depth * n_fwd,
+                "attn_stream_bwd_fused": 2 * cfg.depth * n_bwd}
+    accum_loss, accum_grads, counts = bounded_grads(
+        modules, cfg, params, pre, images.reshape(2, 2, *images.shape[1:]),
+        labels.reshape(2, 2), expected, q_chunk=2048, grad_accum=2)
+    log(f"  bounded step grad_accum=2 N={cfg.seq_len}: launches {counts}")
+    n_fwd, n_bwd = bounded_launches(fa, 4, heads, dh, cfg.seq_len, 2048)
+    expected.update(attn_stream_chunk_fwd=cfg.depth * n_fwd,
+                    attn_stream_bwd_fused=cfg.depth * n_bwd)
+    loss, grads, _ = bounded_grads(modules, cfg, params, pre, images, labels,
+                                   expected, q_chunk=2048)
+    out["relative grad_accum=2 N=4097"] = compare_grads(
+        "grad_accum 2 x batch 2 vs one batch of 4, relative N=4097",
+        accum_loss, accum_grads, loss, grads)
+    out["relative grad_accum=2 N=4097"]["launches"] = counts
+    torch.cuda.empty_cache()
+    return out
+
+
+def chunk_bound_ms(shape, rows, keys, valid_keys, dtype, kw):
+    """Least time for one chunk forward: q and out (rows), k and v (keys),
+    lse and the bias generator read or written once over the memory rate,
+    against the two products over the keys this run needs (the valid ones)
+    at the bf16 tensor-core peak."""
+    b, h, _, d = shape
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * rows + 2 * keys) * b * h * d * elem + b * h * rows * 4
+    for key in ("poly", "rel"):
+        if kw.get(key) is not None:
+            gen = kw[key][0] if key == "poly" else kw[key]
+            nbytes += gen.numel() * 4
+    flops = 4 * b * h * rows * valid_keys * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_TENSOR_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_chunk_kernel(fa, device):
+    """Phase 15f: the chunk forward at the bounded step's shape at
+    N=65,537 (the second q-chunk, 16,384 rows, against all 66,048 keys, f32)
+    in three regimes: the kernel by CUDA events, its twin, its bound, and
+    SDPA on the same rows against the 65,537 valid keys (no mask: the same
+    function) as the yardstick for the plain regime."""
+    import torch.nn.functional as F
+
+    rows = {}
+    shape, r0, n_valid = (1, 4, 66048, 32), 16384, 65537
+    for regime in ("none", "poly", "rel"):
+        q, k, v, kw, _ = stream_inputs(fa, regime, shape, torch.float32, 730,
+                                       device)
+        pe = {key: kw[key] for key in ("poly", "rel") if key in kw}
+        qc = q[:, :, r0:r0 + BOUNDED_Q_CHUNK]
+        scale = 32 ** -0.5
+        ms = median_ms(lambda: fa.streaming_chunk_fwd(
+            qc, k, v, scale, r0, 0, n_valid, **pe), iters=5, reps=5,
+            warmup=2)
+        plain_ms = median_ms(lambda: fa.attention_stream_plain(
+            qc, k, v, scale, kv_tile=fa.STREAM_TILE, row0=r0,
+            n_valid=n_valid, **pe), iters=1, reps=2, warmup=1)
+        library_ms = None
+        if regime == "none":
+            kv, vv = k[:, :, :n_valid], v[:, :, :n_valid]
+            library_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                qc, kv, vv, scale=scale), iters=5, reps=5, warmup=2)
+        bound_ms, bound_by = chunk_bound_ms(shape, BOUNDED_Q_CHUNK, shape[2],
+                                            n_valid, torch.float32, pe)
+        rows[regime] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                            bound_ms=bound_ms, bound_by=bound_by)
+        log(f"  chunk fwd (1, 4, 16384 rows, 66048 keys, 32) f32 {regime:5s} "
+            f"kernel {ms:.4f} ms  twin {plain_ms:.4f} ms  bound "
+            f"{bound_ms:.4f} ms ({bound_by})  sdpa "
+            + (f"{library_ms:.4f} ms" if library_ms is not None
+               else "not measured (it would need a 17 GB mask)"))
+        del q, k, v, kw, pe, qc
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_bounded_steps(modules, vit, datasets, ViTConfig, device, n_steps=3):
+    """Phase 15g: wall time per train step (synchronized) of the bounded
+    and the monolithic step at N=65,537, batch 1, f32, in rope-axial,
+    polynomial and relative, each after one warm-up step, in turns (bounded,
+    monolithic, monolithic, bounded); a profiler breakdown of one bounded
+    rope-axial step. Returns ({label: {bounded_ms, monolithic_ms}},
+    profile)."""
+    fa, fused_adamw, ts, make_bounded_step, TrainConfig = modules
+    tcfg = TrainConfig(dataset="cifar10")
+    rows, trace = {}, {}
+    for pe_name in ("rope-axial", "polynomial", "relative"):
+        cfg = ViTConfig(**BOUNDED, pos_encoding=pe_name)
+        params, pre, images, labels = bounded_inputs(vit, ts, datasets, cfg,
+                                                     1, device)
+        params = {k: v.requires_grad_() for k, v in params.items()}
+        init, update = ts.make_optimizer(tcfg, 100, params)
+        bounded = make_bounded_step(cfg, tcfg, update, pre,
+                                    q_chunk=BOUNDED_Q_CHUNK)
+        mono = ts.make_train_step(cfg, update, pre)
+        idx = torch.zeros((1, 1), dtype=torch.int64, device=device)
+        state = [params, init(params)]
+
+        def run_bounded():
+            state[0], state[1], m = bounded(state[0], state[1], 0, images,
+                                            labels)
+            return m
+
+        def run_mono():
+            state[0], state[1], m = mono(state[0], state[1], 0, images,
+                                         labels, idx)
+            return m
+
+        times = {"bounded": [], "monolithic": []}
+        for label, run in (("bounded", run_bounded), ("monolithic", run_mono),
+                           ("monolithic", run_mono), ("bounded", run_bounded)):
+            run()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                run()
+            torch.cuda.synchronize()
+            times[label].append((time.perf_counter() - t0) * 1e3 / n_steps)
+        rows[f"N=65537 {pe_name} f32"] = {
+            f"{label}_ms": statistics.mean(t) for label, t in times.items()}
+        log(f"  train step N=65537 {pe_name} f32 batch 1: bounded "
+            f"(q_chunk {BOUNDED_Q_CHUNK}) {times['bounded']} ms, monolithic "
+            f"{times['monolithic']} ms (two turns each, {n_steps} steps a "
+            f"turn)")
+        if pe_name == "rope-axial":
+            trace = profile_train_step(run_bounded, n_iter=1)
+        del params, state, images, bounded, mono
+        torch.cuda.empty_cache()
+    return rows, trace
+
+
 def kernel_line(name, source, replaces, launches, max_abs_err, times):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1824,6 +2214,24 @@ def main() -> int:
             torch.cuda.empty_cache()
         stream_trace = stream_traces["longseq N=4097 rope-mixed f32"]
 
+    with phase("[15] bounded-program stepping: chunk forward kernel, bounded "
+               "vs monolithic steps, the train CLI with --q_chunk", seconds):
+        from vit_rpe_rope_tpu_torch.train.bounded import make_bounded_step
+
+        chunk_err = check_chunk_vs_twin(fa, device)
+        bounded_modules = (fa, fused_adamw, ts, make_bounded_step,
+                           TrainConfig)
+        bounded_checks = check_bounded_steps(bounded_modules, vit, datasets,
+                                             ViTConfig, device)
+        # The slice's main path: one epoch of the long-sequence model
+        # through the train CLI with --q_chunk 2048 (three q-chunks).
+        bounded_training = train_through_cli(
+            "rope-axial", train_modules, model=LONGSEQ, batch=4,
+            bar=LEARN_BAR["rope-axial"], q_chunk=2048, lr=BOUNDED_EPOCH_LR)
+        chunk_times = time_chunk_kernel(fa, device)
+        bounded_steps, bounded_trace = time_bounded_steps(
+            bounded_modules, vit, datasets, ViTConfig, device)
+
     summary = {"card": card, "attention": attn, "serving": serve_times,
                "serving_profile": serve_trace, "training": training,
                "kernel_vs_plain_losses": paths, "train_step": step_times,
@@ -1838,6 +2246,12 @@ def main() -> int:
                "fused_kernels": fused_times, "dparam_kernels": dparam_times,
                "fused_max_abs_err": fused_err,
                "dparam_path_launches": dparam_launches,
+               "chunk_max_abs_err": chunk_err,
+               "bounded_vs_monolithic": bounded_checks,
+               "bounded_training": bounded_training,
+               "chunk_kernel": chunk_times,
+               "bounded_train_steps": bounded_steps,
+               "bounded_train_profile": bounded_trace,
                "phase_seconds": seconds}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1850,7 +2264,9 @@ def main() -> int:
     # 3) for the dbias kernel, whose error and time are taken at that batch;
     # the long-sequence model in relative for the one-pass backward; direct
     # calls of the separate-pass backward with a generated bias (phase 13)
-    # for the dcoeff and dtable kernels, which no model reaches.
+    # for the dcoeff and dtable kernels, which no model reaches; the
+    # long-sequence model with --q_chunk 2048 (phase 15) for the chunk
+    # forward, timed at the bounded step's shape at N=65,537.
     launches = training["rope-mixed"]["launches"]
     stream_launches = stream_training["longseq"]["launches"]
     dbias_launches = stream_training["vit_s_384"]["launches"][
@@ -1897,6 +2313,10 @@ def main() -> int:
                     dparam_launches["attn_stream_bwd_dtable"],
                     fused_err["dtable"],
                     dparam_times["longseq N=4097"]["rel"]),
+        kernel_line("attn_stream_chunk_fwd", csrc + "attn_stream_fwd.cu",
+                    jax_fa + ":1218",
+                    bounded_training["launches"]["attn_stream_chunk_fwd"],
+                    chunk_err, chunk_times["none"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

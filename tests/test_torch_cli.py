@@ -179,8 +179,10 @@ def test_train_parser_matches_jax_parser():
 
 @pytest.mark.parametrize("flag", [
     ["--model_parallel", "2"], ["--sequence_parallel", "2"],
-    ["--pipeline_parallel", "2"], ["--zero1"], ["--q_chunk", "64"],
-    ["--kv_chunk", "64"], ["--augment"], ["--remat"],
+    ["--pipeline_parallel", "2"], ["--zero1"],
+    # bounded stepping over the KV ring, and with dropout
+    ["--q_chunk", "64", "--sequence_parallel", "2"],
+    ["--q_chunk", "64", "--drop_rate", "0.1"], ["--augment"], ["--remat"],
     ["--drop_rate", "0.1"], ["--attn_drop_rate", "0.1"],
     ["--drop_path_rate", "0.1"], ["--attention_impl", "flash_block"],
     ["--profile_dir", "trace"], ["--debug_nans"],

@@ -26,7 +26,10 @@ what is left are bf16 roundings of p and ds that flip after a last-ulp
 difference (dq, dk, dv: 4e-3 f32 / 1.6e-2 bf16 inputs, as the separate
 passes); the parameter gradients, float32 sums of ds that nearly cancel,
 1e-3 of their largest entry. AdamW: 1e-6 (the same float32 operations,
-rounded op by op on both sides)."""
+rounded op by op on both sides). The chunk forward (q rows against a key
+chunk at global offsets) is held to the streaming forward's numbers, and at
+(r0, 0) against every key to the whole-sequence forward's rows bit for
+bit."""
 
 import dataclasses
 
@@ -608,3 +611,69 @@ def test_dparam_kernels_match_twin(cuda, regime, dtype):
     again = fa.attention_stream_bwd(q, k, v, out, g, lse, scale,
                                     want_dparam=True, **kw)
     assert torch.equal(got[7 - poly], again[7 - poly])
+
+
+def chunk_inputs(regime, dtype, device, seed):
+    """A sequence of 1100 tokens padded to 1536 rows (the bounded step's
+    padding; the padded rows hold random values) with its PE arguments."""
+    q, k, v, kw = stream_inputs(regime, (2, 4, 1536, 32), dtype, device, seed)
+    return q, k, v, {key: kw[key] for key in ("poly", "rel") if key in kw}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("regime", ["none", "poly", "rel"])
+def test_chunk_fwd_kernel_at_offsets_matches_twin(cuda, regime, dtype):
+    """Query rows [512, 1536) (436 of them padded rows beyond the 1100 valid
+    tokens) against the 1033 keys from global token 300 (a ragged last key
+    tile; keys beyond token 1100 masked), read as strided views and written
+    into the rows of longer out / lse buffers. The relative index of a
+    padded row leaves the table: kernel and twin clamp it alike, so every
+    row is compared."""
+    q, k, v, pe = chunk_inputs(regime, dtype, cuda, 7)
+    rows, cols = slice(512, 1536), slice(300, 1333)
+    args = (q[:, :, rows], k[:, :, cols], v[:, :, cols], 32 ** -0.5, 512,
+            300, 1100)
+    out = torch.zeros((2, 1536, 4, 32), dtype=dtype,
+                      device=cuda).transpose(1, 2)
+    lse = torch.zeros((2, 4, 1536), device=cuda)
+    counts = stream_counts() + (fa.LAUNCHES_STREAM_CHUNK_FWD,)
+    got, got_lse = fa.streaming_chunk_fwd(*args, out=out[:, :, rows],
+                                          lse=lse[:, :, rows], **pe)
+    torch.cuda.synchronize()
+    assert stream_counts() + (fa.LAUNCHES_STREAM_CHUNK_FWD,) == (
+        counts[:-1] + (counts[-1] + 1,))
+    assert got.data_ptr() == out[:, :, 512:].data_ptr()
+    assert got_lse.data_ptr() == lse[:, :, 512:].data_ptr()
+    assert float(out[:, :, :512].abs().max()) == 0.0
+    want, want_lse = fa.attention_stream_plain(
+        *args[:4], kv_tile=fa.STREAM_TILE, row0=512, col0=300, n_valid=1100,
+        **pe)
+    assert torch.isfinite(got.float()).all() and torch.isfinite(got_lse).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    torch.testing.assert_close(got_lse, want_lse, rtol=1e-4, atol=1e-4)
+    fresh, fresh_lse = fa.streaming_chunk_fwd(*args, **pe)
+    assert torch.equal(fresh, got) and torch.equal(fresh_lse, got_lse)
+    with pytest.raises(ValueError, match="multiply in bfloat16"):
+        fa.streaming_chunk_fwd(*args, mm_dtype=torch.float32, **pe)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("regime", ["none", "poly", "rel"])
+def test_chunk_fwd_kernel_against_all_keys_is_the_stream_fwd_rows(cuda, regime,
+                                                                  dtype):
+    """The chunk entry at (512, 0) against every key of a 1100-token
+    sequence computes, bit for bit, rows 512... of the whole-sequence entry
+    on the same tensors: one kernel, the same arithmetic per row."""
+    q, k, v, pe = chunk_inputs(regime, dtype, cuda, 8)
+    q, k, v = (x[:, :, :1100] for x in (q, k, v))
+    if regime == "rel":
+        pe["rel"] = pe["rel"][:, 1536 - 1100:1536 + 1099]
+    whole, whole_lse = fa.attention_stream_fwd(q, k, v, 0.25, **pe)
+    got, lse = fa.streaming_chunk_fwd(q[:, :, 512:], k, v, 0.25, 512, 0, 1100,
+                                      **pe)
+    torch.cuda.synchronize()
+    assert torch.equal(got, whole[:, :, 512:])
+    assert torch.equal(lse, whole_lse[:, :, 512:])

@@ -391,9 +391,13 @@ def test_fit_refuses_unported_fields(field, value):
 
 
 def test_fit_refuses_bounded_stepping():
+    """Bounded stepping trains on one device (tests/test_torch_bounded.py);
+    over a sequence-parallel mesh (the JAX driver's per-chunk KV ring) it
+    is not ported."""
     with pytest.raises(NotImplementedError, match="q_chunk"):
         loop.fit(ViTConfig(**cfg_kw()),
-                 TrainConfig(dataset="mnist", q_chunk=16), device="cpu")
+                 TrainConfig(dataset="mnist", q_chunk=16,
+                             sequence_parallel=2), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(drop_rate=0.1), dict(remat=True)])

@@ -6,8 +6,9 @@ plus --device.
   python -m vit_rpe_rope_tpu_torch.cli.train --dataset cifar10 --synthetic \\
       --epochs 1 --pos_encoding rope-mixed
 
-Runs on the CUDA device; --device cpu runs on the CPU. The extensions this
-package does not port yet (parallel layers, ZeRO-1, bounded stepping,
+Runs on the CUDA device; --device cpu runs on the CPU. --q_chunk (and
+--kv_chunk) train through the bounded-program driver (train/bounded.py). The
+extensions this package does not port yet (parallel layers, ZeRO-1,
 augmentation, remat, dropout, flash_block, profiling, NaN debugging, fused
 multi-step dispatch) are refused when set to a non-default value.
 """
@@ -174,8 +175,6 @@ def main(argv=None):
         "--sequence_parallel": args.sequence_parallel > 1,
         "--pipeline_parallel": args.pipeline_parallel > 1,
         "--zero1": args.zero1,
-        "--q_chunk": args.q_chunk > 0,
-        "--kv_chunk": args.kv_chunk > 0,
         "--augment": args.augment,
         "--remat": args.remat,
         "--drop_rate": args.drop_rate > 0,
@@ -220,6 +219,8 @@ def main(argv=None):
         resume=args.resume,
         pp_microbatches=args.pp_microbatches,
         grad_accum=args.grad_accum,
+        q_chunk=args.q_chunk,
+        kv_chunk=args.kv_chunk,
         steps_per_dispatch=args.steps_per_dispatch,
     )
     summary = fit(cfg, tcfg, device=args.device)

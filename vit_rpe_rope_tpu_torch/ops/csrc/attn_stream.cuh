@@ -14,8 +14,9 @@ namespace attn {
 constexpr int MAX_POLY_TERMS = 8;  // degree + 1 of the polynomial bias
 
 // Integer arguments of attn_stream_fwd / attn_stream_bwd_*, in this order.
-// The last two are read by attn_stream_bwd_fused.cu only: its keys may be a
-// chunk of another length than the queries.
+// The last two are read by attn_stream_bwd_fused.cu and by the chunk entry of
+// attn_stream_fwd.cu only: their keys may be a chunk of another length than
+// the queries.
 enum Dim {
   DIM_B, DIM_H, DIM_N, DIM_D, DIM_IS_BF16, DIM_COS_HEADS,
   DIM_POLY_TERMS,  // degree + 1, or 0 without a polynomial bias

@@ -3,14 +3,17 @@
 //
 // Replaces: the Pallas kernel `_stream_kernel` of
 // vit_rpe_rope_tpu/ops/flash_attention.py, launched by
-// `_forward_streaming_impl`.
+// `_forward_streaming_impl` on a whole sequence (entry attn_stream_fwd) and
+// by `streaming_chunk_fwd` on q rows against one key chunk at global
+// offsets (entry attn_stream_chunk_fwd).
 //
-// Computes, for q, k, v [B, H, N, D] (float32 or bfloat16, any strides with a
-// unit last-dim stride), per 64-key tile t, with the JAX kernel's rounding
-// points:
+// Computes, for q [B, H, N, D] and k, v [B, H, NK, D] (float32 or bfloat16,
+// any strides with a unit last-dim stride; NK = N on a whole sequence), per
+// 64-key tile t, with the JAX kernel's rounding points:
 //   s      = bf16(rotate(q)) . bf16(rotate(k_t))^T * scale + bias_t
 //            (bias_t: a tile of the [H, N, N] tensor, or generated from the
-//            polynomial coefficients or the relative table; keys >= N or at
+//            polynomial coefficients or the relative table at global indices
+//            (row0 + i, col0 + j); keys at local indices >= kv_valid or at
 //            global indices >= n_valid masked to -1e30)
 //   m_new  = max(m, rowmax(s));  p = exp(s - m_new);  corr = exp(m - m_new)
 //   l      = l * corr + rowsum(p)
@@ -18,9 +21,19 @@
 //                                                    RUNNING max
 //   out    = acc / l   (input dtype),   lse = m + log l   (f32 [B, H, N])
 //
+// A chunk call is the whole-sequence kernel with another key count and
+// offsets: its q may be a row slice of a longer sequence and its out and lse
+// views into the rows of longer buffers (both taken by their strides). There
+// are no rope tables on a chunk (its caller rotates q and k) and no
+// materialized bias. The relative index of a padded query row (at or beyond
+// n_valid) can leave the table: it is clamped, where the TPU kernel wraps;
+// those rows stay finite and never reach a loss.
+//
 // What bounds it on an H100: operations from N ~ 600 on. At the long-sequence
 // shape (B=4, H=4, N=4097, D=32, f32) q+k+v+out is 33.6 MB, about 10 us at
 // 3.35 TB/s, against 34.4 GFLOP of products, about 35 us at 989 TFLOP/s.
+// A q-chunk of the bounded train step at N = 65,537 (16,384 rows against
+// 66,048 keys, H=4, D=32, f32) moves 84 MB, 25 us, against 554 GFLOP, 0.56 ms.
 //
 // Design: the TPU kernel runs a sequential (batch, head, q tile, kv tile)
 // grid and carries m, l and acc in VMEM scratch across its innermost axis.
@@ -47,12 +60,14 @@ struct Params {
   const void* k;
   const void* v;
   void* out;
-  float* lse;        // [B, H, N]
+  float* lse;        // [B, H, N], rows at stride 1
   const float* cos;  // [cos_heads, N, D/2] or null
   const float* sin;
   BiasArgs bias;
   long long qs[3], ks[3], vs[3], os[3];  // (batch, head, token) strides
+  long long ls[2];                       // (batch, head) strides of lse
   int B, H, N, cos_heads;
+  int NK, kv_valid;  // keys of this call; keys at local index >= kv_valid masked
   float scale;
 };
 
@@ -103,7 +118,7 @@ __global__ void __launch_bounds__(THREADS) attn_stream_fwd_kernel(const Params p
   float* o_w = o_s + warp * 16 * L::LDO;
   __nv_bfloat16* p_w = p_s + warp * 16 * L::LDP;
   const int row_w = q0 + warp * 16;
-  const int n_kv = (N + TK - 1) / TK;
+  const int n_kv = (p.NK + TK - 1) / TK;
 
   stage_tile<D, T>(q_s, qg, p.qs[2], q0, N, cos_h, sin_h);
   for (int i = lane; i < 16 * L::LDO; i += 32) o_w[i] = 0.f;
@@ -126,15 +141,15 @@ __global__ void __launch_bounds__(THREADS) attn_stream_fwd_kernel(const Params p
   for (int t = 0; t < n_kv; ++t) {
     const int k0 = t * TK;
     __syncthreads();  // every warp is done with the previous K and V tiles
-    stage_tile<D, T>(k_s, kg, p.ks[2], k0, N, cos_h, sin_h);
-    stage_tile<D, T>(v_s, vg, p.vs[2], k0, N, nullptr, nullptr);
+    stage_tile<D, T>(k_s, kg, p.ks[2], k0, p.NK, cos_h, sin_h);
+    stage_tile<D, T>(v_s, vg, p.vs[2], k0, p.NK, nullptr, nullptr);
     __syncthreads();
     warp_abt<D, L::LDS>(s_w, qa, k_s);
     __syncwarp();
     float mx = NEG_INF;
 #pragma unroll 8
     for (int j = 0; j < TK / 2; ++j) {
-      const float s = stream_logit(s_row[j], qi, k0 + col0 + j, N, p.scale, hb);
+      const float s = stream_logit(s_row[j], qi, k0 + col0 + j, p.kv_valid, p.scale, hb);
       s_row[j] = s;
       mx = fmaxf(mx, s);
     }
@@ -165,7 +180,7 @@ __global__ void __launch_bounds__(THREADS) attn_stream_fwd_kernel(const Params p
 
   // Epilogue: normalize, write the input dtype and the row's logsumexp.
   if (half == 0 && qi < N)
-    p.lse[((long long)b * p.H + h) * N + qi] = m + logf(l);
+    p.lse[b * p.ls[0] + h * p.ls[1] + qi] = m + logf(l);
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
     const float l_r = __shfl_sync(0xffffffffu, l, 2 * r);
@@ -193,15 +208,11 @@ cudaError_t dispatch(const Params& p, int head_dim, cudaStream_t stream) {
   }
 }
 
-}  // namespace
-
-// Plain C entry point (bound with ctypes). ptrs holds 10 device pointers:
+// The arguments both entry points share. ptrs holds 10 device pointers:
 // q k v out lse bias cos sin coeff table (null where absent); strides holds
 // 12 element strides: (batch, head, token) of q, k, v and out; dims holds the
-// integers of attn::Dim (groups unused here). Returns the CUDA error of the
-// launch (0 on success); does not synchronize.
-extern "C" int attn_stream_fwd(void* const* ptrs, const long long* strides,
-                               const int* dims, float scale, void* stream) {
+// integers of attn::Dim (groups unused here).
+Params params_of(void* const* ptrs, const long long* strides, const int* dims, float scale) {
   Params p;
   p.q = ptrs[0];
   p.k = ptrs[1];
@@ -227,11 +238,47 @@ extern "C" int attn_stream_fwd(void* const* ptrs, const long long* strides,
   p.N = dims[DIM_N];
   p.cos_heads = dims[DIM_COS_HEADS];
   p.scale = scale;
+  return p;
+}
+
+int run(const Params& p, int is_bf16, int head_dim, void* stream) {
   if (p.bias.poly_terms > MAX_POLY_TERMS ||
       (p.bias.coeff != nullptr && p.bias.poly_grid < 1))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dims[DIM_IS_BF16] ? dispatch<__nv_bfloat16>(p, dims[DIM_D], s)
-                                            : dispatch<float>(p, dims[DIM_D], s);
+  const cudaError_t err = is_bf16 ? dispatch<__nv_bfloat16>(p, head_dim, s)
+                                  : dispatch<float>(p, head_dim, s);
   return int(err);
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). Each returns the CUDA error of
+// the launch (0 on success) and does not synchronize.
+//
+// attn_stream_fwd: a whole sequence, arguments as params_of; keys are the
+// queries' own (NK = kv_valid = N), lse is a contiguous [B, H, N] tensor.
+extern "C" int attn_stream_fwd(void* const* ptrs, const long long* strides,
+                               const int* dims, float scale, void* stream) {
+  Params p = params_of(ptrs, strides, dims, scale);
+  p.NK = p.kv_valid = p.N;
+  p.ls[0] = (long long)p.H * p.N;
+  p.ls[1] = p.N;
+  return run(p, dims[DIM_IS_BF16], dims[DIM_D], stream);
+}
+
+// attn_stream_chunk_fwd: N query rows at global row0 against NK keys at
+// global col0 (dims DIM_ROW0, DIM_COL0, DIM_N_VALID, DIM_NK, DIM_KV_VALID);
+// strides holds 14 entries, the last two the (batch, head) strides of lse.
+// The generated biases only: no materialized bias, no rope tables.
+extern "C" int attn_stream_chunk_fwd(void* const* ptrs, const long long* strides,
+                                     const int* dims, float scale, void* stream) {
+  Params p = params_of(ptrs, strides, dims, scale);
+  if (p.bias.bias != nullptr || p.cos != nullptr || p.sin != nullptr)
+    return int(cudaErrorInvalidValue);
+  p.NK = dims[DIM_NK];
+  p.kv_valid = dims[DIM_KV_VALID];
+  p.ls[0] = strides[12];
+  p.ls[1] = strides[13];
+  return run(p, dims[DIM_IS_BF16], dims[DIM_D], stream);
 }

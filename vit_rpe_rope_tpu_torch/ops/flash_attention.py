@@ -8,7 +8,9 @@ package chooses them (`STREAMING_THRESHOLD`, `_dense_attn_fits`):
   launched by `_forward` / `_bwd_dense`): ops/csrc/attn_fwd.cu, attn_bwd.cu;
 * streaming, an online softmax over key tiles that saves the per-row
   logsumexp (`_stream_kernel`, launched by `_forward_streaming_impl`):
-  ops/csrc/attn_stream_fwd.cu. Its backward is one pass that computes dq,
+  ops/csrc/attn_stream_fwd.cu, whose second entry runs q rows against one
+  key chunk at global offsets (`streaming_chunk_fwd`, the forward of the
+  bounded train step). Its backward is one pass that computes dq,
   dk, dv and the gradient of a generated bias' parameters from one sweep
   over the logits (`_stream_bwd_fused_kernel`, launched by
   `_bwd_streaming_fused`, over key segments by `_bwd_fused_segmented`, on a
@@ -44,13 +46,15 @@ What is computed, for q, k, v [B, H, N, D]:
   dqr/dkr, and the streaming forward's lse [B, H, N], in float32.
 
 `attention_fwd` / `attention_bwd` / `attention_stream_fwd` /
-`attention_stream_bwd` / `attention_stream_bwd_fused` are the kernels'
-wrappers: on a CUDA tensor they launch the kernel (and count the launch in
-LAUNCHES / LAUNCHES_BWD / LAUNCHES_STREAM_FWD / LAUNCHES_STREAM_DQ,
+`streaming_chunk_fwd` / `attention_stream_bwd` / `attention_stream_bwd_fused`
+are the kernels' wrappers: on a CUDA tensor they launch the kernel (and count
+the launch in LAUNCHES / LAUNCHES_BWD / LAUNCHES_STREAM_FWD /
+LAUNCHES_STREAM_CHUNK_FWD / LAUNCHES_STREAM_DQ,
 LAUNCHES_STREAM_DKV, LAUNCHES_STREAM_DBIAS, LAUNCHES_STREAM_DCOEFF and
 LAUNCHES_STREAM_DTABLE / LAUNCHES_STREAM_FUSED, each where its kernel is
 launched), on a CPU tensor they run `attention_plain` /
-`attention_bwd_plain` / `attention_stream_plain` /
+`attention_bwd_plain` / `attention_stream_plain` (on a whole sequence or a
+key chunk) /
 `attention_stream_bwd_plain` / `attention_stream_bwd_fused_plain`, the
 kernels' plain PyTorch twins. Nothing falls back: a CUDA call the kernel
 cannot take raises.
@@ -95,6 +99,10 @@ LAUNCHES_STREAM_DQ = 0
 LAUNCHES_STREAM_DKV = 0
 LAUNCHES_STREAM_DBIAS = 0
 
+# Launches of the streaming forward on a key chunk at global offsets (the
+# bounded train step's forward).
+LAUNCHES_STREAM_CHUNK_FWD = 0
+
 # Launches of the one-pass streaming backward (one per key segment) and of
 # the separate-pass coefficient / table gradient kernels.
 LAUNCHES_STREAM_FUSED = 0
@@ -126,6 +134,15 @@ HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernels are instantiated for
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _pad_seq(x, n_pad: int, axis: int):
+    """Zero-pad `axis` of x up to n_pad entries."""
+    pad = n_pad - x.shape[axis]
+    if pad == 0:
+        return x
+    widths = [0, 0] * (x.dim() - axis - 1) + [0, pad]
+    return torch.nn.functional.pad(x, widths)
 
 
 def _dense_attn_fits(h: int, n: int, has_bias: bool) -> bool:
@@ -307,18 +324,21 @@ def _check_rel_covers(rel, n):
                          f"tokens < sequence {n}")
 
 
-def _bias_cols(n, start, width, bias=None, poly=None, rel=None):
-    """[H, N, width] float32 bias of all query rows against the key columns
-    [start, start+width): a slice of the materialized bias, or generated from
-    poly=(coeff_hk, grid) / the rel table; None without any."""
+def _bias_cols(n, start, width, bias=None, poly=None, rel=None, row0=0,
+               n_valid=None):
+    """[H, N, width] float32 bias of the N query rows from global token row0
+    against the key columns [start, start+width): a slice of the materialized
+    bias, or generated from poly=(coeff_hk, grid) / the rel table, with
+    n_valid (default N) the global token count; None without any."""
     if bias is not None:
         return bias[:, :, start:start + width]
     if poly is not None:
         coeff_hk, grid = poly
         return _poly_bias_cols(coeff_hk, int(grid), n, start, width,
-                               coeff_hk.shape[1] - 1, n_valid=n)
+                               coeff_hk.shape[1] - 1, row_start=row0,
+                               n_valid=n if n_valid is None else n_valid)
     if rel is not None:
-        return _rel_bias_cols(rel, n, start, width)
+        return _rel_bias_cols(rel, n, start, width, row_start=row0)
     return None
 
 
@@ -333,24 +353,42 @@ def _rotated_operands(q, k, cos, sin, mm_dtype):
 
 def attention_stream_plain(q, k, v, scale, bias=None, cos=None, sin=None,
                            poly=None, rel=None, kv_tile=KV_TILE,
-                           mm_dtype=torch.bfloat16):
+                           mm_dtype=torch.bfloat16, row0=0, col0=0,
+                           n_valid=None):
     """The streaming forward kernel's function in plain PyTorch, on unpadded
     tensors: an online softmax over key tiles of `kv_tile`, p rounded
     against the running max. Arguments as attention_plain, plus the
     generated biases poly=(coeff_hk [H, deg+1], grid) and rel [H, 2L-1].
-    Returns (out [B, H, N, D] in the input dtype, lse [B, H, N] float32)."""
-    n = q.shape[2]
+    Returns (out [B, H, N, D] in the input dtype, lse [B, H, N] float32).
+
+    On a key chunk (the JAX package's `streaming_chunk_fwd`): k, v
+    [B, H, Nc, D] whose first key is global token col0, q's first row global
+    token row0, keys at global indices >= n_valid (default N) masked, poly /
+    rel generated at the global indices; out is then normalized within the
+    chunk and lse is the chunk's. A chunk takes no bias and no rope tables
+    (the caller rotates q and k)."""
+    n, nk = q.shape[2], k.shape[2]
+    n_valid = n if n_valid is None else int(n_valid)
+    if (nk != n or row0 or col0 or n_valid != n) and (
+            bias is not None or cos is not None):
+        raise ValueError("a key chunk takes the generated biases only: no "
+                         "materialized bias, no rope tables")
     qm, km = _rotated_operands(q, k, cos, sin, mm_dtype)
     vm = v.to(mm_dtype).float()
     m = torch.full(q.shape[:3], NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    for start in range(0, n, kv_tile):
+    for start in range(0, nk, kv_tile):
         kt = km[:, :, start:start + kv_tile]
         s = torch.matmul(qm, kt.transpose(-1, -2)) * scale
-        cols = _bias_cols(n, start, kt.shape[2], bias, poly, rel)
+        cols = _bias_cols(n, col0 + start, kt.shape[2], bias, poly, rel,
+                          row0=row0, n_valid=n_valid)
         if cols is not None:
             s = s + cols[None]
+        if col0 + start + kt.shape[2] > n_valid:
+            keys = col0 + start + torch.arange(kt.shape[2], device=q.device)
+            s = torch.where(keys < n_valid, s,
+                            torch.full((), NEG_INF, device=q.device))
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -586,7 +624,8 @@ def _bwd_library():
 
 
 def _stream_library():
-    return cuda_build.load(STREAM_SOURCE, _bind_stream("attn_stream_fwd"))
+    return cuda_build.load(STREAM_SOURCE, _bind_stream(
+        "attn_stream_fwd", "attn_stream_chunk_fwd"))
 
 
 def _stream_bwd_library():
@@ -807,6 +846,76 @@ def attention_stream_fwd(q, k, v, scale, bias=None, cos=None, sin=None,
     return out, lse
 
 
+def _check_bf16_products(mm_dtype):
+    if mm_dtype != torch.bfloat16:
+        raise ValueError("the CUDA kernels multiply in bfloat16; float32 "
+                         "products are the plain twins' (CPU tensors)")
+
+
+def streaming_chunk_fwd(q, k, v, scale, row0, col0, n_valid, poly=None,
+                        rel=None, out=None, lse=None,
+                        mm_dtype=torch.bfloat16):
+    """One chunk's share of the streaming forward (the JAX package's
+    `streaming_chunk_fwd`): q rows [B, H, Nl, D] at global rows
+    [row0, row0+Nl) against one key chunk [B, H, Nc, D] at global columns
+    [col0, col0+Nc), n_valid the global token count (keys at global indices
+    >= n_valid are masked). The polynomial / relative bias is generated at
+    the global indices; the caller rotates q and k. Returns (out_c
+    [B, H, Nl, D] normalized within the chunk, lse_c [B, H, Nl] float32).
+    out / lse: views to write them into (rows of longer buffers, unit last
+    stride), else they are allocated.
+
+    CPU tensors run attention_stream_plain at the JAX package's key tile for
+    this chunk (min(KV_TILE, Nc rounded up to 128)), with mm_dtype products.
+    CUDA tensors launch the kernel (key tile STREAM_TILE) on the current
+    stream, or raise; they multiply in bfloat16 only."""
+    global LAUNCHES_STREAM_CHUNK_FWD
+    b, h, nl, d = q.shape
+    nc = k.shape[2]
+    row0, col0, n_valid = int(row0), int(col0), int(n_valid)
+    _check_rel_covers(rel, n_valid)
+    if poly is not None and rel is not None:
+        raise ValueError("poly and rel are mutually exclusive")
+    if q.device.type == "cpu":
+        got = attention_stream_plain(
+            q, k, v, scale, poly=poly, rel=rel,
+            kv_tile=min(KV_TILE, _round_up(nc, LANE)), mm_dtype=mm_dtype,
+            row0=row0, col0=col0, n_valid=n_valid)
+        return tuple(x if dst is None else dst.copy_(x)
+                     for x, dst in zip(got, (out, lse)))
+    _check_bf16_products(mm_dtype)
+    _check_cuda_inputs(q, k, v, None, None, None, key_chunk=True)
+    coeff, grid, table = _check_generated(q, poly, rel)
+    if out is None:
+        out = torch.empty((b, nl, h, d), dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
+    elif (out.shape != q.shape or out.dtype != q.dtype
+          or out.device != q.device or out.stride(-1) != 1):
+        raise ValueError("out must match q in shape, dtype and device, with "
+                         "a unit last stride")
+    if lse is None:
+        lse = torch.empty((b, h, nl), dtype=torch.float32, device=q.device)
+    elif (lse.shape != (b, h, nl) or lse.dtype != torch.float32
+          or lse.device != q.device or lse.stride(-1) != 1):
+        raise ValueError("lse must be a float32 [B, H, Nl] view on q's device "
+                         "with a unit last stride")
+    strides = (ctypes.c_longlong * 14)(*_strides(q, k, v, out),
+                                       *lse.stride()[:2])
+    lib = _stream_library()
+    with torch.cuda.device(q.device):
+        err = lib.attn_stream_chunk_fwd(
+            _pointers(q, k, v, out, lse, None, None, None, coeff, table),
+            strides,
+            _stream_dims(q, None, coeff, grid, table, row0=row0, col0=col0,
+                         n_valid=n_valid, nk=nc, kv_valid=nc),
+            float(scale), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attn_stream_chunk_fwd launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES_STREAM_CHUNK_FWD += 1
+    return out, lse
+
+
 def attention_stream_bwd(q, k, v, out, g, lse, scale, bias=None, cos=None,
                          sin=None, poly=None, rel=None, want_dbias=False,
                          want_drot=False, want_dparam=False):
@@ -935,16 +1044,18 @@ def _fused_kv_seg_cols(b, h, n, d):
 def attention_stream_bwd_fused(q, k, v, g, lse, delta, scale, cos=None,
                                sin=None, poly=None, rel=None, n_valid=None,
                                row0=0, col0=0, chunk_cols=None,
-                               out_dtype=torch.float32):
+                               out_dtype=torch.float32,
+                               mm_dtype=torch.bfloat16):
     """The one-pass streaming backward kernel's wrapper; arguments and
-    results (dq, dk, dv, dcoeff, dtable) as attention_stream_bwd_fused_plain
-    (bf16 products), dq / dk / dv in out_dtype.
+    results (dq, dk, dv, dcoeff, dtable) as attention_stream_bwd_fused_plain,
+    dq / dk / dv in out_dtype.
 
     A key extent wider than `_fused_kv_seg_cols` is swept in segments
     (`_bwd_fused_segmented`). Otherwise CPU tensors run the plain twin with
-    the JAX package's tiles, and CUDA tensors launch the kernel on the
-    current stream, or raise. With as many keys as query rows, dq, dk and dv
-    are views of one [B, N, 3, H, D] buffer."""
+    the JAX package's tiles and mm_dtype products, and CUDA tensors launch
+    the kernel (bf16 products only) on the current stream, or raise. With
+    as many keys as query rows, dq, dk and dv are views of one
+    [B, N, 3, H, D] buffer."""
     global LAUNCHES_STREAM_FUSED
     b, h, n, d = q.shape
     nc = k.shape[2]
@@ -961,13 +1072,15 @@ def attention_stream_bwd_fused(q, k, v, g, lse, delta, scale, cos=None,
     if width > seg_cols:
         return _bwd_fused_segmented(q, k, v, g, lse, delta, scale, cos, sin,
                                     poly, rel, n_valid, row0, col0, width,
-                                    seg_cols, out_dtype)
+                                    seg_cols, out_dtype, mm_dtype)
     if q.device.type == "cpu":
         dq, dk, dv, dcoeff, dtable = attention_stream_bwd_fused_plain(
             q, k, v, g, lse, delta, scale, cos, sin, poly, rel,
-            n_valid=n_valid, row0=row0, col0=col0, chunk_cols=chunk_cols)
+            n_valid=n_valid, row0=row0, col0=col0, chunk_cols=chunk_cols,
+            mm_dtype=mm_dtype)
         return (dq.to(out_dtype), dk.to(out_dtype), dv.to(out_dtype), dcoeff,
                 dtable)
+    _check_bf16_products(mm_dtype)
     _check_cuda_inputs(q, k, v, None, cos, sin, key_chunk=True)
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError("g must match q in shape, dtype and device")
@@ -1011,7 +1124,8 @@ def attention_stream_bwd_fused(q, k, v, g, lse, delta, scale, cos=None,
 
 
 def _bwd_fused_segmented(q, k, v, g, lse, delta, scale, cos, sin, poly, rel,
-                         n_valid, row0, col0, width, seg_cols, out_dtype):
+                         n_valid, row0, col0, width, seg_cols, out_dtype,
+                         mm_dtype):
     """The one-pass backward over key segments of seg_cols keys at global
     column offsets (the JAX package's `_bwd_fused_segmented`): dq and the
     parameter gradients are summed over the segments in float32, each
@@ -1030,7 +1144,7 @@ def _bwd_fused_segmented(q, k, v, g, lse, delta, scale, cos, sin, poly, rel,
         seg = slice(s0, min(s0 + seg_cols, width))
         dq_s, dk_s, dv_s, dc_s, dt_s = attention_stream_bwd_fused(
             q, k[:, :, seg], v[:, :, seg], g, lse, delta, scale, None, None,
-            poly, rel, n_valid, row0, col0 + s0)
+            poly, rel, n_valid, row0, col0 + s0, mm_dtype=mm_dtype)
         dq += dq_s
         dk[:, :, seg], dv[:, :, seg] = dk_s, dv_s
         if dcoeff is not None:
@@ -1044,17 +1158,18 @@ def _bwd_fused_segmented(q, k, v, g, lse, delta, scale, cos, sin, poly, rel,
 
 
 def streaming_chunk_bwd(q, k, v, g, lse, delta, scale, row0, col0, n_valid,
-                        poly=None, rel=None):
+                        poly=None, rel=None, mm_dtype=torch.bfloat16):
     """One chunk's share of the streaming backward (the JAX package's
     `streaming_chunk_bwd`): the gradients of this shard's q rows (first row
     at global token row0) against one key chunk (first key at global token
     col0), with the lse and delta of the WHOLE softmax row and n_valid the
     global token count. Returns (dq partial [B, H, N, D], dk and dv of the
     chunk [B, H, Nc, D], the chunk's share of dcoeff / dtable or None), all
-    float32, from one launch of the one-pass kernel."""
+    float32, from the one-pass kernel (one launch per key segment of
+    `_fused_kv_seg_cols`). mm_dtype float32 is for CPU tensors only."""
     dq, dk, dv, dcoeff, dtable = attention_stream_bwd_fused(
         q, k, v, g, lse, delta, scale, None, None, poly, rel, n_valid, row0,
-        col0)
+        col0, mm_dtype=mm_dtype)
     return dq, dk, dv, dcoeff if dcoeff is not None else dtable
 
 

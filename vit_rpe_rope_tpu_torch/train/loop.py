@@ -8,7 +8,9 @@ line, a per-epoch stdout summary, and the best-accuracy checkpoint
 {ckpt_dir}/{dataset}_{pos_encoding}_best.npz (with the reference's alias
 keys). Extensions kept from the JAX package: `_last.npz` every epoch and
 --resume, in the JAX package's file format (either package resumes the
-other's file).
+other's file). With q_chunk > 0 the steps and the evaluation go through the
+bounded-program driver (train/bounded.py), one step per dispatch, as in the
+JAX package.
 
 Metric semantics match the reference: epoch train/test loss is the MEAN OF
 BATCH-MEAN losses; accuracy is 100 · correct / total examples. Metrics stay
@@ -31,6 +33,7 @@ from vit_rpe_rope_tpu_torch.configs import TrainConfig, ViTConfig
 from vit_rpe_rope_tpu_torch.data import datasets
 from vit_rpe_rope_tpu_torch.models import vit
 from vit_rpe_rope_tpu_torch.train import train_step as ts
+from vit_rpe_rope_tpu_torch.train.bounded import make_bounded_step
 from vit_rpe_rope_tpu_torch.utils import checkpoint
 from vit_rpe_rope_tpu_torch.utils.device import resolve_device
 from vit_rpe_rope_tpu_torch.utils.flatten import Flattener
@@ -42,11 +45,11 @@ N_OPT_LEAVES = 4    # the JAX optimizer state's leaves on disk
 def _refuse_unported(tcfg: TrainConfig) -> None:
     asked = {
         "model_parallel > 1": tcfg.model_parallel > 1,
-        "sequence_parallel > 1": tcfg.sequence_parallel > 1,
+        # with q_chunk: the bounded driver's per-chunk KV ring
+        ("sequence_parallel > 1 with q_chunk > 0" if tcfg.q_chunk > 0
+         else "sequence_parallel > 1"): tcfg.sequence_parallel > 1,
         "pipeline_parallel > 1": tcfg.pipeline_parallel > 1,
         "zero1": tcfg.zero1,
-        "q_chunk > 0": tcfg.q_chunk > 0,
-        "kv_chunk > 0": tcfg.kv_chunk > 0,
         "augment": tcfg.augment,
         "steps_per_dispatch > 1": tcfg.steps_per_dispatch > 1,
         "profile_dir": tcfg.profile_dir is not None,
@@ -136,6 +139,31 @@ def _run_epoch(step_fn, state, data_x, data_y, epoch_idx, desc, train: bool,
     return state, avg_loss, acc, float(total) / dt
 
 
+def _bounded_fns(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess):
+    """(train_fn, eval_fn) with the signatures of make_train_step /
+    make_eval_step over the bounded-program step: each gathers its index
+    rows (grad_accum rows behind a leading accumulation axis) and hands the
+    batch to the bounded driver."""
+    accum = tcfg.grad_accum
+    bounded_step = make_bounded_step(cfg, tcfg, update, preprocess,
+                                     q_chunk=tcfg.q_chunk,
+                                     kv_chunk=tcfg.kv_chunk, grad_accum=accum)
+
+    def train_fn(params, opt_state, row, data_x, data_y, epoch_idx):
+        imgs, labels, mask = ts._gather_batch(
+            data_x, data_y, epoch_idx[row:row + accum].reshape(-1))
+        if accum > 1:
+            imgs = imgs.reshape(accum, -1, *imgs.shape[1:])
+            labels, mask = labels.reshape(accum, -1), mask.reshape(accum, -1)
+        return bounded_step(params, opt_state, row, imgs, labels, mask)
+
+    def eval_fn(params, row, data_x, data_y, epoch_idx):
+        imgs, labels, mask = ts._gather_batch(data_x, data_y, epoch_idx[row])
+        return bounded_step.evaluate(params, row, imgs, labels, mask)
+
+    return train_fn, eval_fn
+
+
 def fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool = True,
         device=None) -> dict:
     """Full training run on one device (default: the CUDA device; raises
@@ -192,8 +220,12 @@ def fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool = True,
     for v in params.values():
         v.requires_grad_(True)
 
-    train_fn = ts.make_train_step(cfg, opt_update, preprocess, accum=accum)
-    eval_fn = ts.make_eval_step(cfg, preprocess)
+    if tcfg.q_chunk > 0:
+        train_fn, eval_fn = _bounded_fns(cfg, tcfg, opt_update, preprocess)
+    else:
+        train_fn = ts.make_train_step(cfg, opt_update, preprocess,
+                                      accum=accum)
+        eval_fn = ts.make_eval_step(cfg, preprocess)
     eval_idx = ts.epoch_indices(len(bundle.test_y), tcfg.batch_size,
                                 False).to(device)
 
