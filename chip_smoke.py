@@ -8,8 +8,8 @@ exits nonzero without a card, or when any phase fails. Phases:
 
 1. the card (nvidia-smi name and power limit), versions, the build of the
    kernels (attn_fwd.cu, attn_bwd.cu, attn_stream_fwd.cu,
-   attn_stream_bwd.cu, attn_stream_bwd_fused.cu, adamw.cu; one nvcc each,
-   in parallel);
+   attn_stream_bwd.cu, attn_stream_bwd_fused.cu, adamw.cu, block_fused.cu;
+   one nvcc each, in parallel);
 2. the attention kernel against its plain PyTorch twin on the card, in five
    PE regimes (none, poly bias, rel bias, rope-axial, rope-mixed), f32 and
    bf16 inputs, at the ViT-S/16@224 shape (N=197, D=64) and the
@@ -92,7 +92,23 @@ exits nonzero without a card, or when any phase fails. Phases:
    rope-axial, exact launch counts, the best checkpoint served; times: the
    chunk kernel, its twin, its bound and SDPA at (1, 4, 16,384 rows, 66,048
    keys, 32), the bounded and monolithic steps at N=65,537 and a profiler
-   breakdown of the bounded step.
+   breakdown of the bounded step; at N=4,097 in rope-axial (batch 4) the
+   bounded and the monolithic step's gradients against the unfused f32
+   oracle and each other, and the chunk forward on q, k rotated in PyTorch
+   against the whole-sequence forward rotating in the kernel, bit for bit;
+16. the block-level paths: the fused block kernel (block_fused.cu, row 12)
+   against its twin at ViT-tiny/4 (batch 128, f32 and bf16) and at the CPU
+   tests' shape, in none and rope-axial; a 6-block forward at ViT-tiny/4
+   timed for the kernel (exactly 6 launches), the per-op block, the twin,
+   torch.nn.TransformerEncoderLayer (none) and the bound;
+   attention_impl="flash_block" against "flash" gradients at ViT-tiny/4
+   rope-mixed (N=65) and the long-sequence model in rope-axial (N=4,097);
+   one epoch each through the train CLI of ViT-tiny/4 rope-mixed with
+   --attention_impl flash_block, with the default flash, and with
+   --num_heads 4 (head dim 48, padded to 64 in the kernels), exact launch
+   counts and the learning bar; five
+   train steps of the long-sequence model at polynomial degree 8 (nine
+   terms) against the plain path.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -225,6 +241,27 @@ BOUNDED_GRAD_TOL = 5e-3
 # monolithic epoch at 99.92% (seed 0) and 100.00% (seed 1); at lr 5e-4 both
 # reach 100.00% with seed 0 (scripts/torch_bounded_epochs.py on an H100).
 BOUNDED_EPOCH_LR = 5e-4
+
+# Row 12 (phase 16), the fused block forward against its twin on the card,
+# as a share of the largest entry of the block's update (output - x), with
+# every weight moved off its init so that the attention is far from
+# uniform. Same rounding points; an LN output, q, k, p, o or GELU value
+# that rounds to the other bf16 neighbour after a last-ulp float32
+# difference (sums in another order, rsqrt, exp) moves the update by a
+# fraction of a bf16 ulp of its largest entries: 2.70e-3 (none) and
+# 1.27e-3 (rope-axial) at ViT-tiny/4, f32, on an H100. A bf16 output is
+# held to the same limit beyond one bf16 ulp of each entry. A kernel
+# without the key mask misses it by 2.35e-2 / 2.92e-2, one without the
+# rotation by 1.35e-1 (scripts/torch_block_mutants.py), so the limit sits
+# below the weakest of those and near twice the seen error.
+BLOCK_FUSED_TOL = 5e-3
+# The blocks of row 12's timed forward: ViT-tiny/4's depth.
+BLOCK_DEPTH = 6
+# flash_block against flash on the kernels, as the norm of the difference
+# over the norm of each gradient: the JAX package's bound for its own
+# flash_block (the same attention kernels; float32 sums in another order
+# in the rest of the block).
+FLASH_BLOCK_TOL = 2e-3
 
 
 def log(*args):
@@ -703,7 +740,7 @@ def bounded_launches(fa, batch, heads, head_dim, n, q_chunk, kv_chunk=0):
 
 
 def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
-                      q_chunk=None, lr=None):
+                      q_chunk=None, lr=None, flags=None):
     """Phases 8, 13 and 15 for one PE mode: the train CLI on synthetic
     CIFAR-10 for one epoch (run in a scratch directory, so the default logs/
     and checkpoints/ land there), with every count reset just before and
@@ -712,11 +749,12 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
     LEARN_BAR) or the ViTConfig fields of a model on the streaming route,
     which is held to `bar` when one is given. q_chunk: train and evaluate
     through the bounded-program driver (--q_chunk). lr: --lr, else the
-    CLI's default."""
+    CLI's default. flags: more CLI flags that keep the defaults' dense
+    route (--attention_impl flash_block, --num_heads)."""
     fa, fused_adamw, train_cli, serving, datasets = modules
     argv = ["--dataset", "cifar10", "--synthetic", "--epochs", "1",
             "--pos_encoding", pe_name, "--batch_size", str(batch)]
-    for key, value in (model or {}).items():
+    for key, value in {**(model or {}), **(flags or {})}.items():
         argv += [f"--{key}", str(value)]
     if q_chunk:
         argv += ["--q_chunk", str(q_chunk)]
@@ -724,7 +762,7 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
         argv += ["--lr", str(lr)]
     depth = model["depth"] if model else 6
     grid = model["img_size"] // model["patch_size"] if model else None
-    heads = model["num_heads"] if model else 6
+    heads = (model or flags or {}).get("num_heads", 6)
     serve_bs = 128 if model is None else 64
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
@@ -785,7 +823,8 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
             expected["attn_stream_bwd_fused"] = depth * steps
     serve_expected = {"attn_fwd": 0, "attn_bwd": 0, "adamw": 0,
                       fwd: depth * (2560 // serve_bs)}
-    log(f"  train CLI {pe_name} {model or 'defaults'}: {seconds:.1f} s, CSV "
+    log(f"  train CLI {pe_name} {model or 'defaults'} {flags or ''}: "
+        f"{seconds:.1f} s, CSV "
         f"{rows[0]} + {len(rows) - 1} row(s): {row}")
     log(f"    launches {counts} (expected {expected}); the Predictor on the "
         f"best checkpoint: {len(preds)} test images, accuracy "
@@ -1895,6 +1934,72 @@ def check_bounded_steps(modules, vit, datasets, ViTConfig, device):
     return out
 
 
+def measure_rope_axial_gap(modules, vit, datasets, ViTConfig, device):
+    """Phase 15e: where the rope-axial gap between the bounded and the
+    monolithic step comes from. At N=4,097 (batch 4) both steps' gradients
+    against the unfused f32 oracle and against each other; and whether the
+    bounded step's rotation of q and k in PyTorch (train/bounded.py `_pre`)
+    differs from the kernels' own: the chunk forward on q and k rotated in
+    PyTorch against the whole-sequence forward rotating them itself, on the
+    same tensors, bit for bit."""
+    from vit_rpe_rope_tpu_torch.ops.rotary import rotate_half_split
+
+    fa, fused_adamw, ts, _, _ = modules
+    cfg = ViTConfig(**LONGSEQ, pos_encoding="rope-axial")
+    heads, dh = cfg.num_heads, cfg.head_dim
+    params, pre, images, labels = bounded_inputs(vit, ts, datasets, cfg, 4,
+                                                 device)
+    n_fwd, n_bwd = bounded_launches(fa, 4, heads, dh, cfg.seq_len, 2048)
+    expected = {"attn_fwd": 0, "attn_bwd": 0, "adamw": 1,
+                "attn_stream_chunk_fwd": cfg.depth * n_fwd,
+                "attn_stream_bwd_fused": cfg.depth * n_bwd}
+    b_loss, b_grads, _ = bounded_grads(modules, cfg, params, pre, images,
+                                       labels, expected, q_chunk=2048)
+    m_loss, m_grads = monolithic_grads(ts, cfg, params, pre, images, labels)
+    o_loss, o_grads = monolithic_grads(
+        ts, dataclasses.replace(cfg, attention_impl="reference"), params, pre,
+        images, labels)
+    out = {}
+    for label, loss, grads, want_loss, want in (
+            ("bounded vs f32 oracle", b_loss, b_grads, o_loss, o_grads),
+            ("monolithic vs f32 oracle", m_loss, m_grads, o_loss, o_grads),
+            ("bounded vs monolithic", b_loss, b_grads, m_loss, m_grads)):
+        shares = {key: share_err(grads[key], want[key], 1.0)[2]
+                  for key in want}
+        worst = max(shares, key=shares.get)
+        out[label] = dict(loss_rel_err=abs(loss - want_loss) / abs(want_loss),
+                          worst_grad=worst, worst_grad_share=shares[worst],
+                          norm1_weight_share=shares["blocks.0.norm1.weight"])
+        log(f"  rope-axial N={cfg.seq_len} {label}: loss rel "
+            f"{out[label]['loss_rel_err']:.3e}; worst gradient {worst} "
+            f"{shares[worst]:.3e} of its largest entry; blocks.0.norm1.weight "
+            f"{shares['blocks.0.norm1.weight']:.3e}")
+    del b_grads, m_grads, o_grads
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(16)
+    n = cfg.seq_len
+    q, k, v = (torch.randn((4, heads, n, dh), generator=gen).to(device)
+               for _ in range(3))
+    from vit_rpe_rope_tpu_torch import pe as pe_registry
+
+    cos, sin = fa._kernel_freqs(pe_registry.get("rope-axial").freqs_cis(
+        params, cfg, device=device), heads, n, device)
+    whole, whole_lse = fa.attention_stream_fwd(q, k, v, dh ** -0.5, cos=cos,
+                                               sin=sin)
+    rq = rotate_half_split(q, cos[None], sin[None])
+    rk = rotate_half_split(k, cos[None], sin[None])
+    chunk, chunk_lse = fa.streaming_chunk_fwd(rq, rk, v, dh ** -0.5, 0, 0, n)
+    torch.cuda.synchronize()
+    out["rotation_bit_identical"] = bool(torch.equal(whole, chunk)
+                                         and torch.equal(whole_lse, chunk_lse))
+    out["rotation_max_abs_diff"] = float((whole - chunk).abs().max())
+    log(f"  q, k rotated in PyTorch then the chunk forward vs the "
+        f"whole-sequence forward rotating in the kernel: bit-identical "
+        f"{out['rotation_bit_identical']} (max |diff| "
+        f"{out['rotation_max_abs_diff']:.3e})")
+    return out
+
+
 def chunk_bound_ms(shape, rows, keys, valid_keys, dtype, kw):
     """Least time for one chunk forward: q and out (rows), k and v (keys),
     lse and the bias generator read or written once over the memory rate,
@@ -2009,6 +2114,358 @@ def time_bounded_steps(modules, vit, datasets, ViTConfig, device, n_steps=3):
     return rows, trace
 
 
+def block_stack(vit, cfg, device, seed):
+    """BLOCK_DEPTH blocks' seeded params (the init with every parameter
+    moved by 0.05 times a normal draw, so that the logits spread over
+    several units and the attention is far from uniform) and the
+    rope-axial tables or None."""
+    params = vit.init_params(torch.Generator().manual_seed(seed),
+                             dataclasses.replace(cfg, depth=BLOCK_DEPTH),
+                             device=device)
+    gen = torch.Generator().manual_seed(seed + 1)
+    blocks = [{name: params[f"blocks.{i}.{name}"] + 0.05 * torch.randn(
+                   params[f"blocks.{i}.{name}"].shape, generator=gen).to(device)
+               for name in vit.BLOCK_PARAM_NAMES}
+              for i in range(BLOCK_DEPTH)]
+    freqs = None
+    if cfg.pos_encoding == "rope-axial":
+        from vit_rpe_rope_tpu_torch import pe as pe_registry
+
+        freqs = pe_registry.get("rope-axial").freqs_cis({}, cfg,
+                                                         device=device)
+    return blocks, freqs
+
+
+def update_share(got, want, x):
+    """max |got - want| and its share of the largest entry of the blocks'
+    update want - x (the residual x alone would hide the update's errors
+    under its own size). For bf16 outputs, only what lies beyond one bf16
+    ulp of each entry: two float32 values a little apart may round to
+    neighbouring bf16 values."""
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        _, exponent = torch.frexp(want.float())
+        diff = (diff - torch.ldexp(torch.ones_like(diff), exponent - 8)
+                ).clamp(min=0)
+    err = float(diff.max())
+    share = err / float((want.float() - x.float()).abs().max())
+    return err, share if bool(torch.isfinite(got).all()) else math.inf
+
+
+def check_block_fused(block_fused, vit, ViTConfig, device):
+    """Phase 16a: row 12 against its twin on the card at ViT-tiny/4 (batch
+    128, N=65, E=192, 6 heads of 32, hidden 768; f32 and bf16 inputs) and at
+    the CPU tests' shape (batch 2, N=17, E=64, 2 heads), in none and
+    rope-axial; every case launched twice, bit-identical. Returns the worst
+    max |kernel - twin| at ViT-tiny/4 in f32."""
+    worst = 0.0
+    for label, kw, batch, dtypes in (
+            ("ViT-tiny/4", {}, 128, (torch.float32, torch.bfloat16)),
+            ("CPU test shape", dict(img_size=16, embed_dim=64, num_heads=2),
+             2, (torch.float32,))):
+        for pe_name in ("none", "rope-axial"):
+            cfg = ViTConfig(**kw, pos_encoding=pe_name)
+            blocks, freqs = block_stack(vit, cfg, device, 30)
+            for dtype in dtypes:
+                x = torch.randn((batch, cfg.seq_len, cfg.embed_dim),
+                                generator=torch.Generator().manual_seed(31))
+                x = x.to(device, dtype)
+                got = block_fused.block_forward(x, blocks[0], cfg, freqs)
+                again = block_fused.block_forward(x, blocks[0], cfg, freqs)
+                want = block_fused.block_forward_plain(x, blocks[0], cfg,
+                                                       freqs)
+                tol = BLOCK_FUSED_TOL
+                err, share = update_share(got, want, x)
+                ok = share <= tol and torch.equal(got, again)
+                log(f"  fused block vs twin {label} B={batch} N={cfg.seq_len} "
+                    f"{pe_name} {str(dtype)[6:]}: max_abs_err={err:.3e} "
+                    f"({share:.2e} of the update's largest entry, tol "
+                    f"{tol:g}); second launch bit-identical "
+                    f"{torch.equal(got, again)} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"the fused block kernel disagrees "
+                                         f"with its twin: {label} {pe_name}")
+                if label == "ViT-tiny/4" and dtype == torch.float32:
+                    worst = max(worst, err)
+    return worst
+
+
+def encoder_layers(blocks, cfg, device):
+    """torch.nn.TransformerEncoderLayer (pre-LN, exact GELU, eval) loaded
+    with the blocks' weights: one PyTorch call per block, the yardstick of
+    row 12 in `none` (the qkv product has no bias here: zeros)."""
+    layers = []
+    for bp in blocks:
+        layer = torch.nn.TransformerEncoderLayer(
+            cfg.embed_dim, cfg.num_heads, cfg.mlp_hidden_dim, dropout=0.0,
+            activation="gelu", norm_first=True, batch_first=True,
+            layer_norm_eps=cfg.layer_norm_eps).to(device).eval()
+        with torch.no_grad():
+            for dst, name in (
+                    (layer.self_attn.in_proj_weight, "attn.qkv.weight"),
+                    (layer.self_attn.out_proj.weight, "attn.proj.weight"),
+                    (layer.self_attn.out_proj.bias, "attn.proj.bias"),
+                    (layer.linear1.weight, "mlp.fc1.weight"),
+                    (layer.linear1.bias, "mlp.fc1.bias"),
+                    (layer.linear2.weight, "mlp.fc2.weight"),
+                    (layer.linear2.bias, "mlp.fc2.bias"),
+                    (layer.norm1.weight, "norm1.weight"),
+                    (layer.norm1.bias, "norm1.bias"),
+                    (layer.norm2.weight, "norm2.weight"),
+                    (layer.norm2.bias, "norm2.bias")):
+                dst.copy_(bp[name])
+            layer.self_attn.in_proj_bias.zero_()
+        layers.append(layer)
+    return layers
+
+
+def block_bound_ms(cfg, batch, depth):
+    """Least time for `depth` blocks' forward: x read and the output written
+    once, every block's weights read once over the memory rate, against the
+    products (qkv, proj, fc1, fc2 and the two attention products) at the
+    bf16 tensor-core peak."""
+    e, n, h, dh = cfg.embed_dim, cfg.seq_len, cfg.num_heads, cfg.head_dim
+    hid = cfg.mlp_hidden_dim
+    rows = batch * n
+    flops = depth * (2 * rows * (3 * e * e + e * e + 2 * e * hid)
+                     + 2 * 2 * batch * h * n * n * dh)
+    weights = (3 * e * e + e * e + 2 * e * hid) + (4 * e + hid + e)
+    nbytes = 2 * rows * e * 4 + depth * weights * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_TENSOR_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_block_fused(block_fused, fa, vit, ViTConfig, device):
+    """Phase 16b: a BLOCK_DEPTH-block forward at ViT-tiny/4, batch 128, f32
+    (CUDA events, medians): the kernel (exactly one launch per block), the
+    per-op block (models.vit._block_body with the row-1 kernel), the twin,
+    and in none one TransformerEncoderLayer call per block; its bound."""
+    out = {}
+    batch = 128
+    for pe_name in ("none", "rope-axial"):
+        cfg = ViTConfig(pos_encoding=pe_name)
+        blocks, freqs = block_stack(vit, cfg, device, 32)
+        x = torch.randn((batch, cfg.seq_len, cfg.embed_dim),
+                        generator=torch.Generator().manual_seed(33)).to(device)
+
+        def chain(fn):
+            def run():
+                y = x
+                for bp in blocks:
+                    y = fn(y, bp)
+                return y
+            return run
+
+        fused = chain(lambda y, bp: block_fused.block_forward(y, bp, cfg,
+                                                              freqs))
+        per_op = chain(lambda y, bp: vit._block_body(bp, y, cfg, None, freqs,
+                                                     "flash"))
+        twin = chain(lambda y, bp: block_fused.block_forward_plain(y, bp, cfg,
+                                                                   freqs))
+        with torch.inference_mode():
+            block_fused.LAUNCHES_BLOCK_FUSED = fa.LAUNCHES = 0
+            y = fused()
+            torch.cuda.synchronize()
+            launches = block_fused.LAUNCHES_BLOCK_FUSED
+            if launches != BLOCK_DEPTH or fa.LAUNCHES != 0:
+                raise AssertionError(f"{BLOCK_DEPTH} blocks launched the "
+                                     f"fused kernel {launches} times (and "
+                                     f"attn_fwd {fa.LAUNCHES})")
+            y_op = per_op()
+            share = update_share(y, y_op, x)[1]
+            times = dict(ms=median_ms(fused), per_op_ms=median_ms(per_op),
+                         plain_ms=median_ms(twin, iters=5, reps=3),
+                         library_ms=None, launches=launches,
+                         vs_per_op_share=share)
+            if pe_name == "none":
+                layers = encoder_layers(blocks, cfg, device)
+
+                def library():
+                    y_l = x
+                    for layer in layers:
+                        y_l = layer(y_l)
+                    return y_l
+
+                times["vs_library_share"] = update_share(y, library(), x)[1]
+                times["library_ms"] = median_ms(library)
+                if times["vs_library_share"] > LOGITS_TOL:
+                    raise AssertionError("TransformerEncoderLayer computes "
+                                         "another block")
+        if share > LOGITS_TOL:
+            raise AssertionError("the fused block and the per-op block "
+                                 "compute different blocks")
+        times["bound_ms"], times["bound_by"] = block_bound_ms(cfg, batch,
+                                                              BLOCK_DEPTH)
+        log(f"  {BLOCK_DEPTH}-block forward ViT-tiny/4 B={batch} {pe_name} "
+            f"f32: fused kernel {times['ms']:.4f} ms ({launches} launches), "
+            f"per-op block {times['per_op_ms']:.4f}, twin "
+            f"{times['plain_ms']:.4f}, TransformerEncoderLayer "
+            f"{times['library_ms']}, bound {times['bound_ms']:.4f} "
+            f"({times['bound_by']}); vs the per-op block {share:.2e} of "
+            f"the update's largest entry")
+        out[pe_name] = times
+    return out
+
+
+def check_flash_block_grads(vit, ViTConfig, fa, fused_adamw, device):
+    """Phase 16c: attention_impl="flash_block" against "flash" on the
+    kernels, every gradient within FLASH_BLOCK_TOL, at ViT-tiny/4 rope-mixed
+    (N=65, batch 128: the dense kernels, dqr/dkr for the frequencies) and
+    the long-sequence model in rope-axial (N=4,097, batch 4: the streaming
+    forward and the one-pass backward), one step each, with exact launch
+    counts of the flash_block step."""
+    out = {}
+    for label, cfg, batch, expected in (
+            ("ViT-tiny/4 rope-mixed N=65", ViTConfig(pos_encoding="rope-mixed"),
+             128, {"attn_fwd": 6, "attn_bwd": 6, "adamw": 0}),
+            ("long-sequence rope-axial N=4097",
+             ViTConfig(**LONGSEQ, pos_encoding="rope-axial"), 4,
+             {"attn_fwd": 0, "attn_bwd": 0, "adamw": 0,
+              "attn_stream_fwd": 2, "attn_stream_bwd_fused": 2})):
+        init = vit.init_params(torch.Generator().manual_seed(34), cfg,
+                               device=device)
+        x = torch.randn((batch, cfg.img_size, cfg.img_size, 3),
+                        generator=torch.Generator().manual_seed(35)).to(device)
+        y = torch.arange(batch, device=device) % 10
+        grads = {}
+        for impl in ("flash", "flash_block"):
+            c = dataclasses.replace(cfg, attention_impl=impl)
+            params = {k: v.clone().requires_grad_() for k, v in init.items()}
+            reset_counts(fa, fused_adamw)
+            loss = torch.nn.functional.cross_entropy(vit.apply(params, x, c),
+                                                     y)
+            grads[impl] = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
+            counts = read_counts(fa, fused_adamw)
+            if impl == "flash_block" and counts != expected:
+                raise AssertionError(f"{label}: flash_block launches {counts}"
+                                     f" differ from {expected}")
+        rel = {key: float((grads["flash_block"][key] - want).norm()
+                          / want.norm().clamp(min=1e-30))
+               for key, want in grads["flash"].items()}
+        worst = max(rel, key=rel.get)
+        ok = rel[worst] <= FLASH_BLOCK_TOL
+        log(f"  flash_block vs flash {label} batch {batch}: launches "
+            f"{counts}; worst gradient {worst} {rel[worst]:.2e} relative "
+            f"(tol {FLASH_BLOCK_TOL:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: flash_block and flash gradients "
+                                 f"differ")
+        out[label] = dict(worst_grad=worst, worst_rel=rel[worst],
+                          launches=counts)
+        del grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def poly_terms_inputs(fa, shape, dtype, seed, device, terms):
+    """stream_inputs of the poly regime with `terms` coefficients per head
+    (scaled by grid^-k as there)."""
+    q, k, v, kw, _ = stream_inputs(fa, "poly", shape, dtype, seed, device)
+    grid = kw["poly"][1]
+    gen = torch.Generator().manual_seed(seed + 2)
+    powers = torch.arange(terms).float()
+    coeff = 0.05 * torch.randn((shape[1], terms), generator=gen) \
+        * float(grid) ** -powers
+    return q, k, v, dict(kw, poly=(coeff.to(device), grid))
+
+
+def per_term(got, want):
+    """{dcoeff[t]: share_err} for every term t, each term's gradient as a
+    share of its own largest entry (the terms differ by powers of the
+    distance, so one share over all of them would hide the highest)."""
+    return {f"dcoeff[{t}]": share_err(got[..., t], want[..., t], PARAM_TOL)
+            for t in range(want.shape[-1])}
+
+
+def check_repaired_shapes(fa, device):
+    """Phase 16d: the shapes the kernels refused before this slice, against
+    their twins at the limits of phases 2, 6 and 11b. Head dim 48 (the
+    kernels on zero-padded 64-wide heads, each rope half padded on its own)
+    at ViT-tiny/4 with 4 heads, rope-mixed: attention_fwd and
+    attention_bwd with dqr/dkr. Nine polynomial terms at N=4,097: the
+    streaming forward, the separate-pass dq / dk / dv with the dcoeff
+    kernel, and the one-pass backward, dcoeff per term. Returns the worst
+    f32 share by case."""
+    worst, failed = {}, []
+
+    def report(label, dtype, res):
+        ok = all(r[1] for r in res.values())
+        log(f"  {label} {str(dtype)[6:]}: "
+            + " ".join(f"{k}={v[0]:.2e}({v[2]:.1e})" if len(v) == 3 else
+                       f"{k}={v[0]:.2e}" for k, v in res.items())
+            + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append((label, dtype))
+        if dtype == torch.float32:
+            worst[label] = max(v[0] for v in res.values())
+
+    d48 = (128, 4, 65, 48)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, kw = attn_inputs("rope-mixed", d48, dtype, 600, device)
+        bias, cos, sin = fa.prepare_pe(d48[1], d48[2], device, **kw)
+        got = fa.attention_fwd(q, k, v, d48[-1] ** -0.5, bias, cos, sin)
+        torch.cuda.synchronize()
+        want = fa.attention_plain(q, k, v, d48[-1] ** -0.5, bias, cos, sin)
+        report(f"attn_fwd D=48 rope-mixed (tol {KERNEL_TOL[dtype]:g} abs+rel)",
+               dtype, {"out": worst_err(got, want, KERNEL_TOL[dtype])})
+        report(f"attn_bwd D=48 rope-mixed (tol {BWD_TOL[dtype]:g} abs+rel)",
+               dtype, bwd_case(fa, "rope-mixed", d48, dtype, 601, device))
+    del q, k, v, got, want
+
+    longseq = (4, 4, 4097, 32)
+    for i, dtype in enumerate((torch.float32, torch.bfloat16)):
+        q, k, v, kw = poly_terms_inputs(fa, longseq, dtype, 610 + i, device,
+                                        9)
+        scale = longseq[-1] ** -0.5
+        out, lse = fa.attention_stream_fwd(q, k, v, scale, **kw)
+        torch.cuda.synchronize()
+        want_out, want_lse = fa.attention_stream_plain(
+            q, k, v, scale, kv_tile=fa.STREAM_TILE, **kw)
+        lse_err = float((lse - want_lse).abs().max())
+        report(f"attn_stream_fwd 9 terms (tol {STREAM_TOL[dtype]:g} of the "
+               f"largest, lse {LSE_TOL:g})", dtype,
+               {"out": share_err(out, want_out, STREAM_TOL[dtype]),
+                "lse": (lse_err, lse_err <= LSE_TOL, lse_err)})
+        del want_out, want_lse
+        g = torch.randn(longseq, generator=torch.Generator().manual_seed(
+            620 + i)).to(device, dtype)
+        got = fa.attention_stream_bwd(q, k, v, out, g, lse, scale,
+                                      want_dparam=True, **kw)
+        torch.cuda.synchronize()
+        want = fa.attention_stream_bwd_plain(
+            q, k, v, out, g, lse, scale, kv_tile=FUSED_TWIN_TILES["kv_tile"],
+            want_dparam=True, **kw)
+        tol = STREAM_BWD_TOL[dtype]
+        res = {name: share_err(x, y, tol)
+               for name, x, y in zip(("dq", "dk", "dv"), got[:3], want[:3])}
+        res.update(per_term(got[6], want[6]))
+        report(f"attn_stream_bwd + dcoeff 9 terms (tol {tol:g}, dcoeff "
+               f"{PARAM_TOL:g} per term)", dtype, res)
+        del got, want
+        delta = (g.float() * out.float()).sum(dim=-1)
+        args = (q, k, v, g, lse, delta, scale)
+        got = fa.attention_stream_bwd_fused(*args, **kw)
+        again = fa.attention_stream_bwd_fused(*args, **kw)
+        torch.cuda.synchronize()
+        want = fa.attention_stream_bwd_fused_plain(*args, **FUSED_TWIN_TILES,
+                                                   **kw)
+        res = {name: share_err(x, y, FUSED_TOL)
+               for name, x, y in zip(("dq", "dk", "dv"), got[:3], want[:3])}
+        res.update(per_term(got[3], want[3]))
+        same = all(torch.equal(x, y) for x, y in zip(got[:4], again[:4]))
+        res["two launches"] = (0.0, same, 0.0 if same else 1.0)
+        report(f"attn_stream_bwd_fused 9 terms (tol {FUSED_TOL:g}, dcoeff "
+               f"{PARAM_TOL:g} per term)", dtype, res)
+        del q, k, v, g, out, lse, got, again, want, args
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"kernels disagree with their twins at the "
+                             f"repaired shapes: {failed}")
+    return worst
+
+
 def kernel_line(name, source, replaces, launches, max_abs_err, times):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2016,7 +2473,7 @@ def kernel_line(name, source, replaces, launches, max_abs_err, times):
             "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
             "bound_by": times["bound_by"], "library_ms": times["library_ms"],
             **{key: times[key] for key in ("group", "group_ms",
-                                           "group_library_ms")
+                                           "group_library_ms", "per_op_ms")
                if key in times}}
 
 
@@ -2030,7 +2487,7 @@ def main() -> int:
     from vit_rpe_rope_tpu_torch.configs import TrainConfig, ViTConfig
     from vit_rpe_rope_tpu_torch.data import datasets
     from vit_rpe_rope_tpu_torch.models import vit
-    from vit_rpe_rope_tpu_torch.ops import cuda_build
+    from vit_rpe_rope_tpu_torch.ops import block_fused, cuda_build
     from vit_rpe_rope_tpu_torch.ops import flash_attention as fa
     from vit_rpe_rope_tpu_torch.ops import fused_adamw, reference_attention
     from vit_rpe_rope_tpu_torch.train import train_step as ts
@@ -2046,7 +2503,7 @@ def main() -> int:
             f"device {torch.cuda.get_device_name(0)}")
         sources = (fa.SOURCE, fa.BWD_SOURCE, fa.STREAM_SOURCE,
                    fa.STREAM_BWD_SOURCE, fa.STREAM_FUSED_SOURCE,
-                   fused_adamw.SOURCE)
+                   fused_adamw.SOURCE, block_fused.SOURCE)
         for lib_path in cuda_build.build_all(sources):
             log(f"    built {lib_path.name}")
             log_path = lib_path.with_suffix(".log")
@@ -2055,7 +2512,7 @@ def main() -> int:
                     log("    ptxas: " + line.strip())
         fa._library(), fa._bwd_library(), fused_adamw._library()
         fa._stream_library(), fa._stream_bwd_library()
-        fa._stream_fused_library()
+        fa._stream_fused_library(), block_fused._library()
 
     with phase("[2] kernel vs plain twin on the card", seconds):
         max_abs_err = check_kernel_vs_twin(fa, device)
@@ -2231,6 +2688,37 @@ def main() -> int:
         chunk_times = time_chunk_kernel(fa, device)
         bounded_steps, bounded_trace = time_bounded_steps(
             bounded_modules, vit, datasets, ViTConfig, device)
+        rope_axial_gap = measure_rope_axial_gap(bounded_modules, vit,
+                                                datasets, ViTConfig, device)
+
+    with phase("[16] block-level paths: the fused block kernel (row 12), "
+               "flash_block training, padded head dims, polynomial degree 8",
+               seconds):
+        block_err = check_block_fused(block_fused, vit, ViTConfig, device)
+        block_times = time_block_fused(block_fused, fa, vit, ViTConfig,
+                                       device)
+        flash_block_grads = check_flash_block_grads(vit, ViTConfig, fa,
+                                                    fused_adamw, device)
+        # The slice's main path through the train CLI: ViT-tiny/4 with one
+        # differentiation boundary per block, and at head dim 48 (4 heads:
+        # the kernels run on zero-padded 64-wide heads); between them the
+        # per-call boundary again, so that the epochs compare in one phase.
+        block_training = {
+            "flash_block": train_through_cli(
+                "rope-mixed", train_modules,
+                flags={"attention_impl": "flash_block"}),
+            "flash": train_through_cli("rope-mixed", train_modules),
+            "head_dim_48": train_through_cli("rope-mixed", train_modules,
+                                             flags={"num_heads": 4})}
+        poly8 = ViTConfig(**LONGSEQ, pos_encoding="polynomial",
+                          poly_degree=8)
+        poly8_paths = check_kernel_vs_plain_training(
+            vit, ts, fused_adamw, datasets, poly8, device, batch=4, fa=fa,
+            expected={"attn_fwd": 0, "attn_bwd": 0, "adamw": 5,
+                      "attn_stream_fwd": 5 * poly8.depth,
+                      "attn_stream_bwd_fused": 5 * poly8.depth})
+        torch.cuda.empty_cache()
+        repaired = check_repaired_shapes(fa, device)
 
     summary = {"card": card, "attention": attn, "serving": serve_times,
                "serving_profile": serve_trace, "training": training,
@@ -2252,6 +2740,13 @@ def main() -> int:
                "chunk_kernel": chunk_times,
                "bounded_train_steps": bounded_steps,
                "bounded_train_profile": bounded_trace,
+               "rope_axial_gap": rope_axial_gap,
+               "block_fused_max_abs_err": block_err,
+               "block_fused": block_times,
+               "flash_block_vs_flash": flash_block_grads,
+               "block_training": block_training,
+               "poly8_kernel_vs_plain_losses": poly8_paths,
+               "repaired_shapes_vs_twins": repaired,
                "phase_seconds": seconds}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -2266,7 +2761,9 @@ def main() -> int:
     # calls of the separate-pass backward with a generated bias (phase 13)
     # for the dcoeff and dtable kernels, which no model reaches; the
     # long-sequence model with --q_chunk 2048 (phase 15) for the chunk
-    # forward, timed at the bounded step's shape at N=65,537.
+    # forward, timed at the bounded step's shape at N=65,537; the fused
+    # block, which no train or serve path reaches (as in the JAX package),
+    # from its own BLOCK_DEPTH-block forward at ViT-tiny/4 (phase 16).
     launches = training["rope-mixed"]["launches"]
     stream_launches = stream_training["longseq"]["launches"]
     dbias_launches = stream_training["vit_s_384"]["launches"][
@@ -2317,6 +2814,10 @@ def main() -> int:
                     jax_fa + ":1218",
                     bounded_training["launches"]["attn_stream_chunk_fwd"],
                     chunk_err, chunk_times["none"]),
+        kernel_line("block_fused", csrc + "block_fused.cu",
+                    "vit_rpe_rope_tpu/ops/block_fused.py:74",
+                    block_times["none"]["launches"], block_err,
+                    block_times["none"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,159 @@
+"""Digests of the port's attention kernels' outputs on seeded inputs, to show
+that two trees of the port compute the same bits where they should.
+
+Runs on a CUDA device a fixed set of kernel calls at built head dims and
+polynomial degrees up to 7 (the dense forward and backward, the streaming
+forward, the separate-pass backward with the dcoeff / dtable kernels, the
+one-pass backward, the chunk forward at offsets) and writes the sha256 of
+every output tensor's bytes to a JSON file. `--root` names the tree whose
+`vit_rpe_rope_tpu_torch` is imported, so a parent commit unpacked under a
+git-ignored directory can be run beside the working tree:
+
+  python scripts/torch_kernel_digest.py --root build/parent --out a.json
+  python scripts/torch_kernel_digest.py --root . --out b.json
+  python scripts/torch_kernel_digest.py --compare a.json b.json
+
+--compare prints the cases whose digests differ and exits 1 if any does.
+--time also records each call's time on the card (CUDA events, the mean of
+20 launches after 3 warm-up launches; `stream_dq_dkv` times the separate
+passes' dq and dk/dv kernels alone), so that two trees can be timed in
+turns in one process each on one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import sys
+
+
+def _digest(t):
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()
+                          ).hexdigest()
+
+
+def run(root, out_path, timed):
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from vit_rpe_rope_tpu_torch.ops import cuda_build
+    from vit_rpe_rope_tpu_torch.ops import flash_attention as fa
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    assert fa.__file__.startswith(os.path.abspath(root)), fa.__file__
+    cuda_build.build_all([fa.SOURCE, fa.BWD_SOURCE, fa.STREAM_SOURCE,
+                          fa.STREAM_BWD_SOURCE, fa.STREAM_FUSED_SOURCE])
+    dev = torch.device("cuda")
+    digests = {}
+
+    times = {}
+
+    def record(name, tensors, call=None):
+        torch.cuda.synchronize()
+        for i, t in enumerate(tensors):
+            if t is not None:
+                digests[f"{name}/{i}"] = _digest(t)
+        if timed and call is not None:
+            for _ in range(3):
+                call()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            for _ in range(20):
+                call()
+            end.record()
+            torch.cuda.synchronize()
+            times[name] = start.elapsed_time(end) / 20
+
+    def qkv(shape, seed):
+        gen = torch.Generator().manual_seed(seed)
+        return [torch.randn(shape, generator=gen).to(dev) for _ in range(4)]
+
+    def pe_args(regime, h, n, d, seed):
+        gen = torch.Generator().manual_seed(seed + 100)
+        grid = int(round((n - 1) ** 0.5))
+        if regime.startswith("poly"):
+            terms = int(regime[4:]) + 1
+            powers = torch.arange(terms).float()
+            coeff = 0.05 * torch.randn((h, terms), generator=gen) \
+                * float(grid) ** -powers
+            return {"poly": (coeff.to(dev), grid)}
+        if regime == "rel":
+            return {"rel": torch.randn((h, 2 * n - 1), generator=gen).to(dev)}
+        if regime == "rope-axial":
+            phase = 6.0 * torch.rand((n - 1, d // 2), generator=gen)
+            cos, sin = fa._kernel_freqs((torch.cos(phase), torch.sin(phase)),
+                                        h, n, dev)
+            return {"cos": cos, "sin": sin}
+        return {}
+
+    # dense forward and backward at ViT-S/16 (N=197, D=64), rope-mixed
+    q, k, v, g = qkv((4, 6, 197, 64), 0)
+    gen = torch.Generator().manual_seed(1)
+    phase = 6.0 * torch.rand((6, 196, 32), generator=gen).to(dev)
+    cos, sin = fa._kernel_freqs((torch.cos(phase), torch.sin(phase)), 6, 197,
+                                dev)
+    out = fa.attention_fwd(q, k, v, 0.125, None, cos, sin)
+    record("dense_fwd", [out])
+    record("dense_bwd", fa.attention_bwd(q, k, v, out, g, 0.125, None, cos,
+                                         sin, want_drot=True))
+    # the streaming route at (2, 4, 577, 32), (1, 4, 1100, 64) and the
+    # long-sequence model's (4, 4, 4097, 32)
+    for shape in ((2, 4, 577, 32), (1, 4, 1100, 64), (4, 4, 4097, 32)):
+        b, h, n, d = shape
+        for regime in ("none", "poly3", "poly7", "rel", "rope-axial"):
+            q, k, v, g = qkv(shape, 2)
+            kw = pe_args(regime, h, n, d, 3)
+            name = f"{regime}@{n}x{d}"
+            scale = d ** -0.5
+            out, lse = fa.attention_stream_fwd(q, k, v, scale, **kw)
+            record(f"stream_fwd/{name}", [out, lse],
+                   lambda: fa.attention_stream_fwd(q, k, v, scale, **kw))
+            dparam = "poly" in kw or "rel" in kw
+            record(f"stream_bwd/{name}", fa.attention_stream_bwd(
+                q, k, v, out, g, lse, scale, want_dparam=dparam, **kw))
+            record(f"stream_dq_dkv/{name}", (), lambda: fa.attention_stream_bwd(
+                q, k, v, out, g, lse, scale, **kw))
+            delta = (g * out).sum(dim=-1)
+            record(f"fused_bwd/{name}", fa.attention_stream_bwd_fused(
+                q, k, v, g, lse, delta, scale, **kw),
+                lambda: fa.attention_stream_bwd_fused(
+                    q, k, v, g, lse, delta, scale, **kw))
+            if "cos" not in kw:
+                rows = slice(n // 2, n)
+                record(f"chunk_fwd/{name}", fa.streaming_chunk_fwd(
+                    q[:, :, rows], k, v, scale, n // 2, 0, n, **kw))
+    with open(out_path, "w") as f:
+        json.dump({"device": torch.cuda.get_device_name(0),
+                   "digests": digests, "ms": times}, f, indent=1,
+                  sort_keys=True)
+    print(f"{len(digests)} digests -> {out_path}")
+    for name, ms in times.items():
+        print(f"{root}  {name}  {ms:.4f} ms")
+
+
+def compare(a, b):
+    da, db = (json.load(open(p))["digests"] for p in (a, b))
+    differ = sorted(k for k in set(da) | set(db) if da.get(k) != db.get(k))
+    print(f"{len(da)} / {len(db)} outputs; {len(differ)} differ"
+          + "".join(f"\n  {k}" for k in differ))
+    return 1 if differ else 0
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=".")
+    ap.add_argument("--out")
+    ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
+    ap.add_argument("--time", action="store_true")
+    args = ap.parse_args()
+    if args.compare:
+        raise SystemExit(compare(*args.compare))
+    run(args.root, args.out, args.time)
+
+
+if __name__ == "__main__":
+    main()

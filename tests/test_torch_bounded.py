@@ -54,10 +54,10 @@ GRAD_TOL = dict(rtol=2e-4, atol=2e-6)
 PARAM_TOL = dict(rtol=5e-4, atol=5e-6)
 
 
-def setup(pe, img=64, batch=2, depth=2):
+def setup(pe, img=64, batch=2, depth=2, embed=64):
     """Both packages' configs, preprocess and params (the same numbers), and
     numpy images / labels."""
-    kw = dict(img_size=img, patch_size=4, in_chans=3, embed_dim=64,
+    kw = dict(img_size=img, patch_size=4, in_chans=3, embed_dim=embed,
               depth=depth, num_heads=2, pos_encoding=pe,
               attention_impl="reference")
     jcfg, cfg = JaxViTConfig(**kw), ViTConfig(**kw)
@@ -143,6 +143,20 @@ def test_bounded_step_matches_jax_monolithic_oracle(pe):
     np.testing.assert_allclose(float(metrics[0]), float(want_loss),
                                **LOSS_TOL)
     assert float(metrics[2]) == 2.0
+    assert_grads(grads, want, label=pe)
+
+
+@pytest.mark.parametrize("pe", ["rope-axial"])
+def test_bounded_step_at_a_padded_head_dim(pe):
+    """Head dim 24 (embed 48, 2 heads), which the kernels are not built for:
+    the step zero-pads q, k, v once per block to 32 and cuts the gradients
+    back (rope is applied before the kernels, so the whole row is padded)."""
+    jcfg, cfg, jpre, pre, jparams, params, imgs, labels = setup(pe, embed=48)
+    assert cfg.head_dim == 24
+    want_loss, want = oracle(jcfg, jpre, jparams, imgs, labels)
+    _, metrics, grads = run_port(cfg, pre, params, imgs, labels)
+    np.testing.assert_allclose(float(metrics[0]), float(want_loss),
+                               **LOSS_TOL)
     assert_grads(grads, want, label=pe)
 
 

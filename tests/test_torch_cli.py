@@ -27,6 +27,7 @@ from vit_rpe_rope_tpu_torch.data import datasets
 from vit_rpe_rope_tpu_torch.configs import ViTConfig
 from vit_rpe_rope_tpu_torch.data.datasets import NORMALIZATION
 from vit_rpe_rope_tpu_torch.models import vit
+from vit_rpe_rope_tpu_torch.ops import block_vjp
 from vit_rpe_rope_tpu_torch.ops import flash_attention as tfa
 from vit_rpe_rope_tpu_torch.utils import checkpoint
 
@@ -184,14 +185,38 @@ def test_train_parser_matches_jax_parser():
     ["--q_chunk", "64", "--sequence_parallel", "2"],
     ["--q_chunk", "64", "--drop_rate", "0.1"], ["--augment"], ["--remat"],
     ["--drop_rate", "0.1"], ["--attn_drop_rate", "0.1"],
-    ["--drop_path_rate", "0.1"], ["--attention_impl", "flash_block"],
-    ["--profile_dir", "trace"], ["--debug_nans"],
+    ["--drop_path_rate", "0.1"], ["--profile_dir", "trace"], ["--debug_nans"],
     ["--steps_per_dispatch", "4"]])
 def test_train_cli_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         train.main(["--synthetic", *flag])
     assert exc.value.code == 2
     assert "not ported" in capsys.readouterr().err
+
+
+def test_train_cli_runs_flash_block_on_the_cpu(tmp_path, monkeypatch,
+                                               capsys):
+    """--attention_impl flash_block (no longer refused) trains through
+    fit(): one boundary per block, the attention on the kernels' twins."""
+    monkeypatch.setattr(
+        datasets, "get_dataset",
+        lambda dataset, data_dir, use_synthetic, seed: datasets.synthetic(
+            dataset, n_train=32, n_test=16, seed=seed))
+    calls = []
+    apply = block_vjp.block_apply
+    monkeypatch.setattr(block_vjp, "block_apply",
+                        lambda *a: calls.append(1) or apply(*a))
+    summary = train.main([
+        "--dataset", "cifar10", "--synthetic", "--epochs", "1",
+        "--batch_size", "16", "--depth", "1", "--embed_dim", "32",
+        "--num_heads", "2", "--pos_encoding", "rope-mixed",
+        "--attention_impl", "flash_block", "--log_dir",
+        str(tmp_path / "logs"), "--ckpt_dir", str(tmp_path / "ckpts"),
+        "--device", "cpu"])
+    assert "Done. Best Test Acc" in capsys.readouterr().out
+    assert summary["history"][0]["train_loss"] > 0
+    assert calls  # the blocks went through block_apply
+    assert (tmp_path / "ckpts" / "cifar10_rope-mixed_last.npz").exists()
 
 
 def test_train_cli_runs_on_the_cpu(tmp_path, monkeypatch, capsys):

@@ -29,7 +29,15 @@ passes); the parameter gradients, float32 sums of ds that nearly cancel,
 rounded op by op on both sides). The chunk forward (q rows against a key
 chunk at global offsets) is held to the streaming forward's numbers, and at
 (r0, 0) against every key to the whole-sequence forward's rows bit for
-bit."""
+bit. Head dims the kernels are not built for (24, 48, 96) are zero-padded
+by the wrappers (fa.HeadPad) and held to the twins on the unpadded tensors
+with the same numbers. Polynomial degrees 8 and 31 (more terms than the
+kernels keep in registers) are held to the twins with each dcoeff term to
+1e-3 of its own largest entry. The fused block forward (row 12) is held to
+its twin to 5e-3 of the output's largest entry for f32 inputs and 1e-2 for
+bf16 (the same rounding points; an LN output, q, k, p, o or GELU output
+that rounds to the other bf16 neighbour after a last-ulp difference moves
+the output by a fraction of a bf16 ulp of its largest entries)."""
 
 import dataclasses
 
@@ -37,7 +45,9 @@ import pytest
 import torch
 
 from vit_rpe_rope_tpu_torch.configs import ViTConfig
+from vit_rpe_rope_tpu_torch import pe as pe_registry
 from vit_rpe_rope_tpu_torch.models import vit
+from vit_rpe_rope_tpu_torch.ops import block_fused
 from vit_rpe_rope_tpu_torch.ops import flash_attention as fa
 from vit_rpe_rope_tpu_torch.ops import fused_adamw
 from vit_rpe_rope_tpu_torch.ops import reference_attention
@@ -118,7 +128,7 @@ def test_kernel_reads_strided_qkv_views(cuda):
 
 @pytest.mark.gpu
 def test_kernel_wrapper_rejects_what_it_cannot_take(cuda):
-    x = torch.zeros(1, 2, 5, 24, device=cuda)  # head dim 24 is not built
+    x = torch.zeros(1, 2, 5, 160, device=cuda)  # above the largest built dim
     with pytest.raises(ValueError, match="head dims"):
         fa.attention_fwd(x, x, x, 0.2)
     y = torch.zeros(1, 2, 5, 16, device=cuda, dtype=torch.float16)
@@ -310,7 +320,8 @@ def run_stream_and_compare(regime, shape, dtype, device, seed=0):
     out, lse = fa.attention_stream_fwd(q, k, v, scale, **kw)
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == q.shape
-    assert out.transpose(1, 2).is_contiguous()  # [B, N, H, D] in memory
+    if shape[-1] in fa.HEAD_DIMS:
+        assert out.transpose(1, 2).is_contiguous()  # [B, N, H, D] in memory
     want_out, want_lse = fa.attention_stream_plain(
         q, k, v, scale, kv_tile=fa.STREAM_TILE, **kw)
     torch.testing.assert_close(out.float(), want_out.float(), rtol=TOL[dtype],
@@ -514,7 +525,8 @@ def run_fused_and_compare(regime, shape, dtype, device, seed=0):
     again = fa.attention_stream_bwd_fused(*args, **kw)
     for x, y in zip(got, again):
         assert (x is None and y is None) or torch.equal(x, y)
-    assert got[0]._base is got[1]._base is got[2]._base  # one dqkv buffer
+    if shape[-1] in fa.HEAD_DIMS:
+        assert got[0]._base is got[1]._base is got[2]._base  # one dqkv buffer
 
 
 @pytest.mark.gpu
@@ -677,3 +689,221 @@ def test_chunk_fwd_kernel_against_all_keys_is_the_stream_fwd_rows(cuda, regime,
     torch.cuda.synchronize()
     assert torch.equal(got, whole[:, :, 512:])
     assert torch.equal(lse, whole_lse[:, :, 512:])
+
+
+# ---------------------------------------------------------------------------
+# Head dims the kernels are not built for, zero-padded by the wrappers
+# ---------------------------------------------------------------------------
+
+PADDED_DIMS = [24, 48, 96]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", PADDED_DIMS)
+@pytest.mark.parametrize("regime", REGIMES)
+def test_dense_kernels_at_padded_head_dims(cuda, regime, d):
+    run_and_compare(*inputs(regime, (4, 6, 65, d), torch.float32, cuda,
+                            seed=12), torch.float32)
+    run_bwd_and_compare(*inputs(regime, (4, 6, 65, d), torch.float32, cuda,
+                                seed=13), torch.float32, seed=13)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", PADDED_DIMS)
+@pytest.mark.parametrize("regime", STREAM_REGIMES)
+def test_stream_kernels_at_padded_head_dims(cuda, regime, d):
+    run_stream_and_compare(regime, (2, 4, 577, d), torch.float32, cuda,
+                           seed=14)
+    if regime in FUSED_REGIMES:
+        run_fused_and_compare(regime, (2, 4, 577, d), torch.float32, cuda,
+                              seed=15)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", PADDED_DIMS)
+def test_chunk_kernels_at_padded_head_dims(cuda, d):
+    """The chunk forward writes into rows of longer out / lse buffers, and
+    the chunk backward, at a padded head dim."""
+    q, k, v, pe = stream_inputs("poly", (2, 4, 1536, d), torch.float32, cuda,
+                                16)
+    pe = {"poly": pe["poly"]}
+    rows, cols = slice(512, 1536), slice(300, 1333)
+    args = (q[:, :, rows], k[:, :, cols], v[:, :, cols], d ** -0.5, 512, 300,
+            1100)
+    out = torch.zeros((2, 1536, 4, d), device=cuda).transpose(1, 2)
+    lse = torch.zeros((2, 4, 1536), device=cuda)
+    got, got_lse = fa.streaming_chunk_fwd(*args, out=out[:, :, rows],
+                                          lse=lse[:, :, rows], **pe)
+    assert got.data_ptr() == out[:, :, 512:].data_ptr()
+    want, want_lse = fa.attention_stream_plain(
+        *args[:4], kv_tile=fa.STREAM_TILE, row0=512, col0=300, n_valid=1100,
+        **pe)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(got_lse, want_lse, rtol=1e-4, atol=1e-4)
+    g = torch.randn(got.shape, generator=torch.Generator().manual_seed(3))
+    g = g.to(cuda)
+    delta = (g * got).sum(dim=-1)
+    bwd = (args[0], args[1], args[2], g, got_lse, delta, args[3])
+    got_b = fa.streaming_chunk_bwd(*bwd, 512, 300, 1100, **pe)
+    want_b = fa.attention_stream_bwd_fused_plain(
+        *bwd, q_tile=512, kv_tile=256, n_valid=1100, row0=512, col0=300, **pe)
+    for x, y in zip(got_b[:3], want_b[:3]):
+        assert x.shape == y.shape
+        share_of_largest(x, y, FUSED_TOL[torch.float32])
+    share_of_largest(got_b[3], want_b[3], PARAM_TOL)
+
+
+# ---------------------------------------------------------------------------
+# Polynomial degrees above the eight terms kept in registers
+# ---------------------------------------------------------------------------
+
+def high_degree_inputs(degree, shape, device, seed):
+    """q, k, v and a polynomial bias of the given degree whose k-th
+    coefficient is scaled by (2 grid)^-k, so that every term stays below
+    one and float32 holds dist^31 (at grid 8 the distance is at most 14)."""
+    gen = torch.Generator().manual_seed(seed)
+    b, h, n, d = shape
+    q, k, v = (torch.randn(shape, generator=gen).to(device) for _ in range(3))
+    grid = int(round((n - 1) ** 0.5))
+    powers = torch.arange(degree + 1).float()
+    coeff = 0.5 * torch.randn((h, degree + 1), generator=gen) \
+        * float(2 * grid) ** -powers
+    return q, k, v, (coeff.to(device), grid)
+
+
+def per_term(got, want):
+    """dcoeff [H, terms]: each term to PARAM_TOL of its own largest entry
+    (the terms differ by orders of magnitude)."""
+    for m in range(want.shape[1]):
+        share_of_largest(got[:, m], want[:, m], PARAM_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("degree,shape", [(8, (2, 6, 577, 64)),
+                                          (31, (2, 4, 65, 32))])
+def test_stream_kernels_at_high_poly_degree(cuda, degree, shape):
+    """The forward, the separate passes with the dcoeff kernel, and the
+    one-pass backward (launched twice, bit-identical) at 9 and 32 terms."""
+    q, k, v, poly = high_degree_inputs(degree, shape, cuda, 18)
+    scale = shape[-1] ** -0.5
+    out, lse = fa.attention_stream_fwd(q, k, v, scale, poly=poly)
+    want_out, want_lse = fa.attention_stream_plain(
+        q, k, v, scale, poly=poly, kv_tile=fa.STREAM_TILE)
+    torch.testing.assert_close(out, want_out, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(19))
+    g = g.to(cuda)
+    counts = stream_counts()
+    got = fa.attention_stream_bwd(q, k, v, out, g, lse, scale, poly=poly,
+                                  want_dparam=True)
+    torch.cuda.synchronize()
+    assert stream_counts()[5] == counts[5] + 1
+    want = fa.attention_stream_bwd_plain(q, k, v, out, g, lse, scale,
+                                         poly=poly, kv_tile=fa.STREAM_TILE,
+                                         want_dparam=True)
+    for x, y in zip(got[:3], want[:3]):
+        torch.testing.assert_close(x, y, rtol=4e-3, atol=4e-3)
+    assert got[6].shape == (shape[1], degree + 1)
+    per_term(got[6], want[6])
+    delta = (g * out).sum(dim=-1)
+    args = (q, k, v, g, lse, delta, scale)
+    fused = fa.attention_stream_bwd_fused(*args, poly=poly)
+    want_f = fa.attention_stream_bwd_fused_plain(*args, poly=poly,
+                                                 q_tile=512, kv_tile=256)
+    for x, y in zip(fused[:3], want_f[:3]):
+        share_of_largest(x, y, FUSED_TOL[torch.float32])
+    per_term(fused[3], want_f[3])
+    again = fa.attention_stream_bwd_fused(*args, poly=poly)
+    for x, y in zip(fused[:4], again[:4]):
+        assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# The fused block forward (row 12)
+# ---------------------------------------------------------------------------
+
+def block_case(b, img, patch, e, heads, pe, dtype, device, seed):
+    cfg = ViTConfig(img_size=img, patch_size=patch, embed_dim=e, depth=1,
+                    num_heads=heads, pos_encoding=pe)
+    params = vit.init_params(torch.Generator().manual_seed(seed), cfg,
+                             device=device)
+    gen = torch.Generator().manual_seed(seed + 1)
+    bp = {nm: params[f"blocks.0.{nm}"]
+          + 0.05 * torch.randn(params[f"blocks.0.{nm}"].shape,
+                               generator=gen).to(device)
+          for nm in vit.BLOCK_PARAM_NAMES}
+    x = torch.randn((b, cfg.seq_len, e), generator=gen).to(device, dtype)
+    freqs = (pe_registry.get(pe).freqs_cis({}, cfg, device=device)
+             if pe == "rope-axial" else None)
+    return cfg, bp, x, freqs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pe", ["none", "rope-axial"])
+@pytest.mark.parametrize("shape", [(16, 32, 4, 192, 6), (2, 16, 4, 64, 2)])
+def test_block_fused_kernel_matches_twin(cuda, shape, pe, dtype):
+    """ViT-tiny/4 (N=65, E=192, 6 heads of 32) and the CPU tests' shape
+    (N=17, E=64, 2 heads): one launch, bit-identical when launched again."""
+    cfg, bp, x, freqs = block_case(*shape, pe, dtype, cuda, seed=20)
+    before = block_fused.LAUNCHES_BLOCK_FUSED
+    got = block_fused.block_forward(x, bp, cfg, freqs_cis=freqs)
+    torch.cuda.synchronize()
+    assert block_fused.LAUNCHES_BLOCK_FUSED == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    want = block_fused.block_forward_plain(x, bp, cfg, freqs)
+    tol = 5e-3 if dtype == torch.float32 else 1e-2
+    share_of_largest(got, want, tol)
+    again = block_fused.block_forward(x, bp, cfg, freqs_cis=freqs,
+                                      batch_tile=1)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_block_fused_kernel_refuses_what_it_cannot_hold(cuda):
+    """ViT-S/16 at 224 px: one image's float32 residual alone exceeds the
+    227 KB of shared memory a CTA may use; per-head rope tables raise."""
+    cfg, bp, x, _ = block_case(2, 224, 16, 384, 6, "none", torch.float32,
+                               cuda, seed=21)
+    with pytest.raises(ValueError, match="232448 bytes"):
+        block_fused.block_forward(x, bp, cfg)
+    cfg, bp, x, _ = block_case(2, 32, 4, 192, 6, "rope-mixed", torch.float32,
+                               cuda, seed=22)
+    params = pe_registry.get("rope-mixed").init_params(
+        torch.Generator().manual_seed(0), cfg)
+    freqs = pe_registry.get("rope-mixed").freqs_cis(params, cfg,
+                                                     device=cuda)
+    with pytest.raises(ValueError, match="per-head tables"):
+        block_fused.block_forward(x, bp, cfg, freqs_cis=freqs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pe", ["none", "absolute", "rope-axial",
+                                "rope-mixed"])
+@pytest.mark.parametrize("threshold", [None, 64])
+def test_flash_block_grads_match_flash_on_the_card(cuda, pe, threshold,
+                                                   monkeypatch):
+    """attention_impl="flash_block" against "flash" on the kernels: every
+    gradient within 2e-3 relative (norm of the difference over the norm),
+    the JAX package's bound; with a threshold of 64 the N=65 model takes the
+    streaming kernels (the one-pass backward, or the separate passes for
+    rope-mixed)."""
+    if threshold is not None:
+        monkeypatch.setattr(fa, "STREAMING_THRESHOLD", threshold)
+    grads = {}
+    for impl in ("flash", "flash_block"):
+        cfg = ViTConfig(img_size=32, patch_size=4, embed_dim=192, depth=2,
+                        num_heads=6, pos_encoding=pe, attention_impl=impl)
+        params = vit.init_params(torch.Generator().manual_seed(23), cfg,
+                                 device=cuda)
+        params = {k: v.requires_grad_() for k, v in params.items()}
+        x = torch.randn((8, 32, 32, 3),
+                        generator=torch.Generator().manual_seed(24)).to(cuda)
+        y = torch.arange(8, device=cuda) % 10
+        loss = torch.nn.functional.cross_entropy(vit.apply(params, x, cfg), y)
+        grads[impl] = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+    for key, want in grads["flash"].items():
+        got = grads["flash_block"][key]
+        rel = float((got - want).norm() / want.norm().clamp(min=1e-12))
+        assert rel < 2e-3, (key, rel)

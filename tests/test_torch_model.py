@@ -213,10 +213,26 @@ def test_module_forward_is_apply_and_init_is_seeded():
 
 
 def test_unported_attention_impl_raises():
-    cfg = ViTConfig(**small_kw("none", attention_impl="flash_block"))
+    """An attention_impl no package has raises; "flash_block" (one
+    differentiation boundary per block, ops/block_vjp.py) is ported: its
+    forward equals the JAX package's flash_block forward at N=65 (the
+    kernels' twins against the Pallas kernels in interpret mode, 2e-3 as
+    for the "flash" path above) and the port's own "flash" forward."""
+    kw = small_kw("rope-axial", patch_size=4, attention_impl="flash_block")
+    cfg = ViTConfig(**dict(kw, attention_impl="no_such_impl"))
     params = vit.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="flash_block"):
+    with pytest.raises(ValueError, match="no_such_impl"):
         vit.apply(params, torch.zeros(1, 32, 32, 3), cfg)
+    jcfg, jp, np_params = jax_params(kw, seed=2)
+    model, _ = port_model(np_params, ViTConfig(**kw))
+    x = images((2, 32, 32, 3), seed=2)
+    want = np.asarray(jvit.apply(jp, jnp.asarray(x), jcfg))
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+        flash = vit.apply(model.params(), torch.from_numpy(x),
+                          ViTConfig(**dict(kw, attention_impl="flash")))
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(got, flash.numpy(), rtol=1e-5, atol=1e-5)
 
 
 def test_patchify_matches_jax():

@@ -9,8 +9,8 @@ plus --device.
 Runs on the CUDA device; --device cpu runs on the CPU. --q_chunk (and
 --kv_chunk) train through the bounded-program driver (train/bounded.py). The
 extensions this package does not port yet (parallel layers, ZeRO-1,
-augmentation, remat, dropout, flash_block, profiling, NaN debugging, fused
-multi-step dispatch) are refused when set to a non-default value.
+augmentation, remat, dropout, profiling, NaN debugging, fused multi-step
+dispatch) are refused when set to a non-default value.
 """
 
 from __future__ import annotations
@@ -72,8 +72,11 @@ def build_parser() -> argparse.ArgumentParser:
     ext.add_argument("--attention_impl", type=str, default="auto",
                      choices=["auto", "reference", "flash", "flash_block"],
                      help="[extension] attention: the hand-written fused "
-                          "kernels (auto/flash) or the unfused torch oracle "
-                          "(reference); flash_block is not ported")
+                          "kernels (auto/flash), the same kernels behind one "
+                          "differentiation boundary per block for the "
+                          "bias-free PE modes (flash_block; relative and "
+                          "polynomial fall back to flash) or the unfused "
+                          "torch oracle (reference)")
     ext.add_argument("--compute_dtype", type=str, default="float32",
                      choices=["float32", "bfloat16"],
                      help="[extension] activation compute dtype")
@@ -180,7 +183,6 @@ def main(argv=None):
         "--drop_rate": args.drop_rate > 0,
         "--attn_drop_rate": args.attn_drop_rate > 0,
         "--drop_path_rate": args.drop_path_rate > 0,
-        "--attention_impl flash_block": args.attention_impl == "flash_block",
         "--profile_dir": args.profile_dir is not None,
         "--debug_nans": args.debug_nans,
         "--steps_per_dispatch": args.steps_per_dispatch > 1,

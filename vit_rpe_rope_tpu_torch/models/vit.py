@@ -34,8 +34,10 @@ from vit_rpe_rope_tpu_torch.configs import (
     PE_KIND_QK_ROTATION,
     ViTConfig,
 )
+from vit_rpe_rope_tpu_torch.ops import block_vjp
 from vit_rpe_rope_tpu_torch.ops import flash_attention
 from vit_rpe_rope_tpu_torch.ops import reference_attention
+from vit_rpe_rope_tpu_torch.ops.layers import layer_norm, linear
 from vit_rpe_rope_tpu_torch.utils.device import resolve_device
 from vit_rpe_rope_tpu_torch.utils.initializers import kaiming_normal_fan_out, trunc_normal
 
@@ -124,23 +126,6 @@ def num_params(params: dict) -> int:
 # Forward pass
 # ---------------------------------------------------------------------------
 
-def _layer_norm(x, weight, bias, eps):
-    """torch nn.LayerNorm semantics (biased variance), stats in float32."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    return (y * weight + bias).to(x.dtype)
-
-
-def _linear(x, weight, bias=None):
-    """x [..., in] @ torch-layout weight [out, in] (+ bias)."""
-    y = torch.matmul(x, weight.to(x.dtype).t())
-    if bias is not None:
-        y = y + bias.to(x.dtype)
-    return y
-
-
 def patchify(images, cfg: ViTConfig):
     """[B, H, W, C] images -> [B, S, C·P·P] per-patch pixel rows, row-major
     over the patch grid (t_x = t % w, t_y = t // w: the reference's token
@@ -157,19 +142,21 @@ def patch_embed(params, images, cfg: ViTConfig):
     out[b, t, e] = Σ_{c,p,q} w[e,c,p,q] · img[b, i·P+p, j·P+q, c]."""
     e, c, p = cfg.embed_dim, cfg.in_chans, cfg.patch_size
     w = params["patch_embed.weight"].reshape(e, c * p * p)
-    return _linear(patchify(images, cfg), w, params["patch_embed.bias"])
+    return linear(patchify(images, cfg), w, params["patch_embed.bias"])
 
 
 def _attention_impl(cfg: ViTConfig) -> str:
     """"auto" is the hand-written kernel. (The JAX package's "auto" sends
     N <= 2048 to its unfused oracle, a choice measured on a TPU that does
-    not carry over to this card; the port keeps its kernel on the path.)"""
+    not carry over to this card; the port keeps its kernel on the path.)
+    "flash_block" makes each bias-free block one differentiation boundary
+    (ops/block_vjp.py)."""
     impl = cfg.attention_impl
     if impl == "auto":
         return "flash"
-    if impl not in ("flash", "reference"):
-        raise NotImplementedError(
-            f"attention_impl={impl!r} is not ported; use 'auto', 'flash' or "
+    if impl not in ("flash", "flash_block", "reference"):
+        raise ValueError(
+            f"attention_impl={impl!r}; use 'auto', 'flash', 'flash_block' or "
             f"'reference'")
     return impl
 
@@ -191,15 +178,19 @@ def _logits_bias(pe_mod, params, cfg: ViTConfig):
 
 def _block_body(block_params: dict, x, cfg, bias, freqs_cis, impl):
     """One pre-LN block on un-prefixed block params."""
+    if impl == "flash_block":
+        if bias is None:  # none, absolute, rope-axial, rope-mixed
+            return block_vjp.block_apply(cfg, block_params, x, freqs_cis)
+        impl = "flash"  # bias modes: the per-call boundary, as in JAX
     eps = cfg.layer_norm_eps
-    h = _layer_norm(x, block_params["norm1.weight"],
+    h = layer_norm(x, block_params["norm1.weight"],
                     block_params["norm1.bias"], eps)
     bsz, n, e = h.shape
     nh, dh = cfg.num_heads, cfg.head_dim
     # Weight rows are torch-ordered f = part·E + head·Dh + d, so the
     # [B, N, 3E] product viewed as [3, B, H, N, Dh] needs no copy: q, k, v
     # are strided views the attention kernel reads in place.
-    qkv = _linear(h, block_params["attn.qkv.weight"])
+    qkv = linear(h, block_params["attn.qkv.weight"])
     q, k, v = qkv.view(bsz, n, 3, nh, dh).permute(2, 0, 3, 1, 4).unbind(0)
     scale = dh ** -0.5
     if impl == "flash":
@@ -215,14 +206,14 @@ def _block_body(block_params: dict, x, cfg, bias, freqs_cis, impl):
         attn_out = reference_attention.attention(
             q, k, v, scale, bias=bias, freqs_cis=freqs_cis)
     attn_out = attn_out.transpose(1, 2).reshape(bsz, n, e)
-    attn_out = _linear(attn_out, block_params["attn.proj.weight"],
+    attn_out = linear(attn_out, block_params["attn.proj.weight"],
                        block_params["attn.proj.bias"])
     x = x + attn_out
-    h = _layer_norm(x, block_params["norm2.weight"],
+    h = layer_norm(x, block_params["norm2.weight"],
                     block_params["norm2.bias"], eps)
-    h = _linear(h, block_params["mlp.fc1.weight"], block_params["mlp.fc1.bias"])
+    h = linear(h, block_params["mlp.fc1.weight"], block_params["mlp.fc1.bias"])
     h = F.gelu(h, approximate="none")  # torch nn.GELU default = exact erf
-    h = _linear(h, block_params["mlp.fc2.weight"], block_params["mlp.fc2.bias"])
+    h = linear(h, block_params["mlp.fc2.weight"], block_params["mlp.fc2.bias"])
     return x + h
 
 
@@ -266,9 +257,9 @@ def apply(params, images, cfg: ViTConfig):
     """Full forward: [B, H, W, C] images -> [B, num_classes] float32 logits
     (classification from the cls token)."""
     x = forward_features(params, images, cfg)
-    x = _layer_norm(x, params["norm.weight"], params["norm.bias"],
+    x = layer_norm(x, params["norm.weight"], params["norm.bias"],
                     cfg.layer_norm_eps)
-    logits = _linear(x[:, 0], params["head.weight"], params["head.bias"])
+    logits = linear(x[:, 0], params["head.weight"], params["head.bias"])
     return logits.float()
 
 

@@ -11,7 +11,21 @@
 
 namespace attn {
 
-constexpr int MAX_POLY_TERMS = 8;  // degree + 1 of the polynomial bias
+// Terms (degree + 1) of the polynomial bias: at most the JAX package's 128
+// lanes. The kernels are compiled twice for the polynomial: up to
+// REG_POLY_TERMS terms, held in registers (the code of the eight-term
+// kernels, so degrees up to 7 compute the same bits at the same speed), and
+// MORE, which reads the terms past the eighth from the coefficient row (and,
+// in the backward's parameter sums, accumulates them in shared memory).
+constexpr int MAX_POLY_TERMS = 128;
+constexpr int REG_POLY_TERMS = 8;
+
+// Columns of one CTA's row of polynomial partial sums in the backward's
+// scratch: the terms rounded up to whole groups of REG_POLY_TERMS.
+__host__ __device__ constexpr int poly_part_cols(int terms) {
+  return terms <= REG_POLY_TERMS ? REG_POLY_TERMS
+                                 : (terms + REG_POLY_TERMS - 1) / REG_POLY_TERMS * REG_POLY_TERMS;
+}
 
 // Integer arguments of attn_stream_fwd / attn_stream_bwd_*, in this order.
 // The last two are read by attn_stream_bwd_fused.cu and by the chunk entry of
@@ -45,7 +59,8 @@ struct BiasArgs {
 struct HeadBias {
   const float* bias_h;
   const float* table_h;
-  float c[MAX_POLY_TERMS];
+  float c[REG_POLY_TERMS];
+  const float* c_more;  // the head's coefficients from REG_POLY_TERMS on
   int terms, grid, ell, row0, col0, n_valid;
 };
 
@@ -55,8 +70,9 @@ __device__ __forceinline__ HeadBias head_bias(const BiasArgs& a, int h, int n_to
   hb.table_h = a.table != nullptr ? a.table + (long long)h * (2 * a.rel_ell - 1) : nullptr;
   hb.terms = a.coeff != nullptr ? a.poly_terms : 0;
 #pragma unroll
-  for (int i = 0; i < MAX_POLY_TERMS; ++i)
+  for (int i = 0; i < REG_POLY_TERMS; ++i)
     hb.c[i] = i < hb.terms ? a.coeff[h * a.poly_terms + i] : 0.f;
+  hb.c_more = a.coeff != nullptr ? a.coeff + h * a.poly_terms + REG_POLY_TERMS : nullptr;
   hb.grid = a.poly_grid;
   hb.ell = a.rel_ell;
   hb.row0 = a.row0;
@@ -88,13 +104,21 @@ __device__ __forceinline__ void next_patch(Patch& p, int grid) {
 
 // The polynomial bias between two patch tokens: sum_k c[k] * dist^k over the
 // L1 distance of their patch coordinates. Also hands back that distance.
+// MORE: the head may have more than REG_POLY_TERMS terms.
+template <bool MORE>
 __device__ __forceinline__ float poly_bias(const HeadBias& hb, Patch q, Patch k, float& dist) {
   dist = float(abs(q.x - k.x) + abs(q.y - k.y));
   float bias = 0.f, pw = 1.f;
 #pragma unroll
-  for (int i = 0; i < MAX_POLY_TERMS; ++i) {
+  for (int i = 0; i < REG_POLY_TERMS; ++i) {
     if (i < hb.terms) bias = __fadd_rn(bias, __fmul_rn(hb.c[i], pw));
     pw = __fmul_rn(pw, dist);
+  }
+  if (MORE) {
+    for (int i = REG_POLY_TERMS; i < hb.terms; ++i) {  // same order, from memory
+      bias = __fadd_rn(bias, __fmul_rn(__ldg(hb.c_more + i - REG_POLY_TERMS), pw));
+      pw = __fmul_rn(pw, dist);
+    }
   }
   return bias;
 }
@@ -108,6 +132,7 @@ __device__ __forceinline__ float rel_bias(const HeadBias& hb, int row, int col) 
 // Scaled, biased, masked logit of local query row qi against local key kj.
 // The polynomial bias is zero on the cls row and column and at padded
 // indices. Both generated biases act on global indices (row0 + qi, col0 + kj).
+template <bool MORE = false>
 __device__ __forceinline__ float stream_logit(float acc, int qi, int kj, int n_tokens,
                                               float scale, const HeadBias& hb) {
   const int row = hb.row0 + qi, col = hb.col0 + kj;
@@ -118,15 +143,16 @@ __device__ __forceinline__ float stream_logit(float acc, int qi, int kj, int n_t
   } else if (hb.terms > 0) {
     float dist;
     if (row > 0 && col > 0 && row < hb.n_valid)
-      s = __fadd_rn(s, poly_bias(hb, patch_of(row, hb.grid), patch_of(col, hb.grid), dist));
+      s = __fadd_rn(s, poly_bias<MORE>(hb, patch_of(row, hb.grid), patch_of(col, hb.grid), dist));
   } else if (hb.table_h != nullptr) {
     s = __fadd_rn(s, rel_bias(hb, row, col));
   }
   return s;
 }
 
-// Which generated bias a kernel of attn_stream_bwd_fused.cu is compiled for.
-enum Pe { PE_NONE, PE_POLY, PE_REL };
+// Which generated bias a kernel of attn_stream_bwd_fused.cu is compiled for:
+// PE_POLY_MORE is the polynomial with more than REG_POLY_TERMS terms.
+enum Pe { PE_NONE, PE_POLY, PE_REL, PE_POLY_MORE };
 
 // stream_logit for a key chunk of its own length (n_k keys, already cut to
 // the chunk's valid width) and no materialized bias. Also says whether the
@@ -145,9 +171,9 @@ __device__ __forceinline__ float chunk_logit(float acc, int qi, int kj, int n_k,
   counts = false;
   if (kj >= n_k || col >= hb.n_valid) return NEG_INF;
   float s = __fmul_rn(acc, scale);
-  if (PE == PE_POLY) {
+  if (PE == PE_POLY || PE == PE_POLY_MORE) {
     counts = row > 0 && col > 0 && row < hb.n_valid;
-    if (counts) s = __fadd_rn(s, poly_bias(hb, pq, pk, dist));
+    if (counts) s = __fadd_rn(s, poly_bias<PE == PE_POLY_MORE>(hb, pq, pk, dist));
   } else if (PE == PE_REL) {
     counts = row < hb.n_valid;
     s = __fadd_rn(s, rel_bias(hb, row, col));

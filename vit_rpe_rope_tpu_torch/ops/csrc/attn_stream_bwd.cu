@@ -80,7 +80,7 @@ template <int D>
 using Layout = BwdLayout<D>;
 
 // dq for one (batch, head, 64-query tile), over all key tiles.
-template <int D, typename T>
+template <int D, typename T, bool MORE>
 __global__ void __launch_bounds__(THREADS) attn_stream_bwd_dq_kernel(const Params p) {
   using L = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -145,7 +145,7 @@ __global__ void __launch_bounds__(THREADS) attn_stream_bwd_dq_kernel(const Param
     __syncwarp();
 #pragma unroll 8
     for (int j = 0; j < TK / 2; ++j) {
-      const float pr = expf(stream_logit(s_row[j], qi, k0 + col0 + j, N, p.scale, hb) - lse);
+      const float pr = expf(stream_logit<MORE>(s_row[j], qi, k0 + col0 + j, N, p.scale, hb) - lse);
       ds_row[j] = __float2bfloat16(__fmul_rn(pr, __fsub_rn(u_row[j], delta)));
     }
     __syncwarp();
@@ -163,7 +163,7 @@ __global__ void __launch_bounds__(THREADS) attn_stream_bwd_dq_kernel(const Param
 }
 
 // dk and dv for one (batch, head, 64-key tile), over all query tiles.
-template <int D, typename T>
+template <int D, typename T, bool MORE>
 __global__ void __launch_bounds__(THREADS) attn_stream_bwd_dkv_kernel(const Params p) {
   using L = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -242,7 +242,7 @@ __global__ void __launch_bounds__(THREADS) attn_stream_bwd_dkv_kernel(const Para
       const int qc = col0 + j, qi = q0 + qc;
       float pr = 0.f, ds = 0.f;
       if (qi < N) {  // padded query rows carry a zero g in the JAX kernel
-        pr = expf(stream_logit(s_row[j], qi, kj, N, p.scale, hb) - st[0][qc]);
+        pr = expf(stream_logit<MORE>(s_row[j], qi, kj, N, p.scale, hb) - st[0][qc]);
         ds = __fmul_rn(pr, __fsub_rn(u_row[j], st[1][qc]));
       }
       pt_row[j] = __float2bfloat16(pr);
@@ -358,12 +358,15 @@ template <int D, typename T>
 cudaError_t launch(const Params& p, Pass pass, cudaStream_t stream) {
   const size_t smem = Layout<D>::BYTES;
   const int n_q = (p.N + TQ - 1) / TQ, n_k = (p.N + TK - 1) / TK;
+  const bool more = p.bias.poly_terms > REG_POLY_TERMS;
   if (pass == PASS_DQ)
-    return launch_kernel(attn_stream_bwd_dq_kernel<D, T>, dim3(n_q, p.H, p.B), smem,
-                         p, stream);
+    return launch_kernel(more ? attn_stream_bwd_dq_kernel<D, T, true>
+                              : attn_stream_bwd_dq_kernel<D, T, false>,
+                         dim3(n_q, p.H, p.B), smem, p, stream);
   if (pass == PASS_DKV)
-    return launch_kernel(attn_stream_bwd_dkv_kernel<D, T>, dim3(n_k, p.H, p.B), smem,
-                         p, stream);
+    return launch_kernel(more ? attn_stream_bwd_dkv_kernel<D, T, true>
+                              : attn_stream_bwd_dkv_kernel<D, T, false>,
+                         dim3(n_k, p.H, p.B), smem, p, stream);
   const cudaError_t err = launch_kernel(attn_stream_bwd_dbias_kernel<D, T>,
                                         dim3(n_q * n_k, p.H, p.groups), smem, p, stream);
   if (err != cudaSuccess || p.groups == 1) return err;

@@ -41,8 +41,9 @@
 //                  dq, ds . kf for its 64 keys, goes to its own slab of an f32
 //                  scratch [key tiles, B, H, Nq, D], written once per query
 //                  tile. The polynomial sums stay in registers (one per term
-//                  and thread) and are added up over the CTA in a fixed
-//                  order. The table's gradient is a sum of ds along the
+//                  and thread; terms past the eighth in a column per thread
+//                  of shared memory) and are added up over the CTA in a
+//                  fixed order, eight terms at a time. The table's gradient is a sum of ds along the
 //                  diagonals of the (64 x 64) tile, 127 of them: they are
 //                  added into a 128-entry ring in shared memory, whose first
 //                  64 entries are final once a query tile is done (the next
@@ -74,7 +75,7 @@ struct Params {
   float* dv;
   float* dq_part;      // [key tiles, B, H, Nq_pad, D]
   float* dparam;       // dcoeff [H, poly_terms] or dtable [H, 2 * rel_ell - 1]
-  float* dparam_part;  // [B, H, key tiles, MAX_POLY_TERMS | Nq_pad + 64]
+  float* dparam_part;  // [B, H, key tiles, poly_part_cols(terms) | Nq_pad + 64]
   const float* cos;    // [cos_heads, Nq, D/2] or null
   const float* sin;
   BiasArgs bias;
@@ -93,6 +94,7 @@ using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::c
 template <int D, typename T, int PE, bool GRADS>
 __device__ __forceinline__ void sweep(const Params& p) {
   using L = BwdLayout<D>;
+  constexpr bool POLY = PE == PE_POLY || PE == PE_POLY_MORE;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + L::T0);
   __nv_bfloat16* v_s = k_s + TK * L::LDX;
@@ -104,7 +106,10 @@ __device__ __forceinline__ void sweep(const Params& p) {
   __nv_bfloat16* dst_s = reinterpret_cast<__nv_bfloat16*>(smem + L::R_OFF);
   __shared__ float st[2][TQ];               // the query tile's lse and delta
   __shared__ float ring[2 * TQ];            // the table gradient's diagonals
-  __shared__ float red[WARPS][MAX_POLY_TERMS];
+  __shared__ float red[WARPS][REG_POLY_TERMS];
+  // PE_POLY_MORE: the terms past REG_POLY_TERMS, [terms - 8][THREADS] f32
+  // after the layout's sections, one column per thread.
+  float* pext = reinterpret_cast<float*>(smem + L::BYTES);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int kt = blockIdx.x, k0 = kt * TK, h = blockIdx.y, b = blockIdx.z;
@@ -136,7 +141,7 @@ __device__ __forceinline__ void sweep(const Params& p) {
   const int my_row = lane >> 1;
   const int col0 = (lane & 1) * (TQ / 2);
   const int kj = key_w + my_row;
-  const Patch pk = PE == PE_POLY ? patch_of(hb.col0 + kj, hb.grid) : Patch{0, 0};
+  const Patch pk = POLY ? patch_of(hb.col0 + kj, hb.grid) : Patch{0, 0};
   const float* s_row = s_w + my_row * L::LDS + col0;
   float* u_row = u_w + my_row * L::LDS + col0;
   __nv_bfloat16* pt_row = pt_w + my_row * L::LDP + col0;
@@ -150,9 +155,12 @@ __device__ __forceinline__ void sweep(const Params& p) {
       wmma::fill_fragment(dv_acc[n], 0.f);
     }
   }
-  float pacc[MAX_POLY_TERMS];
+  float pacc[REG_POLY_TERMS];
 #pragma unroll
-  for (int m = 0; m < MAX_POLY_TERMS; ++m) pacc[m] = 0.f;
+  for (int m = 0; m < REG_POLY_TERMS; ++m) pacc[m] = 0.f;
+  if (PE == PE_POLY_MORE)
+    for (int m = REG_POLY_TERMS; m < hb.terms; ++m)
+      pext[(m - REG_POLY_TERMS) * THREADS + threadIdx.x] = 0.f;
 
   for (int t = 0; t < n_q; ++t) {
     const int q0 = t * TQ;
@@ -173,7 +181,7 @@ __device__ __forceinline__ void sweep(const Params& p) {
       warp_abt<D, L::LDS>(u_w, a, g_s);  // gv^T
     }
     __syncwarp();
-    Patch pq = PE == PE_POLY ? patch_of(hb.row0 + q0 + col0, hb.grid) : Patch{0, 0};
+    Patch pq = POLY ? patch_of(hb.row0 + q0 + col0, hb.grid) : Patch{0, 0};
 #pragma unroll 8
     for (int j = 0; j < TQ / 2; ++j) {
       const int qc = col0 + j, qi = q0 + qc;
@@ -186,16 +194,22 @@ __device__ __forceinline__ void sweep(const Params& p) {
         pr = expf(s - st[0][qc]);
         ds = __fmul_rn(pr, __fsub_rn(u_row[j], st[1][qc]));
         dsz = counts ? ds : 0.f;
-        if (PE == PE_POLY) {
+        if (POLY) {
           float pw = 1.f;
 #pragma unroll
-          for (int m = 0; m < MAX_POLY_TERMS; ++m) {
+          for (int m = 0; m < REG_POLY_TERMS; ++m) {
             if (m < hb.terms) pacc[m] += dsz * pw;
             pw *= dist;
           }
+          if (PE == PE_POLY_MORE) {
+            for (int m = REG_POLY_TERMS; m < hb.terms; ++m) {
+              pext[(m - REG_POLY_TERMS) * THREADS + threadIdx.x] += dsz * pw;
+              pw *= dist;
+            }
+          }
         }
       }
-      if (PE == PE_POLY) next_patch(pq, hb.grid);
+      if (POLY) next_patch(pq, hb.grid);
       if (PE == PE_REL) u_row[j] = dsz;  // gv^T is used up: keep the f32 ds^T
       if (GRADS) {
         pt_row[j] = __float2bfloat16(pr);
@@ -254,19 +268,28 @@ __device__ __forceinline__ void sweep(const Params& p) {
     float* row = p.dparam_part + ((bh * n_kt) + kt) * (long long)(nq_pad + TQ);
     if (threadIdx.x < TQ - 1) row[nq_pad + threadIdx.x] = ring[(nq_pad + threadIdx.x) % (2 * TQ)];
   }
-  if (PE == PE_POLY) {
+  if (POLY) {
+    const int cols = PE == PE_POLY ? REG_POLY_TERMS : poly_part_cols(hb.terms);
+    for (int g0 = 0; g0 < cols; g0 += REG_POLY_TERMS) {  // eight terms at a time
 #pragma unroll
-    for (int m = 0; m < MAX_POLY_TERMS; ++m) {
-      float x = pacc[m];
+      for (int m = 0; m < REG_POLY_TERMS; ++m) {
+        const int t = g0 + m;
+        float x = g0 == 0 ? pacc[m]
+                  : PE == PE_POLY_MORE && t < hb.terms
+                      ? pext[(t - REG_POLY_TERMS) * THREADS + threadIdx.x]
+                      : 0.f;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-      if (lane == 0) red[warp][m] = x;
-    }
-    __syncthreads();
-    if (threadIdx.x < MAX_POLY_TERMS) {
-      float x = 0.f;
-      for (int w = 0; w < WARPS; ++w) x += red[w][threadIdx.x];
-      p.dparam_part[((bh * n_kt) + kt) * MAX_POLY_TERMS + threadIdx.x] = x;
+        for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+        if (lane == 0) red[warp][m] = x;
+      }
+      __syncthreads();
+      if (threadIdx.x < REG_POLY_TERMS) {
+        float x = 0.f;
+        for (int w = 0; w < WARPS; ++w) x += red[w][threadIdx.x];
+        p.dparam_part[((bh * n_kt) + kt) * cols + g0 + threadIdx.x] = x;
+      }
+      // red is read before the next group overwrites it
+      if (g0 + REG_POLY_TERMS < cols) __syncthreads();
     }
   }
   if (!GRADS) return;
@@ -297,9 +320,9 @@ __global__ void __launch_bounds__(THREADS) attn_stream_bwd_fused_kernel(const Pa
   sweep<D, T, PE, true>(p);
 }
 
-template <int D, typename T>
+template <int D, typename T, int PE>
 __global__ void __launch_bounds__(THREADS) attn_stream_bwd_dcoeff_kernel(const Params p) {
-  sweep<D, T, PE_POLY, false>(p);
+  sweep<D, T, PE, false>(p);
 }
 
 template <int D, typename T>
@@ -341,14 +364,14 @@ __global__ void attn_stream_bwd_fused_dq_kernel(const Params p) {
 
 // dcoeff[h, m] = sum over batches, then key tiles, of the CTAs' sums.
 __global__ void attn_stream_bwd_dcoeff_sum_kernel(const Params p) {
-  const int n_kt = tiles(p.Nk), terms = p.bias.poly_terms;
+  const int n_kt = tiles(p.Nk), terms = p.bias.poly_terms, cols = poly_part_cols(terms);
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < p.H * terms;
        i += gridDim.x * blockDim.x) {
     const int h = i / terms, m = i % terms;
     double sum = 0.0;
     for (int b = 0; b < p.B; ++b)
       for (int t = 0; t < n_kt; ++t)
-        sum += p.dparam_part[(((long long)b * p.H + h) * n_kt + t) * MAX_POLY_TERMS + m];
+        sum += p.dparam_part[(((long long)b * p.H + h) * n_kt + t) * cols + m];
     p.dparam[i] = float(sum);
   }
 }
@@ -383,16 +406,28 @@ int blocks_for(long long total) {
 
 template <int D, typename T>
 cudaError_t launch(const Params& p, Pass pass, cudaStream_t stream) {
-  const size_t smem = BwdLayout<D>::BYTES;
+  const int pe = p.bias.coeff != nullptr
+                     ? (p.bias.poly_terms > REG_POLY_TERMS ? PE_POLY_MORE : PE_POLY)
+                 : p.bias.table != nullptr ? PE_REL
+                                           : PE_NONE;
+  // The PE_POLY_MORE kernels hold the terms past REG_POLY_TERMS after the
+  // layout: at 128 terms and D = 128, 61,440 bytes beside the layout's 155,648.
+  const size_t smem =
+      BwdLayout<D>::BYTES +
+      (pe == PE_POLY_MORE ? size_t(p.bias.poly_terms - REG_POLY_TERMS) * THREADS * sizeof(float)
+                          : 0);
   const dim3 grid(tiles(p.Nk), p.H, p.B);
-  const int pe = p.bias.coeff != nullptr ? PE_POLY : p.bias.table != nullptr ? PE_REL : PE_NONE;
   cudaError_t err;
   if (pass == PASS_DCOEFF)
-    err = launch_kernel(attn_stream_bwd_dcoeff_kernel<D, T>, grid, smem, p, stream);
+    err = launch_kernel(pe == PE_POLY_MORE ? attn_stream_bwd_dcoeff_kernel<D, T, PE_POLY_MORE>
+                                           : attn_stream_bwd_dcoeff_kernel<D, T, PE_POLY>,
+                        grid, smem, p, stream);
   else if (pass == PASS_DTABLE)
     err = launch_kernel(attn_stream_bwd_dtable_kernel<D, T>, grid, smem, p, stream);
   else if (pe == PE_POLY)
     err = launch_kernel(attn_stream_bwd_fused_kernel<D, T, PE_POLY>, grid, smem, p, stream);
+  else if (pe == PE_POLY_MORE)
+    err = launch_kernel(attn_stream_bwd_fused_kernel<D, T, PE_POLY_MORE>, grid, smem, p, stream);
   else if (pe == PE_REL)
     err = launch_kernel(attn_stream_bwd_fused_kernel<D, T, PE_REL>, grid, smem, p, stream);
   else
@@ -403,7 +438,7 @@ cudaError_t launch(const Params& p, Pass pass, cudaStream_t stream) {
     attn_stream_bwd_fused_dq_kernel<<<blocks_for(total), 256, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  if (pe == PE_POLY)
+  if (pe == PE_POLY || pe == PE_POLY_MORE)
     attn_stream_bwd_dcoeff_sum_kernel<<<1, 256, 0, stream>>>(p);
   else if (pe == PE_REL)
     attn_stream_bwd_dtable_sum_kernel<<<
@@ -483,8 +518,9 @@ int run(Pass pass, void* const* ptrs, const long long* strides, const int* dims,
 // f32); strides holds 21 element strides: (batch, head, token) of q k v g dq dk
 // dv; dims holds the integers of attn::Dim. Scratch, with Nq_pad = Nq rounded
 // up to 64 and key tiles = ceil(Nk / 64): dq_part f32 [key tiles, B, H, Nq_pad,
-// D]; dparam_part f32 [B, H, key tiles, 8] with coeff, [B, H, key tiles,
-// Nq_pad + 64] with table. Each returns the CUDA error of its launches (0 on
+// D]; dparam_part f32 [B, H, key tiles, poly_part_cols(terms)] with coeff
+// (8 columns up to 8 terms, else the terms rounded up to a multiple of 8),
+// [B, H, key tiles, Nq_pad + 64] with table. Each returns the CUDA error of its launches (0 on
 // success) and does not synchronize. attn_stream_bwd_fused also launches the
 // dq sum and, with coeff or table, the parameter sum; the other two launch
 // their sweep and the parameter sum.

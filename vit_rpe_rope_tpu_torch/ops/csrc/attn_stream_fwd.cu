@@ -91,7 +91,7 @@ struct Layout {
                 "shared-memory sections must stay 128-byte aligned");
 };
 
-template <int D, typename T>
+template <int D, typename T, bool MORE>
 __global__ void __launch_bounds__(THREADS) attn_stream_fwd_kernel(const Params p) {
   using L = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -149,7 +149,7 @@ __global__ void __launch_bounds__(THREADS) attn_stream_fwd_kernel(const Params p
     float mx = NEG_INF;
 #pragma unroll 8
     for (int j = 0; j < TK / 2; ++j) {
-      const float s = stream_logit(s_row[j], qi, k0 + col0 + j, p.kv_valid, p.scale, hb);
+      const float s = stream_logit<MORE>(s_row[j], qi, k0 + col0 + j, p.kv_valid, p.scale, hb);
       s_row[j] = s;
       mx = fmaxf(mx, s);
     }
@@ -192,9 +192,10 @@ __global__ void __launch_bounds__(THREADS) attn_stream_fwd_kernel(const Params p
 
 template <int D, typename T>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  return launch_kernel(attn_stream_fwd_kernel<D, T>,
-                       dim3((p.N + TQ - 1) / TQ, p.H, p.B), Layout<D>::BYTES, p,
-                       stream);
+  const dim3 grid((p.N + TQ - 1) / TQ, p.H, p.B);
+  if (p.bias.poly_terms > REG_POLY_TERMS)
+    return launch_kernel(attn_stream_fwd_kernel<D, T, true>, grid, Layout<D>::BYTES, p, stream);
+  return launch_kernel(attn_stream_fwd_kernel<D, T, false>, grid, Layout<D>::BYTES, p, stream);
 }
 
 template <typename T>

@@ -114,7 +114,12 @@ LAUNCHES_STREAM_DTABLE = 0
 # CUDA kernels' (what a twin is given when a kernel is held to it).
 KV_TILE = 512
 STREAM_TILE = 64
-MAX_POLY_TERMS = 8  # polynomial terms (degree + 1) the CUDA kernels hold
+# Polynomial terms (degree + 1) the CUDA kernels take: the JAX package's LANE
+# coefficient lanes. The first REG_POLY_TERMS live in registers; the one-pass
+# backward's per-CTA partial sums come in groups of that many
+# (csrc/attn_stream.cuh).
+MAX_POLY_TERMS = LANE
+REG_POLY_TERMS = 8
 # Tiles of the one-pass backward's twin on the CPU path: the JAX package's.
 # (p = exp(s - lse) needs no running max, so here the tiles change only the
 # order of the float32 sums.)
@@ -145,6 +150,60 @@ def _pad_seq(x, n_pad: int, axis: int):
     return torch.nn.functional.pad(x, widths)
 
 
+class HeadPad:
+    """Zero-padding of the head dim D up to the next head dim the kernels are
+    built for (HEAD_DIMS), so that every D the JAX package trains runs on
+    them. scale is passed explicitly, so zero columns change neither the
+    logits nor the output; their gradients come back as zeros and are cut
+    off. With rope (halves=True) each half is padded on its own,
+    [x1 | 0 | x2 | 0], since the rotation pairs column i with i + D/2, and
+    the cos / sin tables are padded with 1 / 0. lse and delta do not change.
+    Padding copies q, k, v (which are strided views of the qkv product) and
+    the other [.., D] operands into new contiguous tensors: one extra read
+    and write of each per call."""
+
+    def __init__(self, d: int, halves: bool):
+        built = [hd for hd in HEAD_DIMS if hd >= d]
+        if not built:
+            raise ValueError(f"the attention kernels are built for head dims "
+                             f"up to {HEAD_DIMS[-1]}; got {d}")
+        self.d, self.d_pad, self.halves = d, built[0], halves
+
+    @classmethod
+    def needed(cls, q, cos=None):
+        """A HeadPad for q's head dim, or None where the kernels take it."""
+        d = q.shape[-1]
+        return None if d in HEAD_DIMS else cls(d, cos is not None)
+
+    def pad(self, x):
+        """[..., D] -> [..., D'] (None passes through)."""
+        if x is None:
+            return None
+        if not self.halves:
+            return torch.nn.functional.pad(x, (0, self.d_pad - self.d))
+        h, hp = self.d // 2, self.d_pad // 2
+        z = x.new_zeros(x.shape[:-1] + (hp - h,))
+        return torch.cat([x[..., :h], z, x[..., h:], z], dim=-1)
+
+    def unpad(self, x):
+        """[..., D'] -> [..., D] (a view without halves; None passes
+        through)."""
+        if x is None:
+            return None
+        if not self.halves:
+            return x[..., :self.d]
+        h, hp = self.d // 2, self.d_pad // 2
+        return torch.cat([x[..., :h], x[..., hp:hp + h]], dim=-1)
+
+    def tables(self, cos, sin):
+        """cos / sin [.., D/2] padded with 1 / 0 to [.., D'/2]."""
+        if cos is None:
+            return None, None
+        widths = (0, (self.d_pad - self.d) // 2)
+        return (torch.nn.functional.pad(cos, widths, value=1.0).contiguous(),
+                torch.nn.functional.pad(sin, widths).contiguous())
+
+
 def _dense_attn_fits(h: int, n: int, has_bias: bool) -> bool:
     """The JAX package's routing predicate between its dense and streaming
     kernels (a TPU VMEM budget), kept so both packages route the same
@@ -153,6 +212,12 @@ def _dense_attn_fits(h: int, n: int, has_bias: bool) -> bool:
     nk = _round_up(n, LANE)
     tiles = (4 + (1 if has_bias else 0)) * h * nq * nk * 4
     return tiles <= 12 * 1024 * 1024
+
+
+def use_dense(h: int, n: int, has_bias: bool) -> bool:
+    """Whether attention over n tokens takes the dense kernels (else the
+    streaming ones), as the JAX package routes it."""
+    return n <= STREAMING_THRESHOLD and _dense_attn_fits(h, n, has_bias)
 
 
 def _prep_freqs(freqs_cis, num_heads, n_pad, dtype, broadcast=True):
@@ -655,7 +720,7 @@ def _check_cuda_inputs(q, k, v, bias, cos, sin, key_chunk=False):
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, h, n, d = q.shape
-    if d not in HEAD_DIMS:
+    if d not in HEAD_DIMS:  # HeadPad brings every D up to 128 to one of them
         raise ValueError(f"attn_fwd is built for head dims {HEAD_DIMS}; "
                          f"got {d}")
     if min(b, h, n, k.shape[2]) < 1 or b > 65535 or h > 65535:
@@ -692,6 +757,10 @@ def attention_fwd(q, k, v, scale, bias=None, cos=None, sin=None):
     global LAUNCHES
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale, bias, cos, sin)
+    hp = HeadPad.needed(q, cos)
+    if hp is not None:
+        return hp.unpad(attention_fwd(hp.pad(q), hp.pad(k), hp.pad(v), scale,
+                                      bias, *hp.tables(cos, sin)))
     _check_cuda_inputs(q, k, v, bias, cos, sin)
     b, h, n, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype,
@@ -726,6 +795,13 @@ def attention_bwd(q, k, v, out, g, scale, bias=None, cos=None, sin=None,
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, out, g, scale, bias, cos, sin,
                                    want_dbias=want_dbias, want_drot=want_drot)
+    hp = HeadPad.needed(q, cos)
+    if hp is not None:
+        dq, dk, dv, dbias, dqr, dkr = attention_bwd(
+            *map(hp.pad, (q, k, v, out, g)), scale, bias,
+            *hp.tables(cos, sin), want_dbias=want_dbias, want_drot=want_drot)
+        return (*map(hp.unpad, (dq, dk, dv)), dbias, hp.unpad(dqr),
+                hp.unpad(dkr))
     _check_cuda_inputs(q, k, v, bias, cos, sin)
     for name, t in (("out", out), ("g", g)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -828,6 +904,11 @@ def attention_stream_fwd(q, k, v, scale, bias=None, cos=None, sin=None,
     if q.device.type == "cpu":
         return attention_stream_plain(q, k, v, scale, bias, cos, sin, poly,
                                       rel)
+    hp = HeadPad.needed(q, cos)
+    if hp is not None:
+        out, lse = attention_stream_fwd(hp.pad(q), hp.pad(k), hp.pad(v), scale,
+                                        bias, *hp.tables(cos, sin), poly, rel)
+        return hp.unpad(out), lse
     _check_cuda_inputs(q, k, v, bias, cos, sin)
     coeff, grid, table = _check_generated(q, poly, rel)
     b, h, n, d = q.shape
@@ -884,6 +965,14 @@ def streaming_chunk_fwd(q, k, v, scale, row0, col0, n_valid, poly=None,
         return tuple(x if dst is None else dst.copy_(x)
                      for x, dst in zip(got, (out, lse)))
     _check_bf16_products(mm_dtype)
+    hp = HeadPad.needed(q)
+    if hp is not None:
+        out_p, lse = streaming_chunk_fwd(hp.pad(q), hp.pad(k), hp.pad(v),
+                                         scale, row0, col0, n_valid, poly,
+                                         rel, lse=lse)
+        if out is None:
+            return hp.unpad(out_p), lse
+        return out.copy_(hp.unpad(out_p)), lse
     _check_cuda_inputs(q, k, v, None, None, None, key_chunk=True)
     coeff, grid, table = _check_generated(q, poly, rel)
     if out is None:
@@ -942,6 +1031,14 @@ def attention_stream_bwd(q, k, v, out, g, lse, scale, bias=None, cos=None,
             q, k, v, out, g, lse, scale, bias, cos, sin, poly, rel,
             want_dbias=want_dbias, want_drot=want_drot,
             want_dparam=want_dparam)
+    hp = HeadPad.needed(q, cos)
+    if hp is not None:
+        dq, dk, dv, dbias, dqr, dkr, dcoeff, dtable = attention_stream_bwd(
+            *map(hp.pad, (q, k, v, out, g)), lse, scale, bias,
+            *hp.tables(cos, sin), poly, rel, want_dbias=want_dbias,
+            want_drot=want_drot, want_dparam=want_dparam)
+        return (*map(hp.unpad, (dq, dk, dv)), dbias, hp.unpad(dqr),
+                hp.unpad(dkr), dcoeff, dtable)
     _check_cuda_inputs(q, k, v, bias, cos, sin)
     coeff, grid, table = _check_generated(q, poly, rel)
     for name, t in (("out", out), ("g", g)):
@@ -1023,8 +1120,10 @@ def _dparam_scratch(q, nk, coeff, table):
     f32 = dict(dtype=torch.float32, device=q.device)
     n_kt = -(-nk // STREAM_TILE)
     if coeff is not None:
+        terms = coeff.shape[1]  # poly_part_cols of csrc/attn_stream.cuh
+        cols = max(REG_POLY_TERMS, _round_up(terms, REG_POLY_TERMS))
         return (torch.empty(coeff.shape, **f32),
-                torch.empty((b, h, n_kt, MAX_POLY_TERMS), **f32))
+                torch.empty((b, h, n_kt, cols), **f32))
     if table is not None:
         return (torch.empty(table.shape, **f32),
                 torch.empty((b, h, n_kt, _round_up(n, STREAM_TILE)
@@ -1067,6 +1166,13 @@ def attention_stream_bwd_fused(q, k, v, g, lse, delta, scale, cos=None,
     if cos is not None and (nc != n or row0 or col0):
         raise ValueError("rope tables rotate whole sequences: the keys must "
                          "be q's own, at offsets (0, 0)")
+    hp = HeadPad.needed(q, cos) if q.device.type != "cpu" else None
+    if hp is not None:
+        dq, dk, dv, dcoeff, dtable = attention_stream_bwd_fused(
+            *map(hp.pad, (q, k, v, g)), lse, delta, scale,
+            *hp.tables(cos, sin), poly, rel, n_valid, row0, col0, chunk_cols,
+            out_dtype, mm_dtype)
+        return (*map(hp.unpad, (dq, dk, dv)), dcoeff, dtable)
     width = nc if chunk_cols is None else min(nc, int(chunk_cols))
     seg_cols = _fused_kv_seg_cols(b, h, n, d)
     if width > seg_cols:
@@ -1284,7 +1390,7 @@ def flash_attention(q, k, v, scale, bias=None, freqs_cis=None, poly=None,
     training = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in inputs)
     cos_raw, sin_raw = freqs_cis if freqs_cis is not None else (None, None)
-    if n > STREAMING_THRESHOLD or not _dense_attn_fits(h, n, has_biasish):
+    if not use_dense(h, n, has_biasish):
         if not training:
             bias, cos, sin = prepare_pe(h, n, q.device, bias, freqs_cis)
             return attention_stream_fwd(q, k, v, scale, bias, cos, sin, poly,

@@ -48,10 +48,11 @@ from vit_rpe_rope_tpu_torch.configs import (
     TrainConfig,
     ViTConfig,
 )
-from vit_rpe_rope_tpu_torch.models.vit import (
-    BLOCK_PARAM_NAMES, _layer_norm, _linear, patch_embed)
+from vit_rpe_rope_tpu_torch.models.vit import BLOCK_PARAM_NAMES, patch_embed
 from vit_rpe_rope_tpu_torch.ops.flash_attention import (
-    _pad_seq, _prep_freqs, _round_up, streaming_chunk_bwd, streaming_chunk_fwd)
+    HEAD_DIMS, HeadPad, _pad_seq, _prep_freqs, _round_up, streaming_chunk_bwd,
+    streaming_chunk_fwd)
+from vit_rpe_rope_tpu_torch.ops.layers import layer_norm, linear
 from vit_rpe_rope_tpu_torch.ops.rotary import rotate_half_split
 
 _ALIGN = 512  # every chunk / pad boundary a multiple of the key tiles
@@ -141,6 +142,11 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
     e, nh, dh = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     eps = cfg.layer_norm_eps
     scale = dh ** -0.5
+    # A head dim the kernels are not built for is zero-padded once per
+    # block, not per chunk launch (q and k are rotated before the kernels,
+    # so the whole row is padded).
+    head_pad = HeadPad(dh, halves=False) if dh not in HEAD_DIMS else None
+    dhp = head_pad.d_pad if head_pad is not None else dh
     q_chunk = _round_up(q_chunk, _ALIGN)
     n_pad = _round_up(n, _ALIGN)
     starts = list(range(0, n_pad, q_chunk))
@@ -183,8 +189,8 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
 
     def _pre(bp, x, aux):
         """x [B, n_pad, E] -> (rotated) q, k, v [B, H, n_pad, Dh]."""
-        h = _layer_norm(x, bp["norm1.weight"], bp["norm1.bias"], eps)
-        qkv = _linear(h, bp["attn.qkv.weight"])
+        h = layer_norm(x, bp["norm1.weight"], bp["norm1.bias"], eps)
+        qkv = linear(h, bp["attn.qkv.weight"])
         q, k, v = qkv.view(x.shape[0], n_pad, 3, nh, dh).permute(
             2, 0, 3, 1, 4).unbind(0)
         if rope:
@@ -197,19 +203,19 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
         """Residual + proj + MLP: (block input x, attention out o
         [B, H, n_pad, Dh]) -> block output."""
         a = o.transpose(1, 2).reshape(x.shape[0], n_pad, e)
-        x = x + _linear(a, bp["attn.proj.weight"], bp["attn.proj.bias"])
-        h = _layer_norm(x, bp["norm2.weight"], bp["norm2.bias"], eps)
-        h = _linear(h, bp["mlp.fc1.weight"], bp["mlp.fc1.bias"])
+        x = x + linear(a, bp["attn.proj.weight"], bp["attn.proj.bias"])
+        h = layer_norm(x, bp["norm2.weight"], bp["norm2.bias"], eps)
+        h = linear(h, bp["mlp.fc1.weight"], bp["mlp.fc1.bias"])
         h = F.gelu(h, approximate="none")
-        h = _linear(h, bp["mlp.fc2.weight"], bp["mlp.fc2.bias"])
+        h = linear(h, bp["mlp.fc2.weight"], bp["mlp.fc2.bias"])
         return x + h
 
     def _head(hp, xcls, labels, mask):
         """Final LN on the cls row only -> (batch-mean loss over the real
         examples, correct, count); mask [B] zeroes the padding of a final
         partial batch."""
-        xf = _layer_norm(xcls, hp["norm.weight"], hp["norm.bias"], eps)
-        logits = _linear(xf[:, 0], hp["head.weight"], hp["head.bias"]).float()
+        xf = layer_norm(xcls, hp["norm.weight"], hp["norm.bias"], eps)
+        logits = linear(xf[:, 0], hp["head.weight"], hp["head.bias"]).float()
         losses = F.cross_entropy(logits, labels.long(), reduction="none")
         count = mask.sum()
         loss = (losses * mask).sum() / count.clamp(min=1.0)
@@ -265,7 +271,10 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
         gradient (or None), per q-chunk (and per key segment)."""
         bsz = q.shape[0]
         kw = _chunk_kw(aux)
-        shape = (bsz, nh, n_pad, dh)
+        if head_pad is not None:
+            q, k, v, g, o = map(head_pad.pad, (q, k, v, g, o))
+        shape = (bsz, nh, n_pad, dhp)
+        unpad = head_pad.unpad if head_pad is not None else (lambda t: t)
         f32 = dict(dtype=torch.float32, device=q.device)
         dparam = None
 
@@ -296,7 +305,7 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
                     _dbg(f"att_b2@{r0},{c0}", dv_j)
                 dk[:, :, cols] = dk_j
                 dv[:, :, cols] = dv_j
-            return dq.to(dtype), dk, dv, dparam
+            return unpad(dq.to(dtype)), unpad(dk), unpad(dv), dparam
         # dq rows are disjoint across chunks (written once, compute dtype);
         # dk/dv accumulate the chunks' compute-dtype partials in float32.
         dq = torch.empty(shape, dtype=dtype, device=q.device)
@@ -312,7 +321,7 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
             if dp_c is not None:
                 dparam = dp_c if dparam is None else dparam.add_(dp_c)
             _dbg(f"att_b@{r0}", dv)
-        return dq, dk.to(dtype), dv.to(dtype), dparam
+        return unpad(dq), unpad(dk.to(dtype)), unpad(dv.to(dtype)), dparam
 
     # ---- the host schedule ------------------------------------------------
 
@@ -327,9 +336,11 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
             for i in range(cfg.depth):
                 bp = _block(params, i)
                 q, k, v = _dbg(f"pre_f[{i}]", _pre(bp, x, aux))
+                if head_pad is not None:
+                    q, k, v = map(head_pad.pad, (q, k, v))
                 # o is [B, H, n_pad, Dh] laid out as [B, n_pad, H, Dh], so
                 # _post's transpose back to [B, n_pad, E] is a view.
-                o = torch.empty((bsz, n_pad, nh, dh), dtype=q.dtype,
+                o = torch.empty((bsz, n_pad, nh, dhp), dtype=q.dtype,
                                 device=q.device).transpose(1, 2)
                 lse = torch.empty((bsz, nh, n_pad), dtype=torch.float32,
                                   device=q.device)
@@ -341,6 +352,10 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
                                         mm_dtype=mm_dtype, **_chunk_kw(aux))
                     _dbg(f"att_f[{i}]@{r0}", lse)
                 del q, k, v
+                if head_pad is not None:
+                    o = torch.empty((bsz, n_pad, nh, dh), dtype=o.dtype,
+                                    device=o.device).transpose(1, 2).copy_(
+                                        head_pad.unpad(o))
                 x = _dbg(f"post_f[{i}]", _post(bp, x, o))
                 if keep_residuals:
                     xs.append(x)
