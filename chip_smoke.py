@@ -26,8 +26,10 @@ exits nonzero without a card, or when any phase fails. Phases:
    dcos/dsin) in the five regimes, f32 and bf16, at B=64 N=197 D=64 and
    B=128 N=65 D=32; autograd through both kernels against autograd
    through the unfused f32 oracle;
-7. the fused AdamW kernel against its twin: 3 steps on the ViT-S/16
-   params;
+7. the fused AdamW kernel against its twin and, bit for bit, the IEEE
+   op-by-op reference: 3 steps on the ViT-S/16 params, then 3 steps whose
+   parameters are replaced by new tensors before each, which build the
+   device table anew;
 8. training at full width through the train CLI (ViT-tiny/4 CIFAR
    defaults, synthetic CIFAR-10, one epoch) in rope-mixed and relative,
    counting every kernel's launches; the best checkpoint served by the
@@ -36,15 +38,19 @@ exits nonzero without a card, or when any phase fails. Phases:
    attention + the AdamW twin) from one init on the same batches;
 10. times: a ViT-S/16@224 rope-mixed f32 train step at batch 64 with a
    profiler breakdown, and the backward and AdamW kernels against their
-   twins, their bounds and a PyTorch call as a yardstick;
+   twins, their bounds and a PyTorch call as a yardstick (AdamW: the
+   wrapper by CUDA events, the kernel's device time by the profiler, which
+   also shows that a step copies nothing between host and device);
 11. the streaming kernels (forward with lse; dq, dk/dv, dbias) against
    their twins at the twins' own key tile, in six regimes (none,
    materialized bias, generated polynomial and relative bias, rope-axial,
    rope-mixed), f32 and bf16, at the long-sequence shape (B=4, H=4,
    N=4097, D=32) and the ViT-S/16@384 shape (B=8, H=6, N=577, D=64), and
-   with a bias at that model's training batch (B=16: two batch groups and
-   the dbias sum kernel); the forward and the rope-mixed backward at B=2,
-   H=4, N=16385, D=32; limits as a share of each output's largest entry;
+   with a bias at that model's training batch (B=16: 16 slabs of ds from
+   the dq kernel and the dbias sum kernel); the forward and the rope-mixed
+   backward at B=2, H=4, N=16385, D=32; limits as a share of each output's
+   largest entry; then dbias at B = 1, 7, 8, 9, 16, N = 577 and 300, f32
+   and bf16, within and over a lowered byte budget, launched twice;
 11b. the one-pass streaming backward (dq, dk, dv, dcoeff / dtable) against
    its twin in four regimes (none, rope-axial, generated polynomial and
    relative bias), f32 and bf16, at (4, 4, 4097, 32), (16, 6, 577, 64) and
@@ -72,9 +78,11 @@ exits nonzero without a card, or when any phase fails. Phases:
    the best checkpoint served by the Predictor;
 14. times: each streaming kernel (the backward kernels by the profiler's
    device time), its twin, its bound and SDPA as the yardstick (its
-   backward once, against the whole backward wrapper) at the two shapes, at N=2048 with a bias (the dbias kernel's
-   largest case) and at N=16385; the one-pass backward (none, polynomial,
-   relative) beside the separate dq + dk/dv passes at the same shapes, its
+   backward once, against the whole backward wrapper; with a bias, dbias as
+   the dq kernel's added time for its ds slabs plus the sum kernel) at the
+   two shapes, at N=2048 with a bias (dbias's largest case) and at
+   N=16385; the one-pass backward (none, polynomial, relative) beside the
+   separate dq + dk/dv passes at the same shapes, its
    bound and SDPA's backward, and the dcoeff / dtable kernels; train steps
    of the long-sequence model at N=4097 and N=16385 in rope-mixed,
    rope-axial, polynomial and relative, and of ViT-S/16@384; profiler
@@ -98,7 +106,9 @@ exits nonzero without a card, or when any phase fails. Phases:
    against the whole-sequence forward rotating in the kernel, bit for bit;
 16. the block-level paths: the fused block kernel (block_fused.cu, row 12)
    against its twin at ViT-tiny/4 (batch 128, f32 and bf16) and at the CPU
-   tests' shape, in none and rope-axial; a 6-block forward at ViT-tiny/4
+   tests' shape, in none and rope-axial, and at ViT-tiny/4 with rope-mixed's
+   per-head tables (head 0's for every head, as in the JAX package); a
+   6-block forward at ViT-tiny/4
    timed for the kernel (exactly 6 launches), the per-op block, the twin,
    torch.nn.TransformerEncoderLayer (none) and the bound;
    attention_impl="flash_block" against "flash" gradients at ViT-tiny/4
@@ -664,37 +674,88 @@ def check_autograd_vs_oracle(fa, reference_attention, device):
                                  f"oracle's: {regime}")
 
 
+def adamw_exact_step(fused_adamw):
+    """A `step` for make_fused_adamw that applies the IEEE op-by-op
+    reference (fused_adamw.adamw_exact) in place."""
+    def step(params, grads, mus, nus, *hyper):
+        new = fused_adamw.adamw_exact(params, grads, mus, nus, *hyper)
+        for old_list, new_list in zip((params, mus, nus), new):
+            for old, x in zip(old_list, new_list):
+                old.copy_(x)
+    return step
+
+
+def adamw_steps(fused_adamw, params, gen, steps=3, replace=False):
+    """`steps` AdamW steps on the same gradients of the kernel on `params`,
+    of its twin and of the IEEE op-by-op reference on copies; with
+    `replace`, the kernel's parameters are handed over as new tensors before
+    every step (as a resumed run hands them over). Returns {path: (params,
+    mu, nu)} and the device tables built."""
+    schedule = lambda step: 1e-3 * (0.9 ** step)  # noqa: E731
+    fused_adamw._TABLES.clear()  # freed storages of earlier runs may recur
+    builds = fused_adamw.TABLE_BUILDS
+    paths = {}
+    for name, step in (("kernel", fused_adamw.adamw_update),
+                       ("twin", fused_adamw.adamw_plain),
+                       ("exact", adamw_exact_step(fused_adamw))):
+        paths[name] = [{k: v.clone() for k, v in params.items()}]
+        init, update = fused_adamw.make_fused_adamw(
+            params, schedule, weight_decay=0.05, step=step)
+        paths[name].append(init(paths[name][0]))
+        paths[name].append(update)
+    handed_over = []  # kept alive, so that no new tensor reuses a storage
+    for _ in range(steps):
+        grads = {k: torch.randn(v.shape, generator=gen).to(v.device)
+                 for k, v in params.items()}
+        for name, (p, state, update) in paths.items():
+            if replace and name == "kernel":
+                handed_over.append(p)
+                p = {k: v.clone() for k, v in p.items()}
+            paths[name][:2] = update(grads, state, p)
+    torch.cuda.synchronize()
+    return ({name: (p, state[0], state[1]) for name, (p, state, _)
+             in paths.items()}, fused_adamw.TABLE_BUILDS - builds)
+
+
 def check_adamw(fused_adamw, vit, cfg, device):
-    """Phase 7: 3 AdamW steps on the ViT-S params, kernel vs twin. Returns
-    the worst error over params and moments."""
+    """Phase 7: 3 AdamW steps on the ViT-S params, each launching one
+    kernel and the device table built once; then 3 steps whose parameters
+    are replaced by new tensors before every step, which build the table
+    anew each time. The kernel must equal the IEEE op-by-op reference
+    (fused_adamw.adamw_exact) bit for bit, and its twin to ADAMW_TOL (the
+    twin divides by a Python scalar as a product with the reciprocal on
+    CUDA). Returns the worst error against the twin over params and
+    moments."""
     gen = torch.Generator().manual_seed(21)
     params = vit.init_params(gen, cfg, device=device)
-    twin = {k: v.clone() for k, v in params.items()}
-    schedule = lambda step: 1e-3 * (0.9 ** step)  # noqa: E731
-    init, update = fused_adamw.make_fused_adamw(params, schedule,
-                                                weight_decay=0.05)
-    tinit, tupdate = fused_adamw.make_fused_adamw(
-        twin, schedule, weight_decay=0.05, step=fused_adamw.adamw_plain)
-    state, tstate = init(params), tinit(twin)
-    fused_adamw.LAUNCHES_ADAMW = 0
-    for _ in range(3):
-        grads = {k: torch.randn(v.shape, generator=gen).to(device)
-                 for k, v in params.items()}
-        params, state = update(grads, state, params)
-        twin, tstate = tupdate(grads, tstate, twin)
-    torch.cuda.synchronize()
-    launches = fused_adamw.LAUNCHES_ADAMW
     worst, ok = 0.0, True
-    for key in params:
-        for x, y in ((params[key], twin[key]), (state[0][key], tstate[0][key]),
-                     (state[1][key], tstate[1][key])):
-            err, good = worst_err(x, y, ADAMW_TOL)
-            worst, ok = max(worst, err), ok and good
-    log(f"  AdamW kernel vs twin: {vit.num_params(params):,} params, 3 steps,"
-        f" wd 0.05: max_abs_err={worst:.3e} (tol {ADAMW_TOL:g} abs+rel), "
-        f"launches {launches} {'ok' if ok and launches == 3 else 'FAIL'}")
-    if not ok or launches != 3:
-        raise AssertionError("AdamW kernel disagrees with its twin")
+    for label, replace, builds_expected in (("same tensors", False, 1),
+                                            ("replaced tensors", True, 3)):
+        fused_adamw.LAUNCHES_ADAMW = 0
+        paths, builds = adamw_steps(fused_adamw, params, gen, replace=replace)
+        launches = fused_adamw.LAUNCHES_ADAMW
+        case_worst, case_ok, exact, twin_bitwise = 0.0, True, True, True
+        for got, twin, ref in zip(paths["kernel"], paths["twin"],
+                                  paths["exact"]):
+            for key in got:
+                err, good = worst_err(got[key], twin[key], ADAMW_TOL)
+                case_worst, case_ok = max(case_worst, err), case_ok and good
+                exact = exact and torch.equal(got[key], ref[key])
+                twin_bitwise = twin_bitwise and torch.equal(got[key],
+                                                            twin[key])
+        case_ok = case_ok and exact and launches == 3 and \
+            builds == builds_expected
+        log(f"  AdamW kernel vs twin ({label}): "
+            f"{vit.num_params(paths['kernel'][0]):,} params, 3 steps, wd "
+            f"0.05: max_abs_err={case_worst:.3e} (tol {ADAMW_TOL:g} abs+rel; "
+            f"bit-identical to the twin {twin_bitwise}), bit-identical to "
+            f"the IEEE op-by-op reference {exact}, launches {launches}, "
+            f"device tables built {builds} (expected {builds_expected}) "
+            f"{'ok' if case_ok else 'FAIL'}")
+        worst, ok = max(worst, case_worst), ok and case_ok
+    if not ok:
+        raise AssertionError("AdamW kernel disagrees with its twin or its "
+                             "IEEE reference")
     return worst
 
 
@@ -979,8 +1040,15 @@ def time_attention_bwd(fa, device):
 
 
 def time_adamw(fused_adamw, vit, cfg, device):
-    """Phase 10c: one AdamW step over the ViT-S params: the kernel, its
-    twin, and torch.optim.AdamW(fused=True) as a yardstick."""
+    """Phase 10c: one AdamW step over the ViT-S params: the wrapper (CUDA
+    events around back-to-back calls, host work included), the kernel's own
+    device time (torch.profiler), its twin, torch.optim.AdamW(fused=True)
+    as a yardstick, and the bound; and what a step with an unchanged
+    parameter set copies between host and device (the profiler's Memcpy
+    events, none expected: the device table is built once)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     gen = torch.Generator().manual_seed(22)
     params = vit.init_params(gen, cfg, device=device)
     grads = {k: torch.randn(v.shape, generator=gen).to(device)
@@ -990,7 +1058,22 @@ def time_adamw(fused_adamw, vit, cfg, device):
              [torch.zeros_like(params[k]) for k in keys],
              [torch.zeros_like(params[k]) for k in keys])
     hyper = (1e-3, 0.1, 0.001, 0.9, 0.999, 1e-8, 0.01)
-    kernel_ms = median_ms(lambda: fused_adamw.adamw_update(*lists, *hyper))
+
+    def step():
+        fused_adamw.adamw_update(*lists, *hyper)
+
+    kernel_ms = median_ms(step)
+    by_name, recorded, calls = device_ms_by_kernel(step, 20, ("adamw_kernel",))
+    device_ms = by_name["adamw_kernel"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            step()
+        torch.cuda.synchronize()
+    copies = sorted({ev.name for ev in prof.events()
+                     if "emcpy" in ev.name or "pin_memory" in ev.name})
+    launched = sum(ev.device_type == DeviceType.CUDA and "adamw_kernel"
+                   in ev.name for ev in prof.events())
     plain_ms = median_ms(lambda: fused_adamw.adamw_plain(*lists, *hyper),
                          iters=5)
     torch_params = [torch.nn.Parameter(params[k].clone()) for k in keys]
@@ -1001,11 +1084,21 @@ def time_adamw(fused_adamw, vit, cfg, device):
     library_ms = median_ms(opt.step)
     n = vit.num_params(params)
     bound_ms = 7 * 4 * n / HBM_BYTES_PER_S * 1e3
-    log(f"  AdamW step, {n:,} params: kernel {kernel_ms:.4f} ms  twin "
-        f"{plain_ms:.4f} ms  torch fused AdamW {library_ms:.4f} ms  bound "
-        f"{bound_ms:.4f} ms (bytes)")
-    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by="bytes", num_params=n)
+    log(f"  AdamW step, {n:,} params: wrapper {kernel_ms:.4f} ms  kernel "
+        f"device time {device_ms:.4f} ms (profiler, {recorded} of {calls} "
+        f"launches recorded)  torch fused AdamW {library_ms:.4f} ms  bound "
+        f"{bound_ms:.4f} ms (bytes)  twin {plain_ms:.4f} ms; device time / "
+        f"bound {device_ms / bound_ms:.2f}, wrapper / torch fused "
+        f"{kernel_ms / library_ms:.2f}")
+    log(f"  AdamW, 10 profiled steps on one parameter set: {launched} kernel "
+        f"launches seen, host-device copies and pinned allocations: "
+        f"{copies or 'none'}")
+    if copies:
+        raise AssertionError(f"an AdamW step with an unchanged parameter set "
+                             f"copied between host and device: {copies}")
+    return dict(ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by="bytes",
+                num_params=n, profiled_launches=launched, copies=copies)
 
 
 def vit_s_train_step(vit, ts, tcfg, mean, std, cfg, device, batch=64):
@@ -1158,8 +1251,8 @@ def stream_case(fa, regime, shape, dtype, seed, device, backward=True):
 def check_stream_vs_twin(fa, device):
     """Phase 11: every case is run and logged, then any failure raises.
     Returns the worst f32 errors by kernel: {"fwd", "dq", "dkv"} over all
-    cases, {"dbias"} at the training path's shape (B=16: two batch groups
-    and the sum kernel)."""
+    cases, {"dbias"} at the training path's shape (B=16: 16 ds slabs and the
+    sum kernel)."""
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "dbias": 0.0}
     vit_s_384_train = (16, 6, 577, 64)
     cases = [(shape, dtype, regime, True)
@@ -1195,6 +1288,66 @@ def check_stream_vs_twin(fa, device):
         raise AssertionError(f"streaming kernels disagree with their twins: "
                              f"{failed}")
     return worst
+
+
+def check_dbias_vs_twin(fa, device):
+    """Phase 11c: dbias from the dq pass (per-batch float32 ds slabs and the
+    sum kernel) against the twin with a materialized relative bias at 6
+    heads of 64, B = 1, 7, 8, 9 and 16 at N = 577 and 300 (not a multiple
+    of 64), f32 and bf16; at B=16, N=577 also over a lowered byte budget of
+    3 slabs (3 batch groups) and of none (one group, dbias written by the
+    dq kernel itself, the same bits as one slab per batch). dq, dk, dv and
+    dbias as a share of their largest entries (STREAM_BWD_TOL); every call
+    launched twice and compared bit for bit, one launch of dq (its dbias
+    instance), dk/dv and dbias each."""
+    slab = 6 * 577 * 577 * 4
+    cases = [(b, n, dtype, None) for n in (577, 300) for b in (1, 7, 8, 9, 16)
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(16, 577, dtype, budget) for budget in (3 * slab, 0)
+              for dtype in (torch.float32, torch.bfloat16)]
+    failed, per_batch = [], {}
+    for i, (b, n, dtype, budget) in enumerate(cases):
+        shape = (b, 6, n, 64)
+        q, k, v, kw, _ = stream_inputs(fa, "bias", shape, dtype, 600 + b,
+                                       device)
+        out, lse = fa.attention_stream_fwd(q, k, v, 0.125, **kw)
+        g = torch.randn(shape, generator=torch.Generator().manual_seed(b))
+        g = g.to(device, dtype)
+        counts = (fa.LAUNCHES_STREAM_DQ, fa.LAUNCHES_STREAM_DKV,
+                  fa.LAUNCHES_STREAM_DBIAS)
+        got, again = (fa.attention_stream_bwd(
+            q, k, v, out, g, lse, 0.125, want_dbias=True,
+            dbias_budget=budget, **kw)[:4] for _ in range(2))
+        torch.cuda.synchronize()
+        launched = tuple(after - before for after, before in zip(
+            (fa.LAUNCHES_STREAM_DQ, fa.LAUNCHES_STREAM_DKV,
+             fa.LAUNCHES_STREAM_DBIAS), counts))
+        want = fa.attention_stream_bwd_plain(
+            q, k, v, out, g, lse, 0.125, kv_tile=fa.STREAM_TILE,
+            want_dbias=True, **kw)
+        tol = STREAM_BWD_TOL[dtype]
+        res = {name: share_err(x, y, tol) for name, x, y in
+               zip(("dq", "dk", "dv", "dbias"), got, want)}
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        if budget is None and n == 577 and b == 16:
+            per_batch[dtype] = got
+        if budget == 0:  # one group: the same bits as one slab per batch
+            same = same and all(torch.equal(x, y) for x, y in
+                                zip(got, per_batch[dtype]))
+        ok = all(r[1] for r in res.values()) and same and launched == (2, 2, 2)
+        log(f"dbias vs twin  B={b} N={n} {str(dtype)[6:]:8s} groups "
+            f"{fa.dbias_groups(b, 6, n, budget)}"
+            f"{'' if budget is None else f' (budget {budget} bytes)'} "
+            + " ".join(f"{name}={r[0]:.2e}({r[2]:.1e})"
+                       for name, r in res.items())
+            + f" tol(share of largest)={tol:g} bit-identical {same} launches "
+            f"{launched} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append((b, n, str(dtype), budget))
+        del q, k, v, out, lse, g, got, again, want
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"dbias disagrees with its twin: {failed}")
 
 
 def serve_longseq(tmp, pe_name, modules, serving):
@@ -1507,9 +1660,11 @@ def device_ms_by_kernel(fn, iters, names):
 
 def time_stream_kernels(fa, device):
     """Phase 14a: the forward kernel by CUDA events around its wrapper; the
-    dq, dk/dv and dbias kernels (the dbias time includes its sum over batch
-    groups) by the profiler's device time over calls of the one backward
-    wrapper, which is also timed whole (delta and launches included). Each
+    dq and dk/dv kernels by the profiler's device time over calls of the one
+    backward wrapper, which is also timed whole (delta and launches
+    included). With a bias, dbias is the dq kernel's dbias instance less its
+    instance without dbias (the same call with want_dbias=False), plus the
+    sum kernel; dq is the instance without dbias. Each
     beside its twin (the whole forward / the whole backward: the twin is not
     split by kernel) and its bound. The yardstick is SDPA on pre-rotated
     q/k: its forward for the forward kernel; its backward (forward +
@@ -1547,10 +1702,23 @@ def time_stream_kernels(fa, device):
         names = {"dq": "attn_stream_bwd_dq_kernel",
                  "dkv": "attn_stream_bwd_dkv_kernel"}
         if want_dbias:
-            names["dbias"] = "attn_stream_bwd_dbias"
+            names["dbias_sum"] = "attn_stream_bwd_dbias_sum_kernel"
         by_name, recorded, calls = device_ms_by_kernel(
             backward, 3 * iters, tuple(names.values()))
         ms.update({kernel: by_name[name] for kernel, name in names.items()})
+        parts = {}
+        if want_dbias:
+            alone, _, _ = device_ms_by_kernel(
+                lambda: fa.attention_stream_bwd(
+                    q, k, v, out, g, lse, scale,
+                    **dict(bwd, want_dbias=False)),
+                3 * iters, (names["dq"],))
+            parts = {"dq_with_dbias_ms": ms["dq"],
+                     "dq_alone_ms": alone[names["dq"]],
+                     "sum_ms": ms.pop("dbias_sum")}
+            ms["dq"] = parts["dq_alone_ms"]
+            ms["dbias"] = (parts["dq_with_dbias_ms"] - parts["dq_alone_ms"]
+                           + parts["sum_ms"])
         bwd_ms = median_ms(backward, **timing)
         plain = {"fwd": median_ms(lambda: fa.attention_stream_plain(
             q, k, v, scale, kv_tile=fa.STREAM_TILE, **kw), iters=2, reps=3,
@@ -1593,6 +1761,13 @@ def time_stream_kernels(fa, device):
                 f"{row['plain_ms']:.4f} ms  bound {bound_ms:.4f} ms "
                 f"({bound_by})"
                 + (f"  sdpa {lib_fwd:.4f} ms" if kernel == "fwd" else ""))
+        if parts:
+            rows[label]["dbias"].update(parts)
+            log(f"  {label} dbias: dq kernel with its ds slabs "
+                f"{parts['dq_with_dbias_ms']:.4f} ms, without "
+                f"{parts['dq_alone_ms']:.4f} ms, sum over "
+                f"{fa.dbias_groups(*shape[:3])} slabs "
+                f"{parts['sum_ms']:.4f} ms")
         log(f"  {label} whole backward wrapper {bwd_ms:.4f} ms  sdpa backward "
             f"{lib_bwd:.4f} ms (profiler: {recorded} of {calls} launches "
             f"of each backward kernel recorded)")
@@ -2118,7 +2293,8 @@ def block_stack(vit, cfg, device, seed):
     """BLOCK_DEPTH blocks' seeded params (the init with every parameter
     moved by 0.05 times a normal draw, so that the logits spread over
     several units and the attention is far from uniform) and the
-    rope-axial tables or None."""
+    rope-axial tables, rope-mixed's per-head tables (its frequencies moved
+    alike) or None."""
     params = vit.init_params(torch.Generator().manual_seed(seed),
                              dataclasses.replace(cfg, depth=BLOCK_DEPTH),
                              device=device)
@@ -2128,11 +2304,13 @@ def block_stack(vit, cfg, device, seed):
                for name in vit.BLOCK_PARAM_NAMES}
               for i in range(BLOCK_DEPTH)]
     freqs = None
-    if cfg.pos_encoding == "rope-axial":
+    if cfg.pos_encoding in ("rope-axial", "rope-mixed"):
         from vit_rpe_rope_tpu_torch import pe as pe_registry
 
-        freqs = pe_registry.get("rope-axial").freqs_cis({}, cfg,
-                                                         device=device)
+        pe_mod = pe_registry.get(cfg.pos_encoding)
+        pe_params = {name: t + 0.05 * torch.randn(t.shape, generator=gen)
+                     for name, t in pe_mod.init_params(gen, cfg).items()}
+        freqs = pe_mod.freqs_cis(pe_params, cfg, device=device)
     return blocks, freqs
 
 
@@ -2156,14 +2334,18 @@ def check_block_fused(block_fused, vit, ViTConfig, device):
     """Phase 16a: row 12 against its twin on the card at ViT-tiny/4 (batch
     128, N=65, E=192, 6 heads of 32, hidden 768; f32 and bf16 inputs) and at
     the CPU tests' shape (batch 2, N=17, E=64, 2 heads), in none and
-    rope-axial; every case launched twice, bit-identical. Returns the worst
-    max |kernel - twin| at ViT-tiny/4 in f32."""
+    rope-axial, and at ViT-tiny/4 in f32 with rope-mixed's per-head tables
+    (every head rotated by head 0's, as in the JAX package); every case
+    launched twice, bit-identical. Returns the worst max |kernel - twin| at
+    ViT-tiny/4 in f32."""
     worst = 0.0
-    for label, kw, batch, dtypes in (
-            ("ViT-tiny/4", {}, 128, (torch.float32, torch.bfloat16)),
+    for label, kw, batch, dtypes, pe_names in (
+            ("ViT-tiny/4", {}, 128, (torch.float32, torch.bfloat16),
+             ("none", "rope-axial")),
+            ("ViT-tiny/4", {}, 128, (torch.float32,), ("rope-mixed",)),
             ("CPU test shape", dict(img_size=16, embed_dim=64, num_heads=2),
-             2, (torch.float32,))):
-        for pe_name in ("none", "rope-axial"):
+             2, (torch.float32,), ("none", "rope-axial"))):
+        for pe_name in pe_names:
             cfg = ViTConfig(**kw, pos_encoding=pe_name)
             blocks, freqs = block_stack(vit, cfg, device, 30)
             for dtype in dtypes:
@@ -2588,6 +2770,7 @@ def main() -> int:
 
     with phase("[11] streaming kernels vs twins on the card", seconds):
         stream_err = check_stream_vs_twin(fa, device)
+        check_dbias_vs_twin(fa, device)
 
     with phase("[11b] one-pass backward and parameter-gradient kernels vs "
                "twins on the card", seconds):
@@ -2756,7 +2939,8 @@ def main() -> int:
     # ViT-tiny/4 (rope-mixed) for the dense kernels and AdamW; the
     # long-sequence model (rope-mixed, N=4097, batch 4) for the streaming
     # forward, dq and dk/dv kernels; ViT-S/16@384 (relative, batch 16, depth
-    # 3) for the dbias kernel, whose error and time are taken at that batch;
+    # 3) for dbias (the dq kernel's dbias instance and the sum over its 16
+    # slabs), whose error and time are taken at that batch;
     # the long-sequence model in relative for the one-pass backward; direct
     # calls of the separate-pass backward with a generated bias (phase 13)
     # for the dcoeff and dtable kernels, which no model reaches; the

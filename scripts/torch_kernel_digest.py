@@ -3,8 +3,10 @@ that two trees of the port compute the same bits where they should.
 
 Runs on a CUDA device a fixed set of kernel calls at built head dims and
 polynomial degrees up to 7 (the dense forward and backward, the streaming
-forward, the separate-pass backward with the dcoeff / dtable kernels, the
-one-pass backward, the chunk forward at offsets) and writes the sha256 of
+forward, the separate-pass backward with the dcoeff / dtable kernels and,
+at ViT-S/16@384's training shape (16, 6, 577, 64), with a materialized bias
+and dbias, the one-pass backward, the chunk forward at offsets, three AdamW
+steps over the ViT-S/16 and the ViT-tiny/4 params) and writes the sha256 of
 every output tensor's bytes to a JSON file. `--root` names the tree whose
 `vit_rpe_rope_tpu_torch` is imported, so a parent commit unpacked under a
 git-ignored directory can be run beside the working tree:
@@ -16,8 +18,14 @@ git-ignored directory can be run beside the working tree:
 --compare prints the cases whose digests differ and exits 1 if any does.
 --time also records each call's time on the card (CUDA events, the mean of
 20 launches after 3 warm-up launches; `stream_dq_dkv` times the separate
-passes' dq and dk/dv kernels alone), so that two trees can be timed in
-turns in one process each on one card.
+passes' dq and dk/dv kernels alone; `adamw` the AdamW wrapper, host work
+included) and, for the backward with dbias, each kernel's device time
+(torch.profiler, the mean over 20 calls), so that two trees can be timed
+in turns in one process each on one card:
+
+  for tree in build/parent . . build/parent; do
+    python scripts/torch_kernel_digest.py --root $tree --out d.json --time
+  done
 """
 
 from __future__ import annotations
@@ -38,18 +46,49 @@ def run(root, out_path, timed):
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
+    from vit_rpe_rope_tpu_torch.configs import ViTConfig
+    from vit_rpe_rope_tpu_torch.models import vit
     from vit_rpe_rope_tpu_torch.ops import cuda_build
     from vit_rpe_rope_tpu_torch.ops import flash_attention as fa
+    from vit_rpe_rope_tpu_torch.ops import fused_adamw
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     assert fa.__file__.startswith(os.path.abspath(root)), fa.__file__
     cuda_build.build_all([fa.SOURCE, fa.BWD_SOURCE, fa.STREAM_SOURCE,
-                          fa.STREAM_BWD_SOURCE, fa.STREAM_FUSED_SOURCE])
+                          fa.STREAM_BWD_SOURCE, fa.STREAM_FUSED_SOURCE,
+                          fused_adamw.SOURCE])
     dev = torch.device("cuda")
     digests = {}
 
     times = {}
+    kernel_times = {}
+
+    def record_kernels(name, call):
+        """Each kernel's device time per call (torch.profiler over 20
+        calls, after 3 warm-up calls), keyed by its name without namespace
+        and argument list."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        if not timed:
+            return
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                call()
+            torch.cuda.synchronize()
+        spans = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                kernel = ev.name.replace("(anonymous namespace)::", "")
+                kernel = kernel.removeprefix("void ").split("(")[0]
+                spans.setdefault(kernel, []).append(
+                    ev.time_range.elapsed_us() / 1e3)
+        kernel_times[name] = {k: sum(v) / 20 for k, v in spans.items()}
 
     def record(name, tensors, call=None):
         torch.cuda.synchronize()
@@ -126,13 +165,55 @@ def run(root, out_path, timed):
                 rows = slice(n // 2, n)
                 record(f"chunk_fwd/{name}", fa.streaming_chunk_fwd(
                     q[:, :, rows], k, v, scale, n // 2, 0, n, **kw))
+    # the separate passes with a materialized bias and dbias, at ViT-S/16@384
+    # training's shape; digests of dq, dk, dv and dbias
+    shape = (16, 6, 577, 64)
+    q, k, v, g = qkv(shape, 4)
+    bias = fa._dense_bias(6, 577, dev, rel=pe_args("rel", 6, 577, 64, 5)[
+        "rel"])
+    out, lse = fa.attention_stream_fwd(q, k, v, 0.125, bias=bias)
+
+    def dbias_bwd():
+        return fa.attention_stream_bwd(q, k, v, out, g, lse, 0.125, bias=bias,
+                                       want_dbias=True)
+
+    record("stream_bwd_dbias/bias@577x64", dbias_bwd()[:4], dbias_bwd)
+    record_kernels("stream_bwd_dbias/bias@577x64", dbias_bwd)
+    del q, k, v, g, bias, out, lse
+    # three AdamW steps over the ViT-S/16 params (21,580,426) and the
+    # ViT-tiny/4 CIFAR params (the train CLI's default), then the wrapper's
+    # time on the same lists
+    hyper = (1e-3, 0.271, 0.0039, 0.9, 0.999, 1e-8, 0.05)
+    for label, cfg in (("vit_s16", ViTConfig(
+            img_size=224, patch_size=16, embed_dim=384, depth=12, num_heads=6,
+            pos_encoding="rope-mixed")),
+            ("vit_tiny4", ViTConfig(pos_encoding="rope-mixed"))):
+        params = vit.init_params(torch.Generator().manual_seed(6), cfg,
+                                 device=dev)
+        gen = torch.Generator().manual_seed(7)
+        grads, mus, nus = ([torch.randn(p.shape, generator=gen).to(dev)
+                            for p in params.values()] for _ in range(3))
+        lists = (list(params.values()), grads, mus, [t.abs() for t in nus])
+
+        def adamw_step():
+            fused_adamw.adamw_update(*lists, *hyper)
+
+        for _ in range(3):
+            adamw_step()
+        record(f"adamw/{label}", [torch.cat([t.flatten() for t in group])
+                                  for group in (lists[0], lists[2],
+                                                lists[3])], adamw_step)
+        record_kernels(f"adamw/{label}", adamw_step)
     with open(out_path, "w") as f:
         json.dump({"device": torch.cuda.get_device_name(0),
-                   "digests": digests, "ms": times}, f, indent=1,
-                  sort_keys=True)
+                   "digests": digests, "ms": times,
+                   "kernel_ms": kernel_times}, f, indent=1, sort_keys=True)
     print(f"{len(digests)} digests -> {out_path}")
     for name, ms in times.items():
         print(f"{root}  {name}  {ms:.4f} ms")
+    for name, by_kernel in kernel_times.items():
+        for kernel, ms in sorted(by_kernel.items()):
+            print(f"{root}  {name}  kernel {kernel}  {ms:.4f} ms")
 
 
 def compare(a, b):

@@ -227,3 +227,22 @@ def test_frozen_generated_bias_trains_q_k_v(regime, monkeypatch):
                                leaves, g)
     for x, y in zip(got, want):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,budget_slabs,groups", [
+    (16, None, 16), (16, 16, 16), (16, 15, 8), (16, 3, 3), (16, 0, 1),
+    (9, 8, 5), (7, 2, 2), (1, None, 1), (1, 0, 1)])
+def test_dbias_groups_cover_the_batch_within_the_budget(b, budget_slabs,
+                                                        groups):
+    """The dq kernel's dbias instance writes one float32 [H, N, N] slab of
+    ds per group of ceil(B / groups) batches: one group per batch while the
+    budget holds B slabs, else no more slabs than it holds (at least one),
+    and no group empty."""
+    h, n = 6, 577
+    budget = None if budget_slabs is None else budget_slabs * h * n * n * 4
+    got = tfa.dbias_groups(b, h, n, budget)
+    assert got == groups
+    per = -(-b // got)
+    assert (got - 1) * per < b <= got * per
+    if budget is not None:
+        assert got == 1 or got * h * n * n * 4 <= budget

@@ -3,7 +3,8 @@ of the kernel table): the kernel's plain twin `block_forward_plain` against
 the JAX package's `block_forward` (its Pallas `_block_kernel` in interpret
 mode) and against the port's per-op block (`models.vit._block_body`), at a
 small shape (B=2, N=17, E=64, 2 heads of 32, hidden 256), without rope and
-with rope-axial's head-shared tables; the refusal of per-head tables; the
+with rope-axial's head-shared tables and with rope-mixed's per-head tables
+(head 0's for every head, as the JAX `block_forward` keeps `cos[0]`); the
 shared-memory layout the CUDA kernel is launched with.
 
 Tolerances: against the JAX kernel, 2e-3 of the output's largest entry
@@ -95,22 +96,38 @@ def test_twin_matches_the_per_op_block(pe):
                                atol=2e-2)
 
 
-def test_per_head_tables_are_refused():
-    """rope-mixed's [H, S, D/2] tables: the JAX block_forward would rotate
-    every head by head 0's table; the port raises instead (on every
-    device)."""
+@pytest.mark.parametrize("batch_tile", [1, 2])
+def test_per_head_tables_rotate_by_head_0_as_jax(batch_tile):
+    """rope-mixed's [H, S, D/2] tables, the same seeded ones on both sides:
+    the JAX block_forward rotates every head by head 0's table, and so does
+    the port (twin and wrapper); held to the JAX kernel in interpret mode at
+    the rope tolerance above, and to the port's block on head 0's table
+    alone, bit for bit."""
     cfg = ViTConfig(**KW, pos_encoding="rope-mixed")
+    jcfg = JaxViTConfig(**KW, pos_encoding="rope-mixed")
     params, x = block_inputs(seed=2)
     pe_params = pe_registry.get("rope-mixed").init_params(
         torch.Generator().manual_seed(0), cfg)
     freqs = pe_registry.get("rope-mixed").freqs_cis(pe_params, cfg)
-    assert freqs[0].dim() == 3
-    with pytest.raises(ValueError, match="per-head tables"):
-        block_fused.block_forward(torch.from_numpy(x), port(params), cfg,
-                                  freqs_cis=freqs)
+    assert freqs[0].dim() == 3 and freqs[0].shape[0] == cfg.num_heads
+    assert not torch.equal(freqs[0][0], freqs[0][1])  # heads differ
+    want = np.asarray(jbf.block_forward(
+        jnp.asarray(x), {k: jnp.asarray(v) for k, v in params.items()}, jcfg,
+        freqs_cis=tuple(jnp.asarray(t.numpy()) for t in freqs),
+        batch_tile=batch_tile))
+    got = block_fused.block_forward(torch.from_numpy(x), port(params), cfg,
+                                    freqs_cis=freqs, batch_tile=batch_tile)
+    close_to_largest(got.numpy(), want, 2e-3)
+    head0 = block_fused.block_forward_plain(
+        torch.from_numpy(x), port(params), cfg, (freqs[0][0], freqs[1][0]))
+    torch.testing.assert_close(got, head0, rtol=0, atol=0)
+
+
+def test_batch_tile_below_one_is_refused():
+    params, x = block_inputs(seed=2)
     with pytest.raises(ValueError, match="batch_tile"):
-        block_fused.block_forward(torch.from_numpy(x), port(params), cfg,
-                                  batch_tile=0)
+        block_fused.block_forward(torch.from_numpy(x), port(params),
+                                  ViTConfig(**KW), batch_tile=0)
 
 
 def test_smem_layout_fits_vit_tiny_and_refuses_vit_s():

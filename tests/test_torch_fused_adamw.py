@@ -171,3 +171,102 @@ def test_schedule_matches_jax(epochs, steps_per_epoch):
     for step in range(0, epochs * steps_per_epoch + 10, 3):
         np.testing.assert_allclose(float(sched(step)),
                                    float(jsched(jnp.int32(step))), rtol=1e-6)
+
+
+def old_table(rows, chunk):
+    """The table as the wrapper built it on every call before it kept one
+    per parameter set: rows (p, g, mu, nu, numel), then (leaf, first
+    element) per chunk."""
+    numels = np.array([r[4] for r in rows], np.int64)
+    per_leaf = -(-numels // chunk)
+    first = np.repeat(np.cumsum(per_leaf) - per_leaf, per_leaf)
+    chunks = np.stack([np.repeat(np.arange(len(rows)), per_leaf),
+                       (np.arange(per_leaf.sum()) - first) * chunk], axis=1)
+    return np.array(rows, np.int64), chunks
+
+
+@pytest.mark.parametrize("numels", [
+    [1], [4097, 3, 0, 8192, 12289, 4095],
+    [int(n) for n in np.random.default_rng(4).integers(1, 20000, 150)],
+    [5] * (fused_adamw.MAX_GRADS + 1)])
+def test_table_matches_the_old_layout(numels):
+    """build_table is a pure function of pointers and sizes: its leaf
+    records are the old rows without the gradient, its chunks the old
+    chunks, and its launches cover every leaf and chunk in order, at most
+    MAX_GRADS leaves each."""
+    rng = np.random.default_rng(len(numels))
+    ptrs = [list(256 * rng.integers(1, 2 ** 40, len(numels)))
+            for _ in range(4)]
+    table, launches = fused_adamw.build_table(ptrs[0], ptrs[2], ptrs[3],
+                                              numels)
+    rows, chunks = old_table([list(r) for r in zip(*ptrs, numels)],
+                             fused_adamw.CHUNK)
+    n = len(numels)
+    np.testing.assert_array_equal(table[:4 * n].reshape(n, 4),
+                                  rows[:, [0, 2, 3, 4]])
+    np.testing.assert_array_equal(table[4 * n:].reshape(-1, 2), chunks)
+    assert len(launches) == -(-n // fused_adamw.MAX_GRADS)
+    leaf, chunk = 0, 0
+    for leaf0, n_leaves, c0, n_chunks in launches:
+        assert (leaf0, c0) == (leaf, chunk)
+        assert 1 <= n_leaves <= fused_adamw.MAX_GRADS
+        assert set(chunks[c0:c0 + n_chunks, 0]) <= set(
+            range(leaf0, leaf0 + n_leaves))
+        leaf, chunk = leaf0 + n_leaves, c0 + n_chunks
+    assert (leaf, chunk) == (n, len(chunks))
+
+
+def test_table_is_built_once_per_parameter_set():
+    """The table's key is the pointers and sizes of p, mu and nu: steps
+    with fresh gradients reuse it, a swapped parameter or moment builds a
+    new one, and the old set's table is found again."""
+    rng = np.random.default_rng(5)
+    params = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for s in ((3, 5), (4097,), (7,))]
+    mus = [torch.zeros_like(p) for p in params]
+    nus = [torch.zeros_like(p) for p in params]
+    key = fused_adamw.table_key(params, mus, nus)
+    assert key == fused_adamw.table_key(list(params), mus, nus)
+    assert key[0] == -1  # the device: the CPU
+    before = fused_adamw.TABLE_BUILDS
+    table, launches, numels = fused_adamw._device_table(params, mus, nus)
+    assert fused_adamw.TABLE_BUILDS == before + 1
+    assert numels == [15, 4097, 7] and launches == [(0, 3, 0, 4)]
+    assert fused_adamw._device_table(params, mus, nus)[0] is table
+    assert fused_adamw.TABLE_BUILDS == before + 1
+    swapped = [params[0].clone(), *params[1:]]
+    assert fused_adamw.table_key(swapped, mus, nus) != key
+    assert fused_adamw._device_table(swapped, mus, nus)[0] is not table
+    assert fused_adamw._device_table(params, mus, [n.clone() for n in nus]
+                                     )[0] is not table
+    assert fused_adamw.TABLE_BUILDS == before + 3
+    assert fused_adamw._device_table(params, mus, nus)[0] is table
+    assert fused_adamw.TABLE_BUILDS == before + 3
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_adamw._device_table([p.t() for p in params[:1]], mus[:1],
+                                  nus[:1])
+
+
+def test_exact_reference_is_float32_op_by_op():
+    """adamw_exact, the reference the kernel is held to bit for bit on the
+    card, equals numpy's float32 arithmetic op by op (each operation
+    correctly rounded), bit for bit; the twin agrees with it to 1e-6 (the
+    CPU's float32 sqrt is not always correctly rounded)."""
+    rng = np.random.default_rng(8)
+    n = 200_000
+    p, g, mu = (rng.standard_normal(n).astype(np.float32) for _ in range(3))
+    nu = (0.01 * rng.standard_normal(n) ** 2).astype(np.float32)
+    mu *= np.float32(0.1)
+    lr, c1, c2, b1, b2, eps, wd = 1e-3, 0.271, 0.0039, 0.9, 0.999, 1e-8, 0.05
+    f = np.float32
+    m = f(b1) * mu + f(1 - b1) * g
+    v = f(b2) * nu + (f(1 - b2) * g) * g
+    upd = (m / f(c1)) / (np.sqrt(v / f(c2)) + f(eps)) + f(wd) * p
+    want = (p - f(lr) * upd, m, v)
+    leaves = [[torch.from_numpy(x.copy())] for x in (p, g, mu, nu)]
+    got = fused_adamw.adamw_exact(*leaves, lr, c1, c2, b1, b2, eps, wd)
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x[0].numpy(), y)
+    fused_adamw.adamw_plain(*leaves, lr, c1, c2, b1, b2, eps, wd)
+    for x, y in zip((leaves[0], leaves[2], leaves[3]), want):
+        np.testing.assert_allclose(x[0].numpy(), y, rtol=1e-6, atol=1e-6)

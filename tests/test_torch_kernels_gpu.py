@@ -25,19 +25,23 @@ lse) needs no running max, so the twin's tiles only reorder float32 sums, and
 what is left are bf16 roundings of p and ds that flip after a last-ulp
 difference (dq, dk, dv: 4e-3 f32 / 1.6e-2 bf16 inputs, as the separate
 passes); the parameter gradients, float32 sums of ds that nearly cancel,
-1e-3 of their largest entry. AdamW: 1e-6 (the same float32 operations,
-rounded op by op on both sides). The chunk forward (q rows against a key
-chunk at global offsets) is held to the streaming forward's numbers, and at
-(r0, 0) against every key to the whole-sequence forward's rows bit for
-bit. Head dims the kernels are not built for (24, 48, 96) are zero-padded
-by the wrappers (fa.HeadPad) and held to the twins on the unpadded tensors
-with the same numbers. Polynomial degrees 8 and 31 (more terms than the
-kernels keep in registers) are held to the twins with each dcoeff term to
-1e-3 of its own largest entry. The fused block forward (row 12) is held to
-its twin to 5e-3 of the output's largest entry for f32 inputs and 1e-2 for
-bf16 (the same rounding points; an LN output, q, k, p, o or GELU output
-that rounds to the other bf16 neighbour after a last-ulp difference moves
-the output by a fraction of a bf16 ulp of its largest entries)."""
+1e-3 of their largest entry. AdamW: 1e-6 (the same float32 operations, rounded
+op by op on both sides, but the twin's float32 sqrt on the CPU is not always
+correctly rounded, and on CUDA it divides by a Python scalar as a product with
+the reciprocal); bit for bit against fused_adamw.adamw_exact, every operation
+correctly rounded. dbias from the dq pass is held to the twin at every batch
+size that changes its groups, within and over its byte budget. The chunk
+forward (q rows against a key chunk at global offsets) is held to the streaming
+forward's numbers, and at (r0, 0) against every key to the whole-sequence
+forward's rows bit for bit. Head dims the kernels are not built for (24, 48,
+96) are zero-padded by the wrappers (fa.HeadPad) and held to the twins on the
+unpadded tensors with the same numbers. Polynomial degrees 8 and 31 (more terms
+than the kernels keep in registers) are held to the twins with each dcoeff term
+to 1e-3 of its own largest entry. The fused block forward (row 12) is held to
+its twin to 5e-3 of the output's largest entry for f32 inputs and 1e-2 for bf16
+(the same rounding points; an LN output, q, k, p, o or GELU output that rounds
+to the other bf16 neighbour after a last-ulp difference moves the output by a
+fraction of a bf16 ulp of its largest entries)."""
 
 import dataclasses
 
@@ -291,6 +295,131 @@ def test_adamw_kernel_matches_twin(cuda):
             torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
+def adamw_leaves(numels, device, seed):
+    """p, g, mu, nu lists of float32 leaves of these sizes (mu and nu as a
+    few steps leave them: mu signed, nu positive)."""
+    gen = torch.Generator().manual_seed(seed)
+    p, g, mu, nu = ([torch.randn(n, generator=gen).to(device) for n in numels]
+                    for _ in range(4))
+    return p, g, [0.1 * m for m in mu], [0.01 * v.square() for v in nu]
+
+
+ADAMW_HYPER = (1e-3, 0.271, 0.0039, 0.9, 0.999, 1e-8, 0.05)
+
+
+def adamw_exact(lists, hyper=ADAMW_HYPER):
+    """The IEEE op-by-op reference's (p, mu, nu), which the kernel must
+    equal bit for bit, and the twin's, on copies."""
+    exact = fused_adamw.adamw_exact(*lists, *hyper)
+    twin = [[t.clone() for t in group] for group in lists]
+    fused_adamw.adamw_plain(*twin, *hyper)
+    return exact, (twin[0], twin[2], twin[3])
+
+
+# One leaf; ViT-S/16's 150 leaves in its sizes' spread; one leaf more than
+# one launch takes. Sizes that are not multiples of 4 or of 4,096 send
+# chunks through the scalar tail.
+ADAMW_CASES = {
+    "1 leaf": [4096 * 3 + 5],
+    "150 leaves": [int(n) for n in torch.randint(
+        1, 600_000, (150,), generator=torch.Generator().manual_seed(30))],
+    "MAX_GRADS+1 leaves": [1 + (i * 37) % 9000
+                           for i in range(fused_adamw.MAX_GRADS + 1)],
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(ADAMW_CASES))
+def test_adamw_kernel_is_the_twin_bit_for_bit(cuda, case):
+    numels = ADAMW_CASES[case]
+    lists = adamw_leaves(numels, cuda, seed=31)
+    want, twin = adamw_exact(lists)
+    before = fused_adamw.LAUNCHES_ADAMW
+    fused_adamw.adamw_update(*lists, *ADAMW_HYPER)
+    torch.cuda.synchronize()
+    assert fused_adamw.LAUNCHES_ADAMW == before + len(fused_adamw.build_table(
+        [0] * len(numels), [0] * len(numels), [0] * len(numels), numels)[1])
+    assert len(numels) <= fused_adamw.MAX_GRADS or \
+        fused_adamw.LAUNCHES_ADAMW == before + 2
+    for group, exact, plain in zip((lists[0], lists[2], lists[3]), want,
+                                   twin):
+        for x, y, z in zip(group, exact, plain):
+            assert torch.equal(x, y)
+            torch.testing.assert_close(x, z, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_adamw_unaligned_leaves_take_the_scalar_path(cuda):
+    """Leaves at an odd float offset in their storage (no 16-byte chunk
+    alignment) give the same bits as the twin."""
+    numels = [4096 + 3, 9, 70001]
+    lists = [[t[1:] for t in (torch.randn(n + 1, device=cuda)
+                               for n in numels)] for _ in range(4)]
+    lists[3] = [t.abs() for t in lists[3]]
+    assert all(t.data_ptr() % 16 for t in lists[0])
+    want, _ = adamw_exact(lists)
+    fused_adamw.adamw_update(*lists, *ADAMW_HYPER)
+    for group, exact in zip((lists[0], lists[2], lists[3]), want):
+        for x, y in zip(group, exact):
+            assert torch.equal(x, y)
+
+
+class _NoNumpy:
+    def __getattr__(self, name):
+        raise AssertionError(f"numpy.{name} used on a step")
+
+
+@pytest.mark.gpu
+def test_adamw_steps_reuse_the_device_table(cuda, monkeypatch):
+    """Three steps with fresh gradient tensors build the table once and,
+    after the first, use no numpy, pin no memory and copy nothing from the
+    host (the profiler sees no Memcpy); a step after the parameters are
+    swapped for new tensors builds it again. Every step equals the IEEE
+    op-by-op reference bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    numels = ADAMW_CASES["150 leaves"]
+    params, _, mus, nus = adamw_leaves(numels, cuda, seed=32)
+    exact = [[t.clone() for t in group] for group in (params, mus, nus)]
+    gen = torch.Generator().manual_seed(33)
+    fused_adamw._TABLES.clear()  # earlier tests' storages may lie here too
+    builds = fused_adamw.TABLE_BUILDS
+    pinned = []
+
+    def step(params, profiled=False):
+        grads = [torch.randn(n, generator=gen).to(cuda) for n in numels]
+        exact[:] = fused_adamw.adamw_exact(exact[0], grads, exact[1],
+                                           exact[2], *ADAMW_HYPER)
+        torch.cuda.synchronize()
+        if not profiled:
+            fused_adamw.adamw_update(params, grads, mus, nus, *ADAMW_HYPER)
+            return None
+        with monkeypatch.context() as m, profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            m.setattr(torch.Tensor, "pin_memory",
+                      lambda *a, **k: pinned.append(1))
+            m.setattr(fused_adamw, "np", _NoNumpy())
+            fused_adamw.adamw_update(params, grads, mus, nus, *ADAMW_HYPER)
+            torch.cuda.synchronize()
+        return [ev.name for ev in prof.events()]
+
+    step(params)
+    assert fused_adamw.TABLE_BUILDS == builds + 1
+    for _ in range(2):
+        names = step(params, profiled=True)
+        assert not [n for n in names if "emcpy" in n], names
+        assert sum("adamw_kernel" in n for n in names) == 1
+    assert not pinned
+    assert fused_adamw.TABLE_BUILDS == builds + 1
+    params = [p.clone() for p in params]
+    step(params)
+    assert fused_adamw.TABLE_BUILDS == builds + 2
+    for group, want in zip((params, mus, nus), exact):
+        for x, y in zip(group, want):
+            assert torch.equal(x, y)
+
+
 # "bias": a materialized [H, N, N] tensor; "poly" / "rel": generated in the
 # kernel from the coefficients / the table.
 STREAM_REGIMES = ["none", "bias", "poly", "rel", "rope-axial", "rope-mixed"]
@@ -397,6 +526,65 @@ def stream_counts():
             fa.LAUNCHES_STREAM_DKV, fa.LAUNCHES_STREAM_DBIAS,
             fa.LAUNCHES_STREAM_FUSED, fa.LAUNCHES_STREAM_DCOEFF,
             fa.LAUNCHES_STREAM_DTABLE)
+
+
+def dbias_case(b, n, dtype, device, seed=40):
+    """A materialized relative bias at (b, 6, n, 64): the backward's inputs
+    with the forward kernel's out and lse."""
+    shape = (b, 6, n, 64)
+    q, k, v, kw = stream_inputs("bias", shape, dtype, device, seed)
+    out, lse = fa.attention_stream_fwd(q, k, v, 0.125, **kw)
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(seed + 1))
+    return (q, k, v, out, g.to(device, dtype), lse, 0.125), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [577, 300])
+@pytest.mark.parametrize("b", [1, 7, 8, 9, 16])
+def test_dbias_from_the_dq_pass_matches_twin(cuda, b, n, dtype):
+    """dbias from the dq kernel's per-batch ds slabs and the sum kernel
+    against the twin (2 x the forward's tolerance of its largest entry, as
+    the other batch sums), dq / dk / dv as before, one launch of each pass;
+    a second call gives the same bits."""
+    args, kw = dbias_case(b, n, dtype, cuda)
+    counts = stream_counts()
+    got = fa.attention_stream_bwd(*args, want_dbias=True, **kw)
+    torch.cuda.synchronize()
+    assert stream_counts() == (counts[0], counts[1] + 1, counts[2] + 1,
+                               counts[3] + 1) + counts[4:]
+    want = fa.attention_stream_bwd_plain(*args, kv_tile=fa.STREAM_TILE,
+                                         want_dbias=True, **kw)
+    for x, y in zip(got[:3], want[:3]):
+        torch.testing.assert_close(x.float(), y.float(), rtol=2 * TOL[dtype],
+                                   atol=2 * TOL[dtype])
+    assert got[3].shape == (6, n, n) and got[3].dtype == torch.float32
+    close_to_largest(got[3], want[3], 2 * TOL[dtype])
+    again = fa.attention_stream_bwd(*args, want_dbias=True, **kw)
+    for x, y in zip(got[:4], again[:4]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dbias_over_its_byte_budget(cuda, dtype):
+    """A budget of 3 slabs at B=16 (3 groups of up to 6 batches, each CTA
+    adding its batches in order) and of none (1 group, written into dbias
+    itself: the same bits as one slab per batch); dq, dk and dv do not
+    change with the budget."""
+    args, kw = dbias_case(16, 577, dtype, cuda, seed=41)
+    want = fa.attention_stream_bwd_plain(*args, kv_tile=fa.STREAM_TILE,
+                                         want_dbias=True, **kw)
+    slab = 6 * 577 * 577 * 4
+    per_batch = fa.attention_stream_bwd(*args, want_dbias=True, **kw)
+    assert fa.dbias_groups(16, 6, 577, 3 * slab) == 3
+    for budget in (3 * slab, 0):
+        got = fa.attention_stream_bwd(*args, want_dbias=True,
+                                      dbias_budget=budget, **kw)
+        close_to_largest(got[3], want[3], 2 * TOL[dtype])
+        for x, y in zip(got[:3], per_batch[:3]):
+            assert torch.equal(x, y)
+    assert torch.equal(got[3], per_batch[3])
 
 
 @pytest.mark.gpu
@@ -862,19 +1050,31 @@ def test_block_fused_kernel_matches_twin(cuda, shape, pe, dtype):
 @pytest.mark.gpu
 def test_block_fused_kernel_refuses_what_it_cannot_hold(cuda):
     """ViT-S/16 at 224 px: one image's float32 residual alone exceeds the
-    227 KB of shared memory a CTA may use; per-head rope tables raise."""
+    227 KB of shared memory a CTA may use."""
     cfg, bp, x, _ = block_case(2, 224, 16, 384, 6, "none", torch.float32,
                                cuda, seed=21)
     with pytest.raises(ValueError, match="232448 bytes"):
         block_fused.block_forward(x, bp, cfg)
-    cfg, bp, x, _ = block_case(2, 32, 4, 192, 6, "rope-mixed", torch.float32,
-                               cuda, seed=22)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_fused_kernel_rotates_by_head_0_with_per_head_tables(cuda,
+                                                                   dtype):
+    """rope-mixed's [H, S, D/2] tables at ViT-tiny/4, perturbed so that the
+    heads' tables differ: the kernel rotates every head by head 0's table,
+    as the JAX block_forward does, and matches the twin."""
+    cfg, bp, x, _ = block_case(16, 32, 4, 192, 6, "rope-mixed", dtype, cuda,
+                               seed=22)
     params = pe_registry.get("rope-mixed").init_params(
         torch.Generator().manual_seed(0), cfg)
     freqs = pe_registry.get("rope-mixed").freqs_cis(params, cfg,
                                                      device=cuda)
-    with pytest.raises(ValueError, match="per-head tables"):
-        block_fused.block_forward(x, bp, cfg, freqs_cis=freqs)
+    assert freqs[0].dim() == 3 and not torch.equal(freqs[0][0], freqs[0][1])
+    got = block_fused.block_forward(x, bp, cfg, freqs_cis=freqs)
+    want = block_fused.block_forward_plain(x, bp, cfg,
+                                           (freqs[0][0], freqs[1][0]))
+    share_of_largest(got, want, 5e-3 if dtype == torch.float32 else 1e-2)
 
 
 @pytest.mark.gpu

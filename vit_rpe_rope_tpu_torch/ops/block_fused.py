@@ -19,10 +19,10 @@ What is computed, for x [B, N, E] (cls token at 0), per image:
    JAX kernel, which cannot lower erf);
 9. y = (x2 + bf16(g) . bf16(W2^T)) + b2, in x's dtype.
 
-No logits bias and no backward, as in the JAX package. The per-head rope
-tables of rope-mixed ([H, S, D/2]) are refused: the JAX `block_forward`
-keeps head 0's table for every head (its `_prep_freqs(.., 1, ..)[0]`), a
-result this port does not reproduce.
+No logits bias and no backward, as in the JAX package. Given rope-mixed's
+per-head tables ([H, S, D/2]), every head rotates by head 0's table, as the
+JAX `block_forward` does (its `_prep_freqs(.., 1, ..)` keeps `cos[0]`): a
+copy of the JAX package's behaviour, not a rope-mixed block.
 
 `block_forward` is the kernel's wrapper: on a CUDA tensor it launches the
 kernel once (counted in LAUNCHES_BLOCK_FUSED), on a CPU tensor it runs
@@ -85,15 +85,11 @@ def _mm(a, w):
 
 
 def _tables(freqs_cis, n):
-    """(cos, sin) [S, D/2] -> float32 [N, D/2] with the cls identity row;
-    per-head [H, S, D/2] tables are refused."""
+    """(cos, sin) [S, D/2], or per-head [H, S, D/2] of which head 0's is
+    kept (the JAX `block_forward`'s `cos[0]`), -> float32 [N, D/2] with the cls
+    identity row."""
     if freqs_cis is None:
         return None, None
-    if freqs_cis[0].dim() != 2:
-        raise ValueError(
-            "block_forward takes head-shared rope tables [S, D/2] only; "
-            "per-head tables [H, S, D/2] (rope-mixed) are refused: the JAX "
-            "block_forward would rotate every head by head 0's frequencies")
     cos, sin = _prep_freqs(freqs_cis, 1, n, torch.float32)
     return cos[0].contiguous(), sin[0].contiguous()
 
@@ -198,7 +194,8 @@ def block_forward(x, block_params, cfg, freqs_cis=None, batch_tile: int = 8):
     """One fused-block forward, the JAX package's `block_forward`: x
     [B, N, E] (cls at 0), block_params un-prefixed (norm1.weight,
     attn.qkv.weight [3E, E] torch layout, ...), freqs_cis (cos, sin)
-    [S, D/2] for rope-axial or None. Returns [B, N, E] in x's dtype.
+    [S, D/2] for rope-axial, [H, S, D/2] (head 0's used for every head, as
+    in the JAX package) or None. Returns [B, N, E] in x's dtype.
     batch_tile is the JAX package's grid tile; results do not depend on it
     (one CTA per image here).
 

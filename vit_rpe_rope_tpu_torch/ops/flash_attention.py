@@ -21,7 +21,9 @@ package chooses them (`STREAMING_THRESHOLD`, `_dense_attn_fits`):
   `_stream_bwd_dbias_kernel`, launched by `_bwd_streaming`, whose direct
   callers also get the generated bias' parameter gradient from
   `_stream_bwd_dcoeff_kernel` / `_stream_bwd_dtable_kernel`):
-  ops/csrc/attn_stream_bwd.cu and attn_stream_bwd_fused.cu.
+  ops/csrc/attn_stream_bwd.cu and attn_stream_bwd_fused.cu. There dbias
+  comes from the dq pass, which forms ds anyway (per-batch f32 slabs summed
+  in batch order, within DBIAS_SCRATCH_BYTES), not from a pass of its own.
 
 What is computed, for q, k, v [B, H, N, D]:
 
@@ -93,7 +95,8 @@ LAUNCHES = 0
 LAUNCHES_BWD = 0
 
 # Launches of the streaming kernels: the forward, the dq kernel, the dk/dv
-# kernel and the dbias kernel, each counted where it is launched.
+# kernel, each counted where it is launched, and dbias: the dq kernel's
+# dbias instance (counted in LAUNCHES_STREAM_DQ too) with its sum kernel.
 LAUNCHES_STREAM_FWD = 0
 LAUNCHES_STREAM_DQ = 0
 LAUNCHES_STREAM_DKV = 0
@@ -128,6 +131,10 @@ FUSED_Q_TILE = 256
 # the size of dq; its wrapper sweeps the keys in segments that keep this
 # scratch within the budget.
 FUSED_SCRATCH_BYTES = 1 << 30
+# The separate-pass backward's dq kernel writes each batch's float32 ds into
+# an [H, N, N] slab for dbias, summed afterwards in batch order; above this
+# budget it writes fewer slabs, each CTA adding several batches in order.
+DBIAS_SCRATCH_BYTES = 1 << 30
 
 SOURCE = cuda_build.CSRC / "attn_fwd.cu"
 BWD_SOURCE = cuda_build.CSRC / "attn_bwd.cu"
@@ -674,9 +681,6 @@ def _bind_stream(*names):
                            ctypes.POINTER(ctypes.c_longlong),  # strides
                            ctypes.POINTER(ctypes.c_int),       # _stream_dims
                            ctypes.c_float, ctypes.c_void_p]    # scale stream
-        if "attn_stream_bwd_dbias" in names:
-            lib.attn_stream_bwd_batch_group.restype = ctypes.c_int
-            lib.attn_stream_bwd_batch_group.argtypes = ()
     return bind
 
 
@@ -695,7 +699,7 @@ def _stream_library():
 
 def _stream_bwd_library():
     return cuda_build.load(STREAM_BWD_SOURCE, _bind_stream(
-        "attn_stream_bwd_dq", "attn_stream_bwd_dkv", "attn_stream_bwd_dbias"))
+        "attn_stream_bwd_dq", "attn_stream_bwd_dkv"))
 
 
 def _stream_fused_library():
@@ -1005,18 +1009,30 @@ def streaming_chunk_fwd(q, k, v, scale, row0, col0, n_valid, poly=None,
     return out, lse
 
 
+def dbias_groups(b, h, n, budget=None):
+    """The batch groups of the dq kernel's dbias instance: one per batch
+    while B float32 [H, N, N] slabs of ds fit in `budget` bytes (default
+    DBIAS_SCRATCH_BYTES), else as few groups of ceil(B / fitting slabs)
+    batches as cover B. With one group the kernel writes dbias itself."""
+    budget = DBIAS_SCRATCH_BYTES if budget is None else budget
+    per = -(-b // max(1, min(b, budget // (h * n * n * 4))))
+    return -(-b // per)
+
+
 def attention_stream_bwd(q, k, v, out, g, lse, scale, bias=None, cos=None,
                          sin=None, poly=None, rel=None, want_dbias=False,
-                         want_drot=False, want_dparam=False):
+                         want_drot=False, want_dparam=False,
+                         dbias_budget=None):
     """The separate-pass streaming backward's wrapper; arguments and results
     as attention_stream_bwd_plain (bf16 products). lse=None recomputes it
     (streaming_lse), for callers without the forward's.
 
     CPU tensors run the plain twin with the JAX package's key tile. CUDA
-    tensors launch the dq kernel, the dk/dv kernel and, with want_dbias, the
-    dbias kernel and, with want_dparam and poly= / rel=, the dcoeff / dtable
-    kernel on the current stream, or raise. dq, dk and dv are views of one
-    [B, N, 3, H, D] buffer."""
+    tensors launch the dq kernel (with want_dbias its dbias instance, then
+    the sum over the batch groups' slabs, `dbias_groups` with
+    `dbias_budget`), the dk/dv kernel and, with want_dparam and poly= /
+    rel=, the dcoeff / dtable kernel on the current stream, or raise. dq,
+    dk and dv are views of one [B, N, 3, H, D] buffer."""
     global LAUNCHES_STREAM_DQ, LAUNCHES_STREAM_DKV, LAUNCHES_STREAM_DBIAS
     global LAUNCHES_STREAM_DCOEFF, LAUNCHES_STREAM_DTABLE
     _check_rel_covers(rel, q.shape[2])
@@ -1036,7 +1052,8 @@ def attention_stream_bwd(q, k, v, out, g, lse, scale, bias=None, cos=None,
         dq, dk, dv, dbias, dqr, dkr, dcoeff, dtable = attention_stream_bwd(
             *map(hp.pad, (q, k, v, out, g)), lse, scale, bias,
             *hp.tables(cos, sin), poly, rel, want_dbias=want_dbias,
-            want_drot=want_drot, want_dparam=want_dparam)
+            want_drot=want_drot, want_dparam=want_dparam,
+            dbias_budget=dbias_budget)
         return (*map(hp.unpad, (dq, dk, dv)), dbias, hp.unpad(dqr),
                 hp.unpad(dkr), dcoeff, dtable)
     _check_cuda_inputs(q, k, v, bias, cos, sin)
@@ -1061,7 +1078,7 @@ def attention_stream_bwd(q, k, v, out, g, lse, scale, bias=None, cos=None,
         dqr = torch.empty((b, h, n, d), **f32)
         dkr = torch.empty((b, h, n, d), **f32)
     lib = _stream_bwd_library()
-    groups = -(-b // lib.attn_stream_bwd_batch_group())
+    groups = dbias_groups(b, h, n, dbias_budget) if want_dbias else 0
     if want_dbias:
         dbias = torch.empty((h, n, n), **f32)
         if groups > 1:
@@ -1077,17 +1094,12 @@ def attention_stream_bwd(q, k, v, out, g, lse, scale, bias=None, cos=None,
             raise RuntimeError(f"attn_stream_bwd_dq launch failed: CUDA "
                                f"error {err}")
         LAUNCHES_STREAM_DQ += 1
+        LAUNCHES_STREAM_DBIAS += int(want_dbias)
         err = lib.attn_stream_bwd_dkv(*args, stream)
         if err != 0:
             raise RuntimeError(f"attn_stream_bwd_dkv launch failed: CUDA "
                                f"error {err}")
         LAUNCHES_STREAM_DKV += 1
-        if want_dbias:
-            err = lib.attn_stream_bwd_dbias(*args, stream)
-            if err != 0:
-                raise RuntimeError(f"attn_stream_bwd_dbias launch failed: "
-                                   f"CUDA error {err}")
-            LAUNCHES_STREAM_DBIAS += 1
         dcoeff = dtable = None
         if want_dparam:
             dparam, part = _dparam_scratch(q, n, coeff, table)

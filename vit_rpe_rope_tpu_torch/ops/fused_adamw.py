@@ -12,13 +12,22 @@ float32 scalars computed on the host, as `make_fused_adamw.update` computes
 them.
 
 `adamw_update` is the kernel's wrapper: on CUDA tensors it launches the
-kernel once for all leaves (and counts the launch in LAUNCHES_ADAMW), on
-CPU tensors it runs `adamw_plain`, the kernel's plain PyTorch twin. Both
-update p, mu and nu in place (the JAX kernel returns new arrays).
+kernel once for all leaves (once per MAX_GRADS leaves; every model of the
+repo has fewer) and counts each launch in LAUNCHES_ADAMW, on CPU tensors it
+runs `adamw_plain`, the kernel's plain PyTorch twin. Both update p, mu and
+nu in place (the JAX kernel returns new arrays).
+
+The kernel reads the leaves' records and its chunk list from a device table
+(`build_table`) that the wrapper keeps per set of p, mu and nu storages
+(`table_key`: their pointers and sizes) and builds again, after the full
+checks, only when that set changes (TABLE_BUILDS counts the builds). The
+gradients, new tensors every step, go to the kernel by value, so a step with
+an unchanged parameter set makes no host-to-device copy.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import numpy as np
@@ -28,16 +37,36 @@ from vit_rpe_rope_tpu_torch.ops import cuda_build
 
 SOURCE = cuda_build.CSRC / "adamw.cu"
 
+# Elements per CTA, and gradient pointers one launch takes by value
+# (csrc/adamw.cu CHUNK and MAX_GRADS).
+CHUNK = 4096
+MAX_GRADS = 480
+
 # Launches of the CUDA kernel since the count was last reset.
 LAUNCHES_ADAMW = 0
+
+# Device tables built since the count was last reset.
+TABLE_BUILDS = 0
+
+# Device tables kept, the most recently used last.
+_TABLES: collections.OrderedDict = collections.OrderedDict()
+_KEPT_TABLES = 8
 
 
 def _bind(lib):
     lib.adamw_chunk.restype = ctypes.c_int
     lib.adamw_chunk.argtypes = ()
+    lib.adamw_max_grads.restype = ctypes.c_int
+    lib.adamw_max_grads.argtypes = ()
     lib.adamw_step.restype = ctypes.c_int
-    lib.adamw_step.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                               + [ctypes.c_float] * 9 + [ctypes.c_void_p])
+    lib.adamw_step.argtypes = (
+        [ctypes.c_void_p, ctypes.c_void_p]          # leaves chunks
+        + [ctypes.c_int] * 3                        # n_chunks leaf0 n_grads
+        + [ctypes.POINTER(ctypes.c_void_p)]         # grads (host array)
+        + [ctypes.c_float] * 9 + [ctypes.c_void_p])  # hyper stream
+    if (lib.adamw_chunk(), lib.adamw_max_grads()) != (CHUNK, MAX_GRADS):
+        raise RuntimeError("adamw.cu's CHUNK / MAX_GRADS differ from "
+                           "fused_adamw.CHUNK / MAX_GRADS")
 
 
 def _library():
@@ -57,58 +86,146 @@ def adamw_plain(params, grads, mus, nus, lr, c1, c2, b1=0.9, b2=0.999,
             p.sub_(lr * update)
 
 
-def adamw_update(params, grads, mus, nus, lr, c1, c2, b1=0.9, b2=0.999,
-                 eps=1e-8, weight_decay=0.01):
-    """The kernel's wrapper over lists of float32 leaves (p, g, mu, nu of
-    one shape each). CPU tensors run the plain twin; CUDA tensors launch
-    the kernel once on the current stream, or raise."""
-    global LAUNCHES_ADAMW
-    if not params:
-        return
+def adamw_exact(params, grads, mus, nus, lr, c1, c2, b1=0.9, b2=0.999,
+                eps=1e-8, weight_decay=0.01):
+    """The kernel's function with every operation rounded to float32 as
+    IEEE rounds it, the reference the kernel is held to bit for bit: each
+    operation runs in float64 on float32 values and is rounded to float32,
+    which gives the correctly rounded float32 result of +, -, *, / and sqrt.
+    (adamw_plain rounds at the same points, but PyTorch's float32 sqrt on
+    the CPU is not correctly rounded, and on CUDA it divides by a Python
+    scalar as a product with the reciprocal.) Returns new lists (p, mu,
+    nu); the inputs are left as they are."""
+    out = ([], [], [])
+    for p, g, mu, nu in zip(params, grads, mus, nus):
+        def s(v):  # a float32 scalar as a tensor (no reciprocal on CUDA)
+            return torch.full((), float(np.float32(v)), dtype=torch.float64,
+                              device=p.device)
+
+        def r(x):
+            return x.float().double()
+
+        pd, gd, mud, nud = (t.double() for t in (p, g, mu, nu))
+        m = r(r(s(b1) * mud) + r(s(1.0 - b1) * gd))
+        v = r(r(s(b2) * nud) + r(r(s(1.0 - b2) * gd) * gd))
+        denom = r(r(r(v / s(c2)).sqrt()) + s(eps))
+        update = r(r(r(m / s(c1)) / denom) + r(s(weight_decay) * pd))
+        for lst, x in zip(out, (pd - r(s(lr) * update), m, v)):
+            lst.append(x.float())
+    return out
+
+
+def table_key(params, mus, nus):
+    """What the device table depends on: the device, and the storage
+    pointers of p, mu, nu and the sizes of every leaf."""
+    ptr = torch.Tensor.data_ptr
+    return (params[0].get_device(), *map(ptr, params), *map(ptr, mus),
+            *map(ptr, nus), *map(torch.Tensor.numel, params))
+
+
+def build_table(p_ptrs, mu_ptrs, nu_ptrs, numels, chunk=CHUNK,
+                max_grads=MAX_GRADS):
+    """The kernel's table for leaves at these pointers, a pure function of
+    them: one int64 array holding a record (p, mu, nu, numel) per leaf, then
+    a (leaf, first element) pair per `chunk` elements of each leaf, in leaf
+    order; and the launches as (first leaf, leaves, first chunk, chunks),
+    at most `max_grads` leaves each."""
+    numels = np.asarray(numels, np.int64)
+    per_leaf = -(-numels // chunk)
+    first = np.cumsum(per_leaf) - per_leaf
+    leaf_of = np.repeat(np.arange(len(numels)), per_leaf)
+    starts = (np.arange(per_leaf.sum()) - first[leaf_of]) * chunk
+    leaves = np.stack([np.asarray(p_ptrs, np.int64),
+                       np.asarray(mu_ptrs, np.int64),
+                       np.asarray(nu_ptrs, np.int64), numels], axis=1)
+    table = np.concatenate([leaves.ravel(),
+                            np.stack([leaf_of, starts], axis=1).ravel()])
+    launches = []
+    for leaf0 in range(0, len(numels), max_grads):
+        leaf1 = min(leaf0 + max_grads, len(numels))
+        launches.append((leaf0, leaf1 - leaf0, int(first[leaf0]),
+                         int(per_leaf[leaf0:leaf1].sum())))
+    return table, launches
+
+
+def _device_table(params, mus, nus):
+    """The cached (table tensor, launches) of these storages; built, after
+    the full checks, when they are new."""
+    global TABLE_BUILDS
+    key = table_key(params, mus, nus)
+    entry = _TABLES.get(key)
+    if entry is not None:
+        _TABLES.move_to_end(key)
+        return entry
     device = params[0].device
-    if device.type == "cpu":
-        adamw_plain(params, grads, mus, nus, lr, c1, c2, b1, b2, eps,
-                    weight_decay)
-        return
-    rows, keep = [], []
-    for i, (p, g, mu, nu) in enumerate(zip(params, grads, mus, nus,
-                                           strict=True)):
-        for name, t in (("param", p), ("grad", g), ("mu", mu), ("nu", nu)):
+    for i, (p, mu, nu) in enumerate(zip(params, mus, nus, strict=True)):
+        for name, t in (("param", p), ("mu", mu), ("nu", nu)):
             if t.dtype != torch.float32 or t.device != device:
                 raise TypeError(f"leaf {i}: {name} must be float32 on "
                                 f"{device}, got {t.dtype} on {t.device}")
             if t.shape != p.shape:
                 raise ValueError(f"leaf {i}: {name} has shape "
                                  f"{tuple(t.shape)}, param {tuple(p.shape)}")
-        for name, t in (("param", p), ("mu", mu), ("nu", nu)):
             if not t.is_contiguous():
                 raise ValueError(f"leaf {i}: {name} must be contiguous (it "
                                  f"is updated in place)")
-        g = g.contiguous()  # autograd may hand a transposed view
-        keep.append(g)
-        rows.append([p.data_ptr(), g.data_ptr(), mu.data_ptr(),
-                     nu.data_ptr(), p.numel()])
+    table, launches = build_table(
+        [p.data_ptr() for p in params], [m.data_ptr() for m in mus],
+        [n.data_ptr() for n in nus], [p.numel() for p in params])
+    entry = (torch.from_numpy(table).to(device), launches,
+             [p.numel() for p in params])
+    TABLE_BUILDS += 1
+    _TABLES[key] = entry
+    while len(_TABLES) > _KEPT_TABLES:
+        _TABLES.popitem(last=False)
+    return entry
+
+
+def adamw_update(params, grads, mus, nus, lr, c1, c2, b1=0.9, b2=0.999,
+                 eps=1e-8, weight_decay=0.01):
+    """The kernel's wrapper over lists of float32 leaves (p, g, mu, nu of
+    one shape each). CPU tensors run the plain twin; CUDA tensors launch
+    the kernel on the current stream, or raise."""
+    global LAUNCHES_ADAMW
+    if not params:
+        return
+    if params[0].device.type == "cpu":
+        adamw_plain(params, grads, mus, nus, lr, c1, c2, b1, b2, eps,
+                    weight_decay)
+        return
     lib = _library()
-    # One host->device copy: the leaf records, then a (leaf, first element)
-    # pair for each chunk of each leaf.
-    numels = np.array([r[4] for r in rows], np.int64)
-    per_leaf = -(-numels // lib.adamw_chunk())
-    first = np.repeat(np.cumsum(per_leaf) - per_leaf, per_leaf)
-    chunks = np.stack([np.repeat(np.arange(len(rows)), per_leaf),
-                       (np.arange(per_leaf.sum()) - first) * lib.adamw_chunk()],
-                      axis=1)
-    table = torch.from_numpy(np.concatenate(
-        [np.array(rows, np.int64).ravel(), chunks.ravel()])).pin_memory().to(
-            device, non_blocking=True)
-    with torch.cuda.device(device):
-        err = lib.adamw_step(
-            table.data_ptr(), table.data_ptr() + 8 * 5 * len(rows),
-            len(chunks), lr, c1, c2, b1, b2, float(np.float32(1.0 - b1)),
-            float(np.float32(1.0 - b2)), eps, weight_decay,
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"adamw launch failed: CUDA error {err}")
-    LAUNCHES_ADAMW += 1
+    table, launches, numels = _device_table(params, mus, nus)
+    if len(grads) != len(numels):
+        raise ValueError(f"{len(grads)} grads for {len(numels)} params")
+    dev = params[0].get_device()
+    keep, g_ptrs = [], []
+    for i, (g, n) in enumerate(zip(grads, numels)):
+        if g.dtype != torch.float32 or g.get_device() != dev:
+            raise TypeError(f"leaf {i}: grad must be float32 on "
+                            f"{params[0].device}, got {g.dtype} on "
+                            f"{g.device}")
+        if g.numel() != n:
+            raise ValueError(f"leaf {i}: grad has {g.numel()} elements, "
+                             f"param {n}")
+        if not g.is_contiguous():  # autograd may hand a transposed view
+            g = g.contiguous()
+            keep.append(g)
+        g_ptrs.append(g.data_ptr())
+    base = table.data_ptr()
+    chunks = base + 8 * 4 * len(numels)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for leaf0, n_leaves, c0, n_chunks in launches:
+            if n_chunks == 0:  # only empty leaves: nothing to launch
+                continue
+            err = lib.adamw_step(
+                base, chunks + 16 * c0, n_chunks, leaf0, n_leaves,
+                (ctypes.c_void_p * n_leaves)(*g_ptrs[leaf0:leaf0 + n_leaves]),
+                lr, c1, c2, b1, b2, 1.0 - b1, 1.0 - b2, eps, weight_decay,
+                stream)
+            if err != 0:
+                raise RuntimeError(f"adamw launch failed: CUDA error {err}")
+            LAUNCHES_ADAMW += 1
 
 
 def bias_corrections(count: int, b1: float, b2: float):
