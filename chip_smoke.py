@@ -13,32 +13,41 @@ exits nonzero without a card, or when any phase fails. Phases:
 2. the attention kernel against its plain PyTorch twin on the card, in five
    PE regimes (none, poly bias, rel bias, rope-axial, rope-mixed), f32 and
    bf16 inputs, at the ViT-S/16@224 shape (N=197, D=64) and the
-   ViT-tiny/4 CIFAR shape (N=65, D=32);
+   ViT-tiny/4 CIFAR shape (N=65, D=32), both on the resident route (one
+   CTA per batch and head), and on the wide route at (2, 1, 640, 64), each
+   case's route read from the route counts;
 3. the serving path at full width: a seeded ViT-S/16@224 rope-mixed
    checkpoint through the predict CLI (256 uint8 32x32 images, batch 64),
-   counting the kernel's launches; logits against the unfused reference on
-   the card; then the ViT-tiny/4 CIFAR config in all six PE modes;
+   counting the kernel's launches (every one on the resident route);
+   logits against the unfused reference on the card; then the ViT-tiny/4
+   CIFAR config in all six PE modes;
 4. HTTP: the serve CLI's server on an ephemeral port, three requests;
-5. times on the card (CUDA events, medians): the kernel, its twin, the
-   PyTorch SDPA call as a yardstick, serving images/s, and a
-   torch.profiler breakdown of the ViT-S forward by kernel;
+5. times on the card (CUDA events, medians): the kernel at (64, 6, 197,
+   64) and (128, 6, 65, 32), its twin, its bound, the PyTorch SDPA call as
+   a yardstick, serving images/s, and a torch.profiler breakdown of the
+   ViT-S forward by kernel;
 6. the attention backward kernel against its twin (dq, dk, dv, dbias,
    dcos/dsin) in the five regimes, f32 and bf16, at B=64 N=197 D=64 and
-   B=128 N=65 D=32; autograd through both kernels against autograd
-   through the unfused f32 oracle;
+   B=128 N=65 D=32 (resident) and at (2, 1, 640, 64) (wide), every case
+   launched twice and compared bit for bit; autograd through both kernels
+   against autograd through the unfused f32 oracle;
 7. the fused AdamW kernel against its twin and, bit for bit, the IEEE
    op-by-op reference: 3 steps on the ViT-S/16 params, then 3 steps whose
    parameters are replaced by new tensors before each, which build the
    device table anew;
 8. training at full width through the train CLI (ViT-tiny/4 CIFAR
    defaults, synthetic CIFAR-10, one epoch) in rope-mixed and relative,
-   counting every kernel's launches; the best checkpoint served by the
-   Predictor reproduces the CSV's test accuracy;
+   counting every kernel's launches (every dense one on the resident
+   route); the best checkpoint served by the Predictor reproduces the CSV's
+   test accuracy;
 9. five train steps on the kernel path against the plain path (unfused
    attention + the AdamW twin) from one init on the same batches;
 10. times: a ViT-S/16@224 rope-mixed f32 train step at batch 64 with a
-   profiler breakdown, and the backward and AdamW kernels against their
-   twins, their bounds and a PyTorch call as a yardstick (AdamW: the
+   profiler breakdown (every dense launch on the resident route), and the
+   backward kernel at (64, 6, 197, 64) and (128, 6, 65, 32) (with the
+   resident kernel's and the slab sum's device times by the profiler) and
+   the AdamW kernel against their twins, their bounds and a PyTorch call
+   as a yardstick (AdamW: the
    wrapper by CUDA events, the kernel's device time by the profiler, which
    also shows that a step copies nothing between host and device);
 11. the streaming kernels (forward with lse; dq, dk/dv, dbias) against
@@ -330,32 +339,56 @@ def attn_inputs(regime, shape, dtype, seed, device):
     return q, k, v, kw
 
 
+# A dense shape past the resident kernels' 13 blocks of 16 rows (H=1 keeps
+# N=640 within _dense_attn_fits): the wide kernels, held to the same twins.
+WIDE_SHAPE = (2, 1, 640, 64)
+
+
+def dense_cases():
+    """(shape, dtype, regime, seed, route) of phases 2 and 6: the slice
+    shapes on the resident route in every regime and dtype, WIDE_SHAPE on
+    the wide route in rope-mixed and rel, f32."""
+    cases = [(shape, dtype, regime, i, "resident")
+             for shape in ((8, 6, 197, 64), (8, 6, 65, 32))
+             for dtype in (torch.float32, torch.bfloat16)
+             for i, regime in enumerate(REGIMES)]
+    return cases + [(WIDE_SHAPE, torch.float32, regime, 10 + i, "wide")
+                    for i, regime in enumerate(("rope-mixed", "rel"))]
+
+
+def route_launches(fa, route, backward=False):
+    if route == "resident":
+        return fa.LAUNCHES_BWD_RESIDENT if backward else fa.LAUNCHES_RESIDENT
+    return fa.LAUNCHES_BWD_WIDE if backward else fa.LAUNCHES_WIDE
+
+
 def check_kernel_vs_twin(fa, device):
     """Phase 2. Returns the worst max |kernel - twin| at the slice shape."""
     worst_slice = 0.0
-    for shape in ((8, 6, 197, 64), (8, 6, 65, 32)):
-        for dtype in (torch.float32, torch.bfloat16):
-            for i, regime in enumerate(REGIMES):
-                q, k, v, kw = attn_inputs(regime, shape, dtype, 100 + i, device)
-                bias, cos, sin = fa.prepare_pe(shape[1], shape[2], device, **kw)
-                scale = shape[-1] ** -0.5
-                got = fa.flash_attention(q, k, v, scale, **kw)
-                torch.cuda.synchronize()
-                want = fa.attention_plain(q, k, v, scale, bias, cos, sin)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs()
-                tol = KERNEL_TOL[dtype]
-                ok = bool((err <= tol + tol * want.float().abs()).all())
-                max_err = float(err.max())
-                log(f"kernel vs twin  N={shape[2]} D={shape[3]} "
-                    f"{str(dtype)[6:]:8s} {regime:10s} max_abs_err="
-                    f"{max_err:.3e} tol={tol:g}(abs+rel) "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok or not torch.isfinite(got).all():
-                    raise AssertionError(f"kernel disagrees with its twin: "
-                                         f"{regime} {shape} {dtype}")
-                if shape[2] == 197 and dtype == torch.float32:
-                    worst_slice = max(worst_slice, max_err)
+    for shape, dtype, regime, i, route in dense_cases():
+        q, k, v, kw = attn_inputs(regime, shape, dtype, 100 + i, device)
+        bias, cos, sin = fa.prepare_pe(shape[1], shape[2], device, **kw)
+        scale = shape[-1] ** -0.5
+        before = route_launches(fa, route)
+        got = fa.flash_attention(q, k, v, scale, **kw)
+        torch.cuda.synchronize()
+        want = fa.attention_plain(q, k, v, scale, bias, cos, sin)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        tol = KERNEL_TOL[dtype]
+        ok = bool((err <= tol + tol * want.float().abs()).all())
+        max_err = float(err.max())
+        log(f"kernel vs twin  {route:8s} B={shape[0]} H={shape[1]} "
+            f"N={shape[2]} D={shape[3]} {str(dtype)[6:]:8s} {regime:10s} "
+            f"max_abs_err={max_err:.3e} tol={tol:g}(abs+rel) "
+            f"{'ok' if ok else 'FAIL'}")
+        if route_launches(fa, route) != before + 1:
+            raise AssertionError(f"{shape} did not take the {route} route")
+        if not ok or not torch.isfinite(got).all():
+            raise AssertionError(f"kernel disagrees with its twin: "
+                                 f"{regime} {shape} {dtype}")
+        if shape[2] == 197 and dtype == torch.float32:
+            worst_slice = max(worst_slice, max_err)
     return worst_slice
 
 
@@ -382,7 +415,8 @@ def serve_through_cli(tmp, cfg, name, images, grid_size, modules,
     if grid_size is not None:
         argv += ["--grid_size", str(grid_size)]
     torch.cuda.synchronize()
-    fa.LAUNCHES = fa.LAUNCHES_STREAM_FWD = 0
+    fa.LAUNCHES = fa.LAUNCHES_BWD = fa.LAUNCHES_STREAM_FWD = 0
+    reset_routes(fa)
     t0 = time.perf_counter()
     preds = predict.main(argv)
     torch.cuda.synchronize()
@@ -464,17 +498,27 @@ def attention_bound_ms(shape, dtype, bias, cos):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# Shapes of the dense kernels' timings (phases 5a and 10b): ViT-S/16@224's
+# serving and training batch and the ViT-tiny/4 train CLI's batch.
+DENSE_TIMED = (("", (64, 6, 197, 64)), ("vit-tiny/4 ", (128, 6, 65, 32)))
+
+
 def time_attention(fa, device):
     """Phase 5a: the kernel at the serving slice shape (B=64, H=6, N=197,
-    D=64) against its twin and against PyTorch SDPA on pre-rotated q/k."""
+    D=64) and at ViT-tiny/4's (128, 6, 65, 32) against its twin and against
+    PyTorch SDPA on pre-rotated q/k."""
     import torch.nn.functional as F
 
     rows = {}
-    shape = (64, 6, 197, 64)
-    scale = shape[-1] ** -0.5
-    for label, regime, dtype in (("rope-mixed f32", "rope-mixed", torch.float32),
-                                 ("rope-mixed bf16", "rope-mixed", torch.bfloat16),
-                                 ("rel-bias f32", "rel", torch.float32)):
+    cases = [(prefix + label, shape, regime, dtype)
+             for prefix, shape in DENSE_TIMED
+             for label, regime, dtype in (
+                 ("rope-mixed f32", "rope-mixed", torch.float32),
+                 ("rope-mixed bf16", "rope-mixed", torch.bfloat16),
+                 ("rel-bias f32", "rel", torch.float32))
+             if not (prefix and dtype == torch.bfloat16)]
+    for label, shape, regime, dtype in cases:
+        scale = shape[-1] ** -0.5
         q, k, v, kw = attn_inputs(regime, shape, dtype, 7, device)
         bias, cos, sin = fa.prepare_pe(shape[1], shape[2], device, **kw)
         qr, kr = q, k
@@ -491,8 +535,8 @@ def time_attention(fa, device):
         bound_ms, bound_by = attention_bound_ms(shape, dtype, bias, cos)
         rows[label] = dict(ms=kernel_ms, plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
-        log(f"  attention {label:16s} kernel {kernel_ms:.4f} ms  twin "
+                           bound_by=bound_by, shape=list(shape))
+        log(f"  attention {label:27s} kernel {kernel_ms:.4f} ms  twin "
             f"{plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  bound "
             f"{bound_ms:.4f} ms ({bound_by})")
     return rows
@@ -593,12 +637,17 @@ def bwd_case(fa, regime, shape, dtype, seed, device):
     args = (q, k, v, out, g, scale, bias, cos, sin)
     got = fa.attention_bwd(*args, want_dbias=bias is not None,
                            want_drot=want_drot)
+    again = fa.attention_bwd(*args, want_dbias=bias is not None,
+                             want_drot=want_drot)
     torch.cuda.synchronize()
     want = fa.attention_bwd_plain(*args, want_dbias=bias is not None,
                                   want_drot=want_drot)
     tol = BWD_TOL[dtype]
     res = {name: worst_err(x, y, tol)
            for name, x, y in zip(("dq", "dk", "dv"), got[:3], want[:3])}
+    same = all(torch.equal(x, y) for x, y in zip(got, again)
+               if x is not None)
+    res["two launches"] = (0.0 if same else 1.0, same)
     if bias is not None:
         res["dbias"] = worst_err(got[3], want[3], tol, scale_to_largest=True)
     if want_drot:
@@ -612,23 +661,28 @@ def bwd_case(fa, regime, shape, dtype, seed, device):
 
 
 def check_bwd_vs_twin(fa, device):
-    """Phase 6a. Returns the worst dq/dk/dv error at the slice shape, f32."""
+    """Phase 6a, over dense_cases() at the training batches (B=64 at N=197,
+    B=128 at N=65): every case launched twice, bit-identical. Returns the
+    worst dq/dk/dv error at the slice shape, f32."""
     worst_slice = 0.0
-    for shape in ((64, 6, 197, 64), (128, 6, 65, 32)):
-        for dtype in (torch.float32, torch.bfloat16):
-            for i, regime in enumerate(REGIMES):
-                res = bwd_case(fa, regime, shape, dtype, 200 + i, device)
-                ok = all(r[1] for r in res.values())
-                log(f"bwd vs twin  N={shape[2]} D={shape[3]} "
-                    f"{str(dtype)[6:]:8s} {regime:10s} "
-                    + " ".join(f"{k}={v[0]:.2e}" for k, v in res.items())
-                    + f" tol={BWD_TOL[dtype]:g} {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"backward kernel disagrees with its "
-                                         f"twin: {regime} {shape} {dtype}")
-                if shape[2] == 197 and dtype == torch.float32:
-                    worst_slice = max(worst_slice, res["dq"][0], res["dk"][0],
-                                      res["dv"][0])
+    batch = {197: 64, 65: 128}
+    for shape, dtype, regime, i, route in dense_cases():
+        shape = (batch.get(shape[2], shape[0]),) + shape[1:]
+        before = route_launches(fa, route, backward=True)
+        res = bwd_case(fa, regime, shape, dtype, 200 + i, device)
+        ok = all(r[1] for r in res.values())
+        log(f"bwd vs twin  {route:8s} B={shape[0]} H={shape[1]} "
+            f"N={shape[2]} D={shape[3]} {str(dtype)[6:]:8s} {regime:10s} "
+            + " ".join(f"{k}={v[0]:.2e}" for k, v in res.items())
+            + f" tol={BWD_TOL[dtype]:g} {'ok' if ok else 'FAIL'}")
+        if route_launches(fa, route, backward=True) != before + 2:
+            raise AssertionError(f"{shape} did not take the {route} route")
+        if not ok:
+            raise AssertionError(f"backward kernel disagrees with its "
+                                 f"twin: {regime} {shape} {dtype}")
+        if shape[2] == 197 and dtype == torch.float32:
+            worst_slice = max(worst_slice, res["dq"][0], res["dk"][0],
+                              res["dv"][0])
     return worst_slice
 
 
@@ -761,10 +815,35 @@ def check_adamw(fused_adamw, vit, cfg, device):
 
 def reset_counts(fa, fused_adamw):
     fa.LAUNCHES = fa.LAUNCHES_BWD = fused_adamw.LAUNCHES_ADAMW = 0
+    reset_routes(fa)
     fa.LAUNCHES_STREAM_FWD = fa.LAUNCHES_STREAM_DQ = 0
     fa.LAUNCHES_STREAM_DKV = fa.LAUNCHES_STREAM_DBIAS = 0
     fa.LAUNCHES_STREAM_FUSED = fa.LAUNCHES_STREAM_DCOEFF = 0
     fa.LAUNCHES_STREAM_DTABLE = fa.LAUNCHES_STREAM_CHUNK_FWD = 0
+
+
+def reset_routes(fa):
+    fa.LAUNCHES_RESIDENT = fa.LAUNCHES_WIDE = 0
+    fa.LAUNCHES_BWD_RESIDENT = fa.LAUNCHES_BWD_WIDE = 0
+
+
+def check_resident(fa, label):
+    """Every dense launch since the route counts were reset took the
+    resident kernels: the route counts add up to the wrappers' counts
+    (LAUNCHES / LAUNCHES_BWD, reset with them) and the wide ones are 0.
+    Returns the route counts."""
+    torch.cuda.synchronize()
+    routes = {"resident": fa.LAUNCHES_RESIDENT, "wide": fa.LAUNCHES_WIDE,
+              "bwd_resident": fa.LAUNCHES_BWD_RESIDENT,
+              "bwd_wide": fa.LAUNCHES_BWD_WIDE}
+    log(f"    dense routes {label}: {routes}")
+    if (routes["wide"] or routes["bwd_wide"]
+            or routes["resident"] != fa.LAUNCHES
+            or routes["bwd_resident"] != fa.LAUNCHES_BWD):
+        raise AssertionError(f"{label}: a dense launch left the resident "
+                             f"route: {routes}, wrappers {fa.LAUNCHES} / "
+                             f"{fa.LAUNCHES_BWD}")
+    return routes
 
 
 def read_counts(fa, fused_adamw):
@@ -834,6 +913,8 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
             summary = train_cli.main(argv)
             counts = read_counts(fa, fused_adamw)
             seconds = time.perf_counter() - t0
+            routes = (check_resident(fa, f"train CLI {pe_name} {flags or ''}")
+                      if model is None else None)
             with open(summary["log_file"]) as f:
                 rows = [line.strip().split(",") for line in f]
             ckpt = os.path.abspath(summary["ckpt_path"])
@@ -847,6 +928,8 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
                 [predictor.predict(test.test_x[s:s + serve_bs])
                  for s in range(0, len(test.test_y), serve_bs)])
             serve_counts = read_counts(fa, fused_adamw)
+            if model is None:
+                check_resident(fa, f"Predictor {pe_name}")
         finally:
             os.chdir(cwd)
     header = ["epoch", "train_loss", "train_acc", "test_loss", "test_acc",
@@ -909,7 +992,7 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
     if counts != expected or serve_counts != serve_expected:
         raise AssertionError(f"launch counts {counts}/{serve_counts} differ "
                              f"from {expected}/{serve_expected}")
-    return dict(seconds=seconds, csv=row, launches=counts,
+    return dict(seconds=seconds, csv=row, launches=counts, routes=routes,
                 served_acc=served_acc,
                 images_per_s=summary["history"][0]["images_per_sec"])
 
@@ -987,55 +1070,66 @@ def attention_bwd_bound_ms(shape, dtype, bias, cos, want_drot):
 
 
 def time_attention_bwd(fa, device):
-    """Phase 10b: the backward kernel at the ViT-S training shape against
-    its twin and against SDPA's backward on pre-rotated q/k (forward +
-    backward minus forward)."""
+    """Phase 10b: the backward kernel at the ViT-S training shape and at
+    ViT-tiny/4's against its twin and against SDPA's backward on
+    pre-rotated q/k (forward + backward minus forward); the resident
+    kernel's and the slab sum's device times by the profiler."""
     import torch.nn.functional as F
 
     rows = {}
-    shape = (64, 6, 197, 64)
-    scale = shape[-1] ** -0.5
-    for label, regime in (("rope-mixed f32", "rope-mixed"),
-                          ("rel-bias f32", "rel")):
-        q, k, v, kw = attn_inputs(regime, shape, torch.float32, 8, device)
-        bias, cos, sin = fa.prepare_pe(shape[1], shape[2], device, **kw)
-        out = fa.attention_fwd(q, k, v, scale, bias, cos, sin)
-        g = torch.randn(shape, generator=torch.Generator().manual_seed(1))
-        g = g.to(device)
-        want_drot = regime == "rope-mixed"
-        args = (q, k, v, out, g, scale, bias, cos, sin)
-        kernel_ms = median_ms(lambda: fa.attention_bwd(
-            *args, want_dbias=bias is not None, want_drot=want_drot))
-        plain_ms = median_ms(lambda: fa.attention_bwd_plain(
-            *args, want_dbias=bias is not None, want_drot=want_drot))
-        qr, kr = q, k
-        if cos is not None:
-            qr = fa._rotate(q, cos[None], sin[None])
-            kr = fa._rotate(k, cos[None], sin[None])
-        qr, kr, vr = (t.detach().clone().requires_grad_() for t in (qr, kr, v))
-        mask = None if bias is None else bias.detach()[None].clone()
-        if mask is not None:
-            mask.requires_grad_()
+    for prefix, shape in DENSE_TIMED:
+        scale = shape[-1] ** -0.5
+        for label, regime in ((prefix + "rope-mixed f32", "rope-mixed"),
+                              (prefix + "rel-bias f32", "rel")):
+            q, k, v, kw = attn_inputs(regime, shape, torch.float32, 8, device)
+            bias, cos, sin = fa.prepare_pe(shape[1], shape[2], device, **kw)
+            out = fa.attention_fwd(q, k, v, scale, bias, cos, sin)
+            g = torch.randn(shape, generator=torch.Generator().manual_seed(1))
+            g = g.to(device)
+            want_drot = regime == "rope-mixed"
+            args = (q, k, v, out, g, scale, bias, cos, sin)
 
-        def sdpa_fwd():
-            with torch.no_grad():
-                F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask,
-                                               scale=scale)
+            def kernel():
+                fa.attention_bwd(*args, want_dbias=bias is not None,
+                                 want_drot=want_drot)
 
-        def sdpa_fwd_bwd():
-            o = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask,
-                                               scale=scale)
-            o.backward(g)
+            kernel_ms = median_ms(kernel)
+            names = ("attn_bwd_resident_kernel",) + (
+                ("attn_bwd_slab_sum_kernel",) if bias is not None else ())
+            device_ms, _, _ = device_ms_by_kernel(kernel, 20, names)
+            plain_ms = median_ms(lambda: fa.attention_bwd_plain(
+                *args, want_dbias=bias is not None, want_drot=want_drot))
+            qr, kr = q, k
+            if cos is not None:
+                qr = fa._rotate(q, cos[None], sin[None])
+                kr = fa._rotate(k, cos[None], sin[None])
+            qr, kr, vr = (t.detach().clone().requires_grad_()
+                          for t in (qr, kr, v))
+            mask = None if bias is None else bias.detach()[None].clone()
+            if mask is not None:
+                mask.requires_grad_()
 
-        library_ms = median_ms(sdpa_fwd_bwd) - median_ms(sdpa_fwd)
-        bound_ms, bound_by = attention_bwd_bound_ms(shape, torch.float32,
-                                                    bias, cos, want_drot)
-        rows[label] = dict(ms=kernel_ms, plain_ms=plain_ms,
-                           library_ms=library_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
-        log(f"  attention bwd {label:15s} kernel {kernel_ms:.4f} ms  twin "
-            f"{plain_ms:.4f} ms  sdpa bwd {library_ms:.4f} ms  bound "
-            f"{bound_ms:.4f} ms ({bound_by})")
+            def sdpa_fwd():
+                with torch.no_grad():
+                    F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask,
+                                                   scale=scale)
+
+            def sdpa_fwd_bwd():
+                o = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask,
+                                                   scale=scale)
+                o.backward(g)
+
+            library_ms = median_ms(sdpa_fwd_bwd) - median_ms(sdpa_fwd)
+            bound_ms, bound_by = attention_bwd_bound_ms(shape, torch.float32,
+                                                        bias, cos, want_drot)
+            rows[label] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                               library_ms=library_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, device_ms=device_ms,
+                               shape=list(shape))
+            log(f"  attention bwd {label:26s} kernel {kernel_ms:.4f} ms  twin "
+                f"{plain_ms:.4f} ms  sdpa bwd {library_ms:.4f} ms  bound "
+                f"{bound_ms:.4f} ms ({bound_by}); device time by kernel "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in device_ms.items()))
     return rows
 
 
@@ -1135,6 +1229,8 @@ def time_train_step(run, fa, fused_adamw, n_steps=10, batch=64,
     reset_counts(fa, fused_adamw)
     run()
     per_step = read_counts(fa, fused_adamw)
+    if per_step["attn_fwd"] or per_step["attn_bwd"]:
+        check_resident(fa, label)
     t0 = time.perf_counter()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -2655,7 +2751,8 @@ def kernel_line(name, source, replaces, launches, max_abs_err, times):
             "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
             "bound_by": times["bound_by"], "library_ms": times["library_ms"],
             **{key: times[key] for key in ("group", "group_ms",
-                                           "group_library_ms", "per_op_ms")
+                                           "group_library_ms", "per_op_ms",
+                                           "routes", "device_ms")
                if key in times}}
 
 
@@ -2715,6 +2812,7 @@ def main() -> int:
                                   "attn_stream_fwd": 0}:
                 raise AssertionError(f"expected {vit_s.depth * 4} launches, "
                                      f"got {serve_launches}")
+            check_resident(fa, "predict CLI ViT-S/16@224")
             kernel, reference = compare_with_reference(serving, ckpt, 14,
                                                        images, preds)
             for pe_name in PE_NAMES:
@@ -2728,6 +2826,7 @@ def main() -> int:
                                   "attn_stream_fwd": 0}:
                     raise AssertionError(f"{pe_name}: expected {tiny.depth} "
                                          f"launches, got {t_launches}")
+                check_resident(fa, f"predict CLI ViT-tiny/4 {pe_name}")
                 compare_with_reference(serving, t_ckpt, None, images[:64],
                                        t_preds)
 
@@ -2949,6 +3048,7 @@ def main() -> int:
     # block, which no train or serve path reaches (as in the JAX package),
     # from its own BLOCK_DEPTH-block forward at ViT-tiny/4 (phase 16).
     launches = training["rope-mixed"]["launches"]
+    routes = training["rope-mixed"]["routes"]
     stream_launches = stream_training["longseq"]["launches"]
     dbias_launches = stream_training["vit_s_384"]["launches"][
         "attn_stream_bwd_dbias"]
@@ -2962,10 +3062,12 @@ def main() -> int:
     log(json.dumps({"kernels": [
         kernel_line("attn_fwd", "vit_rpe_rope_tpu_torch/ops/csrc/attn_fwd.cu",
                     "vit_rpe_rope_tpu/ops/flash_attention.py:70",
-                    launches["attn_fwd"], max_abs_err, attn["rope-mixed f32"]),
+                    launches["attn_fwd"], max_abs_err,
+                    dict(attn["rope-mixed f32"], routes=routes)),
         kernel_line("attn_bwd", "vit_rpe_rope_tpu_torch/ops/csrc/attn_bwd.cu",
                     "vit_rpe_rope_tpu/ops/flash_attention.py:130",
-                    launches["attn_bwd"], bwd_err, bwd["rope-mixed f32"]),
+                    launches["attn_bwd"], bwd_err,
+                    dict(bwd["rope-mixed f32"], routes=routes)),
         kernel_line("adamw", "vit_rpe_rope_tpu_torch/ops/csrc/adamw.cu",
                     "vit_rpe_rope_tpu/ops/fused_adamw.py:51",
                     launches["adamw"], adamw_err, adamw),

@@ -2,7 +2,9 @@
 that two trees of the port compute the same bits where they should.
 
 Runs on a CUDA device a fixed set of kernel calls at built head dims and
-polynomial degrees up to 7 (the dense forward and backward, the streaming
+polynomial degrees up to 7 (the dense forward and backward, also at
+ViT-S/16@224's (64, 6, 197, 64) and ViT-tiny/4's (128, 6, 65, 32) with
+rope-mixed and with a relative bias, the streaming
 forward, the separate-pass backward with the dcoeff / dtable kernels and,
 at ViT-S/16@384's training shape (16, 6, 577, 64), with a materialized bias
 and dbias, the one-pass backward, the chunk forward at offsets, three AdamW
@@ -19,7 +21,8 @@ git-ignored directory can be run beside the working tree:
 --time also records each call's time on the card (CUDA events, the mean of
 20 launches after 3 warm-up launches; `stream_dq_dkv` times the separate
 passes' dq and dk/dv kernels alone; `adamw` the AdamW wrapper, host work
-included) and, for the backward with dbias, each kernel's device time
+included) and, for the dense kernels at those two shapes and the
+separate-pass backward with dbias, each kernel's device time
 (torch.profiler, the mean over 20 calls), so that two trees can be timed
 in turns in one process each on one card:
 
@@ -139,6 +142,40 @@ def run(root, out_path, timed):
     record("dense_fwd", [out])
     record("dense_bwd", fa.attention_bwd(q, k, v, out, g, 0.125, None, cos,
                                          sin, want_drot=True))
+    # the dense kernels at ViT-S/16@224's training shape and ViT-tiny/4's,
+    # rope-mixed (with dqr/dkr) and with a relative bias (with dbias), timed
+    # with each kernel's device time
+    for shape in ((64, 6, 197, 64), (128, 6, 65, 32)):
+        b, h, n, d = shape
+        q, k, v, g = qkv(shape, 9)
+        scale = d ** -0.5
+        for regime in ("rope-mixed", "rel"):
+            gen = torch.Generator().manual_seed(10)
+            bias = cos = sin = None
+            if regime == "rel":
+                bias = fa._dense_bias(h, n, dev, rel=torch.randn(
+                    (h, 2 * n - 1), generator=gen).to(dev))
+            else:
+                phase = 6.0 * torch.rand((h, n - 1, d // 2), generator=gen)
+                cos, sin = fa._kernel_freqs((torch.cos(phase),
+                                             torch.sin(phase)), h, n, dev)
+            name = f"{regime}@{n}x{d}"
+
+            def fwd():
+                return fa.attention_fwd(q, k, v, scale, bias, cos, sin)
+
+            out = fwd()
+
+            def bwd():
+                return fa.attention_bwd(q, k, v, out, g, scale, bias, cos,
+                                        sin, want_dbias=bias is not None,
+                                        want_drot=cos is not None)
+
+            record(f"dense_fwd/{name}", [out], fwd)
+            record_kernels(f"dense_fwd/{name}", fwd)
+            record(f"dense_bwd/{name}", bwd(), bwd)
+            record_kernels(f"dense_bwd/{name}", bwd)
+        del q, k, v, g, out
     # the streaming route at (2, 4, 577, 32), (1, 4, 1100, 64) and the
     # long-sequence model's (4, 4, 4097, 32)
     for shape in ((2, 4, 577, 32), (1, 4, 1100, 64), (4, 4, 4097, 32)):

@@ -33,7 +33,11 @@ correctly rounded. dbias from the dq pass is held to the twin at every batch
 size that changes its groups, within and over its byte budget. The chunk
 forward (q rows against a key chunk at global offsets) is held to the streaming
 forward's numbers, and at (r0, 0) against every key to the whole-sequence
-forward's rows bit for bit. Head dims the kernels are not built for (24, 48,
+forward's rows bit for bit. The dense kernels take two routes, chosen by
+fa.dense_resident: resident (one CTA per batch and head) and wide; each is
+held to the same twins at N around the resident buckets and past them, every
+call launched twice and compared bit for bit, with dbias over a lowered slab
+budget. Head dims the kernels are not built for (24, 48,
 96) are zero-padded by the wrappers (fa.HeadPad) and held to the twins on the
 unpadded tensors with the same numbers. Polynomial degrees 8 and 31 (more terms
 than the kernels keep in registers) are held to the twins with each dcoeff term
@@ -1107,3 +1111,113 @@ def test_flash_block_grads_match_flash_on_the_card(cuda, pe, threshold,
         got = grads["flash_block"][key]
         rel = float((got - want).norm() / want.norm().clamp(min=1e-12))
         assert rel < 2e-3, (key, rel)
+
+
+# ---------------------------------------------------------------------------
+# The dense kernels' two routes: resident (one CTA per batch and head, N up
+# to 16 * fa.RESIDENT_MAX_BLOCKS) and wide (the other dense shapes)
+# ---------------------------------------------------------------------------
+
+ROUTE_NS = [1, 16, 17, 50, 65, 80, 197, 16 * fa.RESIDENT_MAX_BLOCKS,
+            16 * fa.RESIDENT_MAX_BLOCKS + 1]
+
+
+def route_counts():
+    return (fa.LAUNCHES_RESIDENT, fa.LAUNCHES_WIDE, fa.LAUNCHES_BWD_RESIDENT,
+            fa.LAUNCHES_BWD_WIDE)
+
+
+def run_route_case(regime, shape, dtype, device, seed, dbias_budget=None):
+    """Forward and backward against the twins, each launched twice and
+    bit-identical, on the route dense_resident names; returns the route."""
+    q, k, v, kw = inputs(regime, shape, dtype, device, seed=seed)
+    b, h, n, d = shape
+    bias, cos, sin = fa.prepare_pe(h, n, device, **kw)
+    resident = fa.dense_resident(h, n, d, bias is not None)
+    scale = d ** -0.5
+    before = route_counts()
+    out = fa.attention_fwd(q, k, v, scale, bias, cos, sin)
+    out2 = fa.attention_fwd(q, k, v, scale, bias, cos, sin)
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(seed + 1))
+    g = g.to(device, dtype)
+    args = (q, k, v, out, g, scale, bias, cos, sin)
+    kw_bwd = dict(want_dbias=bias is not None, want_drot=cos is not None)
+    got = fa.attention_bwd(*args, dbias_budget=dbias_budget, **kw_bwd)
+    again = fa.attention_bwd(*args, dbias_budget=dbias_budget, **kw_bwd)
+    torch.cuda.synchronize()
+    after = route_counts()
+    want_out = fa.attention_plain(q, k, v, scale, bias, cos, sin)
+    torch.testing.assert_close(out.float(), want_out.float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    assert torch.equal(out, out2)
+    want = fa.attention_bwd_plain(*args, **kw_bwd)
+    for i, (x, y, z) in enumerate(zip(got, again, want)):
+        assert (x is None) == (z is None)
+        if x is None:
+            continue
+        assert torch.equal(x, y)
+        if i < 3:  # dq, dk, dv
+            torch.testing.assert_close(x.float(), z.float(), rtol=TOL[dtype],
+                                       atol=TOL[dtype])
+        else:
+            close_to_largest(x, z, TOL[dtype])
+    grown = [a - c for a, c in zip(after, before)]
+    assert grown == ([2, 0, 2, 0] if resident else [0, 2, 0, 2])
+    return "resident" if resident else "wide"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 9])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("n", ROUTE_NS)
+def test_dense_routes_match_twins(cuda, n, d, dtype, b):
+    """Every regime (rel with dbias) at each N around the resident route's
+    buckets (5 and 13 blocks of 16 rows) and one past it."""
+    regimes = REGIMES if n > 1 else ["none", "rel"]
+    routes = {run_route_case(regime, (b, 2, n, d), dtype, cuda, seed=60 + i)
+              for i, regime in enumerate(regimes)}
+    assert routes == {"resident" if n <= 16 * fa.RESIDENT_MAX_BLOCKS
+                      else "wide"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [65, 197])
+def test_resident_kernels_read_strided_qkv_views(cuda, n):
+    """q, k, v as views of one [B, N, 3, H, D] product, forward and
+    backward on the resident route."""
+    b, h, d = 3, 6, 64
+    gen = torch.Generator().manual_seed(70)
+    qkv = torch.randn(b, n, 3, h, d, generator=gen).to(cuda)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    assert not q.is_contiguous() and fa.dense_resident(h, n, d, True)
+    bias = fa._dense_bias(h, n, cuda, rel=torch.randn(
+        h, 2 * n - 1, generator=gen).to(cuda))
+    before = route_counts()
+    out = fa.attention_fwd(q, k, v, 0.125, bias)
+    g = torch.randn(b, h, n, d, generator=gen).to(cuda)
+    got = fa.attention_bwd(q, k, v, out, g, 0.125, bias, want_dbias=True)
+    torch.cuda.synchronize()
+    assert [a - c for a, c in zip(route_counts(), before)] == [1, 0, 1, 0]
+    torch.testing.assert_close(out, fa.attention_plain(q, k, v, 0.125, bias),
+                               rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])
+    want = fa.attention_bwd_plain(q, k, v, out, g, 0.125, bias,
+                                  want_dbias=True)
+    for x, y in zip(got[:3], want[:3]):
+        torch.testing.assert_close(x, y, rtol=TOL[torch.float32],
+                                   atol=TOL[torch.float32])
+    close_to_largest(got[3], want[3], TOL[torch.float32])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,slabs", [(9, 2), (9, 1), (7, 3)])
+def test_resident_dbias_over_a_lowered_slab_budget(cuda, b, slabs, dtype):
+    """Fewer slabs than batches: CTAs take runs of batches, adding each
+    batch's ds into their slab in order."""
+    h, n, d = 2, 65, 32
+    budget = slabs * h * n * fa._round_up(n, 4) * 4
+    assert fa.dbias_groups(b, h, n, budget, fa._round_up(n, 4)) <= slabs
+    run_route_case("rel", (b, h, n, d), dtype, cuda, seed=80,
+                   dbias_budget=budget)

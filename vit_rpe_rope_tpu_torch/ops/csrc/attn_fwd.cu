@@ -13,31 +13,44 @@
 //          + bias[h]                           optional f32 [H, N, N]
 //   p      = exp(s - rowmax(s))               f32; columns >= N masked
 //   out    = (bf16(p) . bf16(v)) / rowsum(p)  written in the input dtype
-// exactly as the JAX kernel does (bf16 operands, f32 accumulation, the
-// division after the PV product).
+// exactly as the JAX kernel does (bf16 operands, f32 accumulation, p rounded
+// against the FINAL row max, the division after the PV product).
 //
 // What bounds it on an H100: memory. At the serving shape of ViT-S/16@224
 // (B=64, H=6, N=197, D=64, f32) q+k+v+out is 77.5 MB, about 23 us at
 // 3.35 TB/s, against 3.8 GFLOP of products, about 4 us at 989 TFLOP/s.
 //
-// Design: the TPU kernel holds every head of a batch block in VMEM with
-// 8/128-padded tiles. Here one CTA of 4 warps takes one (batch, head, 64-row
-// query tile); each warp owns 16 query rows. K and V stream through shared
-// memory in 64-key tiles, rotated and rounded to bf16 on the way in; the
-// ragged edge is masked in the kernel, with no padded copies in device
-// memory. Products run on the tensor cores through WMMA bf16 16x16x16 with
-// f32 accumulation. The softmax takes two passes over the keys: the first
-// finds each row's max, the second forms p = exp(s - max) with the final max,
-// so bf16(p) is rounded exactly where the JAX kernel rounds it (an online
-// softmax would round p against a running max instead), and the PV
-// accumulator needs no rescaling and stays in WMMA fragments. The first pass
-// costs one extra Q.K^T, which a memory-bound kernel can afford. Each thread
-// issues its staging loads in chunks before using them, and each lane pair
-// owns one query row's statistics. Measured, the kernel is latency-bound
-// (few warps per SM, serial stage/barrier/product steps per tile), far from
-// its memory bound: wgmma / TMA pipelining is later work.
+// Two routes, chosen by the wrapper (flash_attention.dense_resident):
+//
+// Resident (attn_fwd_resident; every dense shape of the repo's models,
+// N <= 208): one CTA per (batch, head) of ceil(N/16) warps, each owning 16
+// query rows. Q and K (rotated, rounded to bf16) and V (bf16) of the whole
+// head are staged into shared memory once, with 16-byte loads that a thread
+// issues together; the padded rows are zeros. One barrier. Each warp then
+// forms its whole 16 x N_pad score block in registers with
+// mma.sync.m16n8k16 on ldmatrix fragments (104 f32 per thread at N_pad =
+// 208), masks the padded keys, takes the row max with quad shuffles, forms
+// p = exp(s - max) against that final max (no online rescale, so bf16(p)
+// rounds where the JAX kernel rounds it), sums the unrounded p, and repacks
+// bf16(p) in registers as the A operand of P.V (attn_dense.cuh): no score
+// round trip through shared memory. out = acc / l is written in 16-byte row
+// pieces. Why not TMA or wgmma: the kernel is bound by bytes (products are
+// ~4 of the 23 us bound), and the f32 rows must be rounded, and K rotated,
+// before any product, so a TMA tile copy would still need a second pass
+// through shared memory; wgmma wants 64-row warpgroup tiles where a 16-row
+// warp tile keeps the padding of N = 65 at 80. Untried: issuing V's loads
+// with cp.async so that they overlap the Q.K^T product.
+//
+// Wide (attn_fwd; the other dense shapes): one CTA of 4 warps per (batch,
+// head, 64-row query tile); K and V stream through shared memory in 64-key
+// tiles, rotated and rounded on the way in, with WMMA bf16 16x16x16
+// products. The softmax takes two passes over the keys: the first finds
+// each row's max, the second forms p against the final max, so the PV
+// accumulator needs no rescaling. Measured on an H100, it is latency-bound
+// (0.2853 ms at the ViT-S/16@224 shape above).
 
 #include "attn_common.cuh"
+#include "attn_dense.cuh"
 
 namespace {
 
@@ -192,15 +205,199 @@ cudaError_t dispatch(const Params& p, int head_dim, cudaStream_t stream) {
   }
 }
 
-}  // namespace
+// The resident route: one CTA of ceil(N/16) warps per (batch, head); KB is
+// the largest block count of the instance's bucket (dense::SMALL_BLOCKS or
+// dense::MAX_BLOCKS), which sizes the score registers.
+template <int D, int KB, typename T>
+__global__ void __launch_bounds__(32 * KB, 1) attn_fwd_resident_kernel(const Params p) {
+  using namespace dense;
+  constexpr int LD = pitch<D>();
+  constexpr int H2 = D / 2;
+  constexpr int PER_ROW = D / 8;  // staging items (4 + 4 columns) per row
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int N = p.N, nkb = (N + 15) / 16, np = nkb * 16;
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* k_s = q_s + np * LD;
+  __nv_bfloat16* v_s = k_s + np * LD;
 
-// Plain C entry point (bound with ctypes). strides holds 12 element strides:
-// (batch, head, token) of q, k, v and out, in that order. Returns the CUDA
-// error of the launch (0 on success); does not synchronize.
-extern "C" int attn_fwd(const void* q, const void* k, const void* v, void* out,
-                        const void* bias, const void* cos, const void* sin, int B,
-                        int H, int N, int D, int is_bf16, int cos_heads,
-                        const long long* strides, float scale, void* stream) {
+  const int warp = threadIdx.x / 32;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const T* qg = static_cast<const T*>(p.q) + b * p.qs[0] + h * p.qs[1];
+  const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + h * p.ks[1];
+  const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + h * p.vs[1];
+  T* og = static_cast<T*>(p.out) + b * p.os[0] + h * p.os[1];
+  const long long tab = (long long)(p.cos_heads == 1 ? 0 : h) * N * H2;
+  const float* cos_h = p.cos != nullptr ? p.cos + tab : nullptr;
+  const float* sin_h = p.sin != nullptr ? p.sin + tab : nullptr;
+  const float* bias_h = p.bias != nullptr ? p.bias + (long long)h * N * N : nullptr;
+
+  // Stage Q, K (rotated) and V of the whole head: 2 * np threads, D / 16
+  // items each of 4 columns at c and their 4 rotation partners at c + D/2.
+#pragma unroll 2
+  for (int it = 0; it < D / 16; ++it) {
+    const int i = it * blockDim.x + threadIdx.x;
+    const int r = i / PER_ROW, c = (i % PER_ROW) * 4;
+    float q1[4] = {}, q2[4] = {}, k1[4] = {}, k2[4] = {}, v1[4] = {}, v2[4] = {};
+    float cs[4] = {1.f, 1.f, 1.f, 1.f}, sn[4] = {};
+    if (r < N) {
+      load4(qg + r * p.qs[2] + c, q1);
+      load4(qg + r * p.qs[2] + c + H2, q2);
+      load4(kg + r * p.ks[2] + c, k1);
+      load4(kg + r * p.ks[2] + c + H2, k2);
+      load4(vg + r * p.vs[2] + c, v1);
+      load4(vg + r * p.vs[2] + c + H2, v2);
+      if (cos_h != nullptr) {
+        load4(cos_h + (long long)r * H2 + c, cs);
+        load4(sin_h + (long long)r * H2 + c, sn);
+      }
+    }
+    if (cos_h != nullptr) {
+      rotate4(q1, q2, cs, sn);
+      rotate4(k1, k2, cs, sn);
+    }
+    put4(q_s + r * LD + c, q1);
+    put4(q_s + r * LD + c + H2, q2);
+    put4(k_s + r * LD + c, k1);
+    put4(k_s + r * LD + c + H2, k2);
+    put4(v_s + r * LD + c, v1);
+    put4(v_s + r * LD + c + H2, v2);
+  }
+  __syncthreads();
+
+  // S = Q_w . K^T: the warp's 16 rows against every key, in registers.
+  const int row0 = warp * 16;
+  float s[KB][2][4];
+#pragma unroll
+  for (int j = 0; j < KB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][0][e] = s[j][1][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    load_a<LD>(a, q_s, row0, kk * 16);
+#pragma unroll
+    for (int j = 0; j < KB; ++j) {
+      if (j < nkb) {
+        uint32_t bb[4];
+        load_bt<LD>(bb, k_s, j * 16, kk * 16);
+        mma(s[j][0], a, bb[0], bb[1]);
+        mma(s[j][1], a, bb[2], bb[3]);
+      }
+    }
+  }
+
+  // Logits, the final row max (rows g and g+8 of the tile; a row's columns
+  // lie in the 4 lanes of a quad), p = exp(s - max) and its unrounded sum.
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < KB; ++j) {
+    if (j < nkb) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          int qi, kj;
+          tile_coords(e, row0, j * 16 + nt * 8, qi, kj);
+          const float x = logit(s[j][nt][e], qi, kj, N, p.scale, bias_h);
+          s[j][nt][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+    }
+  }
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < KB; ++j) {
+    if (j < nkb) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = expf(s[j][nt][e] - mx[e >> 1]);
+          s[j][nt][e] = x;
+          l[e >> 1] += x;
+        }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+
+  // O = bf16(p) . V, p repacked from the score tiles in registers (all of
+  // it first, so that the f32 scores and the O accumulator are never live
+  // together: at D = 128 they would not fit).
+  uint32_t pa[KB][4];
+#pragma unroll
+  for (int j = 0; j < KB; ++j)
+    if (j < nkb) pack_a(pa[j], s[j][0], s[j][1]);
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < KB; ++j) {
+    if (j < nkb) {
+#pragma unroll
+      for (int n = 0; n < D / 16; ++n) {
+        uint32_t bb[4];
+        load_b<LD>(bb, v_s, j * 16, n * 16);
+        mma(o[2 * n], pa[j], bb[0], bb[1]);
+        mma(o[2 * n + 1], pa[j], bb[2], bb[3]);
+      }
+    }
+  }
+
+  // Normalize after the PV product; write the input dtype.
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const float c[4] = {o[n][0] / l[0], o[n][1] / l[0], o[n][2] / l[1],
+                        o[n][3] / l[1]};
+    store_tile(og, p.os[2], row0, n * 8, N, c);
+  }
+}
+
+template <int D, int KB, typename T>
+cudaError_t launch_resident(const Params& p, cudaStream_t stream) {
+  const int nkb = (p.N + 15) / 16;
+  const size_t smem = size_t(3) * nkb * 16 * dense::pitch<D>() * 2;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_resident_kernel<D, KB, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  attn_fwd_resident_kernel<D, KB, T><<<dim3(p.H, p.B), 32 * nkb, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D, typename T>
+cudaError_t bucket(const Params& p, cudaStream_t stream) {
+  const int nkb = (p.N + 15) / 16;
+  if (nkb <= dense::SMALL_BLOCKS) return launch_resident<D, dense::SMALL_BLOCKS, T>(p, stream);
+  if (nkb <= dense::MAX_BLOCKS) return launch_resident<D, dense::MAX_BLOCKS, T>(p, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dispatch_resident(const Params& p, int head_dim, cudaStream_t stream) {
+  switch (head_dim) {
+    case 16: return bucket<16, T>(p, stream);
+    case 32: return bucket<32, T>(p, stream);
+    case 64: return bucket<64, T>(p, stream);
+    case 128: return bucket<128, T>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+Params make_params(const void* q, const void* k, const void* v, void* out,
+                   const void* bias, const void* cos, const void* sin, int B,
+                   int H, int N, int cos_heads, const long long* strides,
+                   float scale) {
   Params p;
   p.q = q;
   p.k = k;
@@ -220,8 +417,38 @@ extern "C" int attn_fwd(const void* q, const void* k, const void* v, void* out,
   p.N = N;
   p.cos_heads = cos_heads;
   p.scale = scale;
+  return p;
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes), the wide route and the resident
+// one (N <= 16 * dense::MAX_BLOCKS; 16-byte aligned rows of q, k, v, out
+// and the tables). strides holds 12 element strides: (batch, head, token)
+// of q, k, v and out, in that order. Each returns the CUDA error of the
+// launch (0 on success); neither synchronizes.
+extern "C" int attn_fwd(const void* q, const void* k, const void* v, void* out,
+                        const void* bias, const void* cos, const void* sin, int B,
+                        int H, int N, int D, int is_bf16, int cos_heads,
+                        const long long* strides, float scale, void* stream) {
+  const Params p = make_params(q, k, v, out, bias, cos, sin, B, H, N,
+                               cos_heads, strides, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = is_bf16 ? dispatch<__nv_bfloat16>(p, D, s)
                                   : dispatch<float>(p, D, s);
+  return int(err);
+}
+
+extern "C" int attn_fwd_resident(const void* q, const void* k, const void* v,
+                                 void* out, const void* bias, const void* cos,
+                                 const void* sin, int B, int H, int N, int D,
+                                 int is_bf16, int cos_heads,
+                                 const long long* strides, float scale,
+                                 void* stream) {
+  const Params p = make_params(q, k, v, out, bias, cos, sin, B, H, N,
+                               cos_heads, strides, scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = is_bf16 ? dispatch_resident<__nv_bfloat16>(p, D, s)
+                                  : dispatch_resident<float>(p, D, s);
   return int(err);
 }

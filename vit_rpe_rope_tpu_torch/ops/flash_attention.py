@@ -4,8 +4,12 @@ kernels and the functions that launch them, with the `jax.custom_vjp`
 around them as `torch.autograd.Function`s. Two routes, chosen as the JAX
 package chooses them (`STREAMING_THRESHOLD`, `_dense_attn_fits`):
 
-* dense, one tile per row of queries (`_attn_kernel` / `_dense_bwd_kernel`,
-  launched by `_forward` / `_bwd_dense`): ops/csrc/attn_fwd.cu, attn_bwd.cu;
+* dense (`_attn_kernel` / `_dense_bwd_kernel`, launched by `_forward` /
+  `_bwd_dense`): ops/csrc/attn_fwd.cu, attn_bwd.cu, in two routes chosen
+  by `dense_resident`: resident, one CTA per (batch, head) holding the
+  whole head in shared memory, a single-pass forward and a single-launch
+  backward (plus a slab sum for dbias), for every dense shape of the
+  repo's models (N <= 208); wide, CTAs per 64-row tile, for the rest;
 * streaming, an online softmax over key tiles that saves the per-row
   logsumexp (`_stream_kernel`, launched by `_forward_streaming_impl`):
   ops/csrc/attn_stream_fwd.cu, whose second entry runs q rows against one
@@ -50,7 +54,9 @@ What is computed, for q, k, v [B, H, N, D]:
 `attention_fwd` / `attention_bwd` / `attention_stream_fwd` /
 `streaming_chunk_fwd` / `attention_stream_bwd` / `attention_stream_bwd_fused`
 are the kernels' wrappers: on a CUDA tensor they launch the kernel (and count
-the launch in LAUNCHES / LAUNCHES_BWD / LAUNCHES_STREAM_FWD /
+the launch in LAUNCHES / LAUNCHES_BWD, with the dense route's own count in
+LAUNCHES_RESIDENT or LAUNCHES_WIDE / LAUNCHES_BWD_RESIDENT or
+LAUNCHES_BWD_WIDE, / LAUNCHES_STREAM_FWD /
 LAUNCHES_STREAM_CHUNK_FWD / LAUNCHES_STREAM_DQ,
 LAUNCHES_STREAM_DKV, LAUNCHES_STREAM_DBIAS, LAUNCHES_STREAM_DCOEFF and
 LAUNCHES_STREAM_DTABLE / LAUNCHES_STREAM_FUSED, each where its kernel is
@@ -76,6 +82,7 @@ polynomial or relative bias), at any sequence length.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -93,6 +100,13 @@ LAUNCHES = 0
 
 # Launches of the backward kernel (one per attention_bwd call on CUDA).
 LAUNCHES_BWD = 0
+
+# The dense wrappers' launches by route (each also counted in LAUNCHES /
+# LAUNCHES_BWD): the resident kernels and the wide ones.
+LAUNCHES_RESIDENT = 0
+LAUNCHES_WIDE = 0
+LAUNCHES_BWD_RESIDENT = 0
+LAUNCHES_BWD_WIDE = 0
 
 # Launches of the streaming kernels: the forward, the dq kernel, the dk/dv
 # kernel, each counted where it is launched, and dbias: the dq kernel's
@@ -225,6 +239,51 @@ def use_dense(h: int, n: int, has_bias: bool) -> bool:
     """Whether attention over n tokens takes the dense kernels (else the
     streaming ones), as the JAX package routes it."""
     return n <= STREAMING_THRESHOLD and _dense_attn_fits(h, n, has_bias)
+
+
+# The resident dense kernels (csrc/attn_dense.cuh): a CTA of ceil(N/16)
+# warps holds one (batch, head). Each thread keeps 8 f32 scores per 16-key
+# block in registers beside about RESIDENT_OTHER_REGS others (the forward's
+# count at 13 blocks, from the -Xptxas -v report), within the register
+# file's 65,536 over the CTA's threads rounded up to 4 warps (at most 255 a
+# thread); 13 blocks (N <= 208) is the most that fits, and the kernels are
+# built for buckets of up to 5 and up to 13 blocks. The backward stages
+# four bf16 [N_pad, D + 8] tiles and three f32 [N_pad] row vectors, the
+# forward three tiles, within the 232,448 bytes of shared memory a CTA can
+# have.
+RESIDENT_OTHER_REGS = 24
+SMEM_BYTES = 232448
+
+
+def _resident_regs(kb: int) -> int:
+    """Registers a thread of a CTA of kb warps can have."""
+    return min(255, 65536 // _round_up(32 * kb, 128))
+
+
+def _resident_max_blocks() -> int:
+    return max(kb for kb in range(1, 65)
+               if 8 * kb + RESIDENT_OTHER_REGS <= _resident_regs(kb))
+
+
+RESIDENT_MAX_BLOCKS = _resident_max_blocks()
+
+
+def resident_smem_bytes(n: int, d: int, backward: bool) -> int:
+    """Shared memory of a resident kernel's CTA at n tokens, head dim d."""
+    n_pad = _round_up(n, 16)
+    tiles = (4 if backward else 3) * n_pad * (d + 8) * 2
+    return tiles + (3 * n_pad * 4 if backward else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def dense_resident(h: int, n: int, d: int, has_bias: bool) -> bool:
+    """Whether a dense attention call over n tokens at the built head dim d
+    takes the resident kernels (else the wide ones): a dense shape
+    (`use_dense`) whose blocks fit the registers and whose backward fits
+    the shared memory. A bias changes neither."""
+    return (use_dense(h, n, has_bias) and d in HEAD_DIMS
+            and -(-n // 16) <= RESIDENT_MAX_BLOCKS
+            and resident_smem_bytes(n, d, backward=True) <= SMEM_BYTES)
 
 
 def _prep_freqs(freqs_cis, num_heads, n_pad, dtype, broadcast=True):
@@ -653,23 +712,25 @@ def attention_stream_bwd_fused_plain(q, k, v, g, lse, delta, scale, cos=None,
 # ---------------------------------------------------------------------------
 
 def _bind_fwd(lib):
-    lib.attn_fwd.restype = ctypes.c_int
-    lib.attn_fwd.argtypes = (
-        [ctypes.c_void_p] * 7                     # q k v out bias cos sin
-        + [ctypes.c_int] * 6                      # B H N D is_bf16 cos_heads
-        + [ctypes.POINTER(ctypes.c_longlong)]     # 12 strides
-        + [ctypes.c_float, ctypes.c_void_p])      # scale stream
+    for fn in (lib.attn_fwd, lib.attn_fwd_resident):
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 7                 # q k v out bias cos sin
+            + [ctypes.c_int] * 6                  # B H N D is_bf16 cos_heads
+            + [ctypes.POINTER(ctypes.c_longlong)]  # 12 strides
+            + [ctypes.c_float, ctypes.c_void_p])  # scale stream
 
 
 def _bind_bwd(lib):
     lib.attn_bwd_batch_group.restype = ctypes.c_int
     lib.attn_bwd_batch_group.argtypes = ()
-    lib.attn_bwd.restype = ctypes.c_int
-    lib.attn_bwd.argtypes = (
-        [ctypes.POINTER(ctypes.c_void_p),         # 16 pointers
-         ctypes.POINTER(ctypes.c_longlong)]       # 24 strides
-        + [ctypes.c_int] * 7          # B H N D is_bf16 cos_heads groups
-        + [ctypes.c_float, ctypes.c_void_p])      # scale stream
+    for fn in (lib.attn_bwd, lib.attn_bwd_resident):
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.POINTER(ctypes.c_void_p),     # 16 pointers
+             ctypes.POINTER(ctypes.c_longlong)]   # 24 strides
+            + [ctypes.c_int] * 7      # B H N D is_bf16 cos_heads groups|per
+            + [ctypes.c_float, ctypes.c_void_p])  # scale stream
 
 
 def _bind_stream(*names):
@@ -751,14 +812,26 @@ def _check_cuda_inputs(q, k, v, bias, cos, sin, key_chunk=False):
             raise ValueError("cos and sin must have one shape")
 
 
+def _aligned(t):
+    """t, or a contiguous copy of it where the resident kernels' 16-byte
+    loads could not read its rows: a base address or a row stride that is
+    not a multiple of 16 bytes (None passes through)."""
+    if t is None:
+        return None
+    unit = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and not any(st % unit for st in t.stride()[:-1]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def attention_fwd(q, k, v, scale, bias=None, cos=None, sin=None):
     """The kernel's wrapper; arguments as attention_plain (bf16 products).
 
-    CPU tensors run the plain twin. CUDA tensors launch the kernel on the
-    current stream, or raise. The output is [B, H, N, D] laid out as
-    [B, N, H, D] in memory, so the caller's transpose to [B, N, H*D] is a
-    view."""
-    global LAUNCHES
+    CPU tensors run the plain twin. CUDA tensors launch the resident or the
+    wide kernel, as `dense_resident` decides, on the current stream, or
+    raise. The output is [B, H, N, D] laid out as [B, N, H, D] in memory,
+    so the caller's transpose to [B, N, H*D] is a view."""
+    global LAUNCHES, LAUNCHES_RESIDENT, LAUNCHES_WIDE
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale, bias, cos, sin)
     hp = HeadPad.needed(q, cos)
@@ -767,13 +840,17 @@ def attention_fwd(q, k, v, scale, bias=None, cos=None, sin=None):
                                       bias, *hp.tables(cos, sin)))
     _check_cuda_inputs(q, k, v, bias, cos, sin)
     b, h, n, d = q.shape
+    resident = dense_resident(h, n, d, bias is not None)
+    if resident:
+        q, k, v, cos, sin = map(_aligned, (q, k, v, cos, sin))
     out = torch.empty((b, n, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     lib = _library()
+    launch = lib.attn_fwd_resident if resident else lib.attn_fwd
     with torch.cuda.device(q.device):
-        err = lib.attn_fwd(
+        err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             bias.data_ptr() if bias is not None else None,
             cos.data_ptr() if cos is not None else None,
@@ -784,18 +861,24 @@ def attention_fwd(q, k, v, scale, bias=None, cos=None, sin=None):
     if err != 0:
         raise RuntimeError(f"attn_fwd launch failed: CUDA error {err}")
     LAUNCHES += 1
+    if resident:
+        LAUNCHES_RESIDENT += 1
+    else:
+        LAUNCHES_WIDE += 1
     return out
 
 
 def attention_bwd(q, k, v, out, g, scale, bias=None, cos=None, sin=None,
-                  want_dbias=False, want_drot=False):
+                  want_dbias=False, want_drot=False, dbias_budget=None):
     """The backward kernel's wrapper; arguments and results as
-    attention_bwd_plain (bf16 products).
+    attention_bwd_plain (bf16 products). dbias_budget: the bytes of the
+    resident route's dbias slabs (default DBIAS_SCRATCH_BYTES).
 
-    CPU tensors run the plain twin. CUDA tensors launch the kernel on the
-    current stream, or raise. dq, dk and dv are views of one [B, N, 3, H, D]
-    buffer (the layout of the model's qkv product)."""
-    global LAUNCHES_BWD
+    CPU tensors run the plain twin. CUDA tensors launch the resident kernel
+    (with the slab sum for dbias) or the wide kernels, as `dense_resident`
+    decides, on the current stream, or raise. dq, dk and dv are views of
+    one [B, N, 3, H, D] buffer (the layout of the model's qkv product)."""
+    global LAUNCHES_BWD, LAUNCHES_BWD_RESIDENT, LAUNCHES_BWD_WIDE
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, out, g, scale, bias, cos, sin,
                                    want_dbias=want_dbias, want_drot=want_drot)
@@ -803,7 +886,8 @@ def attention_bwd(q, k, v, out, g, scale, bias=None, cos=None, sin=None,
     if hp is not None:
         dq, dk, dv, dbias, dqr, dkr = attention_bwd(
             *map(hp.pad, (q, k, v, out, g)), scale, bias,
-            *hp.tables(cos, sin), want_dbias=want_dbias, want_drot=want_drot)
+            *hp.tables(cos, sin), want_dbias=want_dbias, want_drot=want_drot,
+            dbias_budget=dbias_budget)
         return (*map(hp.unpad, (dq, dk, dv)), dbias, hp.unpad(dqr),
                 hp.unpad(dkr))
     _check_cuda_inputs(q, k, v, bias, cos, sin)
@@ -817,20 +901,32 @@ def attention_bwd(q, k, v, out, g, scale, bias=None, cos=None, sin=None,
     if want_dbias and bias is None:
         raise ValueError("dbias needs the bias the forward was given")
     b, h, n, d = q.shape
+    resident = dense_resident(h, n, d, bias is not None)
+    if resident:
+        q, k, v, out, g, cos, sin = map(_aligned, (q, k, v, out, g, cos, sin))
     f32 = dict(dtype=torch.float32, device=q.device)
     dqkv = torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
     dq, dk, dv = (dqkv[:, :, i].transpose(1, 2) for i in range(3))
-    stats = torch.empty((3, b, h, n), **f32)
-    dqr = dkr = dbias = part = None
+    dqr = dkr = dbias = part = stats = None
     if want_drot:
         dqr = torch.empty((b, h, n, d), **f32)
         dkr = torch.empty((b, h, n, d), **f32)
     lib = _bwd_library()
-    groups = -(-b // lib.attn_bwd_batch_group())
+    if resident:
+        groups = 1  # batches per CTA
+        if want_dbias:  # slab rows padded to 16 bytes
+            slabs = dbias_groups(b, h, n, dbias_budget, _round_up(n, 4))
+            groups = -(-b // slabs)
+            part = torch.empty((slabs, h, n, _round_up(n, 4)), **f32)
+        launch = lib.attn_bwd_resident
+    else:
+        stats = torch.empty((3, b, h, n), **f32)
+        groups = -(-b // lib.attn_bwd_batch_group())
+        if want_dbias and groups > 1:
+            part = torch.empty((groups, h, n, n), **f32)
+        launch = lib.attn_bwd
     if want_dbias:
         dbias = torch.empty((h, n, n), **f32)
-        if groups > 1:
-            part = torch.empty((groups, h, n, n), **f32)
     tensors = (q, k, v, out, g, dq, dk, dv, dqr, dkr, bias, cos, sin, stats,
                dbias, part)
     ptrs = (ctypes.c_void_p * 16)(
@@ -838,13 +934,17 @@ def attention_bwd(q, k, v, out, g, scale, bias=None, cos=None, sin=None,
     strides = (ctypes.c_longlong * 24)(
         *(s for t in tensors[:8] for s in t.stride()[:3]))
     with torch.cuda.device(q.device):
-        err = lib.attn_bwd(
+        err = launch(
             ptrs, strides, b, h, n, d, int(q.dtype == torch.bfloat16),
             cos.shape[0] if cos is not None else 0, groups, float(scale),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"attn_bwd launch failed: CUDA error {err}")
     LAUNCHES_BWD += 1
+    if resident:
+        LAUNCHES_BWD_RESIDENT += 1
+    else:
+        LAUNCHES_BWD_WIDE += 1
     return dq, dk, dv, dbias, dqr, dkr
 
 
@@ -1009,13 +1109,17 @@ def streaming_chunk_fwd(q, k, v, scale, row0, col0, n_valid, poly=None,
     return out, lse
 
 
-def dbias_groups(b, h, n, budget=None):
+def dbias_groups(b, h, n, budget=None, width=None):
     """The batch groups of the dq kernel's dbias instance: one per batch
-    while B float32 [H, N, N] slabs of ds fit in `budget` bytes (default
+    while B float32 [H, N, width] slabs of ds (width: N, or the resident
+    dense backward's row pitch) fit in `budget` bytes (default
     DBIAS_SCRATCH_BYTES), else as few groups of ceil(B / fitting slabs)
-    batches as cover B. With one group the kernel writes dbias itself."""
+    batches as cover B. With one group the dq kernel writes dbias itself;
+    the resident dense backward gives each group's run of batches to one
+    CTA per head, which adds them into its slab in order."""
     budget = DBIAS_SCRATCH_BYTES if budget is None else budget
-    per = -(-b // max(1, min(b, budget // (h * n * n * 4))))
+    width = n if width is None else width
+    per = -(-b // max(1, min(b, budget // (h * n * width * 4))))
     return -(-b // per)
 
 
