@@ -141,6 +141,7 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -199,7 +200,8 @@ TRAIN_LOSS_TOL = 2e-2
 LEARN_BAR = {"rope-mixed": {"train_loss": math.log(10), "test_acc": 90.0},
              "rope-axial": {"train_loss": math.log(10), "test_acc": 90.0},
              "relative": {"test_loss": math.log(10), "test_acc": 12.0}}
-STREAM_PASSES = ("attn_stream_bwd_dq", "attn_stream_bwd_dkv")
+STREAM_PASSES = ("attn_stream_bwd_prologue", "attn_stream_bwd_dq",
+                 "attn_stream_bwd_dkv")
 VIT_S = dict(img_size=224, patch_size=16, embed_dim=384, depth=12,
              num_heads=6)
 VIT_S_384 = dict(VIT_S, img_size=384)  # N=577: the dense tiles do not fit
@@ -235,6 +237,11 @@ FUSED_TOL = 4e-3
 # float32 sums of ds over up to B*N*N elements that nearly cancel (every
 # unmasked row of ds sums to zero), taken in another order.
 PARAM_TOL = 1e-3
+# The separate passes' prologue vs its twin: the operands (q and k rotated
+# op by op in float32, every operand rounded to bf16) bit for bit; delta, a
+# float32 sum of D products taken in another order, as a share of its
+# largest entry.
+PROLOGUE_DELTA_TOL = 1e-5
 FUSED_REGIMES = ("none", "rope-axial", "poly", "rel")
 FUSED_TWIN_TILES = dict(q_tile=1024, kv_tile=512)
 # The bounded train step (phase 15): the long-sequence model at N=65,537
@@ -294,6 +301,17 @@ def phase(name, seconds):
     yield
     seconds[name.split()[0]] = time.perf_counter() - t0
     log(f"    ({seconds[name.split()[0]]:.1f} s)")
+
+
+def demangle(names):
+    """C++ names of the mangled kernel names (as they are without c++filt),
+    without the anonymous namespace and the parameter list."""
+    if shutil.which("c++filt") is None:
+        return names
+    out = subprocess.run(["c++filt"], input="\n".join(names),
+                         capture_output=True, text=True).stdout.splitlines()
+    return [name.replace("(anonymous namespace)::", "").split("(")[0]
+            for name in out] if len(out) == len(names) else names
 
 
 def card_line() -> str:
@@ -818,6 +836,7 @@ def reset_counts(fa, fused_adamw):
     reset_routes(fa)
     fa.LAUNCHES_STREAM_FWD = fa.LAUNCHES_STREAM_DQ = 0
     fa.LAUNCHES_STREAM_DKV = fa.LAUNCHES_STREAM_DBIAS = 0
+    fa.LAUNCHES_STREAM_PROLOGUE = 0
     fa.LAUNCHES_STREAM_FUSED = fa.LAUNCHES_STREAM_DCOEFF = 0
     fa.LAUNCHES_STREAM_DTABLE = fa.LAUNCHES_STREAM_CHUNK_FWD = 0
 
@@ -854,6 +873,7 @@ def read_counts(fa, fused_adamw):
               "adamw": fused_adamw.LAUNCHES_ADAMW}
     stream = {"attn_stream_fwd": fa.LAUNCHES_STREAM_FWD,
               "attn_stream_chunk_fwd": fa.LAUNCHES_STREAM_CHUNK_FWD,
+              "attn_stream_bwd_prologue": fa.LAUNCHES_STREAM_PROLOGUE,
               "attn_stream_bwd_dq": fa.LAUNCHES_STREAM_DQ,
               "attn_stream_bwd_dkv": fa.LAUNCHES_STREAM_DKV,
               "attn_stream_bwd_dbias": fa.LAUNCHES_STREAM_DBIAS,
@@ -1306,7 +1326,9 @@ def stream_inputs(fa, regime, shape, dtype, seed, device):
 def stream_case(fa, regime, shape, dtype, seed, device, backward=True):
     """The streaming kernels and their twins (at the kernels' key tile) on
     one case: forward (out, lse), then dq, dk, dv (+ dbias, dcos/dsin) from
-    the kernel's own out and lse. Returns {output: (max_abs_err, ok)}."""
+    the kernel's own out and lse, and the separate passes' prologue alone
+    (its operands bit for bit, delta within PROLOGUE_DELTA_TOL). Returns
+    {output: (max_abs_err, ok, share of the largest entry)}."""
     q, k, v, kw, freqs = stream_inputs(fa, regime, shape, dtype, seed, device)
     scale = shape[-1] ** -0.5
     out, lse = fa.attention_stream_fwd(q, k, v, scale, **kw)
@@ -1341,15 +1363,25 @@ def stream_case(fa, regime, shape, dtype, seed, device, backward=True):
                 fa._rot_grads_to_dfreqs(q, k, got[4], got[5], freqs),
                 fa._rot_grads_to_dfreqs(q, k, want[4], want[5], freqs)):
             res[name] = share_err(x, y, tol)
+    del want
+    ops, delta = fa.attention_stream_bwd_prologue(q, k, v, out, g, kw["cos"],
+                                                  kw["sin"])
+    torch.cuda.synchronize()
+    want_ops, want_delta = fa.attention_stream_bwd_prologue_plain(
+        q, k, v, out, g, kw["cos"], kw["sin"])
+    err, ok, share = share_err(delta, want_delta, PROLOGUE_DELTA_TOL)
+    res["prologue"] = (err, ok and torch.equal(ops, want_ops), share)
+    del ops, want_ops
     return res
 
 
 def check_stream_vs_twin(fa, device):
     """Phase 11: every case is run and logged, then any failure raises.
-    Returns the worst f32 errors by kernel: {"fwd", "dq", "dkv"} over all
-    cases, {"dbias"} at the training path's shape (B=16: 16 ds slabs and the
+    Returns the worst f32 errors by kernel: {"fwd", "dq", "dkv",
+    "prologue" (delta; its operands are held bit for bit)} over all cases, {"dbias"} at the training path's shape (B=16: 16 ds slabs and the
     sum kernel)."""
-    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "dbias": 0.0}
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "dbias": 0.0,
+             "prologue": 0.0}
     vit_s_384_train = (16, 6, 577, 64)
     cases = [(shape, dtype, regime, True)
              for shape in ((4, 4, 4097, 32), (8, 6, 577, 64))
@@ -1368,7 +1400,8 @@ def check_stream_vs_twin(fa, device):
             f"{str(dtype)[6:]:8s} {regime:10s} "
             + " ".join(f"{k}={v[0]:.2e}({v[2]:.1e})" for k, v in res.items())
             + f" tol(share of largest)={STREAM_TOL[dtype]:g}/"
-            f"{STREAM_BWD_TOL[dtype]:g} lse {LSE_TOL:g} "
+            f"{STREAM_BWD_TOL[dtype]:g} lse {LSE_TOL:g} prologue delta "
+            f"{PROLOGUE_DELTA_TOL:g}, operands bit for bit "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append((regime, shape, dtype))
@@ -1377,6 +1410,8 @@ def check_stream_vs_twin(fa, device):
             if "dq" in res:
                 worst["dq"] = max(worst["dq"], res["dq"][0])
                 worst["dkv"] = max(worst["dkv"], res["dk"][0], res["dv"][0])
+                worst["prologue"] = max(worst["prologue"],
+                                        res["prologue"][0])
             if shape == vit_s_384_train:
                 worst["dbias"] = res["dbias"][0]
         torch.cuda.empty_cache()
@@ -1391,12 +1426,12 @@ def check_dbias_vs_twin(fa, device):
     sum kernel) against the twin with a materialized relative bias at 6
     heads of 64, B = 1, 7, 8, 9 and 16 at N = 577 and 300 (not a multiple
     of 64), f32 and bf16; at B=16, N=577 also over a lowered byte budget of
-    3 slabs (3 batch groups) and of none (one group, dbias written by the
-    dq kernel itself, the same bits as one slab per batch). dq, dk, dv and
+    3 slabs (3 batch groups) and of none (one group: the same bits as one
+    slab per batch; slabs of [H, N, fa.dbias_pitch(N)]). dq, dk, dv and
     dbias as a share of their largest entries (STREAM_BWD_TOL); every call
-    launched twice and compared bit for bit, one launch of dq (its dbias
-    instance), dk/dv and dbias each."""
-    slab = 6 * 577 * 577 * 4
+    launched twice and compared bit for bit, one launch of the prologue, dq
+    (its dbias instance), dk/dv and dbias each."""
+    slab = 6 * 577 * fa.dbias_pitch(577) * 4
     cases = [(b, n, dtype, None) for n in (577, 300) for b in (1, 7, 8, 9, 16)
              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(16, 577, dtype, budget) for budget in (3 * slab, 0)
@@ -1409,15 +1444,15 @@ def check_dbias_vs_twin(fa, device):
         out, lse = fa.attention_stream_fwd(q, k, v, 0.125, **kw)
         g = torch.randn(shape, generator=torch.Generator().manual_seed(b))
         g = g.to(device, dtype)
-        counts = (fa.LAUNCHES_STREAM_DQ, fa.LAUNCHES_STREAM_DKV,
-                  fa.LAUNCHES_STREAM_DBIAS)
+        counts = (fa.LAUNCHES_STREAM_PROLOGUE, fa.LAUNCHES_STREAM_DQ,
+                  fa.LAUNCHES_STREAM_DKV, fa.LAUNCHES_STREAM_DBIAS)
         got, again = (fa.attention_stream_bwd(
             q, k, v, out, g, lse, 0.125, want_dbias=True,
             dbias_budget=budget, **kw)[:4] for _ in range(2))
         torch.cuda.synchronize()
         launched = tuple(after - before for after, before in zip(
-            (fa.LAUNCHES_STREAM_DQ, fa.LAUNCHES_STREAM_DKV,
-             fa.LAUNCHES_STREAM_DBIAS), counts))
+            (fa.LAUNCHES_STREAM_PROLOGUE, fa.LAUNCHES_STREAM_DQ,
+             fa.LAUNCHES_STREAM_DKV, fa.LAUNCHES_STREAM_DBIAS), counts))
         want = fa.attention_stream_bwd_plain(
             q, k, v, out, g, lse, 0.125, kv_tile=fa.STREAM_TILE,
             want_dbias=True, **kw)
@@ -1430,9 +1465,10 @@ def check_dbias_vs_twin(fa, device):
         if budget == 0:  # one group: the same bits as one slab per batch
             same = same and all(torch.equal(x, y) for x, y in
                                 zip(got, per_batch[dtype]))
-        ok = all(r[1] for r in res.values()) and same and launched == (2, 2, 2)
+        ok = all(r[1] for r in res.values()) and same and \
+            launched == (2, 2, 2, 2)
         log(f"dbias vs twin  B={b} N={n} {str(dtype)[6:]:8s} groups "
-            f"{fa.dbias_groups(b, 6, n, budget)}"
+            f"{fa.dbias_groups(b, 6, n, budget, fa.dbias_pitch(n))}"
             f"{'' if budget is None else f' (budget {budget} bytes)'} "
             + " ".join(f"{name}={r[0]:.2e}({r[2]:.1e})"
                        for name, r in res.items())
@@ -1671,6 +1707,7 @@ def check_direct_dparam_path(fa, fused_adamw, device, depth):
                 for _, (q, k, v, g, lse, _, scale), kw, out in cases]
     counts = read_counts(fa, fused_adamw)
     expected = {"attn_fwd": 0, "attn_bwd": 0, "adamw": 0,
+                "attn_stream_bwd_prologue": 2 * depth,
                 "attn_stream_bwd_dq": 2 * depth,
                 "attn_stream_bwd_dkv": 2 * depth,
                 "attn_stream_bwd_dcoeff": depth,
@@ -1696,14 +1733,22 @@ def check_direct_dparam_path(fa, fused_adamw, device, depth):
 def stream_bound_ms(kernel, shape, dtype, kw, want_drot):
     """Least time for one streaming kernel's work: its inputs read once and
     its outputs written once over the memory rate, against its products of
-    2*N*N*D per (batch, head) at the bf16 tensor-core peak (fwd 2 products,
-    dq 3, dk/dv 4, dbias 2)."""
+    2*N*N*D per (batch, head) at the bf16 tensor-core peak. [B, H, N, D]
+    tensors in the input dtype, in bf16 and [B, H, N] float32 rows of
+    statistics, by kernel: the forward reads q, k, v and writes out and
+    lse (2 products); the separate passes' prologue reads q, k, v, g and
+    out and writes the four bf16 operands and delta (no product); dq reads
+    the four bf16 operands, lse and delta and writes dq (3 products); dk/dv
+    reads the same and writes dk and dv (4); dbias, the work of the JAX
+    dbias kernel, reads q, k, v, g, lse and delta (2 products)."""
     b, h, n, d = shape
     elem = torch.tensor([], dtype=dtype).element_size()
-    tensors, stats, products = {"fwd": (4, 1, 2), "dq": (5, 2, 3),
-                                "dkv": (6, 2, 4), "dbias": (4, 2, 2)}[kernel]
-    nbytes = tensors * b * h * n * d * elem + stats * b * h * n * 4
-    if kw.get("bias") is not None:
+    tensors, bf16_tensors, stats, products = {
+        "fwd": (4, 0, 1, 2), "prologue": (5, 4, 1, 0), "dq": (1, 4, 2, 3),
+        "dkv": (2, 4, 2, 4), "dbias": (4, 0, 2, 2)}[kernel]
+    nbytes = (tensors * elem + bf16_tensors * 2) * b * h * n * d \
+        + stats * b * h * n * 4
+    if kw.get("bias") is not None and kernel != "prologue":
         nbytes += kw["bias"].numel() * 4 * (2 if kernel == "dbias" else 1)
     if kw.get("cos") is not None:
         nbytes += 2 * kw["cos"].numel() * 4
@@ -1756,13 +1801,14 @@ def device_ms_by_kernel(fn, iters, names):
 
 def time_stream_kernels(fa, device):
     """Phase 14a: the forward kernel by CUDA events around its wrapper; the
-    dq and dk/dv kernels by the profiler's device time over calls of the one
-    backward wrapper, which is also timed whole (delta and launches
-    included). With a bias, dbias is the dq kernel's dbias instance less its
+    separate passes' prologue, dq and dk/dv kernels by the profiler's device
+    time over calls of the one backward wrapper, which is also timed whole
+    (launches and a padded copy of the bias included). With a bias, dbias is the dq kernel's dbias instance less its
     instance without dbias (the same call with want_dbias=False), plus the
     sum kernel; dq is the instance without dbias. Each
-    beside its twin (the whole forward / the whole backward: the twin is not
-    split by kernel) and its bound. The yardstick is SDPA on pre-rotated
+    beside its twin (the prologue's own; the whole forward / the whole
+    backward: the twin of dq and dk/dv is not split by kernel) and its
+    bound. The yardstick is SDPA on pre-rotated
     q/k: its forward for the forward kernel; its backward (forward +
     backward minus forward; dq, dk and dv in one call, and the mask's
     gradient with a bias) computes what the backward kernels compute
@@ -1795,7 +1841,8 @@ def time_stream_kernels(fa, device):
 
         ms = {"fwd": median_ms(lambda: fa.attention_stream_fwd(
             q, k, v, scale, **kw), **timing)}
-        names = {"dq": "attn_stream_bwd_dq_kernel",
+        names = {"prologue": "attn_stream_bwd_prologue_kernel",
+                 "dq": "attn_stream_bwd_dq_kernel",
                  "dkv": "attn_stream_bwd_dkv_kernel"}
         if want_dbias:
             names["dbias_sum"] = "attn_stream_bwd_dbias_sum_kernel"
@@ -1822,6 +1869,9 @@ def time_stream_kernels(fa, device):
         plain["bwd"] = median_ms(lambda: fa.attention_stream_bwd_plain(
             q, k, v, out, g, lse, scale, kv_tile=fa.STREAM_TILE, **bwd),
             iters=2, reps=3, warmup=1)
+        plain["prologue"] = median_ms(
+            lambda: fa.attention_stream_bwd_prologue_plain(
+                q, k, v, out, g, kw["cos"], kw["sin"]), **timing)
         qr, kr = q, k
         if kw["cos"] is not None:
             qr = fa._rotate(q, kw["cos"][None], kw["sin"][None])
@@ -1849,9 +1899,9 @@ def time_stream_kernels(fa, device):
             row = dict(ms=t, plain_ms=plain["fwd"], library_ms=lib_fwd,
                        bound_ms=bound_ms, bound_by=bound_by)
             if kernel != "fwd":
-                row.update(plain_ms=plain["bwd"], library_ms=None,
-                           group="attention_stream_bwd", group_ms=bwd_ms,
-                           group_library_ms=lib_bwd)
+                row.update(plain_ms=plain.get(kernel, plain["bwd"]),
+                           library_ms=None, group="attention_stream_bwd",
+                           group_ms=bwd_ms, group_library_ms=lib_bwd)
             rows[label][kernel] = row
             log(f"  {label} {kernel:5s} kernel {t:.4f} ms  twin "
                 f"{row['plain_ms']:.4f} ms  bound {bound_ms:.4f} ms "
@@ -2663,8 +2713,9 @@ def check_repaired_shapes(fa, device):
     kernels on zero-padded 64-wide heads, each rope half padded on its own)
     at ViT-tiny/4 with 4 heads, rope-mixed: attention_fwd and
     attention_bwd with dqr/dkr. Nine polynomial terms at N=4,097: the
-    streaming forward, the separate-pass dq / dk / dv with the dcoeff
-    kernel, and the one-pass backward, dcoeff per term. Returns the worst
+    streaming forward, the separate-pass prologue, dq / dk / dv with the
+    dcoeff kernel (one launch each, counted), and the one-pass backward,
+    dcoeff per term. Returns the worst
     f32 share by case."""
     worst, failed = {}, []
 
@@ -2709,9 +2760,14 @@ def check_repaired_shapes(fa, device):
         del want_out, want_lse
         g = torch.randn(longseq, generator=torch.Generator().manual_seed(
             620 + i)).to(device, dtype)
+        counts = (fa.LAUNCHES_STREAM_PROLOGUE, fa.LAUNCHES_STREAM_DQ,
+                  fa.LAUNCHES_STREAM_DKV, fa.LAUNCHES_STREAM_DCOEFF)
         got = fa.attention_stream_bwd(q, k, v, out, g, lse, scale,
                                       want_dparam=True, **kw)
         torch.cuda.synchronize()
+        launched = tuple(after - before for after, before in zip(
+            (fa.LAUNCHES_STREAM_PROLOGUE, fa.LAUNCHES_STREAM_DQ,
+             fa.LAUNCHES_STREAM_DKV, fa.LAUNCHES_STREAM_DCOEFF), counts))
         want = fa.attention_stream_bwd_plain(
             q, k, v, out, g, lse, scale, kv_tile=FUSED_TWIN_TILES["kv_tile"],
             want_dparam=True, **kw)
@@ -2719,6 +2775,9 @@ def check_repaired_shapes(fa, device):
         res = {name: share_err(x, y, tol)
                for name, x, y in zip(("dq", "dk", "dv"), got[:3], want[:3])}
         res.update(per_term(got[6], want[6]))
+        one_each = launched == (1, 1, 1, 1)
+        res["launches (prologue, dq, dk/dv, dcoeff) 1 each"] = (
+            0.0, one_each, 0.0 if one_each else 1.0)
         report(f"attn_stream_bwd + dcoeff 9 terms (tol {tol:g}, dcoeff "
                f"{PARAM_TOL:g} per term)", dtype, res)
         del got, want
@@ -2783,12 +2842,18 @@ def main() -> int:
         sources = (fa.SOURCE, fa.BWD_SOURCE, fa.STREAM_SOURCE,
                    fa.STREAM_BWD_SOURCE, fa.STREAM_FUSED_SOURCE,
                    fused_adamw.SOURCE, block_fused.SOURCE)
+        spilled = []
         for lib_path in cuda_build.build_all(sources):
             log(f"    built {lib_path.name}")
-            log_path = lib_path.with_suffix(".log")
-            for line in log_path.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log("    ptxas: " + line.strip())
+            report = cuda_build.ptxas_report(
+                lib_path.with_suffix(".log").read_text())
+            names = demangle([name for name, _, _ in report])
+            for name, (_, regs, spill) in zip(names, report):
+                log(f"    ptxas: {name}: {regs} registers, {spill} bytes "
+                    f"spilled")
+                if spill:
+                    spilled.append(f"{name} ({spill} bytes)")
+        log(f"    instances that spill: {spilled or 'none'}")
         fa._library(), fa._bwd_library(), fused_adamw._library()
         fa._stream_library(), fa._stream_bwd_library()
         fa._stream_fused_library(), block_fused._library()
@@ -2891,6 +2956,7 @@ def main() -> int:
                                          ("vit_s_384", vit_s_384_rel, 16, 1)):
             expected = {"attn_fwd": 0, "attn_bwd": 0, "adamw": 5,
                         "attn_stream_fwd": 5 * cfg.depth,
+                        "attn_stream_bwd_prologue": 5 * cfg.depth,
                         "attn_stream_bwd_dq": 5 * cfg.depth,
                         "attn_stream_bwd_dkv": 5 * cfg.depth}
             if dbias:
@@ -3037,7 +3103,9 @@ def main() -> int:
     # Launches: each slice's main path, through the train CLI for one epoch.
     # ViT-tiny/4 (rope-mixed) for the dense kernels and AdamW; the
     # long-sequence model (rope-mixed, N=4097, batch 4) for the streaming
-    # forward, dq and dk/dv kernels; ViT-S/16@384 (relative, batch 16, depth
+    # forward and the separate passes' prologue, dq and dk/dv kernels (the
+    # prologue takes over the rotation and rounding that the JAX dq and
+    # dk/dv kernels do in every tile); ViT-S/16@384 (relative, batch 16, depth
     # 3) for dbias (the dq kernel's dbias instance and the sum over its 16
     # slabs), whose error and time are taken at that batch;
     # the long-sequence model in relative for the one-pass backward; direct
@@ -3080,6 +3148,10 @@ def main() -> int:
         kernel_line("attn_stream_bwd_dkv", csrc + "attn_stream_bwd.cu",
                     jax_fa + ":1353", stream_launches["attn_stream_bwd_dkv"],
                     stream_err["dkv"], t_long["dkv"]),
+        kernel_line("attn_stream_bwd_prologue", csrc + "attn_stream_bwd.cu",
+                    jax_fa + ":1302",
+                    stream_launches["attn_stream_bwd_prologue"],
+                    stream_err["prologue"], t_long["prologue"]),
         kernel_line("attn_stream_bwd_dbias", csrc + "attn_stream_bwd.cu",
                     jax_fa + ":1437", dbias_launches, stream_err["dbias"],
                     t_384["dbias"]),

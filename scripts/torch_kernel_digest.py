@@ -6,8 +6,9 @@ polynomial degrees up to 7 (the dense forward and backward, also at
 ViT-S/16@224's (64, 6, 197, 64) and ViT-tiny/4's (128, 6, 65, 32) with
 rope-mixed and with a relative bias, the streaming
 forward, the separate-pass backward with the dcoeff / dtable kernels and,
-at ViT-S/16@384's training shape (16, 6, 577, 64), with a materialized bias
-and dbias, the one-pass backward, the chunk forward at offsets, three AdamW
+at ViT-S/16@384's training shape (16, 6, 577, 64) and at (8, 6, 2048, 64),
+with a materialized bias and dbias, and at (4, 4, 4097, 32) with
+rope-mixed's per-head tables and dqr / dkr, the one-pass backward, the chunk forward at offsets, three AdamW
 steps over the ViT-S/16 and the ViT-tiny/4 params) and writes the sha256 of
 every output tensor's bytes to a JSON file. `--root` names the tree whose
 `vit_rpe_rope_tpu_torch` is imported, so a parent commit unpacked under a
@@ -22,7 +23,7 @@ git-ignored directory can be run beside the working tree:
 20 launches after 3 warm-up launches; `stream_dq_dkv` times the separate
 passes' dq and dk/dv kernels alone; `adamw` the AdamW wrapper, host work
 included) and, for the dense kernels at those two shapes and the
-separate-pass backward with dbias, each kernel's device time
+separate-pass backward at its three shapes, each kernel's device time
 (torch.profiler, the mean over 20 calls), so that two trees can be timed
 in turns in one process each on one card:
 
@@ -203,20 +204,39 @@ def run(root, out_path, timed):
                 record(f"chunk_fwd/{name}", fa.streaming_chunk_fwd(
                     q[:, :, rows], k, v, scale, n // 2, 0, n, **kw))
     # the separate passes with a materialized bias and dbias, at ViT-S/16@384
-    # training's shape; digests of dq, dk, dv and dbias
-    shape = (16, 6, 577, 64)
-    q, k, v, g = qkv(shape, 4)
-    bias = fa._dense_bias(6, 577, dev, rel=pe_args("rel", 6, 577, 64, 5)[
-        "rel"])
-    out, lse = fa.attention_stream_fwd(q, k, v, 0.125, bias=bias)
+    # training's shape and at (8, 6, 2048, 64), the longest sequence that
+    # trains a materialized bias; digests of dq, dk, dv and dbias
+    for shape in ((16, 6, 577, 64), (8, 6, 2048, 64)):
+        n = shape[2]
+        q, k, v, g = qkv(shape, 4)
+        bias = fa._dense_bias(6, n, dev, rel=pe_args("rel", 6, n, 64, 5)[
+            "rel"])
+        out, lse = fa.attention_stream_fwd(q, k, v, 0.125, bias=bias)
 
-    def dbias_bwd():
-        return fa.attention_stream_bwd(q, k, v, out, g, lse, 0.125, bias=bias,
-                                       want_dbias=True)
+        def dbias_bwd():
+            return fa.attention_stream_bwd(q, k, v, out, g, lse, 0.125,
+                                           bias=bias, want_dbias=True)
 
-    record("stream_bwd_dbias/bias@577x64", dbias_bwd()[:4], dbias_bwd)
-    record_kernels("stream_bwd_dbias/bias@577x64", dbias_bwd)
-    del q, k, v, g, bias, out, lse
+        record(f"stream_bwd_dbias/bias@{n}x64", dbias_bwd()[:4], dbias_bwd)
+        record_kernels(f"stream_bwd_dbias/bias@{n}x64", dbias_bwd)
+        del q, k, v, g, bias, out, lse
+    # the separate passes with rope-mixed's per-head tables and dqr / dkr at
+    # the long-sequence model's shape
+    shape = (4, 4, 4097, 32)
+    q, k, v, g = qkv(shape, 8)
+    gen = torch.Generator().manual_seed(11)
+    phase = 6.0 * torch.rand((4, 4096, 16), generator=gen)
+    cos, sin = fa._kernel_freqs((torch.cos(phase), torch.sin(phase)), 4,
+                                4097, dev)
+    out, lse = fa.attention_stream_fwd(q, k, v, 32 ** -0.5, cos=cos, sin=sin)
+
+    def drot_bwd():
+        return fa.attention_stream_bwd(q, k, v, out, g, lse, 32 ** -0.5,
+                                       cos=cos, sin=sin, want_drot=True)
+
+    record("stream_bwd_drot/rope-mixed@4097x32", drot_bwd()[:6], drot_bwd)
+    record_kernels("stream_bwd_drot/rope-mixed@4097x32", drot_bwd)
+    del q, k, v, g, out, lse
     # three AdamW steps over the ViT-S/16 params (21,580,426) and the
     # ViT-tiny/4 CIFAR params (the train CLI's default), then the wrapper's
     # time on the same lists

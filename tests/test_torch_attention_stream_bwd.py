@@ -16,7 +16,11 @@ Tolerances:
   kernel by tests/test_torch_attention_stream_bwd_fused.py), a materialized
   bias and rope-mixed the separate passes;
 * twin (f32 products) vs autograd through the f32 oracle: 1e-4 (float32
-  sums over 290 keys in another order).
+  sums over 290 keys in another order);
+* the separate passes' prologue twin (operands rounded once) vs the JAX
+  package's rotation rounded to bf16: bit for bit; its delta vs the sum
+  that the JAX package's `_bwd_streaming` forms: 1e-6 of the largest
+  entry (float32 sums of D products in another order).
 """
 
 import jax
@@ -246,3 +250,90 @@ def test_dbias_groups_cover_the_batch_within_the_budget(b, budget_slabs,
     assert (got - 1) * per < b <= got * per
     if budget is not None:
         assert got == 1 or got * h * n * n * 4 <= budget
+
+
+@pytest.mark.parametrize("regime", ["none", "rope-axial", "rope-mixed"])
+@pytest.mark.parametrize("n", [17, 290])
+def test_prologue_twin_rounds_the_jax_operands_once(regime, n):
+    """The separate passes' operands as the JAX kernels form them in every
+    tile (`_rotate_bh` of q and k in float32 over `_prep_freqs`' tables, then
+    bf16; bf16 v and g), once, in rows padded with zeros to
+    stream_bwd_rows(N); delta as the JAX package's `_bwd_streaming` sums
+    it."""
+    shape = (2, 3, n, 16)
+    q, k, v, extra = stream_inputs(regime, shape, seed=30)
+    g, out = cotangent(shape, seed=31), cotangent(shape, seed=32)
+    args = [torch.from_numpy(x) for x in (q, k, v, out, g)]
+    kw = twin_pe(args[0], extra)
+    ops, delta = tfa.attention_stream_bwd_prologue(*args, kw["cos"],
+                                                   kw["sin"])
+    assert ops.shape == (4, 2, 3, tfa.stream_bwd_rows(n), 16)
+    assert ops.dtype == torch.bfloat16 and delta.shape == (2, 3, n)
+    assert not ops[:, :, :, n:].any()
+    _, freqs, _ = jax_pe(extra)
+    jq, jk = jnp.asarray(q), jnp.asarray(k)
+    if freqs is not None:
+        cos, sin = jfa._prep_freqs(freqs, 3, n, jnp.float32)
+        jq, jk = jfa._rotate_bh(jq, cos, sin), jfa._rotate_bh(jk, cos, sin)
+    for got, want in zip(ops[:, :, :, :n], (jq, jk, v, g)):
+        want = torch.from_numpy(np.array(
+            jnp.asarray(want).astype(jnp.bfloat16).astype(jnp.float32)))
+        assert torch.equal(got.float(), want)
+    want_delta = np.asarray(jnp.sum(jnp.asarray(g) * jnp.asarray(out),
+                                    axis=-1))
+    assert_close_to_largest(delta.numpy(), want_delta, 1e-6)
+
+
+@pytest.mark.parametrize("n,rows,pitch", [
+    (1, 128, 4), (16, 128, 16), (128, 128, 128), (129, 256, 132),
+    (577, 640, 580), (2048, 2048, 2048), (4097, 4224, 4100),
+    (16385, 16512, 16388)])
+def test_separate_pass_rows_and_dbias_pitch(n, rows, pitch):
+    """The prologue's scratch rows cover whole 128-row CTAs of both passes
+    and the padded bias / dbias slab rows are whole 16-byte pieces, never
+    more than one CTA or piece past N."""
+    assert tfa.stream_bwd_rows(n) == rows
+    assert rows % tfa.STREAM_BWD_ROWS == 0 and 0 <= rows - n < 128
+    assert tfa.dbias_pitch(n) == pitch
+    assert pitch % 4 == 0 and 0 <= pitch - n < 4
+
+
+@pytest.mark.parametrize("b,budget_slabs,groups", [
+    (16, None, 16), (16, 16, 16), (16, 15, 8), (16, 3, 3), (16, 0, 1),
+    (9, 9, 9), (9, 2, 2), (1, 0, 1)])
+def test_dbias_groups_at_the_slab_pitch(b, budget_slabs, groups):
+    """The separate passes' slabs are [H, N, dbias_pitch(N)]: a budget of
+    whole padded slabs holds that many groups (at most one per batch, at
+    least one)."""
+    h, n = 6, 577
+    pitch = tfa.dbias_pitch(n)
+    slab = h * n * pitch * 4
+    budget = None if budget_slabs is None else budget_slabs * slab
+    got = tfa.dbias_groups(b, h, n, budget, pitch)
+    assert got == groups
+    per = -(-b // got)
+    assert (got - 1) * per < b <= got * per
+    if budget is not None:
+        assert got == 1 or got * slab <= budget
+
+
+def test_separate_pass_wrapper_on_cpu_launches_no_prologue():
+    """On the CPU the separate passes are the twin alone: no kernel count
+    moves, the prologue's included."""
+    q, k, v, extra = stream_inputs("rope-mixed", (1, 2, 70, 16), seed=33)
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+    kw = twin_pe(args[0], extra)
+    out, lse = tfa.attention_stream_fwd(*args, 0.25, **kw)
+    g = torch.from_numpy(cotangent(q.shape, seed=34))
+    counts = (tfa.LAUNCHES_STREAM_PROLOGUE, tfa.LAUNCHES_STREAM_DQ,
+              tfa.LAUNCHES_STREAM_DKV)
+    got = tfa.attention_stream_bwd(*args, out, g, lse, 0.25, want_drot=True,
+                                   **kw)
+    assert counts == (tfa.LAUNCHES_STREAM_PROLOGUE, tfa.LAUNCHES_STREAM_DQ,
+                      tfa.LAUNCHES_STREAM_DKV)
+    want = tfa.attention_stream_bwd_plain(*args, out, g, lse, 0.25,
+                                          want_drot=True, **kw)
+    for x, y in zip(got[:6], want[:6]):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert torch.equal(x, y)

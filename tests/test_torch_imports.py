@@ -115,3 +115,23 @@ def test_kernel_sources_build_into_their_own_libraries():
                                                      "adamw"]
     assert all(p.parent == cuda_build.BUILD_DIR for p in paths)
     assert all(s.exists() for s in sources)
+
+
+def test_ptxas_report_reads_registers_and_spills_per_entry():
+    """The -Xptxas -v report kept beside each library, read entry by entry
+    (what chip_smoke.py prints in its first phase)."""
+    from vit_rpe_rope_tpu_torch.ops import cuda_build
+
+    text = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z1aILi32EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z1aILi32EEvv
+    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'
+ptxas info    : Function properties for _Z1bv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 37 registers
+"""
+    assert cuda_build.ptxas_report(text) == [("_Z1aILi32EEvv", 128, 8),
+                                             ("_Z1bv", 37, 0)]
+    assert cuda_build.ptxas_report("") == []

@@ -32,7 +32,10 @@ the reciprocal); bit for bit against fused_adamw.adamw_exact, every operation
 correctly rounded. dbias from the dq pass is held to the twin at every batch
 size that changes its groups, within and over its byte budget. The chunk
 forward (q rows against a key chunk at global offsets) is held to the streaming
-forward's numbers, and at (r0, 0) against every key to the whole-sequence
+forward's numbers, the separate passes' prologue (the operands rounded once)
+to its twin bit for bit and delta to 1e-5 of its largest entry, and the
+separate passes at ragged N in every regime, dtype and built head dim, every
+call launched twice and compared bit for bit, and at (r0, 0) against every key to the whole-sequence
 forward's rows bit for bit. The dense kernels take two routes, chosen by
 fa.dense_resident: resident (one CTA per batch and head) and wide; each is
 held to the same twins at N around the resident buckets and past them, every
@@ -573,15 +576,15 @@ def test_dbias_from_the_dq_pass_matches_twin(cuda, b, n, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dbias_over_its_byte_budget(cuda, dtype):
     """A budget of 3 slabs at B=16 (3 groups of up to 6 batches, each CTA
-    adding its batches in order) and of none (1 group, written into dbias
-    itself: the same bits as one slab per batch); dq, dk and dv do not
-    change with the budget."""
+    adding its batches in order) and of none (1 group: the same bits as one
+    slab per batch); slabs of [H, N, fa.dbias_pitch(N)]; dq, dk and dv do
+    not change with the budget."""
     args, kw = dbias_case(16, 577, dtype, cuda, seed=41)
     want = fa.attention_stream_bwd_plain(*args, kv_tile=fa.STREAM_TILE,
                                          want_dbias=True, **kw)
-    slab = 6 * 577 * 577 * 4
+    slab = 6 * 577 * fa.dbias_pitch(577) * 4
     per_batch = fa.attention_stream_bwd(*args, want_dbias=True, **kw)
-    assert fa.dbias_groups(16, 6, 577, 3 * slab) == 3
+    assert fa.dbias_groups(16, 6, 577, 3 * slab, fa.dbias_pitch(577)) == 3
     for budget in (3 * slab, 0):
         got = fa.attention_stream_bwd(*args, want_dbias=True,
                                       dbias_budget=budget, **kw)
@@ -1008,6 +1011,126 @@ def test_stream_kernels_at_high_poly_degree(cuda, degree, shape):
     again = fa.attention_stream_bwd_fused(*args, poly=poly)
     for x, y in zip(fused[:4], again[:4]):
         assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# The separate passes (rows 6 and 7): prologue, dq, dk/dv, dbias
+# ---------------------------------------------------------------------------
+
+# Lengths that end inside a 16-key block, on one, one past a 64-row tile,
+# inside a 128-row CTA, ViT-S/16@384's and the long-sequence model's.
+SEPARATE_NS = [17, 65, 300, 577, 1100, 4097]
+# "poly9": ten terms, more than the kernels keep in registers (MORE).
+SEPARATE_REGIMES = STREAM_REGIMES + ["poly9"]
+
+
+def separate_counts():
+    return (fa.LAUNCHES_STREAM_PROLOGUE, fa.LAUNCHES_STREAM_DQ,
+            fa.LAUNCHES_STREAM_DKV, fa.LAUNCHES_STREAM_DBIAS)
+
+
+def run_separate_passes(regime, shape, dtype, device, seed=0,
+                        dbias_budget=None):
+    """The separate-pass backward (with dbias for a materialized bias and
+    dqr / dkr for rope-mixed) launched twice, bit-identical, with exact
+    launch counts, against the twin at the kernels' key tile; returns the
+    kernels' outputs."""
+    if regime == "poly9":
+        q, k, v, poly = high_degree_inputs(9, shape, device, seed)
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        kw = {"poly": poly, "cos": None, "sin": None}
+    else:
+        q, k, v, kw = stream_inputs(regime, shape, dtype, device, seed)
+    scale = shape[-1] ** -0.5
+    out, lse = fa.attention_stream_fwd(q, k, v, scale, **kw)
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(seed + 11))
+    g = g.to(device, dtype)
+    opts = dict(kw, want_dbias=kw.get("bias") is not None,
+                want_drot=regime == "rope-mixed")
+    counts = separate_counts()
+    got, again = (fa.attention_stream_bwd(q, k, v, out, g, lse, scale,
+                                          dbias_budget=dbias_budget, **opts)
+                  for _ in range(2))
+    torch.cuda.synchronize()
+    assert separate_counts() == (counts[0] + 2, counts[1] + 2, counts[2] + 2,
+                                 counts[3] + 2 * int(opts["want_dbias"]))
+    for x, y in zip(got, again):
+        assert (x is None and y is None) or torch.equal(x, y)
+    want = fa.attention_stream_bwd_plain(q, k, v, out, g, lse, scale,
+                                         kv_tile=fa.STREAM_TILE, **opts)
+    for x, y in zip(got[:3], want[:3]):
+        assert x.dtype == dtype and x.shape == q.shape
+        torch.testing.assert_close(x.float(), y.float(), rtol=2 * TOL[dtype],
+                                   atol=2 * TOL[dtype])
+    for x, y in zip(got[3:6], want[3:6]):
+        assert (x is None) == (y is None)
+        if x is not None:
+            close_to_largest(x, y, 2 * TOL[dtype])
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("regime", SEPARATE_REGIMES)
+@pytest.mark.parametrize("n", SEPARATE_NS)
+def test_separate_passes_match_twin_at_ragged_n(cuda, n, regime, dtype, d):
+    """Every regime (a materialized bias with dbias, generated polynomial
+    biases of 4 and 10 terms, the relative table, rope-axial, rope-mixed
+    with dqr / dkr), both dtypes, every built head dim, at lengths ragged
+    against the 16-row blocks, 64-row tiles and 128-row CTAs; the forward
+    and the twin as test_stream_kernels_match_twins_at_vit_s_384_shape."""
+    run_separate_passes(regime, (2 if n <= 1100 else 1, 2, n, d), dtype, cuda,
+                        seed=n + d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [300, 577])
+def test_separate_dbias_within_and_over_a_lowered_budget(cuda, n, dtype):
+    """dbias at B=9 with one padded slab per batch, two groups (of 5 and 4
+    batches, each CTA adding its batches in order) and one group (the same
+    bits as one slab per batch); dq, dk and dv do not change with the
+    budget."""
+    shape = (9, 6, n, 64)
+    slab = 6 * n * fa.dbias_pitch(n) * 4
+    per_batch = run_separate_passes("bias", shape, dtype, cuda, seed=5)
+    for budget, groups in ((9 * slab, 9), (2 * slab, 2), (0, 1)):
+        assert fa.dbias_groups(9, 6, n, budget, fa.dbias_pitch(n)) == groups
+        got = run_separate_passes("bias", shape, dtype, cuda, seed=5,
+                                  dbias_budget=budget)
+        for x, y in zip(got[:3], per_batch[:3]):
+            assert torch.equal(x, y)
+    assert torch.equal(got[3], per_batch[3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime", ["none", "rope-axial", "rope-mixed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(17, 16), (577, 64), (1100, 128),
+                                 (4097, 32)])
+def test_prologue_matches_its_twin(cuda, n, d, dtype, regime):
+    """The operands rounded once (q, k, v from strided views of one qkv
+    buffer, as the models hand them over): bit for bit, zero rows past N;
+    delta to 1e-5 of its largest entry (float32 sums in another order); one
+    launch."""
+    b, h = 2, 2
+    _, _, _, kw = stream_inputs(regime, (b, h, n, d), dtype, cuda, seed=n)
+    gen = torch.Generator().manual_seed(d)
+    qkv = torch.randn(b, n, 3, h, d, generator=gen).to(cuda, dtype)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    out, g = (torch.randn(b, h, n, d, generator=gen).to(cuda, dtype)
+              for _ in range(2))
+    before = fa.LAUNCHES_STREAM_PROLOGUE
+    ops, delta = fa.attention_stream_bwd_prologue(q, k, v, out, g, kw["cos"],
+                                                  kw["sin"])
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_STREAM_PROLOGUE == before + 1
+    want_ops, want_delta = fa.attention_stream_bwd_prologue_plain(
+        q, k, v, out, g, kw["cos"], kw["sin"])
+    assert ops.shape == (4, b, h, fa.stream_bwd_rows(n), d)
+    assert torch.equal(ops, want_ops)
+    close_to_largest(delta, want_delta, 1e-5)
 
 
 # ---------------------------------------------------------------------------

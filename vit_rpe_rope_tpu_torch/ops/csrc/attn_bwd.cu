@@ -455,50 +455,6 @@ struct Resident {
   float *m, *l, *delta;          // [np] row max, row sum, delta
 };
 
-// scale * acc of a warp's 16 rows (row0..) in the accumulator layout:
-// written in f32 before the rotation (dr, [N, D], when given) and, rotated
-// back with -sin, in the output dtype. Rows >= n_rows are skipped.
-template <int D, typename T>
-__device__ __forceinline__ void write_grad(float (&acc)[D / 8][4], int row0,
-                                           int n_rows, float scale, T* dst,
-                                           long long stride, float* dr,
-                                           const float* cos_h,
-                                           const float* sin_h) {
-  using namespace dense;
-  constexpr int H2 = D / 2, NT = D / 16;  // 8-column tiles per half
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    float x1[4], x2[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      x1[e] = __fmul_rn(scale, acc[nt][e]);
-      x2[e] = __fmul_rn(scale, acc[nt + NT][e]);
-    }
-    if (dr != nullptr) {
-      store_tile(dr, D, row0, nt * 8, n_rows, x1);
-      store_tile(dr, D, row0, H2 + nt * 8, n_rows, x2);
-    }
-    if (cos_h != nullptr) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int row, col;
-        tile_coords(e, row0, nt * 8, row, col);
-        float cs = 1.f, sn = 0.f;
-        if (row < n_rows) {
-          cs = cos_h[(long long)row * H2 + col];
-          sn = -sin_h[(long long)row * H2 + col];
-        }
-        const float y1 = __fsub_rn(__fmul_rn(x1[e], cs), __fmul_rn(x2[e], sn));
-        const float y2 = __fadd_rn(__fmul_rn(x1[e], sn), __fmul_rn(x2[e], cs));
-        x1[e] = y1;
-        x2[e] = y2;
-      }
-    }
-    store_tile(dst, stride, row0, nt * 8, n_rows, x1);
-    store_tile(dst, stride, row0, H2 + nt * 8, n_rows, x2);
-  }
-}
-
 // Stage qf, kf, bf16 v and bf16 g of one (batch, head) and delta = sum g *
 // out per row (f32, unrounded g): 2 * np threads, D / 16 items each of 4
 // columns at c and 4 at c + D/2; the D / 8 items of a row lie in
@@ -843,26 +799,8 @@ __global__ void __launch_bounds__(32 * KB, 1) attn_bwd_resident_kernel(const Par
 // dbias[h, i, j] = the sum over the slabs, in slab (batch) order, of
 // slab[., h, i, j]; one thread per 4 columns of a padded slab row.
 __global__ void attn_bwd_slab_sum_kernel(const Params p) {
-  const int slabs = (p.B + p.per - 1) / p.per;
-  const long long rows = (long long)p.H * p.N;
-  const int quads = p.pitch / 4;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < rows * quads; i += (long long)gridDim.x * blockDim.x) {
-    const long long row = i / quads;
-    const int c = int(i % quads) * 4;
-    const float* src = p.dbias_part + row * p.pitch + c;
-    float4 acc = *reinterpret_cast<const float4*>(src);
-    for (int sl = 1; sl < slabs; ++sl) {
-      const float4 o = *reinterpret_cast<const float4*>(src + sl * rows * p.pitch);
-      acc = make_float4(__fadd_rn(acc.x, o.x), __fadd_rn(acc.y, o.y),
-                        __fadd_rn(acc.z, o.z), __fadd_rn(acc.w, o.w));
-    }
-    float* dst = p.dbias + row * p.N + c;
-    const float v[4] = {acc.x, acc.y, acc.z, acc.w};
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      if (c + u < p.N) dst[u] = v[u];
-  }
+  dense::sum_slabs(p.dbias, p.dbias_part, (long long)p.H * p.N, p.N, p.pitch,
+                   (p.B + p.per - 1) / p.per);
 }
 
 template <int D, int KB, typename T>

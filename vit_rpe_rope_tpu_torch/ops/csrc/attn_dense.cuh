@@ -2,7 +2,9 @@
 // attn_bwd.cu), which hold a whole (batch, head) in one CTA: the block
 // buckets they are built for, the staging of whole heads into shared memory
 // with 16-byte loads, the mma.sync.m16n8k16 bf16 products on ldmatrix
-// fragments, and the 16-byte stores of an accumulator tile.
+// fragments, the 16-byte stores of an accumulator tile and the gradient
+// epilogue. The separate-pass streaming backward (attn_stream_bwd.cu) uses
+// the same fragments, stores and epilogue, and the cp.async copies here.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16 operands; g = lane / 4,
 // t = lane % 4):
@@ -208,6 +210,95 @@ __device__ __forceinline__ void tile_coords(int e, int row0, int col0,
   const int lane = threadIdx.x % 32;
   row = row0 + (lane >> 2) + (e >> 1) * 8;
   col = col0 + 2 * (lane & 3) + (e & 1);
+}
+
+// scale * acc of a warp's 16 rows (row0..) in the accumulator layout:
+// written in f32 before the rotation (dr, [N, D], when given) and, rotated
+// back with -sin, in the output dtype. Rows >= n_rows are skipped.
+template <int D, typename T>
+__device__ __forceinline__ void write_grad(float (&acc)[D / 8][4], int row0,
+                                           int n_rows, float scale, T* dst,
+                                           long long stride, float* dr,
+                                           const float* cos_h,
+                                           const float* sin_h) {
+  constexpr int H2 = D / 2, NT = D / 16;  // 8-column tiles per half
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    float x1[4], x2[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x1[e] = __fmul_rn(scale, acc[nt][e]);
+      x2[e] = __fmul_rn(scale, acc[nt + NT][e]);
+    }
+    if (dr != nullptr) {
+      store_tile(dr, D, row0, nt * 8, n_rows, x1);
+      store_tile(dr, D, row0, H2 + nt * 8, n_rows, x2);
+    }
+    if (cos_h != nullptr) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int row, col;
+        tile_coords(e, row0, nt * 8, row, col);
+        float cs = 1.f, sn = 0.f;
+        if (row < n_rows) {
+          cs = cos_h[(long long)row * H2 + col];
+          sn = -sin_h[(long long)row * H2 + col];
+        }
+        const float y1 = __fsub_rn(__fmul_rn(x1[e], cs), __fmul_rn(x2[e], sn));
+        const float y2 = __fadd_rn(__fmul_rn(x1[e], sn), __fmul_rn(x2[e], cs));
+        x1[e] = y1;
+        x2[e] = y2;
+      }
+    }
+    store_tile(dst, stride, row0, nt * 8, n_rows, x1);
+    store_tile(dst, stride, row0, H2 + nt * 8, n_rows, x2);
+  }
+}
+
+
+// dst [rows, n] = the sum over `slabs` f32 slabs of [rows, pitch] at src,
+// in slab order (the first slab, then each next one added); one thread per
+// 4 columns of a padded row, over a grid-stride loop. The dbias sum of the
+// resident dense backward and of the separate-pass streaming backward.
+__device__ __forceinline__ void sum_slabs(float* dst, const float* src,
+                                          long long rows, int n, int pitch,
+                                          int slabs) {
+  const int quads = pitch / 4;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < rows * quads; i += (long long)gridDim.x * blockDim.x) {
+    const long long row = i / quads;
+    const int c = int(i % quads) * 4;
+    const float* s = src + row * pitch + c;
+    float4 acc = *reinterpret_cast<const float4*>(s);
+    for (int sl = 1; sl < slabs; ++sl) {
+      const float4 o = *reinterpret_cast<const float4*>(s + sl * rows * pitch);
+      acc = make_float4(__fadd_rn(acc.x, o.x), __fadd_rn(acc.y, o.y),
+                        __fadd_rn(acc.z, o.z), __fadd_rn(acc.w, o.w));
+    }
+    float* d = dst + row * n + c;
+    const float v[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (c + u < n) d[u] = v[u];
+  }
+}
+
+// 16 bytes (4 bytes) copied from global to shared memory without passing
+// through registers; with valid false the destination is zero-filled (src
+// must still be a valid address). Completes at cp_async_wait_all.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace dense

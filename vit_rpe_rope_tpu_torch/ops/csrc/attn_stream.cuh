@@ -2,7 +2,7 @@
 // attn_stream_bwd.cu, attn_stream_bwd_fused.cu): where a logit's bias comes
 // from (a materialized [H, N, N] tensor, or generated per element from the
 // polynomial coefficients or the relative table), the key mask in global
-// coordinates, the backward kernels' shared-memory layout, and the integer
+// coordinates, the one-pass backward's shared-memory layout, and the integer
 // arguments of the C entry points.
 
 #pragma once
@@ -102,6 +102,16 @@ __device__ __forceinline__ void next_patch(Patch& p, int grid) {
   }
 }
 
+// The coordinates n >= 0 tokens on, without a division (one step of the
+// loop per row of the grid crossed).
+__device__ __forceinline__ void advance(Patch& p, int n, int grid) {
+  p.x += n;
+  while (p.x >= grid) {
+    p.x -= grid;
+    ++p.y;
+  }
+}
+
 // The polynomial bias between two patch tokens: sum_k c[k] * dist^k over the
 // L1 distance of their patch coordinates. Also hands back that distance.
 // MORE: the head may have more than REG_POLY_TERMS terms.
@@ -150,9 +160,11 @@ __device__ __forceinline__ float stream_logit(float acc, int qi, int kj, int n_t
   return s;
 }
 
-// Which generated bias a kernel of attn_stream_bwd_fused.cu is compiled for:
-// PE_POLY_MORE is the polynomial with more than REG_POLY_TERMS terms.
-enum Pe { PE_NONE, PE_POLY, PE_REL, PE_POLY_MORE };
+// Which bias a kernel of attn_stream_bwd_fused.cu or attn_stream_bwd.cu is
+// compiled for: PE_POLY_MORE is the polynomial with more than
+// REG_POLY_TERMS terms, PE_BIAS a materialized [H, N, N] bias (the
+// separate passes only).
+enum Pe { PE_NONE, PE_POLY, PE_REL, PE_POLY_MORE, PE_BIAS };
 
 // stream_logit for a key chunk of its own length (n_k keys, already cut to
 // the chunk's valid width) and no materialized bias. Also says whether the

@@ -12,6 +12,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import subprocess
 import tempfile
 import threading
@@ -73,6 +74,24 @@ def build_all(sources) -> list:
     if errors:
         raise RuntimeError("\n".join(str(e) for e in errors))
     return [f.result() for f in futures]
+
+
+def ptxas_report(text: str) -> list:
+    """The kernels of a `-Xptxas -v` report (a library's .log): one
+    (mangled name, registers, spill bytes stored) per compiled entry."""
+    out, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
 
 
 def load(source: pathlib.Path, bind) -> ctypes.CDLL:

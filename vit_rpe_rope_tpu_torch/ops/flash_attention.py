@@ -52,17 +52,18 @@ What is computed, for q, k, v [B, H, N, D]:
   dqr/dkr, and the streaming forward's lse [B, H, N], in float32.
 
 `attention_fwd` / `attention_bwd` / `attention_stream_fwd` /
-`streaming_chunk_fwd` / `attention_stream_bwd` / `attention_stream_bwd_fused`
-are the kernels' wrappers: on a CUDA tensor they launch the kernel (and count
-the launch in LAUNCHES / LAUNCHES_BWD, with the dense route's own count in
+`streaming_chunk_fwd` / `attention_stream_bwd_prologue` /
+`attention_stream_bwd` / `attention_stream_bwd_fused` are the kernels'
+wrappers: on a CUDA tensor they launch the kernel (and count the launch in
+LAUNCHES / LAUNCHES_BWD, with the dense route's own count in
 LAUNCHES_RESIDENT or LAUNCHES_WIDE / LAUNCHES_BWD_RESIDENT or
 LAUNCHES_BWD_WIDE, / LAUNCHES_STREAM_FWD /
-LAUNCHES_STREAM_CHUNK_FWD / LAUNCHES_STREAM_DQ,
+LAUNCHES_STREAM_CHUNK_FWD / LAUNCHES_STREAM_PROLOGUE / LAUNCHES_STREAM_DQ,
 LAUNCHES_STREAM_DKV, LAUNCHES_STREAM_DBIAS, LAUNCHES_STREAM_DCOEFF and
 LAUNCHES_STREAM_DTABLE / LAUNCHES_STREAM_FUSED, each where its kernel is
 launched), on a CPU tensor they run `attention_plain` /
 `attention_bwd_plain` / `attention_stream_plain` (on a whole sequence or a
-key chunk) /
+key chunk) / `attention_stream_bwd_prologue_plain` /
 `attention_stream_bwd_plain` / `attention_stream_bwd_fused_plain`, the
 kernels' plain PyTorch twins. Nothing falls back: a CUDA call the kernel
 cannot take raises.
@@ -108,10 +109,12 @@ LAUNCHES_WIDE = 0
 LAUNCHES_BWD_RESIDENT = 0
 LAUNCHES_BWD_WIDE = 0
 
-# Launches of the streaming kernels: the forward, the dq kernel, the dk/dv
-# kernel, each counted where it is launched, and dbias: the dq kernel's
-# dbias instance (counted in LAUNCHES_STREAM_DQ too) with its sum kernel.
+# Launches of the streaming kernels: the forward, the separate passes'
+# prologue, the dq kernel, the dk/dv kernel, each counted where it is
+# launched, and dbias: the dq kernel's dbias instance (counted in
+# LAUNCHES_STREAM_DQ too) with its sum kernel.
 LAUNCHES_STREAM_FWD = 0
+LAUNCHES_STREAM_PROLOGUE = 0
 LAUNCHES_STREAM_DQ = 0
 LAUNCHES_STREAM_DKV = 0
 LAUNCHES_STREAM_DBIAS = 0
@@ -146,9 +149,14 @@ FUSED_Q_TILE = 256
 # scratch within the budget.
 FUSED_SCRATCH_BYTES = 1 << 30
 # The separate-pass backward's dq kernel writes each batch's float32 ds into
-# an [H, N, N] slab for dbias, summed afterwards in batch order; above this
-# budget it writes fewer slabs, each CTA adding several batches in order.
+# an [H, N, dbias_pitch(N)] slab for dbias, summed afterwards in batch order;
+# above this budget it writes fewer slabs, each CTA adding several batches in
+# order.
 DBIAS_SCRATCH_BYTES = 1 << 30
+# Query rows of one dq CTA and keys of one dk/dv CTA of the separate passes
+# (csrc/attn_stream_bwd.cu): their prologue's bf16 operands are padded with
+# zero rows to a multiple of it.
+STREAM_BWD_ROWS = 128
 
 SOURCE = cuda_build.CSRC / "attn_fwd.cu"
 BWD_SOURCE = cuda_build.CSRC / "attn_bwd.cu"
@@ -608,6 +616,33 @@ def attention_stream_bwd_plain(q, k, v, out, g, lse, scale, bias=None,
             dcoeff, dtable)
 
 
+def stream_bwd_rows(n):
+    """Rows of the separate passes' operand scratch for N tokens: N
+    rounded up to STREAM_BWD_ROWS."""
+    return _round_up(n, STREAM_BWD_ROWS)
+
+
+def dbias_pitch(n):
+    """Row pitch (floats) of the separate passes' padded bias and dbias
+    slabs: N rounded up to 4, so that rows are whole 16-byte pieces."""
+    return _round_up(n, 4)
+
+
+def attention_stream_bwd_prologue_plain(q, k, v, out, g, cos=None, sin=None):
+    """The separate passes' prologue kernel in plain PyTorch: (ops, delta)
+    with ops [4, B, H, stream_bwd_rows(N), D] bfloat16 holding qf, kf =
+    bf16(rotate(q)), bf16(rotate(k)) (rotation in float32), bf16(v) and
+    bf16(g), zero rows past N, and delta = sum_d g * out [B, H, N]
+    float32."""
+    b, h, n, d = q.shape
+    qm, km = _rotated_operands(q, k, cos, sin, torch.bfloat16)
+    ops = torch.zeros((4, b, h, stream_bwd_rows(n), d), dtype=torch.bfloat16,
+                      device=q.device)
+    for i, x in enumerate((qm, km, v, g)):
+        ops[i, :, :, :n] = x.to(torch.bfloat16)
+    return ops, (g.float() * out.float()).sum(dim=-1)
+
+
 def _dparam_zeros(poly, rel, device):
     """Zeroed float32 (dcoeff, dtable) for the generated bias given."""
     f32 = dict(dtype=torch.float32, device=device)
@@ -760,7 +795,8 @@ def _stream_library():
 
 def _stream_bwd_library():
     return cuda_build.load(STREAM_BWD_SOURCE, _bind_stream(
-        "attn_stream_bwd_dq", "attn_stream_bwd_dkv"))
+        "attn_stream_bwd_prologue", "attn_stream_bwd_dq",
+        "attn_stream_bwd_dkv"))
 
 
 def _stream_fused_library():
@@ -991,8 +1027,10 @@ def _pointers(*tensors):
 
 
 def _strides(*tensors):
+    """The (batch, head, token) strides of each tensor (zeros for None)."""
     return (ctypes.c_longlong * (3 * len(tensors)))(
-        *(s for t in tensors for s in t.stride()[:3]))
+        *(s for t in tensors
+          for s in (t.stride()[:3] if t is not None else (0, 0, 0))))
 
 
 def attention_stream_fwd(q, k, v, scale, bias=None, cos=None, sin=None,
@@ -1110,17 +1148,70 @@ def streaming_chunk_fwd(q, k, v, scale, row0, col0, n_valid, poly=None,
 
 
 def dbias_groups(b, h, n, budget=None, width=None):
-    """The batch groups of the dq kernel's dbias instance: one per batch
-    while B float32 [H, N, width] slabs of ds (width: N, or the resident
-    dense backward's row pitch) fit in `budget` bytes (default
-    DBIAS_SCRATCH_BYTES), else as few groups of ceil(B / fitting slabs)
-    batches as cover B. With one group the dq kernel writes dbias itself;
-    the resident dense backward gives each group's run of batches to one
-    CTA per head, which adds them into its slab in order."""
+    """The batch groups of the dbias slabs: one per batch while B float32
+    [H, N, width] slabs of ds (width: N by default; the separate passes and
+    the resident dense backward pass their row pitch, dbias_pitch(N)) fit
+    in `budget` bytes (default DBIAS_SCRATCH_BYTES), else as few groups of
+    ceil(B / fitting slabs) batches as cover B (at least one). Each group's
+    run of batches goes to one CTA per row tile and head, which adds them
+    into its slab in order."""
     budget = DBIAS_SCRATCH_BYTES if budget is None else budget
     width = n if width is None else width
     per = -(-b // max(1, min(b, budget // (h * n * width * 4))))
     return -(-b // per)
+
+
+def _stream_bwd_pointers(q, k, v, g, out, lse, delta, ops, dq=None, dk=None,
+                         dv=None, dqr=None, dkr=None, bias=None, cos=None,
+                         sin=None, coeff=None, table=None, dbias=None,
+                         part=None):
+    """The pointer and stride arguments of csrc/attn_stream_bwd.cu's C
+    entry points, in their order."""
+    return (_pointers(q, k, v, g, lse, delta, dq, dk, dv, dqr, dkr, bias, cos,
+                      sin, coeff, table, dbias, part, out, ops),
+            _strides(q, k, v, g, dq, dk, dv, out))
+
+
+def _stream_bwd_inputs(q, k, v, out, g, cos, sin, bias=None):
+    """Raise on what the separate passes do not take; returns q, k, v, out
+    and g with rows that the prologue can read in 16-byte pieces (copies
+    where needed)."""
+    _check_cuda_inputs(q, k, v, bias, cos, sin)
+    for name, t in (("out", out), ("g", g)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q in shape, dtype and device")
+    return tuple(_aligned(t if t.stride(-1) == 1 else t.contiguous())
+                 for t in (q, k, v, out, g))
+
+
+def attention_stream_bwd_prologue(q, k, v, out, g, cos=None, sin=None):
+    """The separate passes' prologue kernel's wrapper: (ops, delta) as
+    attention_stream_bwd_prologue_plain. CPU tensors run the twin. CUDA
+    tensors (at a built head dim) launch the kernel on the current stream,
+    or raise."""
+    if q.device.type == "cpu":
+        return attention_stream_bwd_prologue_plain(q, k, v, out, g, cos, sin)
+    return _prologue(*_stream_bwd_inputs(q, k, v, out, g, cos, sin), cos, sin)
+
+
+def _prologue(q, k, v, out, g, cos, sin):
+    """The prologue kernel launched on checked inputs: (ops, delta)."""
+    global LAUNCHES_STREAM_PROLOGUE
+    b, h, n, d = q.shape
+    ops = torch.empty((4, b, h, stream_bwd_rows(n), d), dtype=torch.bfloat16,
+                      device=q.device)
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    args = (*_stream_bwd_pointers(q, k, v, g, out, None, delta, ops, cos=cos,
+                                  sin=sin),
+            _stream_dims(q, cos, None, 0, None), 1.0)
+    with torch.cuda.device(q.device):
+        err = _stream_bwd_library().attn_stream_bwd_prologue(
+            *args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attn_stream_bwd_prologue launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES_STREAM_PROLOGUE += 1
+    return ops, delta
 
 
 def attention_stream_bwd(q, k, v, out, g, lse, scale, bias=None, cos=None,
@@ -1132,11 +1223,14 @@ def attention_stream_bwd(q, k, v, out, g, lse, scale, bias=None, cos=None,
     (streaming_lse), for callers without the forward's.
 
     CPU tensors run the plain twin with the JAX package's key tile. CUDA
-    tensors launch the dq kernel (with want_dbias its dbias instance, then
-    the sum over the batch groups' slabs, `dbias_groups` with
-    `dbias_budget`), the dk/dv kernel and, with want_dparam and poly= /
-    rel=, the dcoeff / dtable kernel on the current stream, or raise. dq,
-    dk and dv are views of one [B, N, 3, H, D] buffer."""
+    tensors launch the prologue (`attention_stream_bwd_prologue`: the
+    operands rounded once, and delta), the dq kernel (with want_dbias its
+    dbias instance, then the sum over the batch groups' slabs,
+    `dbias_groups` with `dbias_budget` at the row pitch `dbias_pitch`), the
+    dk/dv kernel and, with want_dparam and poly= / rel=, the dcoeff /
+    dtable kernel on the current stream, or raise. A bias whose rows are
+    not whole 16-byte pieces is copied to that pitch first. dq, dk and dv
+    are views of one [B, N, 3, H, D] buffer."""
     global LAUNCHES_STREAM_DQ, LAUNCHES_STREAM_DKV, LAUNCHES_STREAM_DBIAS
     global LAUNCHES_STREAM_DCOEFF, LAUNCHES_STREAM_DTABLE
     _check_rel_covers(rel, q.shape[2])
@@ -1160,11 +1254,8 @@ def attention_stream_bwd(q, k, v, out, g, lse, scale, bias=None, cos=None,
             dbias_budget=dbias_budget)
         return (*map(hp.unpad, (dq, dk, dv)), dbias, hp.unpad(dqr),
                 hp.unpad(dkr), dcoeff, dtable)
-    _check_cuda_inputs(q, k, v, bias, cos, sin)
+    q, k, v, out, g = _stream_bwd_inputs(q, k, v, out, g, cos, sin, bias)
     coeff, grid, table = _check_generated(q, poly, rel)
-    for name, t in (("out", out), ("g", g)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{name} must match q in shape, dtype and device")
     b, h, n, d = q.shape
     f32 = dict(dtype=torch.float32, device=q.device)
     if lse.shape != (b, h, n) or lse.dtype != torch.float32 or \
@@ -1172,24 +1263,25 @@ def attention_stream_bwd(q, k, v, out, g, lse, scale, bias=None, cos=None,
         raise ValueError("lse must be a float32 [B, H, N] tensor on q's "
                          "device")
     lse = lse.contiguous()
-    if g.stride(-1) != 1:
-        g = g.contiguous()
-    delta = (g.float() * out.float()).sum(dim=-1)
+    ops, delta = _prologue(q, k, v, out, g, cos, sin)
     dqkv = torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
     dq, dk, dv = (dqkv[:, :, i].transpose(1, 2) for i in range(3))
     dqr = dkr = dbias = part = None
     if want_drot:
         dqr = torch.empty((b, h, n, d), **f32)
         dkr = torch.empty((b, h, n, d), **f32)
-    lib = _stream_bwd_library()
-    groups = dbias_groups(b, h, n, dbias_budget) if want_dbias else 0
+    pitch = dbias_pitch(n)
+    if bias is not None and pitch != n:
+        bias = _pad_seq(bias, pitch, 2)
+    groups = 0
     if want_dbias:
+        groups = dbias_groups(b, h, n, dbias_budget, pitch)
         dbias = torch.empty((h, n, n), **f32)
-        if groups > 1:
-            part = torch.empty((groups, h, n, n), **f32)
-    args = (_pointers(q, k, v, g, lse, delta, dq, dk, dv, dqr, dkr, bias, cos,
-                      sin, coeff, table, dbias, part),
-            _strides(q, k, v, g, dq, dk, dv),
+        part = torch.empty((groups, h, n, pitch), **f32)
+    lib = _stream_bwd_library()
+    args = (*_stream_bwd_pointers(q, k, v, g, out, lse, delta, ops, dq, dk,
+                                  dv, dqr, dkr, bias, cos, sin, coeff, table,
+                                  dbias, part),
             _stream_dims(q, cos, coeff, grid, table, groups), float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
