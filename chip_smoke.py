@@ -50,8 +50,10 @@ exits nonzero without a card, or when any phase fails. Phases:
    as a yardstick (AdamW: the
    wrapper by CUDA events, the kernel's device time by the profiler, which
    also shows that a step copies nothing between host and device);
-11. the streaming kernels (forward with lse; dq, dk/dv, dbias) against
-   their twins at the twins' own key tile, in six regimes (none,
+11. the streaming kernels (forward with lse, launched twice and compared
+   bit for bit, and its prologue's bf16 keys and values bit for bit; dq,
+   dk/dv, dbias) against their twins at the twins' own key tile, in six
+   regimes (none,
    materialized bias, generated polynomial and relative bias, rope-axial,
    rope-mixed), f32 and bf16, at the long-sequence shape (B=4, H=4,
    N=4097, D=32) and the ViT-S/16@384 shape (B=8, H=6, N=577, D=64), and
@@ -85,7 +87,8 @@ exits nonzero without a card, or when any phase fails. Phases:
    rope-axial must learn, relative stays at chance on this task on either
    path) and ViT-S/16@384 (at depth 3), counting every kernel's launches,
    the best checkpoint served by the Predictor;
-14. times: each streaming kernel (the backward kernels by the profiler's
+14. times: each streaming kernel (the forward's wrapper by CUDA events,
+   its kernel and prologue and the backward kernels by the profiler's
    device time), its twin, its bound and SDPA as the yardstick (its
    backward once, against the whole backward wrapper; with a bias, dbias as
    the dq kernel's added time for its ds slabs plus the sum kernel) at the
@@ -99,7 +102,8 @@ exits nonzero without a card, or when any phase fails. Phases:
 15. bounded-program stepping: the chunk forward kernel (q rows against a
    key chunk at global offsets) against its twin in three regimes (none,
    generated polynomial and relative bias), f32 and bf16, at a small padded
-   sequence and at the bounded step's shapes at N=65,537, and at (r0, 0)
+   sequence and at the bounded step's shapes at N=65,537 (every case
+   launched twice, bit-identical, one prologue per launch), and at (r0, 0)
    against the rows of the whole-sequence kernel bit for bit; the bounded
    step (q-chunks of 16,384) against the monolithic step at N=65,537 (the
    long-sequence model at 1024 px, batch 1) in rope-axial, polynomial and
@@ -107,9 +111,11 @@ exits nonzero without a card, or when any phase fails. Phases:
    grad_accum 2 against one batch of 4 at N=4,097; one epoch of the
    long-sequence model through the train CLI with --q_chunk 2048 in
    rope-axial, exact launch counts, the best checkpoint served; times: the
-   chunk kernel, its twin, its bound and SDPA at (1, 4, 16,384 rows, 66,048
-   keys, 32), the bounded and monolithic steps at N=65,537 and a profiler
-   breakdown of the bounded step; at N=4,097 in rope-axial (batch 4) the
+   chunk wrapper, its kernel and its prologue (device time), its twin, its
+   bound and SDPA at (1, 4, 16,384 rows, 66,048 keys, 32) and at the
+   --q_chunk 2048 epoch's (4, 4, 2,048 rows, 4,608 keys, 32), the bounded
+   and monolithic steps at N=65,537 and a profiler breakdown of the
+   bounded step; at N=4,097 in rope-axial (batch 4) the
    bounded and the monolithic step's gradients against the unfused f32
    oracle and each other, and the chunk forward on q, k rotated in PyTorch
    against the whole-sequence forward rotating in the kernel, bit for bit;
@@ -434,6 +440,7 @@ def serve_through_cli(tmp, cfg, name, images, grid_size, modules,
         argv += ["--grid_size", str(grid_size)]
     torch.cuda.synchronize()
     fa.LAUNCHES = fa.LAUNCHES_BWD = fa.LAUNCHES_STREAM_FWD = 0
+    fa.LAUNCHES_STREAM_FWD_PROLOGUE = 0
     reset_routes(fa)
     t0 = time.perf_counter()
     preds = predict.main(argv)
@@ -441,6 +448,8 @@ def serve_through_cli(tmp, cfg, name, images, grid_size, modules,
     seconds = time.perf_counter() - t0
     counts = {"attn_fwd": fa.LAUNCHES,
               "attn_stream_fwd": fa.LAUNCHES_STREAM_FWD}
+    if fa.LAUNCHES_STREAM_FWD_PROLOGUE:
+        counts["attn_stream_fwd_prologue"] = fa.LAUNCHES_STREAM_FWD_PROLOGUE
     return ckpt, preds, counts, seconds
 
 
@@ -839,6 +848,7 @@ def reset_counts(fa, fused_adamw):
     fa.LAUNCHES_STREAM_PROLOGUE = 0
     fa.LAUNCHES_STREAM_FUSED = fa.LAUNCHES_STREAM_DCOEFF = 0
     fa.LAUNCHES_STREAM_DTABLE = fa.LAUNCHES_STREAM_CHUNK_FWD = 0
+    fa.LAUNCHES_STREAM_FWD_PROLOGUE = 0
 
 
 def reset_routes(fa):
@@ -873,6 +883,7 @@ def read_counts(fa, fused_adamw):
               "adamw": fused_adamw.LAUNCHES_ADAMW}
     stream = {"attn_stream_fwd": fa.LAUNCHES_STREAM_FWD,
               "attn_stream_chunk_fwd": fa.LAUNCHES_STREAM_CHUNK_FWD,
+              "attn_stream_fwd_prologue": fa.LAUNCHES_STREAM_FWD_PROLOGUE,
               "attn_stream_bwd_prologue": fa.LAUNCHES_STREAM_PROLOGUE,
               "attn_stream_bwd_dq": fa.LAUNCHES_STREAM_DQ,
               "attn_stream_bwd_dkv": fa.LAUNCHES_STREAM_DKV,
@@ -882,6 +893,14 @@ def read_counts(fa, fused_adamw):
               "attn_stream_bwd_dtable": fa.LAUNCHES_STREAM_DTABLE}
     counts.update({k: v for k, v in stream.items() if v})
     return counts
+
+
+def with_fwd_prologue(expected):
+    """expected launch counts with the streaming forward's prologue: one
+    launch before every whole-sequence and every chunk forward."""
+    n = (expected.get("attn_stream_fwd", 0)
+         + expected.get("attn_stream_chunk_fwd", 0))
+    return dict(expected, attn_stream_fwd_prologue=n) if n else expected
 
 
 def bounded_launches(fa, batch, heads, head_dim, n, q_chunk, kv_chunk=0):
@@ -987,6 +1006,8 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
             expected["attn_stream_bwd_fused"] = depth * steps
     serve_expected = {"attn_fwd": 0, "attn_bwd": 0, "adamw": 0,
                       fwd: depth * (2560 // serve_bs)}
+    expected = with_fwd_prologue(expected)
+    serve_expected = with_fwd_prologue(serve_expected)
     log(f"  train CLI {pe_name} {model or 'defaults'} {flags or ''}: "
         f"{seconds:.1f} s, CSV "
         f"{rows[0]} + {len(rows) - 1} row(s): {row}")
@@ -1031,6 +1052,8 @@ def check_kernel_vs_plain_training(vit, ts, fused_adamw, datasets, cfg,
     pre = ts.make_preprocess(cfg, bundle.mean, bundle.std, 32)
     init = vit.init_params(torch.Generator().manual_seed(4), cfg,
                            device=device)
+    if expected is not None:
+        expected = with_fwd_prologue(expected)
     losses = {}
     for label, c, step in (
             ("kernels", cfg, fused_adamw.adamw_update),
@@ -1325,19 +1348,27 @@ def stream_inputs(fa, regime, shape, dtype, seed, device):
 
 def stream_case(fa, regime, shape, dtype, seed, device, backward=True):
     """The streaming kernels and their twins (at the kernels' key tile) on
-    one case: forward (out, lse), then dq, dk, dv (+ dbias, dcos/dsin) from
-    the kernel's own out and lse, and the separate passes' prologue alone
-    (its operands bit for bit, delta within PROLOGUE_DELTA_TOL). Returns
-    {output: (max_abs_err, ok, share of the largest entry)}."""
+    one case: forward (out, lse; launched twice, bit-identical, one prologue
+    before each launch) and its prologue alone (its operands bit for bit),
+    then dq, dk, dv (+ dbias, dcos/dsin) from the kernel's own out and lse,
+    and the separate passes' prologue alone (its operands bit for bit,
+    delta within PROLOGUE_DELTA_TOL). Returns {output: (max_abs_err, ok,
+    share of the largest entry)}."""
     q, k, v, kw, freqs = stream_inputs(fa, regime, shape, dtype, seed, device)
     scale = shape[-1] ** -0.5
-    out, lse = fa.attention_stream_fwd(q, k, v, scale, **kw)
-    torch.cuda.synchronize()
+    res = fwd_relaunch(fa, q, k, v, scale, kw)
+    out, lse = res.pop("outputs")
     want_out, want_lse = fa.attention_stream_plain(
         q, k, v, scale, kv_tile=fa.STREAM_TILE, **kw)
     lse_err = float((lse - want_lse).abs().max())
-    res = {"out": share_err(out, want_out, STREAM_TOL[dtype]),
-           "lse": (lse_err, lse_err <= LSE_TOL, lse_err)}
+    res.update({"out": share_err(out, want_out, STREAM_TOL[dtype]),
+                "lse": (lse_err, lse_err <= LSE_TOL, lse_err)})
+    ops = fa.attention_stream_fwd_prologue(k, v, kw["cos"], kw["sin"])
+    want_ops = fa.attention_stream_fwd_prologue_plain(k, v, kw["cos"],
+                                                      kw["sin"])
+    err = float((ops.float() - want_ops.float()).abs().max())
+    res["fwd prologue"] = (err, torch.equal(ops, want_ops), err)
+    del ops, want_ops
     if not backward:
         return res
     del want_out, want_lse
@@ -1375,13 +1406,28 @@ def stream_case(fa, regime, shape, dtype, seed, device, backward=True):
     return res
 
 
+def fwd_relaunch(fa, q, k, v, scale, kw):
+    """The streaming forward launched twice on one case: {"outputs": the
+    first (out, lse), "relaunch": (0, whether the second is bit-identical
+    and each launch followed one prologue, 0 or 1)}."""
+    counts = (fa.LAUNCHES_STREAM_FWD_PROLOGUE, fa.LAUNCHES_STREAM_FWD)
+    out, lse = fa.attention_stream_fwd(q, k, v, scale, **kw)
+    again, again_lse = fa.attention_stream_fwd(q, k, v, scale, **kw)
+    torch.cuda.synchronize()
+    ok = (torch.equal(out, again) and torch.equal(lse, again_lse)
+          and (fa.LAUNCHES_STREAM_FWD_PROLOGUE, fa.LAUNCHES_STREAM_FWD)
+          == (counts[0] + 2, counts[1] + 2))
+    return {"outputs": (out, lse), "relaunch": (0.0, ok, 0.0 if ok else 1.0)}
+
+
 def check_stream_vs_twin(fa, device):
     """Phase 11: every case is run and logged, then any failure raises.
-    Returns the worst f32 errors by kernel: {"fwd", "dq", "dkv",
-    "prologue" (delta; its operands are held bit for bit)} over all cases, {"dbias"} at the training path's shape (B=16: 16 ds slabs and the
-    sum kernel)."""
-    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "dbias": 0.0,
-             "prologue": 0.0}
+    Returns the worst f32 errors by kernel: {"fwd", "fwd_prologue" (held
+    bit for bit), "dq", "dkv", "prologue" (delta; its operands are held bit
+    for bit)} over all cases, {"dbias"} at the training path's shape (B=16:
+    16 ds slabs and the sum kernel)."""
+    worst = {"fwd": 0.0, "fwd_prologue": 0.0, "dq": 0.0, "dkv": 0.0,
+             "dbias": 0.0, "prologue": 0.0}
     vit_s_384_train = (16, 6, 577, 64)
     cases = [(shape, dtype, regime, True)
              for shape in ((4, 4, 4097, 32), (8, 6, 577, 64))
@@ -1401,12 +1447,14 @@ def check_stream_vs_twin(fa, device):
             + " ".join(f"{k}={v[0]:.2e}({v[2]:.1e})" for k, v in res.items())
             + f" tol(share of largest)={STREAM_TOL[dtype]:g}/"
             f"{STREAM_BWD_TOL[dtype]:g} lse {LSE_TOL:g} prologue delta "
-            f"{PROLOGUE_DELTA_TOL:g}, operands bit for bit "
-            f"{'ok' if ok else 'FAIL'}")
+            f"{PROLOGUE_DELTA_TOL:g}, operands bit for bit, forward "
+            f"relaunched bit for bit {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append((regime, shape, dtype))
         if dtype == torch.float32:
             worst["fwd"] = max(worst["fwd"], res["out"][0])
+            worst["fwd_prologue"] = max(worst["fwd_prologue"],
+                                        res["fwd prologue"][0])
             if "dq" in res:
                 worst["dq"] = max(worst["dq"], res["dq"][0])
                 worst["dkv"] = max(worst["dkv"], res["dk"][0], res["dv"][0])
@@ -1495,7 +1543,8 @@ def serve_longseq(tmp, pe_name, modules, serving):
     ckpt, preds, counts, secs = serve_through_cli(
         tmp, cfg, f"longseq_{pe_name}.npz", images, size // cfg.patch_size,
         modules, batch_size=4, num_heads=cfg.num_heads)
-    expected = {"attn_fwd": 0, "attn_stream_fwd": cfg.depth * 2}
+    expected = with_fwd_prologue({"attn_fwd": 0,
+                                  "attn_stream_fwd": cfg.depth * 2})
     log(f"  long-sequence {pe_name} N={cfg.seq_len}: predict CLI {secs:.2f} s,"
         f" launches {counts} (expected {expected})")
     if counts != expected:
@@ -1522,16 +1571,18 @@ def serve_vit_s_384(fa, vit, serving, datasets, device):
     reference = serving.Predictor.from_params(
         params, dataclasses.replace(cfg, attention_impl="reference"), mean,
         std, 32)
-    fa.LAUNCHES = fa.LAUNCHES_STREAM_FWD = 0
+    fa.LAUNCHES = fa.LAUNCHES_STREAM_FWD = fa.LAUNCHES_STREAM_FWD_PROLOGUE = 0
     got = kernel.logits(images)
-    counts = (fa.LAUNCHES, fa.LAUNCHES_STREAM_FWD)
+    counts = (fa.LAUNCHES, fa.LAUNCHES_STREAM_FWD,
+              fa.LAUNCHES_STREAM_FWD_PROLOGUE)
     want = reference.logits(images)
     err = float(np.abs(got - want).max())
     scale = float(np.abs(want).max())
-    log(f"  ViT-S/16@384 rope-mixed batch 64: launches (dense, streaming) "
-        f"{counts} (expected (0, {cfg.depth})), logits vs reference "
-        f"max_abs_err={err:.3e} (|logits| <= {scale:.3f}, tol {LOGITS_TOL:g})")
-    if counts != (0, cfg.depth) or not np.isfinite(got).all():
+    log(f"  ViT-S/16@384 rope-mixed batch 64: launches (dense, streaming, "
+        f"its prologue) {counts} (expected (0, {cfg.depth}, {cfg.depth})), "
+        f"logits vs reference max_abs_err={err:.3e} (|logits| <= "
+        f"{scale:.3f}, tol {LOGITS_TOL:g})")
+    if counts != (0, cfg.depth, cfg.depth) or not np.isfinite(got).all():
         raise AssertionError("ViT-S/16@384 did not take the streaming kernel")
     if err > LOGITS_TOL * max(1.0, scale):
         raise AssertionError("kernel path disagrees with the reference path")
@@ -1735,20 +1786,25 @@ def stream_bound_ms(kernel, shape, dtype, kw, want_drot):
     its outputs written once over the memory rate, against its products of
     2*N*N*D per (batch, head) at the bf16 tensor-core peak. [B, H, N, D]
     tensors in the input dtype, in bf16 and [B, H, N] float32 rows of
-    statistics, by kernel: the forward reads q, k, v and writes out and
-    lse (2 products); the separate passes' prologue reads q, k, v, g and
-    out and writes the four bf16 operands and delta (no product); dq reads
-    the four bf16 operands, lse and delta and writes dq (3 products); dk/dv
-    reads the same and writes dk and dv (4); dbias, the work of the JAX
-    dbias kernel, reads q, k, v, g, lse and delta (2 products)."""
+    statistics, by kernel: the forward's wrapper ("fwd") reads q, k, v and
+    writes out and lse (2 products); its kernel ("fwd_kernel") reads q and
+    the prologue's two bf16 operands and writes out and lse (2 products);
+    its prologue reads k and v and writes the two bf16 operands (no
+    product);
+    the separate passes' prologue reads q, k, v, g and out and writes the
+    four bf16 operands and delta (no product); dq reads the four bf16
+    operands, lse and delta and writes dq (3 products); dk/dv reads the
+    same and writes dk and dv (4); dbias, the work of the JAX dbias kernel,
+    reads q, k, v, g, lse and delta (2 products)."""
     b, h, n, d = shape
     elem = torch.tensor([], dtype=dtype).element_size()
     tensors, bf16_tensors, stats, products = {
-        "fwd": (4, 0, 1, 2), "prologue": (5, 4, 1, 0), "dq": (1, 4, 2, 3),
-        "dkv": (2, 4, 2, 4), "dbias": (4, 0, 2, 2)}[kernel]
+        "fwd": (4, 0, 1, 2), "fwd_kernel": (2, 2, 1, 2),
+        "fwd_prologue": (2, 2, 0, 0), "prologue": (5, 4, 1, 0),
+        "dq": (1, 4, 2, 3), "dkv": (2, 4, 2, 4), "dbias": (4, 0, 2, 2)}[kernel]
     nbytes = (tensors * elem + bf16_tensors * 2) * b * h * n * d \
         + stats * b * h * n * 4
-    if kw.get("bias") is not None and kernel != "prologue":
+    if kw.get("bias") is not None and "prologue" not in kernel:
         nbytes += kw["bias"].numel() * 4 * (2 if kernel == "dbias" else 1)
     if kw.get("cos") is not None:
         nbytes += 2 * kw["cos"].numel() * 4
@@ -1800,13 +1856,15 @@ def device_ms_by_kernel(fn, iters, names):
 
 
 def time_stream_kernels(fa, device):
-    """Phase 14a: the forward kernel by CUDA events around its wrapper; the
-    separate passes' prologue, dq and dk/dv kernels by the profiler's device
-    time over calls of the one backward wrapper, which is also timed whole
-    (launches and a padded copy of the bias included). With a bias, dbias is the dq kernel's dbias instance less its
-    instance without dbias (the same call with want_dbias=False), plus the
-    sum kernel; dq is the instance without dbias. Each
-    beside its twin (the prologue's own; the whole forward / the whole
+    """Phase 14a: the forward by CUDA events around its wrapper (its
+    prologue, a padded copy of the bias and the launches included) and its
+    kernel and prologue by the profiler's device time over calls of the
+    wrapper; the separate passes' prologue, dq and dk/dv kernels by the
+    profiler's device time over calls of the one backward wrapper, which is
+    also timed whole (launches and a padded copy of the bias included).
+    With a bias, dbias is the dq kernel's dbias instance less its instance
+    without dbias (the same call with want_dbias=False), plus the sum
+    kernel; dq is the instance without dbias. Each beside its twin (the prologue's own; the whole forward / the whole
     backward: the twin of dq and dk/dv is not split by kernel) and its
     bound. The yardstick is SDPA on pre-rotated
     q/k: its forward for the forward kernel; its backward (forward +
@@ -1814,7 +1872,9 @@ def time_stream_kernels(fa, device):
     gradient with a bias) computes what the backward kernels compute
     together, so it stands once, against the whole backward wrapper
     (`group_ms` / `group_library_ms`), and no backward kernel has a library
-    call of its own."""
+    call of its own; the forward kernel stands against SDPA's forward, its
+    prologue against none, both with the whole forward wrapper as their
+    group."""
     import torch.nn.functional as F
 
     rows = {}
@@ -1839,8 +1899,16 @@ def time_stream_kernels(fa, device):
         def backward():
             fa.attention_stream_bwd(q, k, v, out, g, lse, scale, **bwd)
 
-        ms = {"fwd": median_ms(lambda: fa.attention_stream_fwd(
-            q, k, v, scale, **kw), **timing)}
+        def forward():
+            fa.attention_stream_fwd(q, k, v, scale, **kw)
+
+        ms = {"fwd": median_ms(forward, **timing)}
+        fwd_names = {"fwd_kernel": "attn_stream_fwd_kernel",
+                     "fwd_prologue": "attn_stream_fwd_prologue_kernel"}
+        by_name, _, _ = device_ms_by_kernel(forward, 3 * iters,
+                                            tuple(fwd_names.values()))
+        ms.update({kernel: by_name[name]
+                   for kernel, name in fwd_names.items()})
         names = {"prologue": "attn_stream_bwd_prologue_kernel",
                  "dq": "attn_stream_bwd_dq_kernel",
                  "dkv": "attn_stream_bwd_dkv_kernel"}
@@ -1872,6 +1940,9 @@ def time_stream_kernels(fa, device):
         plain["prologue"] = median_ms(
             lambda: fa.attention_stream_bwd_prologue_plain(
                 q, k, v, out, g, kw["cos"], kw["sin"]), **timing)
+        plain["fwd_prologue"] = median_ms(
+            lambda: fa.attention_stream_fwd_prologue_plain(
+                k, v, kw["cos"], kw["sin"]), **timing)
         qr, kr = q, k
         if kw["cos"] is not None:
             qr = fa._rotate(q, kw["cos"][None], kw["sin"][None])
@@ -1898,15 +1969,22 @@ def time_stream_kernels(fa, device):
                                                  kw, want_drot)
             row = dict(ms=t, plain_ms=plain["fwd"], library_ms=lib_fwd,
                        bound_ms=bound_ms, bound_by=bound_by)
-            if kernel != "fwd":
+            if kernel.startswith("fwd_"):
+                row.update(plain_ms=plain.get(kernel, plain["fwd"]),
+                           library_ms=lib_fwd if kernel == "fwd_kernel"
+                           else None, group="attention_stream_fwd",
+                           group_ms=ms["fwd"], group_library_ms=lib_fwd)
+            elif kernel != "fwd":
                 row.update(plain_ms=plain.get(kernel, plain["bwd"]),
                            library_ms=None, group="attention_stream_bwd",
                            group_ms=bwd_ms, group_library_ms=lib_bwd)
             rows[label][kernel] = row
-            log(f"  {label} {kernel:5s} kernel {t:.4f} ms  twin "
+            what = "wrapper" if kernel == "fwd" else "kernel"
+            log(f"  {label} {kernel:12s} {what} {t:.4f} ms  twin "
                 f"{row['plain_ms']:.4f} ms  bound {bound_ms:.4f} ms "
                 f"({bound_by})"
-                + (f"  sdpa {lib_fwd:.4f} ms" if kernel == "fwd" else ""))
+                + (f"  sdpa {lib_fwd:.4f} ms" if kernel.startswith("fwd")
+                   and kernel != "fwd_prologue" else ""))
         if parts:
             rows[label]["dbias"].update(parts)
             log(f"  {label} dbias: dq kernel with its ds slabs "
@@ -2052,21 +2130,31 @@ def time_fused_kernels(fa, device):
 def chunk_case(fa, regime, dtype, seed, device, shape, rows, cols, n_valid):
     """The chunk kernel and its twin (at the kernel's key tile) on one chunk
     of a padded sequence: q rows `rows` against the keys `cols` (global
-    indices), n_valid valid tokens. Returns {output: (max_abs_err, ok,
+    indices), n_valid valid tokens; launched twice, bit-identical, one
+    prologue before each launch. Returns {output: (max_abs_err, ok,
     share)}."""
     q, k, v, kw, _ = stream_inputs(fa, regime, shape, dtype, seed, device)
     pe = {key: kw[key] for key in ("poly", "rel") if key in kw}
     args = (q[:, :, rows[0]:rows[1]], k[:, :, cols[0]:cols[1]],
             v[:, :, cols[0]:cols[1]], shape[-1] ** -0.5)
+    counts = (fa.LAUNCHES_STREAM_FWD_PROLOGUE, fa.LAUNCHES_STREAM_CHUNK_FWD)
     out, lse = fa.streaming_chunk_fwd(*args, rows[0], cols[0], n_valid, **pe)
+    again, again_lse = fa.streaming_chunk_fwd(*args, rows[0], cols[0],
+                                              n_valid, **pe)
     torch.cuda.synchronize()
+    same = (torch.equal(out, again) and torch.equal(lse, again_lse)
+            and (fa.LAUNCHES_STREAM_FWD_PROLOGUE,
+                 fa.LAUNCHES_STREAM_CHUNK_FWD)
+            == (counts[0] + 2, counts[1] + 2))
+    del again, again_lse
     want, want_lse = fa.attention_stream_plain(
         *args, kv_tile=fa.STREAM_TILE, row0=rows[0], col0=cols[0],
         n_valid=n_valid, **pe)
     lse_err = float((lse - want_lse).abs().max())
     return {"out": share_err(out, want, STREAM_TOL[dtype]),
             "lse": (lse_err, lse_err <= LSE_TOL and
-                    bool(torch.isfinite(lse).all()), lse_err)}
+                    bool(torch.isfinite(lse).all()), lse_err),
+            "relaunch": (0.0, same, 0.0 if same else 1.0)}
 
 
 def check_chunk_vs_twin(fa, device):
@@ -2146,6 +2234,7 @@ def bounded_grads(modules, cfg, params, pre, images, labels, expected,
     init, update = ts.make_optimizer(tcfg, 100, copy)
     step = make_bounded_step(cfg, tcfg, update, pre, debug_grads=True, **kw)
     state = init(copy)
+    expected = with_fwd_prologue(expected)
     reset_counts(fa, fused_adamw)
     _, _, metrics, grads = step(copy, state, 0, images, labels)
     counts = read_counts(fa, fused_adamw)
@@ -2322,13 +2411,14 @@ def measure_rope_axial_gap(modules, vit, datasets, ViTConfig, device):
 
 
 def chunk_bound_ms(shape, rows, keys, valid_keys, dtype, kw):
-    """Least time for one chunk forward: q and out (rows), k and v (keys),
-    lse and the bias generator read or written once over the memory rate,
-    against the two products over the keys this run needs (the valid ones)
-    at the bf16 tensor-core peak."""
+    """Least time for one chunk forward kernel: q and out (rows, in the
+    input dtype), the prologue's bf16 k and v (keys), lse and the bias
+    generator read or written once over the memory rate, against the two
+    products over the keys this run needs (the valid ones) at the bf16
+    tensor-core peak."""
     b, h, _, d = shape
     elem = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (2 * rows + 2 * keys) * b * h * d * elem + b * h * rows * 4
+    nbytes = (2 * rows * elem + 2 * keys * 2) * b * h * d + b * h * rows * 4
     for key in ("poly", "rel"):
         if kw.get(key) is not None:
             gen = kw[key][0] if key == "poly" else kw[key]
@@ -2342,22 +2432,37 @@ def chunk_bound_ms(shape, rows, keys, valid_keys, dtype, kw):
 def time_chunk_kernel(fa, device):
     """Phase 15f: the chunk forward at the bounded step's shape at
     N=65,537 (the second q-chunk, 16,384 rows, against all 66,048 keys, f32)
-    in three regimes: the kernel by CUDA events, its twin, its bound, and
-    SDPA on the same rows against the 65,537 valid keys (no mask: the same
-    function) as the yardstick for the plain regime."""
+    in three regimes, and at the shape of most launches of the --q_chunk
+    2048 epoch (batch 4, the second q-chunk of 2,048 rows against the 4,608
+    keys of N=4,097, no bias): the wrapper by CUDA events, its kernel and
+    its prologue (the chunk's keys rounded once) by the profiler's device
+    time, its twin, its bound, and SDPA on the same rows against the valid
+    keys (no mask: the same function) as the yardstick for the plain
+    regime. Returns {label: the kernel's row (the wrapper as its group),
+    label + " prologue": the prologue's}."""
     import torch.nn.functional as F
 
     rows = {}
-    shape, r0, n_valid = (1, 4, 66048, 32), 16384, 65537
-    for regime in ("none", "poly", "rel"):
+    bounded = ((1, 4, 66048, 32), 16384, BOUNDED_Q_CHUNK, 65537)
+    for label, regime, (shape, r0, n_rows, n_valid) in (
+            ("none", "none", bounded), ("poly", "poly", bounded),
+            ("rel", "rel", bounded),
+            ("epoch none", "none", ((4, 4, 4608, 32), 2048, 2048, 4097))):
         q, k, v, kw, _ = stream_inputs(fa, regime, shape, torch.float32, 730,
                                        device)
         pe = {key: kw[key] for key in ("poly", "rel") if key in kw}
-        qc = q[:, :, r0:r0 + BOUNDED_Q_CHUNK]
+        qc = q[:, :, r0:r0 + n_rows]
         scale = 32 ** -0.5
-        ms = median_ms(lambda: fa.streaming_chunk_fwd(
-            qc, k, v, scale, r0, 0, n_valid, **pe), iters=5, reps=5,
-            warmup=2)
+
+        def chunk():
+            fa.streaming_chunk_fwd(qc, k, v, scale, r0, 0, n_valid, **pe)
+
+        wrapper_ms = median_ms(chunk, iters=5, reps=5, warmup=2)
+        by_name, _, _ = device_ms_by_kernel(
+            chunk, 8, ("attn_stream_fwd_kernel",
+                       "attn_stream_fwd_prologue_kernel"))
+        ms = by_name["attn_stream_fwd_kernel"]
+        prologue_ms = by_name["attn_stream_fwd_prologue_kernel"]
         plain_ms = median_ms(lambda: fa.attention_stream_plain(
             qc, k, v, scale, kv_tile=fa.STREAM_TILE, row0=r0,
             n_valid=n_valid, **pe), iters=1, reps=2, warmup=1)
@@ -2366,13 +2471,24 @@ def time_chunk_kernel(fa, device):
             kv, vv = k[:, :, :n_valid], v[:, :, :n_valid]
             library_ms = median_ms(lambda: F.scaled_dot_product_attention(
                 qc, kv, vv, scale=scale), iters=5, reps=5, warmup=2)
-        bound_ms, bound_by = chunk_bound_ms(shape, BOUNDED_Q_CHUNK, shape[2],
-                                            n_valid, torch.float32, pe)
-        rows[regime] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                            bound_ms=bound_ms, bound_by=bound_by)
-        log(f"  chunk fwd (1, 4, 16384 rows, 66048 keys, 32) f32 {regime:5s} "
-            f"kernel {ms:.4f} ms  twin {plain_ms:.4f} ms  bound "
-            f"{bound_ms:.4f} ms ({bound_by})  sdpa "
+        bound_ms, bound_by = chunk_bound_ms(shape, n_rows, shape[2], n_valid,
+                                            torch.float32, pe)
+        group = dict(group="streaming_chunk_fwd", group_ms=wrapper_ms,
+                     group_library_ms=library_ms)
+        rows[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by, **group)
+        # the prologue: k and v read once in f32, written once in bf16
+        pro_bound = 2 * k.numel() * (4 + 2) / HBM_BYTES_PER_S * 1e3
+        pro_plain = median_ms(lambda: fa.attention_stream_fwd_prologue_plain(
+            k, v), iters=5, reps=3, warmup=1)
+        rows[label + " prologue"] = dict(
+            ms=prologue_ms, plain_ms=pro_plain, library_ms=None,
+            bound_ms=pro_bound, bound_by="bytes", **group)
+        log(f"  chunk fwd ({shape[0]}, 4, {n_rows} rows, {shape[2]} keys, "
+            f"32) f32 {regime:5s} kernel {ms:.4f} ms  prologue "
+            f"{prologue_ms:.4f} ms (bound {pro_bound:.4f}, twin "
+            f"{pro_plain:.4f})  wrapper {wrapper_ms:.4f} ms  twin "
+            f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})  sdpa "
             + (f"{library_ms:.4f} ms" if library_ms is not None
                else "not measured (it would need a 17 GB mask)"))
         del q, k, v, kw, pe, qc
@@ -2666,7 +2782,8 @@ def check_flash_block_grads(vit, ViTConfig, fa, fused_adamw, device):
             grads[impl] = dict(zip(params, torch.autograd.grad(
                 loss, list(params.values()))))
             counts = read_counts(fa, fused_adamw)
-            if impl == "flash_block" and counts != expected:
+            if impl == "flash_block" and counts != with_fwd_prologue(
+                    expected):
                 raise AssertionError(f"{label}: flash_block launches {counts}"
                                      f" differ from {expected}")
         rel = {key: float((grads["flash_block"][key] - want).norm()
@@ -2748,15 +2865,16 @@ def check_repaired_shapes(fa, device):
         q, k, v, kw = poly_terms_inputs(fa, longseq, dtype, 610 + i, device,
                                         9)
         scale = longseq[-1] ** -0.5
-        out, lse = fa.attention_stream_fwd(q, k, v, scale, **kw)
-        torch.cuda.synchronize()
+        res = fwd_relaunch(fa, q, k, v, scale, kw)
+        out, lse = res.pop("outputs")
         want_out, want_lse = fa.attention_stream_plain(
             q, k, v, scale, kv_tile=fa.STREAM_TILE, **kw)
         lse_err = float((lse - want_lse).abs().max())
+        res.update({"out": share_err(out, want_out, STREAM_TOL[dtype]),
+                    "lse": (lse_err, lse_err <= LSE_TOL, lse_err)})
         report(f"attn_stream_fwd 9 terms (tol {STREAM_TOL[dtype]:g} of the "
-               f"largest, lse {LSE_TOL:g})", dtype,
-               {"out": share_err(out, want_out, STREAM_TOL[dtype]),
-                "lse": (lse_err, lse_err <= LSE_TOL, lse_err)})
+               f"largest, lse {LSE_TOL:g}; relaunched bit for bit)", dtype,
+               res)
         del want_out, want_lse
         g = torch.randn(longseq, generator=torch.Generator().manual_seed(
             620 + i)).to(device, dtype)
@@ -3103,7 +3221,8 @@ def main() -> int:
     # Launches: each slice's main path, through the train CLI for one epoch.
     # ViT-tiny/4 (rope-mixed) for the dense kernels and AdamW; the
     # long-sequence model (rope-mixed, N=4097, batch 4) for the streaming
-    # forward and the separate passes' prologue, dq and dk/dv kernels (the
+    # forward and its prologue (k and v rounded once per call) and the
+    # separate passes' prologue, dq and dk/dv kernels (the
     # prologue takes over the rotation and rounding that the JAX dq and
     # dk/dv kernels do in every tile); ViT-S/16@384 (relative, batch 16, depth
     # 3) for dbias (the dq kernel's dbias instance and the sum over its 16
@@ -3141,7 +3260,11 @@ def main() -> int:
                     launches["adamw"], adamw_err, adamw),
         kernel_line("attn_stream_fwd", csrc + "attn_stream_fwd.cu",
                     jax_fa + ":873", stream_launches["attn_stream_fwd"],
-                    stream_err["fwd"], t_long["fwd"]),
+                    stream_err["fwd"], t_long["fwd_kernel"]),
+        kernel_line("attn_stream_fwd_prologue", csrc + "attn_stream_fwd.cu",
+                    jax_fa + ":918",
+                    stream_launches["attn_stream_fwd_prologue"],
+                    stream_err["fwd_prologue"], t_long["fwd_prologue"]),
         kernel_line("attn_stream_bwd_dq", csrc + "attn_stream_bwd.cu",
                     jax_fa + ":1275", stream_launches["attn_stream_bwd_dq"],
                     stream_err["dq"], t_long["dq"]),

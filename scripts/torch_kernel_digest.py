@@ -8,11 +8,16 @@ rope-mixed and with a relative bias, the streaming
 forward, the separate-pass backward with the dcoeff / dtable kernels and,
 at ViT-S/16@384's training shape (16, 6, 577, 64) and at (8, 6, 2048, 64),
 with a materialized bias and dbias, and at (4, 4, 4097, 32) with
-rope-mixed's per-head tables and dqr / dkr, the one-pass backward, the chunk forward at offsets, three AdamW
-steps over the ViT-S/16 and the ViT-tiny/4 params) and writes the sha256 of
-every output tensor's bytes to a JSON file. `--root` names the tree whose
-`vit_rpe_rope_tpu_torch` is imported, so a parent commit unpacked under a
-git-ignored directory can be run beside the working tree:
+rope-mixed's per-head tables and dqr / dkr, the one-pass backward, the
+chunk forward at offsets and at the bounded train step's shape (16,384 rows
+against 66,048 keys), three AdamW steps over the ViT-S/16 and the ViT-tiny/4
+params) and writes the sha256 of every output tensor's bytes to a JSON
+file. The backward cases take out and lse from the forward's plain twin (at
+the kernels' key tile), not from the forward kernel, so that a change to the
+forward kernel changes the `stream_fwd/*` and `chunk_fwd/*` digests only.
+`--root` names the tree whose `vit_rpe_rope_tpu_torch` is imported, so a
+parent commit unpacked under a git-ignored directory can be run beside the
+working tree:
 
   python scripts/torch_kernel_digest.py --root build/parent --out a.json
   python scripts/torch_kernel_digest.py --root . --out b.json
@@ -22,10 +27,15 @@ git-ignored directory can be run beside the working tree:
 --time also records each call's time on the card (CUDA events, the mean of
 20 launches after 3 warm-up launches; `stream_dq_dkv` times the separate
 passes' dq and dk/dv kernels alone; `adamw` the AdamW wrapper, host work
-included) and, for the dense kernels at those two shapes and the
-separate-pass backward at its three shapes, each kernel's device time
-(torch.profiler, the mean over 20 calls), so that two trees can be timed
-in turns in one process each on one card:
+included; `sdpa_fwd/*` PyTorch's scaled_dot_product_attention on the same
+inputs as the streaming forward or chunk case of the same name, as a
+yardstick, with no digest; beside each, the host's time to issue one call,
+by its clock over the same 20 calls) and, for the dense kernels at those
+two shapes, the streaming forward at (16, 6, 577, 64) and (8, 6, 2048, 64)
+with a bias and at (4, 4, 4097, 32) rope-mixed, the chunk forward at the
+bounded step's shape and the separate-pass backward at its three shapes,
+each kernel's device time (torch.profiler, the mean over 20 calls), so
+that two trees can be timed in turns in one process each on one card:
 
   for tree in build/parent . . build/parent; do
     python scripts/torch_kernel_digest.py --root $tree --out d.json --time
@@ -39,6 +49,7 @@ import hashlib
 import json
 import os
 import sys
+import time
 
 
 def _digest(t):
@@ -66,6 +77,7 @@ def run(root, out_path, timed):
     digests = {}
 
     times = {}
+    host_times = {}
     kernel_times = {}
 
     def record_kernels(name, call):
@@ -105,8 +117,10 @@ def run(root, out_path, timed):
             start, end = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
             start.record()
+            t0 = time.perf_counter()
             for _ in range(20):
                 call()
+            host_times[name] = (time.perf_counter() - t0) * 1e3 / 20
             end.record()
             torch.cuda.synchronize()
             times[name] = start.elapsed_time(end) / 20
@@ -132,6 +146,34 @@ def run(root, out_path, timed):
                                         h, n, dev)
             return {"cos": cos, "sin": sin}
         return {}
+
+    def twin_fwd(q, k, v, scale, **kw):
+        """out and lse of the streaming forward's plain twin at the kernels'
+        key tile: the backward cases' inputs, the same in every tree."""
+        return fa.attention_stream_plain(q, k, v, scale,
+                                         kv_tile=fa.STREAM_TILE, **kw)
+
+    def sdpa(q, k, v, scale, bias=None, cos=None, sin=None):
+        """A call of PyTorch's SDPA on the streaming case's inputs (q and k
+        rotated first, the bias as its mask)."""
+        import torch.nn.functional as F
+
+        if cos is not None:
+            q = fa._rotate(q, cos[None], sin[None])
+            k = fa._rotate(k, cos[None], sin[None])
+        mask = None if bias is None else bias[None]
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                      scale=scale)
+
+    def stream_fwd_case(name, q, k, v, scale, **kw):
+        """The streaming forward's digests, its time and its kernels'
+        device times, beside SDPA's time."""
+        def fwd():
+            return fa.attention_stream_fwd(q, k, v, scale, **kw)
+
+        record(f"stream_fwd/{name}", fwd(), fwd)
+        record_kernels(f"stream_fwd/{name}", fwd)
+        record(f"sdpa_fwd/{name}", (), sdpa(q, k, v, scale, **kw))
 
     # dense forward and backward at ViT-S/16 (N=197, D=64), rope-mixed
     q, k, v, g = qkv((4, 6, 197, 64), 0)
@@ -186,9 +228,10 @@ def run(root, out_path, timed):
             kw = pe_args(regime, h, n, d, 3)
             name = f"{regime}@{n}x{d}"
             scale = d ** -0.5
-            out, lse = fa.attention_stream_fwd(q, k, v, scale, **kw)
-            record(f"stream_fwd/{name}", [out, lse],
-                   lambda: fa.attention_stream_fwd(q, k, v, scale, **kw))
+            record(f"stream_fwd/{name}", fa.attention_stream_fwd(
+                q, k, v, scale, **kw),
+                lambda: fa.attention_stream_fwd(q, k, v, scale, **kw))
+            out, lse = twin_fwd(q, k, v, scale, **kw)
             dparam = "poly" in kw or "rel" in kw
             record(f"stream_bwd/{name}", fa.attention_stream_bwd(
                 q, k, v, out, g, lse, scale, want_dparam=dparam, **kw))
@@ -211,7 +254,8 @@ def run(root, out_path, timed):
         q, k, v, g = qkv(shape, 4)
         bias = fa._dense_bias(6, n, dev, rel=pe_args("rel", 6, n, 64, 5)[
             "rel"])
-        out, lse = fa.attention_stream_fwd(q, k, v, 0.125, bias=bias)
+        stream_fwd_case(f"bias@{n}x64", q, k, v, 0.125, bias=bias)
+        out, lse = twin_fwd(q, k, v, 0.125, bias=bias)
 
         def dbias_bwd():
             return fa.attention_stream_bwd(q, k, v, out, g, lse, 0.125,
@@ -228,7 +272,9 @@ def run(root, out_path, timed):
     phase = 6.0 * torch.rand((4, 4096, 16), generator=gen)
     cos, sin = fa._kernel_freqs((torch.cos(phase), torch.sin(phase)), 4,
                                 4097, dev)
-    out, lse = fa.attention_stream_fwd(q, k, v, 32 ** -0.5, cos=cos, sin=sin)
+    stream_fwd_case("rope-mixed@4097x32", q, k, v, 32 ** -0.5, cos=cos,
+                    sin=sin)
+    out, lse = twin_fwd(q, k, v, 32 ** -0.5, cos=cos, sin=sin)
 
     def drot_bwd():
         return fa.attention_stream_bwd(q, k, v, out, g, lse, 32 ** -0.5,
@@ -237,6 +283,19 @@ def run(root, out_path, timed):
     record("stream_bwd_drot/rope-mixed@4097x32", drot_bwd()[:6], drot_bwd)
     record_kernels("stream_bwd_drot/rope-mixed@4097x32", drot_bwd)
     del q, k, v, g, out, lse
+    # the chunk forward at the bounded train step's shape at N = 65,537: the
+    # second q-chunk of 16,384 rows against all 66,048 keys, 65,537 valid
+    q, k, v, _ = qkv((1, 4, 66048, 32), 12)
+    qc, n_valid = q[:, :, 16384:32768], 65537
+
+    def chunk():
+        return fa.streaming_chunk_fwd(qc, k, v, 32 ** -0.5, 16384, 0, n_valid)
+
+    record("chunk_fwd/none@16384x66048x32", chunk(), chunk)
+    record_kernels("chunk_fwd/none@16384x66048x32", chunk)
+    record("sdpa_fwd/none@16384x66048x32", (), sdpa(
+        qc, k[:, :, :n_valid], v[:, :, :n_valid], 32 ** -0.5))
+    del q, k, v, qc
     # three AdamW steps over the ViT-S/16 params (21,580,426) and the
     # ViT-tiny/4 CIFAR params (the train CLI's default), then the wrapper's
     # time on the same lists
@@ -264,10 +323,12 @@ def run(root, out_path, timed):
     with open(out_path, "w") as f:
         json.dump({"device": torch.cuda.get_device_name(0),
                    "digests": digests, "ms": times,
-                   "kernel_ms": kernel_times}, f, indent=1, sort_keys=True)
+                   "host_ms": host_times, "kernel_ms": kernel_times}, f,
+                  indent=1, sort_keys=True)
     print(f"{len(digests)} digests -> {out_path}")
     for name, ms in times.items():
-        print(f"{root}  {name}  {ms:.4f} ms")
+        print(f"{root}  {name}  {ms:.4f} ms  (host {host_times[name]:.4f} "
+              f"ms)")
     for name, by_kernel in kernel_times.items():
         for kernel, ms in sorted(by_kernel.items()):
             print(f"{root}  {name}  kernel {kernel}  {ms:.4f} ms")

@@ -18,7 +18,10 @@ Tolerances (as tests/test_torch_attention_stream.py, for the same reasons):
 * twin with float32 products vs the JAX kernel with float32 products: 1e-5;
 * rows of a chunk against the rows of the whole-sequence twin, and chunk
   partials merged against the whole key set: 1e-5 (float32 sums in another
-  order).
+  order);
+* the chunk twin on the forward prologue's operands (the chunk's keys and
+  values rounded to bf16 once) against the twin on the raw operands: bit
+  for bit (bf16 of a bf16 value is itself), and against the JAX function.
 Padded query rows (at or beyond N_VALID) are held to being finite only: with
 the relative bias their index leaves the table, and the port clamps it where
 the JAX kernel wraps it; those rows never reach a loss.
@@ -172,6 +175,38 @@ def test_chunk_partials_merge_to_the_whole_key_set(regime):
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("case", ["rows_cols", "padded"])
+@pytest.mark.parametrize("regime", ["none", "poly", "rel"])
+def test_chunk_on_the_prologue_operands_is_the_chunk(regime, case):
+    """The chunk's keys and values as the forward's prologue rounds them
+    once per call (no tables on a chunk: rounding only, zero rows past the
+    chunk) give the chunk twin's result bit for bit, and the JAX
+    function's."""
+    (r0, r1), (c0, c1) = CASES[case]
+    q, k, v, extra = inputs(regime, seed=7)
+    q, k, v = (torch.from_numpy(x) for x in (q[:, :, r0:r1], k[:, :, c0:c1],
+                                              v[:, :, c0:c1]))
+    ops = tfa.attention_stream_fwd_prologue(k, v)
+    nc = c1 - c0
+    assert ops.shape == (2, 2, 3, tfa.stream_fwd_rows(nc), 16)
+    assert not ops[:, :, :, nc:].any()
+    assert torch.equal(ops[0, :, :, :nc], k.to(torch.bfloat16))
+    assert torch.equal(ops[1, :, :, :nc], v.to(torch.bfloat16))
+    kw = dict(kv_tile=KV_TILE, row0=r0, col0=c0, n_valid=N_VALID,
+              **torch_kw(extra))
+    got = tfa.attention_stream_plain(q, ops[0, :, :, :nc].float(),
+                                     ops[1, :, :, :nc].float(), 0.25, **kw)
+    want = tfa.attention_stream_plain(q, k, v, 0.25, **kw)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    jax_out, jax_lse = jfa.streaming_chunk_fwd(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v)), 0.25, r0, c0, N_VALID,
+        interpret=True, kv_tile=KV_TILE, **jax_kw(extra))
+    valid = max(0, min(r1, N_VALID) - r0)
+    check(got[0].numpy(), got[1].numpy(), np.asarray(jax_out),
+          np.asarray(jax_lse), valid, TOL["float32"])
+
+
 def test_chunk_wrapper_on_cpu_is_the_twin_at_the_jax_tile():
     """On CPU tensors the wrapper is the twin at the JAX package's key tile
     for the chunk, min(512, Nc rounded up to 128), launches nothing, and
@@ -182,12 +217,13 @@ def test_chunk_wrapper_on_cpu_is_the_twin_at_the_jax_tile():
     rows = slice(128, 384)
     out = torch.zeros((2, N_PAD, 3, 16)).transpose(1, 2)
     lse = torch.zeros((2, 3, N_PAD))
-    before = tfa.LAUNCHES_STREAM_CHUNK_FWD
+    before = (tfa.LAUNCHES_STREAM_CHUNK_FWD, tfa.LAUNCHES_STREAM_FWD_PROLOGUE)
     got = tfa.streaming_chunk_fwd(q[:, :, rows], k[:, :, 37:337],
                                   v[:, :, 37:337], 0.25, 128, 37, N_VALID,
                                   out=out[:, :, rows], lse=lse[:, :, rows],
                                   **kw)
-    assert tfa.LAUNCHES_STREAM_CHUNK_FWD == before
+    assert (tfa.LAUNCHES_STREAM_CHUNK_FWD,
+            tfa.LAUNCHES_STREAM_FWD_PROLOGUE) == before
     want = tfa.attention_stream_plain(
         q[:, :, rows], k[:, :, 37:337], v[:, :, 37:337], 0.25,
         kv_tile=min(jfa.KV_TILE, 384), row0=128, col0=37, n_valid=N_VALID,

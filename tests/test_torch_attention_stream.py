@@ -11,7 +11,10 @@ Tolerances:
   rounding boundary can round the other way after a last-ulp difference in
   exp()), lse 1e-4 (float32 sums in another order);
 * bf16 inputs: out 1e-2, one bf16 ulp at |x| < 2 plus boundary flips;
-* twin (f32 products) vs JAX flash_attention_hp: 1e-5.
+* twin (f32 products) vs JAX flash_attention_hp: 1e-5;
+* the forward's prologue twin (keys and values rounded once) vs the JAX
+  package's rotation rounded to bf16: bit for bit, and the twin on its
+  operands vs the JAX kernel as above.
 """
 
 import jax.numpy as jnp
@@ -134,9 +137,11 @@ def test_stream_wrapper_on_cpu_is_the_twin_at_the_jax_tile():
     q, k, v, extra = stream_inputs("rel", shape, seed=4)
     args = [torch.from_numpy(x) for x in (q, k, v)]
     kw = twin_pe(q, extra)
-    before = tfa.LAUNCHES_STREAM_FWD
+    before = (tfa.LAUNCHES_STREAM_FWD, tfa.LAUNCHES_STREAM_FWD_PROLOGUE)
     got = tfa.attention_stream_fwd(*args, 0.25, **kw)
-    assert tfa.LAUNCHES_STREAM_FWD == before  # CPU tensors never launch
+    # CPU tensors never launch, the prologue included
+    assert (tfa.LAUNCHES_STREAM_FWD,
+            tfa.LAUNCHES_STREAM_FWD_PROLOGUE) == before
     want = tfa.attention_stream_plain(*args, 0.25, kv_tile=jfa.KV_TILE, **kw)
     assert tfa.KV_TILE == jfa.KV_TILE
     for x, y in zip(got, want):
@@ -167,3 +172,81 @@ def test_short_relative_table_is_refused(direction):
                                     jnp.zeros((1, 2, 40, 16)), 0.25, None,
                                     None, True, q_tile=64, kv_tile=64,
                                     rel=jnp.zeros((2, 59)))
+
+
+@pytest.mark.parametrize("regime", ["none", "rope-axial", "rope-mixed"])
+@pytest.mark.parametrize("n", [17, 290])
+def test_fwd_prologue_twin_rounds_the_jax_keys_once(regime, n):
+    """The forward's key operands as the JAX kernel forms them in every
+    tile (`_rotate_bh` of k in float32 over `_prep_freqs`' tables, then
+    bf16; bf16 v), once, in rows padded with zeros to stream_fwd_rows(N);
+    and the twin given those operands (k and v already rounded, no tables
+    for k: q rotated alike) is the JAX kernel's forward."""
+    shape = (2, 3, n, 16)
+    q, k, v, extra = stream_inputs(regime, shape, seed=40)
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+    kw = twin_pe(args[0], extra)
+    before = tfa.LAUNCHES_STREAM_FWD_PROLOGUE
+    ops = tfa.attention_stream_fwd_prologue(args[1], args[2], kw["cos"],
+                                            kw["sin"])
+    assert tfa.LAUNCHES_STREAM_FWD_PROLOGUE == before  # the twin on the CPU
+    assert ops.shape == (2, 2, 3, tfa.stream_fwd_rows(n), 16)
+    assert ops.dtype == torch.bfloat16 and not ops[:, :, :, n:].any()
+    _, freqs, _ = jax_pe(extra)
+    jq, jk = jnp.asarray(q), jnp.asarray(k)
+    if freqs is not None:
+        cos, sin = jfa._prep_freqs(freqs, 3, n, jnp.float32)
+        jq, jk = jfa._rotate_bh(jq, cos, sin), jfa._rotate_bh(jk, cos, sin)
+    for got, want in zip(ops[:, :, :, :n], (jk, v)):
+        want = torch.from_numpy(np.array(
+            jnp.asarray(want).astype(jnp.bfloat16).astype(jnp.float32)))
+        assert torch.equal(got.float(), want)
+    want, want_lse = jax_stream(q, k, v, extra, (64, 64))
+    qr = torch.from_numpy(np.array(jq))
+    got, lse = tfa.attention_stream_plain(
+        qr, ops[0, :, :, :n].float(), ops[1, :, :, :n].float(), 0.25,
+        kv_tile=64)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("nk,rows", [(1, 64), (17, 64), (64, 64), (65, 128),
+                                     (577, 640), (4097, 4160),
+                                     (66048, 66048)])
+def test_fwd_prologue_rows(nk, rows):
+    """The forward's scratch rows cover the whole 64-key tiles its loop
+    reads (the kernel's last tile ends at NK rounded up to 16, within
+    them), never a tile more."""
+    assert tfa.stream_fwd_rows(nk) == rows
+    assert rows % tfa.STREAM_TILE == 0 and 0 <= rows - nk < tfa.STREAM_TILE
+    assert tfa._round_up(nk, 16) <= rows
+
+
+@pytest.mark.parametrize("n,offset", [(5, 0), (8, 0), (17, 0), (64, 0),
+                                      (64, 1)])
+def test_pitched_bias_lays_rows_at_the_kernels_pitch(n, offset):
+    """The streaming kernels' bias layout: the same values at rows
+    dbias_pitch(N) floats apart, copied once where the bias does not lie so
+    (a ragged N, or a view off the 16-byte grid) and passed through as
+    itself where it does; the twin reads the view as the contiguous bias,
+    bit for bit, and both as the JAX kernel."""
+    rng = np.random.default_rng(n)
+    whole = torch.from_numpy(
+        rng.standard_normal((3, n, n + offset)).astype(np.float32))
+    bias = whole[:, :, offset:]
+    got = tfa.pitched_bias(bias)
+    pitch = tfa.dbias_pitch(n)
+    assert got.shape == bias.shape and torch.equal(got, bias)
+    assert got.stride() == (n * pitch, pitch, 1)
+    assert tfa._is_pitched(got) and tfa.pitched_bias(got) is got
+    assert (got is bias) == (n % 4 == 0 and offset == 0)
+    q, k, v, _ = stream_inputs("none", (1, 3, n, 16), seed=n)
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+    want = tfa.attention_stream_plain(*args, 0.25, bias.contiguous(),
+                                      kv_tile=64)
+    for x, y in zip(tfa.attention_stream_plain(*args, 0.25, got, kv_tile=64),
+                    want):
+        assert torch.equal(x, y)
+    jax_out, jax_lse = jax_stream(q, k, v, {"bias": bias.numpy()}, (64, 64))
+    np.testing.assert_allclose(want[0].numpy(), jax_out, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(want[1].numpy(), jax_lse, rtol=1e-4, atol=1e-4)

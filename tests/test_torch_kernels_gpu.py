@@ -36,7 +36,13 @@ forward's numbers, the separate passes' prologue (the operands rounded once)
 to its twin bit for bit and delta to 1e-5 of its largest entry, and the
 separate passes at ragged N in every regime, dtype and built head dim, every
 call launched twice and compared bit for bit, and at (r0, 0) against every key to the whole-sequence
-forward's rows bit for bit. The dense kernels take two routes, chosen by
+forward's rows bit for bit. The streaming forward (its prologue rounds k and
+v once; rows 3 and 4) is held to its twin at the same ragged N, regimes,
+dtypes and head dims (and D = 48 through fa.HeadPad), every call launched
+twice and compared bit for bit; its prologue to its twin and to the separate
+passes' kf bit for bit; the chunk entry at ragged offsets into strided out /
+lse views; and the chunk on q, k rotated in PyTorch to the whole-sequence
+forward, bit for bit. The dense kernels take two routes, chosen by
 fa.dense_resident: resident (one CTA per batch and head) and wide; each is
 held to the same twins at N around the resident buckets and past them, every
 call launched twice and compared bit for bit, with dbias over a lowered slab
@@ -1029,18 +1035,23 @@ def separate_counts():
             fa.LAUNCHES_STREAM_DKV, fa.LAUNCHES_STREAM_DBIAS)
 
 
+def separate_inputs(regime, shape, dtype, device, seed):
+    """q, k, v and the streaming wrappers' PE keyword arguments for one of
+    SEPARATE_REGIMES ("poly9": ten polynomial terms, no rope tables)."""
+    if regime == "poly9":
+        q, k, v, poly = high_degree_inputs(9, shape, device, seed)
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        return q, k, v, {"poly": poly, "cos": None, "sin": None}
+    return stream_inputs(regime, shape, dtype, device, seed)
+
+
 def run_separate_passes(regime, shape, dtype, device, seed=0,
                         dbias_budget=None):
     """The separate-pass backward (with dbias for a materialized bias and
     dqr / dkr for rope-mixed) launched twice, bit-identical, with exact
     launch counts, against the twin at the kernels' key tile; returns the
     kernels' outputs."""
-    if regime == "poly9":
-        q, k, v, poly = high_degree_inputs(9, shape, device, seed)
-        q, k, v = (t.to(dtype) for t in (q, k, v))
-        kw = {"poly": poly, "cos": None, "sin": None}
-    else:
-        q, k, v, kw = stream_inputs(regime, shape, dtype, device, seed)
+    q, k, v, kw = separate_inputs(regime, shape, dtype, device, seed)
     scale = shape[-1] ** -0.5
     out, lse = fa.attention_stream_fwd(q, k, v, scale, **kw)
     g = torch.randn(shape, generator=torch.Generator().manual_seed(seed + 11))
@@ -1131,6 +1142,199 @@ def test_prologue_matches_its_twin(cuda, n, d, dtype, regime):
     assert ops.shape == (4, b, h, fa.stream_bwd_rows(n), d)
     assert torch.equal(ops, want_ops)
     close_to_largest(delta, want_delta, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The streaming forward (rows 3 and 4): its prologue, the whole sequence,
+# the chunk
+# ---------------------------------------------------------------------------
+
+def fwd_counts():
+    return (fa.LAUNCHES_STREAM_FWD_PROLOGUE, fa.LAUNCHES_STREAM_FWD,
+            fa.LAUNCHES_STREAM_CHUNK_FWD)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", fa.HEAD_DIMS + (48,))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("regime", SEPARATE_REGIMES)
+@pytest.mark.parametrize("n", SEPARATE_NS)
+def test_stream_fwd_matches_twin_at_ragged_n(cuda, n, regime, dtype, d):
+    """The whole-sequence forward in every regime (a materialized bias,
+    generated polynomial biases of 4 and 10 terms, the relative table,
+    rope-axial, rope-mixed), both dtypes, every built head dim and D = 48
+    through fa.HeadPad, at lengths ragged against the 16-key blocks, 64-key
+    tiles and 128-row CTAs: launched twice, bit-identical, one prologue
+    before each launch; against the twin at the kernels' key tile; at a
+    built head dim the prologue's operands bit for bit against its twin."""
+    shape = (2 if n <= 1100 else 1, 2, n, d)
+    q, k, v, kw = separate_inputs(regime, shape, dtype, cuda, seed=n + d + 1)
+    scale = d ** -0.5
+    counts = fwd_counts()
+    (out, lse), (again, again_lse) = [
+        fa.attention_stream_fwd(q, k, v, scale, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert fwd_counts() == (counts[0] + 2, counts[1] + 2, counts[2])
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+    assert out.dtype == dtype and out.shape == q.shape
+    want, want_lse = fa.attention_stream_plain(q, k, v, scale,
+                                               kv_tile=fa.STREAM_TILE, **kw)
+    torch.testing.assert_close(out.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    if d in fa.HEAD_DIMS:
+        ops = fa.attention_stream_fwd_prologue(k, v, kw["cos"], kw["sin"])
+        assert ops.shape == (2,) + shape[:2] + (fa.stream_fwd_rows(n), d)
+        assert torch.equal(ops, fa.attention_stream_fwd_prologue_plain(
+            k, v, kw["cos"], kw["sin"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime", ["none", "rope-axial", "rope-mixed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(17, 16), (577, 64), (1100, 128),
+                                 (4097, 32)])
+def test_fwd_prologue_is_the_separate_passes_kf(cuda, n, d, dtype, regime):
+    """The forward's prologue on strided views of one qkv buffer (as the
+    models hand k and v over) writes the separate passes' kf and bf16 v bit
+    for bit, zero rows past N; one launch each."""
+    b, h = 2, 2
+    _, _, _, kw = stream_inputs(regime, (b, h, n, d), dtype, cuda, seed=n)
+    gen = torch.Generator().manual_seed(d)
+    qkv = torch.randn(b, n, 3, h, d, generator=gen).to(cuda, dtype)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    out, g = (torch.randn(b, h, n, d, generator=gen).to(cuda, dtype)
+              for _ in range(2))
+    counts = fwd_counts()
+    ops = fa.attention_stream_fwd_prologue(k, v, kw["cos"], kw["sin"])
+    bwd_ops, _ = fa.attention_stream_bwd_prologue(q, k, v, out, g, kw["cos"],
+                                                  kw["sin"])
+    torch.cuda.synchronize()
+    assert fwd_counts() == (counts[0] + 1,) + counts[1:]
+    assert not ops[:, :, :, n:].any()
+    assert torch.equal(ops[:, :, :, :n], bwd_ops[1:3, :, :, :n])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [577, 300])
+def test_streaming_function_pads_the_bias_once(cuda, n, monkeypatch):
+    """StreamingAttentionFunction copies a bias whose rows are not whole
+    16-byte pieces once, in its forward, and its backward reads that copy;
+    out and every gradient equal the wrappers' on the contiguous bias, bit
+    for bit."""
+    copies = []
+    pitched = fa.pitched_bias
+
+    def counting(bias):
+        got = pitched(bias)
+        if got is not bias:
+            copies.append(tuple(got.shape))
+        return got
+
+    monkeypatch.setattr(fa, "pitched_bias", counting)
+    shape = (2, 6, n, 64)
+    q, k, v, kw = stream_inputs("bias", shape, torch.float32, cuda, seed=n)
+    bias = kw["bias"]
+    leaves = [t.requires_grad_() for t in (q, k, v, bias)]
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(6))
+    g = g.to(cuda)
+    out = fa.StreamingAttentionFunction.apply(q, k, v, bias, None, None, None,
+                                              None, 0, 0.125)
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert copies == ([(6, n, n)] if n % 4 else [])
+    q, k, v, bias = (t.detach() for t in leaves)
+    want, lse = fa.attention_stream_fwd(q, k, v, 0.125, bias)
+    assert torch.equal(out, want)
+    want = fa.attention_stream_bwd(q, k, v, want, g, lse, 0.125, bias,
+                                   want_dbias=True)
+    for x, y in zip(got, want[:4]):
+        assert torch.equal(x, y)
+
+
+# Chunk geometries: (query rows, keys) as global [start, end) of a sequence
+# padded to 1536 rows, and the valid tokens. "inner": rows past n_valid and
+# keys past it (the chunk's valid keys fewer than its keys, in a ragged last
+# tile); "first": the first rows against the first keys, all valid; "tail":
+# the last rows against a key chunk with 12 valid keys of 448.
+CHUNK_GEOMETRIES = {"inner": ((512, 1536), (300, 1333), 1100),
+                    "first": ((0, 200), (0, 577), 577),
+                    "tail": ((1024, 1536), (1088, 1536), 1100)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("regime", ["none", "poly", "poly9", "rel"])
+@pytest.mark.parametrize("geometry", list(CHUNK_GEOMETRIES))
+def test_chunk_fwd_matches_twin_at_ragged_offsets(cuda, geometry, regime,
+                                                 dtype, d):
+    """The chunk entry at global offsets, from strided views into the rows
+    of longer out / lse buffers and again into fresh ones, bit-identical,
+    one prologue before each launch; against the twin at the kernels' key
+    tile, every row (the padded ones too: kernel and twin clamp the
+    relative index alike)."""
+    (r0, r1), (c0, c1), n_valid = CHUNK_GEOMETRIES[geometry]
+    q, k, v, kw = separate_inputs(regime, (2, 4, 1536, d), dtype, cuda,
+                                  seed=r0 + c0 + d)
+    pe = {key: kw[key] for key in ("poly", "rel") if key in kw}
+    args = (q[:, :, r0:r1], k[:, :, c0:c1], v[:, :, c0:c1], d ** -0.5, r0,
+            c0, n_valid)
+    out = torch.zeros((2, 1536, 4, d), dtype=dtype, device=cuda)
+    out = out.transpose(1, 2)
+    lse = torch.zeros((2, 4, 1536), device=cuda)
+    counts = fwd_counts()
+    got, got_lse = fa.streaming_chunk_fwd(*args, out=out[:, :, r0:r1],
+                                          lse=lse[:, :, r0:r1], **pe)
+    fresh, fresh_lse = fa.streaming_chunk_fwd(*args, **pe)
+    torch.cuda.synchronize()
+    assert fwd_counts() == (counts[0] + 2, counts[1], counts[2] + 2)
+    assert got.data_ptr() == out[:, :, r0:].data_ptr()
+    assert torch.equal(fresh, got) and torch.equal(fresh_lse, got_lse)
+    assert not out[:, :, :r0].any() and not out[:, :, r1:].any()
+    want, want_lse = fa.attention_stream_plain(
+        *args[:4], kv_tile=fa.STREAM_TILE, row0=r0, col0=c0, n_valid=n_valid,
+        **pe)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    torch.testing.assert_close(got_lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_fwd_writes_through_an_unaligned_out_view(cuda, dtype):
+    """An out view whose rows the kernel's 16-byte stores cannot reach (a
+    row pitch of D + 2 elements) is written through a copy: the same bits
+    as into a fresh tensor, the pad columns untouched."""
+    q, k, v, pe = chunk_inputs("rel", dtype, cuda, 9)
+    args = (q[:, :, 512:], k[:, :, 300:1333], v[:, :, 300:1333], 32 ** -0.5,
+            512, 300, 1100)
+    buf = torch.full((2, 4, 1024, 34), 7.0, dtype=dtype, device=cuda)
+    got, lse = fa.streaming_chunk_fwd(*args, out=buf[..., :32], **pe)
+    want, want_lse = fa.streaming_chunk_fwd(*args, **pe)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == buf.data_ptr()
+    assert torch.equal(got, want) and torch.equal(lse, want_lse)
+    assert bool((buf[..., 32:] == 7.0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("n", [577, 1100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("regime", ["rope-axial", "rope-mixed"])
+def test_chunk_fwd_on_rotated_qk_is_the_stream_fwd(cuda, regime, dtype, n, d):
+    """q and k rotated in PyTorch (float32, op by op, as train/bounded.py
+    rotates them) and rounded to the input dtype, then the chunk entry
+    against every key, give the whole-sequence forward that rotates in its
+    kernel and prologue, bit for bit."""
+    q, k, v, kw = stream_inputs(regime, (2, 4, n, d), dtype, cuda, seed=n + d)
+    cos, sin = kw["cos"][None], kw["sin"][None]
+    whole, whole_lse = fa.attention_stream_fwd(q, k, v, d ** -0.5, **kw)
+    rq, rk = (fa._rotate(x.float(), cos, sin).to(dtype) for x in (q, k))
+    got, lse = fa.streaming_chunk_fwd(rq, rk, v, d ** -0.5, 0, 0, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, whole) and torch.equal(lse, whole_lse)
 
 
 # ---------------------------------------------------------------------------

@@ -57,16 +57,14 @@ struct BiasArgs {
 
 // One head's bias, resolved once per CTA.
 struct HeadBias {
-  const float* bias_h;
   const float* table_h;
   float c[REG_POLY_TERMS];
   const float* c_more;  // the head's coefficients from REG_POLY_TERMS on
   int terms, grid, ell, row0, col0, n_valid;
 };
 
-__device__ __forceinline__ HeadBias head_bias(const BiasArgs& a, int h, int n_tokens) {
+__device__ __forceinline__ HeadBias head_bias(const BiasArgs& a, int h) {
   HeadBias hb;
-  hb.bias_h = a.bias != nullptr ? a.bias + (long long)h * n_tokens * n_tokens : nullptr;
   hb.table_h = a.table != nullptr ? a.table + (long long)h * (2 * a.rel_ell - 1) : nullptr;
   hb.terms = a.coeff != nullptr ? a.poly_terms : 0;
 #pragma unroll
@@ -139,49 +137,33 @@ __device__ __forceinline__ float rel_bias(const HeadBias& hb, int row, int col) 
   return hb.table_h[min(max(row - col + hb.ell - 1, 0), 2 * hb.ell - 2)];
 }
 
-// Scaled, biased, masked logit of local query row qi against local key kj.
-// The polynomial bias is zero on the cls row and column and at padded
-// indices. Both generated biases act on global indices (row0 + qi, col0 + kj).
-template <bool MORE = false>
-__device__ __forceinline__ float stream_logit(float acc, int qi, int kj, int n_tokens,
-                                              float scale, const HeadBias& hb) {
-  const int row = hb.row0 + qi, col = hb.col0 + kj;
-  if (kj >= n_tokens || col >= hb.n_valid) return NEG_INF;
-  float s = __fmul_rn(acc, scale);
-  if (hb.bias_h != nullptr) {
-    if (qi < n_tokens) s = __fadd_rn(s, hb.bias_h[(long long)qi * n_tokens + kj]);
-  } else if (hb.terms > 0) {
-    float dist;
-    if (row > 0 && col > 0 && row < hb.n_valid)
-      s = __fadd_rn(s, poly_bias<MORE>(hb, patch_of(row, hb.grid), patch_of(col, hb.grid), dist));
-  } else if (hb.table_h != nullptr) {
-    s = __fadd_rn(s, rel_bias(hb, row, col));
-  }
-  return s;
-}
-
-// Which bias a kernel of attn_stream_bwd_fused.cu or attn_stream_bwd.cu is
-// compiled for: PE_POLY_MORE is the polynomial with more than
-// REG_POLY_TERMS terms, PE_BIAS a materialized [H, N, N] bias (the
-// separate passes only).
+// Which bias a kernel of attn_stream_fwd.cu, attn_stream_bwd.cu or
+// attn_stream_bwd_fused.cu is compiled for: PE_POLY_MORE is the polynomial
+// with more than REG_POLY_TERMS terms, PE_BIAS a materialized [H, N, N]
+// bias (not the one-pass backward).
 enum Pe { PE_NONE, PE_POLY, PE_REL, PE_POLY_MORE, PE_BIAS };
 
-// stream_logit for a key chunk of its own length (n_k keys, already cut to
-// the chunk's valid width) and no materialized bias. Also says whether the
+// Scaled, biased, masked logit of local query row qi against local key kj
+// of a key chunk of its own length (n_k keys, already cut to the chunk's
+// valid width), with no materialized bias. The polynomial bias is zero on
+// the cls row and column and at padded indices; both generated biases act
+// on global indices (row0 + qi, col0 + kj). Also says whether the
 // element counts towards the bias parameters' gradient (`counts`: a patch
 // token against a patch token for the polynomial, a valid row against a
 // valid key for the table) and, for the polynomial, at which distance. pq
 // and pk are the two tokens' patch coordinates (read for the polynomial
 // only): the caller steps them from token to token, since a division per
-// logit costs more than the rest of the bias.
-template <int PE>
+// logit costs more than the rest of the bias. MASK = false leaves out the
+// key mask's tests, for a caller that knows the key lies below n_k and
+// n_valid: the same operations otherwise, so the same bits.
+template <int PE, bool MASK = true>
 __device__ __forceinline__ float chunk_logit(float acc, int qi, int kj, int n_k, float scale,
                                              const HeadBias& hb, Patch pq, Patch pk,
                                              float& dist, bool& counts) {
   const int row = hb.row0 + qi, col = hb.col0 + kj;
   dist = 0.f;
   counts = false;
-  if (kj >= n_k || col >= hb.n_valid) return NEG_INF;
+  if (MASK && (kj >= n_k || col >= hb.n_valid)) return NEG_INF;
   float s = __fmul_rn(acc, scale);
   if (PE == PE_POLY || PE == PE_POLY_MORE) {
     counts = row > 0 && col > 0 && row < hb.n_valid;

@@ -85,17 +85,11 @@
 // are later work: at these tiles the kernels wait on the exponentials and
 // the fragment loads as much as on the products.
 
-#include "attn_stream.cuh"
-#include "attn_dense.cuh"
+#include "attn_stream_tiles.cuh"
 
 namespace {
 
 using namespace attn;
-
-constexpr int BWD_WARPS = 8;
-constexpr int BWD_THREADS = BWD_WARPS * 32;
-constexpr int OWN_ROWS = 16 * BWD_WARPS;  // a CTA's query rows (dq) or keys (dk/dv)
-constexpr int STEP = 64;                  // rows of the other axis per staged tile
 
 struct Params {
   const void* q;
@@ -123,84 +117,10 @@ struct Params {
   float scale;
 };
 
-// Shared memory of one dq or dk/dv CTA: a ring of two slots, each holding
-// one step's two bf16 [64, D] tiles, with a bias its f32 bias tile
-// [BIAS_ROWS, BIAS_LD] and, in the dk/dv kernel, the step's lse and delta
-// (STATS floats); and the CTA's own two bf16 [128, D] tiles. HOLD: the own
-// tiles are read into registers once per batch, so they share the ring's
-// bytes; else they stay, after the ring.
-template <int D, int BIAS_ROWS, int BIAS_LD, int STATS, bool HOLD>
-struct Ring {
-  static constexpr int LD = dense::pitch<D>();
-  static constexpr size_t TILE = size_t(STEP) * LD * 2;
-  static constexpr size_t BIAS_OFF = 2 * TILE;
-  static constexpr size_t STATS_OFF = BIAS_OFF + size_t(BIAS_ROWS) * BIAS_LD * 4;
-  static constexpr size_t SLOT = STATS_OFF + size_t(STATS) * 4;
-  static constexpr size_t OWN = size_t(2) * OWN_ROWS * LD * 2;
-  static constexpr size_t OWN_OFF = HOLD ? 0 : 2 * SLOT;
-  static constexpr size_t BYTES = HOLD ? (OWN > 2 * SLOT ? OWN : 2 * SLOT) : 2 * SLOT + OWN;
-  static_assert(TILE % 128 == 0 && BIAS_OFF % 16 == 0 && STATS_OFF % 16 == 0 &&
-                    SLOT % 128 == 0 && BYTES <= 232448,
-                "ring slots must stay aligned and within shared memory");
-};
-
-// Whether the A operands of a CTA's own rows stay in registers: up to D =
-// 64, but for the many-term polynomial at D <= 32, whose dq kernel, given
-// 128 registers by ptxas, spills 8 bytes with them held and none without.
-template <int D, int PE>
-__host__ __device__ constexpr bool hold() {
-  return D <= 64 && !(PE == PE_POLY_MORE && D <= 32);
-}
-
-// rows x D bf16 rows of contiguous scratch into a tile of pitch LD.
-template <int D>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           int rows) {
-  constexpr int LD = dense::pitch<D>(), CH = D / 8;
-  for (int i = threadIdx.x; i < rows * CH; i += BWD_THREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    dense::cp_async16(dst + r * LD + c, src + (long long)r * D + c, true);
-  }
-}
-
-// The bias tile rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of one head
-// (rows of `pitch` floats) into dst (pitch LDB); pieces past N rows or past
-// the pitch are zero.
-template <int ROWS, int COLS, int LDB>
-__device__ __forceinline__ void stage_bias(float* dst, const float* bias_h, int pitch,
-                                           int n_tokens, int r0, int c0) {
-  constexpr int CH = COLS / 4;
-  for (int i = threadIdx.x; i < ROWS * CH; i += BWD_THREADS) {
-    const int r = i / CH, c = (i % CH) * 4;
-    const int row = r0 + r, col = c0 + c;
-    const bool ok = row < n_tokens && col < pitch;
-    dense::cp_async16(dst + r * LDB + c, ok ? bias_h + (long long)row * pitch + col : bias_h, ok);
-  }
-}
-
 // The (batch, head) plane of one operand in the prologue's scratch.
 __device__ __forceinline__ const __nv_bfloat16* operand(const Params& p, int which,
                                                         long long bh, int D) {
   return p.ops + ((long long)which * p.B * p.H + bh) * p.NP * D;
-}
-
-template <int D>
-__device__ __forceinline__ const float* head_table(const float* t, const Params& p, int h) {
-  return t != nullptr ? t + (long long)(p.cos_heads == 1 ? 0 : h) * p.N * (D / 2) : nullptr;
-}
-
-// The logit of one fragment element: scale * acc plus the bias (given, when
-// materialized; generated at global (row0 + qi, col0 + kj) otherwise, from
-// the patch coordinates pq / pk of the two tokens), keys past N masked.
-template <int PE>
-__device__ __forceinline__ float frag_logit(float acc, int qi, int kj, int n_tokens,
-                                            float scale, const HeadBias& hb, float bias,
-                                            Patch pq, Patch pk) {
-  if (PE == PE_BIAS) return kj < n_tokens ? __fadd_rn(__fmul_rn(acc, scale), bias) : NEG_INF;
-  float dist;
-  bool counts;
-  return chunk_logit<PE == PE_BIAS ? PE_NONE : PE>(acc, qi, kj, n_tokens, scale, hb, pq, pk,
-                                                  dist, counts);
 }
 
 // qf, kf, bf16 v, bf16 g of one token row (8 columns of it per thread) into
@@ -217,31 +137,26 @@ __global__ void __launch_bounds__(256) attn_stream_bwd_prologue_kernel(const Par
   const int n = int(row % p.NP);
   const long long bh = row / p.NP;
   const int b = int(bh / p.H), h = int(bh % p.H);
-  float q1[4] = {}, q2[4] = {}, k1[4] = {}, k2[4] = {}, v1[4] = {}, v2[4] = {};
-  float g1[4] = {}, g2[4] = {}, o1[4] = {}, o2[4] = {};
-  float cs[4] = {1.f, 1.f, 1.f, 1.f}, sn[4] = {};
   const float* cos_h = head_table<D>(p.cos, p, h);
   const float* sin_h = head_table<D>(p.sin, p, h);
-  if (n < p.N) {
-    const T* qg = slice<T>(p.q, p.qs, b, h) + n * p.qs[2] + c;
-    const T* kg = slice<T>(p.k, p.ks, b, h) + n * p.ks[2] + c;
-    const T* vg = slice<T>(p.v, p.vs, b, h) + n * p.vs[2] + c;
+  const long long at = (long long)n * H2 + c, plane = rows * D;
+  const float* cs = cos_h != nullptr ? cos_h + at : nullptr;
+  const float* sn = sin_h != nullptr ? sin_h + at : nullptr;
+  const bool valid = n < p.N;
+  __nv_bfloat16* dst = p.ops + row * D + c;
+  round_row<D>(dst, slice<T>(p.q, p.qs, b, h) + n * p.qs[2] + c, cs, sn, valid);
+  round_row<D>(dst + plane, slice<T>(p.k, p.ks, b, h) + n * p.ks[2] + c, cs, sn, valid);
+  round_row<D>(dst + 2 * plane, slice<T>(p.v, p.vs, b, h) + n * p.vs[2] + c, nullptr, nullptr,
+               valid);
+  // g, rounded, and with out the row's delta
+  float g1[4] = {}, g2[4] = {}, o1[4] = {}, o2[4] = {};
+  if (valid) {
     const T* gg = slice<T>(p.g, p.gs, b, h) + n * p.gs[2] + c;
     const T* og = slice<T>(p.out, p.os, b, h) + n * p.os[2] + c;
-    load4(qg, q1);
-    load4(qg + H2, q2);
-    load4(kg, k1);
-    load4(kg + H2, k2);
-    load4(vg, v1);
-    load4(vg + H2, v2);
     load4(gg, g1);
     load4(gg + H2, g2);
     load4(og, o1);
     load4(og + H2, o2);
-    if (cos_h != nullptr) {
-      load4(cos_h + (long long)n * H2 + c, cs);
-      load4(sin_h + (long long)n * H2 + c, sn);
-    }
   }
   float d = 0.f;
 #pragma unroll
@@ -250,19 +165,7 @@ __global__ void __launch_bounds__(256) attn_stream_bwd_prologue_kernel(const Par
   for (int u = 0; u < 4; ++u) d += g2[u] * o2[u];
 #pragma unroll
   for (int off = 1; off < PER_ROW; off <<= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
-  if (c == 0 && n < p.N) p.delta[bh * p.N + n] = d;
-  if (cos_h != nullptr) {
-    rotate4(q1, q2, cs, sn);
-    rotate4(k1, k2, cs, sn);
-  }
-  const long long plane = rows * D;
-  __nv_bfloat16* dst = p.ops + row * D + c;
-  put4(dst, q1);
-  put4(dst + H2, q2);
-  put4(dst + plane, k1);
-  put4(dst + plane + H2, k2);
-  put4(dst + 2 * plane, v1);
-  put4(dst + 2 * plane + H2, v2);
+  if (c == 0 && valid) p.delta[bh * p.N + n] = d;
   put4(dst + 3 * plane, g1);
   put4(dst + 3 * plane + H2, g2);
 }
@@ -271,7 +174,7 @@ __global__ void __launch_bounds__(256) attn_stream_bwd_prologue_kernel(const Par
 // takes the batches of group blockIdx.z in order, and adds each batch's f32
 // ds to its rows of the group's slab.
 template <int D, int PE, bool DBIAS>
-__global__ void __launch_bounds__(BWD_THREADS) attn_stream_bwd_dq_kernel(const Params p) {
+__global__ void __launch_bounds__(RING_THREADS) attn_stream_bwd_dq_kernel(const Params p) {
   using namespace dense;
   constexpr bool BIAS = PE == PE_BIAS;
   constexpr bool POLY = PE == PE_POLY || PE == PE_POLY_MORE;
@@ -298,7 +201,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_stream_bwd_dq_kernel(const P
   }
   const float* cos_h = head_table<D>(p.cos, p, h);
   const float* sin_h = head_table<D>(p.sin, p, h);
-  const HeadBias hb = head_bias(p.bias, h, N);
+  const HeadBias hb = head_bias(p.bias, h);
   const float* bias_h = BIAS ? p.bias.bias + (long long)h * N * p.pitch : nullptr;
   Patch prow[2] = {};
   if (POLY)
@@ -450,7 +353,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_stream_bwd_dq_kernel(const P
 
 // dk and dv for 128 keys of one (batch, head), over all queries.
 template <int D, int PE>
-__global__ void __launch_bounds__(BWD_THREADS) attn_stream_bwd_dkv_kernel(const Params p) {
+__global__ void __launch_bounds__(RING_THREADS) attn_stream_bwd_dkv_kernel(const Params p) {
   using namespace dense;
   constexpr bool BIAS = PE == PE_BIAS;
   constexpr bool POLY = PE == PE_POLY || PE == PE_POLY_MORE;
@@ -470,7 +373,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_stream_bwd_dkv_kernel(const 
   const long long bh = (long long)b * p.H + h;
   const float* cos_h = head_table<D>(p.cos, p, h);
   const float* sin_h = head_table<D>(p.sin, p, h);
-  const HeadBias hb = head_bias(p.bias, h, N);
+  const HeadBias hb = head_bias(p.bias, h);
   const float* bias_h = BIAS ? p.bias.bias + (long long)h * N * p.pitch : nullptr;
   const __nv_bfloat16* qf = operand(p, 0, bh, D);
   const __nv_bfloat16* kf = operand(p, 1, bh, D);
@@ -488,7 +391,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_stream_bwd_dkv_kernel(const 
       stage_bias<STEP, OWN_ROWS, BLD>(reinterpret_cast<float*>(slot + L::BIAS_OFF), bias_h,
                                       p.pitch, N, q0, c0);
     float* st = reinterpret_cast<float*>(slot + L::STATS_OFF);
-    for (int i = threadIdx.x; i < STEP; i += BWD_THREADS) {
+    for (int i = threadIdx.x; i < STEP; i += RING_THREADS) {
       const bool ok = q0 + i < N;
       cp_async4(st + i, ok ? lse_bh + q0 + i : lse_bh, ok);
       cp_async4(st + STEP + i, ok ? delta_bh + q0 + i : delta_bh, ok);
@@ -635,7 +538,7 @@ cudaError_t launch_bwd(K kernel, dim3 grid, size_t smem, const Params& p, cudaSt
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, BWD_THREADS, smem, stream>>>(p);
+  kernel<<<grid, RING_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

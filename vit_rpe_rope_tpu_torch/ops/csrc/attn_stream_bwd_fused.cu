@@ -124,7 +124,7 @@ __device__ __forceinline__ void sweep(const Params& p) {
   const long long tab = (long long)(p.cos_heads == 1 ? 0 : h) * Nq * (D / 2);
   const float* cos_h = p.cos != nullptr ? p.cos + tab : nullptr;
   const float* sin_h = p.sin != nullptr ? p.sin + tab : nullptr;
-  const HeadBias hb = head_bias(p.bias, h, Nq);
+  const HeadBias hb = head_bias(p.bias, h);
 
   float* s_w = s_s + warp * 16 * L::LDS;
   float* u_w = u_s + warp * 16 * L::LDS;

@@ -14,9 +14,11 @@ package chooses them (`STREAMING_THRESHOLD`, `_dense_attn_fits`):
   logsumexp (`_stream_kernel`, launched by `_forward_streaming_impl`):
   ops/csrc/attn_stream_fwd.cu, whose second entry runs q rows against one
   key chunk at global offsets (`streaming_chunk_fwd`, the forward of the
-  bounded train step). Its backward is one pass that computes dq,
-  dk, dv and the gradient of a generated bias' parameters from one sweep
-  over the logits (`_stream_bwd_fused_kernel`, launched by
+  bounded train step); both entries follow a prologue that rounds the keys
+  and values to bf16 once per call (`attention_stream_fwd_prologue`). Its
+  backward is one pass that computes dq, dk, dv and the gradient of a
+  generated bias' parameters from one sweep over the logits
+  (`_stream_bwd_fused_kernel`, launched by
   `_bwd_streaming_fused`, over key segments by `_bwd_fused_segmented`, on a
   key chunk at global offsets by `streaming_chunk_bwd`):
   ops/csrc/attn_stream_bwd_fused.cu; or, with a materialized bias (dbias) or
@@ -51,19 +53,21 @@ What is computed, for q, k, v [B, H, N, D]:
 * outputs in the input dtype; the backward's dbias and rotated-space
   dqr/dkr, and the streaming forward's lse [B, H, N], in float32.
 
-`attention_fwd` / `attention_bwd` / `attention_stream_fwd` /
-`streaming_chunk_fwd` / `attention_stream_bwd_prologue` /
+`attention_fwd` / `attention_bwd` / `attention_stream_fwd_prologue` /
+`attention_stream_fwd` / `streaming_chunk_fwd` /
+`attention_stream_bwd_prologue` /
 `attention_stream_bwd` / `attention_stream_bwd_fused` are the kernels'
 wrappers: on a CUDA tensor they launch the kernel (and count the launch in
 LAUNCHES / LAUNCHES_BWD, with the dense route's own count in
 LAUNCHES_RESIDENT or LAUNCHES_WIDE / LAUNCHES_BWD_RESIDENT or
-LAUNCHES_BWD_WIDE, / LAUNCHES_STREAM_FWD /
+LAUNCHES_BWD_WIDE, / LAUNCHES_STREAM_FWD_PROLOGUE / LAUNCHES_STREAM_FWD /
 LAUNCHES_STREAM_CHUNK_FWD / LAUNCHES_STREAM_PROLOGUE / LAUNCHES_STREAM_DQ,
 LAUNCHES_STREAM_DKV, LAUNCHES_STREAM_DBIAS, LAUNCHES_STREAM_DCOEFF and
 LAUNCHES_STREAM_DTABLE / LAUNCHES_STREAM_FUSED, each where its kernel is
 launched), on a CPU tensor they run `attention_plain` /
-`attention_bwd_plain` / `attention_stream_plain` (on a whole sequence or a
-key chunk) / `attention_stream_bwd_prologue_plain` /
+`attention_bwd_plain` / `attention_stream_fwd_prologue_plain` /
+`attention_stream_plain` (on a whole sequence or a key chunk) /
+`attention_stream_bwd_prologue_plain` /
 `attention_stream_bwd_plain` / `attention_stream_bwd_fused_plain`, the
 kernels' plain PyTorch twins. Nothing falls back: a CUDA call the kernel
 cannot take raises.
@@ -120,8 +124,10 @@ LAUNCHES_STREAM_DKV = 0
 LAUNCHES_STREAM_DBIAS = 0
 
 # Launches of the streaming forward on a key chunk at global offsets (the
-# bounded train step's forward).
+# bounded train step's forward), and of the forward's prologue (one before
+# every whole-sequence and every chunk launch).
 LAUNCHES_STREAM_CHUNK_FWD = 0
+LAUNCHES_STREAM_FWD_PROLOGUE = 0
 
 # Launches of the one-pass streaming backward (one per key segment) and of
 # the separate-pass coefficient / table gradient kernels.
@@ -616,6 +622,28 @@ def attention_stream_bwd_plain(q, k, v, out, g, lse, scale, bias=None,
             dcoeff, dtable)
 
 
+def stream_fwd_rows(nk):
+    """Rows of the streaming forward's key / value scratch for NK keys: NK
+    rounded up to the kernel's key tile STREAM_TILE (its loop reads whole
+    tiles; the rows past NK are zero)."""
+    return _round_up(nk, STREAM_TILE)
+
+
+def attention_stream_fwd_prologue_plain(k, v, cos=None, sin=None):
+    """The streaming forward's prologue kernel in plain PyTorch: ops
+    [2, B, H, stream_fwd_rows(NK), D] bfloat16 holding kf =
+    bf16(rotate(k)) (rotation in float32) and bf16(v), zero rows past NK."""
+    b, h, nk, d = k.shape
+    kf = k.float()
+    if cos is not None:
+        kf = _rotate(kf, cos[None], sin[None])
+    ops = torch.zeros((2, b, h, stream_fwd_rows(nk), d), dtype=torch.bfloat16,
+                      device=k.device)
+    ops[0, :, :, :nk] = kf.to(torch.bfloat16)
+    ops[1, :, :, :nk] = v.to(torch.bfloat16)
+    return ops
+
+
 def stream_bwd_rows(n):
     """Rows of the separate passes' operand scratch for N tokens: N
     rounded up to STREAM_BWD_ROWS."""
@@ -790,7 +818,8 @@ def _bwd_library():
 
 def _stream_library():
     return cuda_build.load(STREAM_SOURCE, _bind_stream(
-        "attn_stream_fwd", "attn_stream_chunk_fwd"))
+        "attn_stream_fwd_prologue", "attn_stream_fwd",
+        "attn_stream_chunk_fwd"))
 
 
 def _stream_bwd_library():
@@ -805,9 +834,12 @@ def _stream_fused_library():
         "attn_stream_bwd_dtable"))
 
 
-def _check_cuda_inputs(q, k, v, bias, cos, sin, key_chunk=False):
+def _check_cuda_inputs(q, k, v, bias, cos, sin, key_chunk=False,
+                       pitched=False):
     """Raise on what the attention kernels do not take. key_chunk: k and v
-    may hold another number of tokens than q (the one-pass backward)."""
+    may hold another number of tokens than q (the one-pass backward).
+    pitched: the bias may also lie as `pitched_bias` lays it out (the
+    streaming kernels)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k, v must lie on one CUDA device")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -830,8 +862,9 @@ def _check_cuda_inputs(q, k, v, bias, cos, sin, key_chunk=False):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous in its last dim")
     if bias is not None:
+        laid_out = bias.is_contiguous() or (pitched and _is_pitched(bias))
         if (bias.shape != (h, n, n) or bias.dtype != torch.float32
-                or not bias.is_contiguous() or bias.device != q.device):
+                or not laid_out or bias.device != q.device):
             raise ValueError("bias must be a contiguous float32 [H, N, N] "
                              "tensor on q's device")
     if (cos is None) != (sin is None):
@@ -848,14 +881,46 @@ def _check_cuda_inputs(q, k, v, bias, cos, sin, key_chunk=False):
             raise ValueError("cos and sin must have one shape")
 
 
-def _aligned(t):
-    """t, or a contiguous copy of it where the resident kernels' 16-byte
-    loads could not read its rows: a base address or a row stride that is
-    not a multiple of 16 bytes (None passes through)."""
-    if t is None:
-        return None
+def _is_aligned(t):
+    """Whether the kernels' 16-byte loads and stores can reach t's rows: its
+    base address and every stride above the last are multiples of 16
+    bytes."""
     unit = 16 // t.element_size()
-    if t.data_ptr() % 16 == 0 and not any(st % unit for st in t.stride()[:-1]):
+    return t.data_ptr() % 16 == 0 and not any(
+        st % unit for st in t.stride()[:-1])
+
+
+def _is_pitched(bias):
+    """Whether bias [H, N, N] lies as the streaming kernels read it: rows
+    dbias_pitch(N) floats apart from a 16-byte aligned base, in storage that
+    also holds the last row's padding."""
+    h, n, _ = bias.shape
+    pitch = dbias_pitch(n)
+    return (bias.stride() == (n * pitch, pitch, 1)
+            and bias.data_ptr() % 16 == 0
+            and (bias.storage_offset() + h * n * pitch) * bias.element_size()
+            <= bias.untyped_storage().nbytes())
+
+
+def pitched_bias(bias):
+    """bias [H, N, N] as the streaming kernels read it (`_is_pitched`, so
+    that its rows are whole 16-byte pieces): bias itself where it lies so
+    already, else an [H, N, N] view of a copy zero-padded to rows of
+    dbias_pitch(N) floats. StreamingAttentionFunction pads once, in its
+    forward, and hands the view to both wrappers. None passes through."""
+    if bias is None or _is_pitched(bias):
+        return bias
+    n = bias.shape[1]
+    pitch = dbias_pitch(n)
+    padded = (torch.nn.functional.pad(bias, (0, pitch - n)) if pitch != n
+              else bias.clone(memory_format=torch.contiguous_format))
+    return padded[:, :, :n]
+
+
+def _aligned(t):
+    """t, or a contiguous copy of it where the kernels' 16-byte loads could
+    not read its rows (see _is_aligned; None passes through)."""
+    if t is None or _is_aligned(t):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
@@ -1033,15 +1098,49 @@ def _strides(*tensors):
           for s in (t.stride()[:3] if t is not None else (0, 0, 0))))
 
 
+def attention_stream_fwd_prologue(k, v, cos=None, sin=None):
+    """The streaming forward's prologue kernel's wrapper: ops as
+    attention_stream_fwd_prologue_plain. CPU tensors run the twin. CUDA
+    tensors (at a built head dim) launch the kernel on the current stream,
+    or raise. The forward wrappers launch it through their own entry
+    points."""
+    global LAUNCHES_STREAM_FWD_PROLOGUE
+    if k.device.type == "cpu":
+        return attention_stream_fwd_prologue_plain(k, v, cos, sin)
+    _check_cuda_inputs(k, k, v, None, cos, sin)
+    k, v = _aligned(k), _aligned(v)
+    ops = _fwd_scratch(k)
+    with torch.cuda.device(k.device):
+        err = _stream_library().attn_stream_fwd_prologue(
+            _pointers(k, k, v, None, None, None, cos, sin, None, None, ops),
+            _strides(k, k, v, None), _stream_dims(k, cos, None, 0, None), 1.0,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attn_stream_fwd_prologue launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES_STREAM_FWD_PROLOGUE += 1
+    return ops
+
+
+def _fwd_scratch(k):
+    """The prologue's [2, B, H, stream_fwd_rows(NK), D] bf16 scratch."""
+    b, h, nk, d = k.shape
+    return torch.empty((2, b, h, stream_fwd_rows(nk), d), dtype=torch.bfloat16,
+                       device=k.device)
+
+
 def attention_stream_fwd(q, k, v, scale, bias=None, cos=None, sin=None,
                          poly=None, rel=None):
     """The streaming forward kernel's wrapper; arguments and results
     (out, lse) as attention_stream_plain (bf16 products).
 
     CPU tensors run the plain twin with the JAX package's key tile. CUDA
-    tensors launch the kernel (key tile STREAM_TILE) on the current stream,
-    or raise. out is [B, H, N, D] laid out as [B, N, H, D] in memory."""
-    global LAUNCHES_STREAM_FWD
+    tensors launch the prologue (as `attention_stream_fwd_prologue`: k and
+    v rounded once) and the kernel (key tile STREAM_TILE) on the current
+    stream, through one entry point, or raise. A bias that does not lie as
+    `pitched_bias` lays it out is copied so first. out is [B, H, N, D] laid
+    out as [B, N, H, D] in memory."""
+    global LAUNCHES_STREAM_FWD, LAUNCHES_STREAM_FWD_PROLOGUE
     _check_rel_covers(rel, q.shape[2])
     if q.device.type == "cpu":
         return attention_stream_plain(q, k, v, scale, bias, cos, sin, poly,
@@ -1051,20 +1150,23 @@ def attention_stream_fwd(q, k, v, scale, bias=None, cos=None, sin=None,
         out, lse = attention_stream_fwd(hp.pad(q), hp.pad(k), hp.pad(v), scale,
                                         bias, *hp.tables(cos, sin), poly, rel)
         return hp.unpad(out), lse
-    _check_cuda_inputs(q, k, v, bias, cos, sin)
+    _check_cuda_inputs(q, k, v, bias, cos, sin, pitched=True)
     coeff, grid, table = _check_generated(q, poly, rel)
+    q, k, v = map(_aligned, (q, k, v))
+    bias = pitched_bias(bias)
     b, h, n, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    lib = _stream_library()
+    ops = _fwd_scratch(k)
     with torch.cuda.device(q.device):
-        err = lib.attn_stream_fwd(
-            _pointers(q, k, v, out, lse, bias, cos, sin, coeff, table),
+        err = _stream_library().attn_stream_fwd(
+            _pointers(q, k, v, out, lse, bias, cos, sin, coeff, table, ops),
             _strides(q, k, v, out), _stream_dims(q, cos, coeff, grid, table),
             float(scale), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"attn_stream_fwd launch failed: CUDA error {err}")
+    LAUNCHES_STREAM_FWD_PROLOGUE += 1
     LAUNCHES_STREAM_FWD += 1
     return out, lse
 
@@ -1090,9 +1192,12 @@ def streaming_chunk_fwd(q, k, v, scale, row0, col0, n_valid, poly=None,
 
     CPU tensors run attention_stream_plain at the JAX package's key tile for
     this chunk (min(KV_TILE, Nc rounded up to 128)), with mm_dtype products.
-    CUDA tensors launch the kernel (key tile STREAM_TILE) on the current
-    stream, or raise; they multiply in bfloat16 only."""
-    global LAUNCHES_STREAM_CHUNK_FWD
+    CUDA tensors launch the prologue (the chunk's keys and values rounded
+    once) and the kernel (key tile STREAM_TILE) on the current stream,
+    through one entry point, or raise; they multiply in bfloat16 only. An
+    out view that the kernel's 16-byte stores cannot reach is written
+    through a copy."""
+    global LAUNCHES_STREAM_CHUNK_FWD, LAUNCHES_STREAM_FWD_PROLOGUE
     b, h, nl, d = q.shape
     nc = k.shape[2]
     row0, col0, n_valid = int(row0), int(col0), int(n_valid)
@@ -1117,6 +1222,7 @@ def streaming_chunk_fwd(q, k, v, scale, row0, col0, n_valid, poly=None,
         return out.copy_(hp.unpad(out_p)), lse
     _check_cuda_inputs(q, k, v, None, None, None, key_chunk=True)
     coeff, grid, table = _check_generated(q, poly, rel)
+    q, k, v = map(_aligned, (q, k, v))
     if out is None:
         out = torch.empty((b, nl, h, d), dtype=q.dtype,
                           device=q.device).transpose(1, 2)
@@ -1130,12 +1236,14 @@ def streaming_chunk_fwd(q, k, v, scale, row0, col0, n_valid, poly=None,
           or lse.device != q.device or lse.stride(-1) != 1):
         raise ValueError("lse must be a float32 [B, H, Nl] view on q's device "
                          "with a unit last stride")
-    strides = (ctypes.c_longlong * 14)(*_strides(q, k, v, out),
+    dst = out if _is_aligned(out) else torch.empty(q.shape, dtype=q.dtype,
+                                                   device=q.device)
+    strides = (ctypes.c_longlong * 14)(*_strides(q, k, v, dst),
                                        *lse.stride()[:2])
-    lib = _stream_library()
+    ops = _fwd_scratch(k)
     with torch.cuda.device(q.device):
-        err = lib.attn_stream_chunk_fwd(
-            _pointers(q, k, v, out, lse, None, None, None, coeff, table),
+        err = _stream_library().attn_stream_chunk_fwd(
+            _pointers(q, k, v, dst, lse, None, None, None, coeff, table, ops),
             strides,
             _stream_dims(q, None, coeff, grid, table, row0=row0, col0=col0,
                          n_valid=n_valid, nk=nc, kv_valid=nc),
@@ -1143,7 +1251,10 @@ def streaming_chunk_fwd(q, k, v, scale, row0, col0, n_valid, poly=None,
     if err != 0:
         raise RuntimeError(f"attn_stream_chunk_fwd launch failed: CUDA error "
                            f"{err}")
+    LAUNCHES_STREAM_FWD_PROLOGUE += 1
     LAUNCHES_STREAM_CHUNK_FWD += 1
+    if dst is not out:
+        out.copy_(dst)
     return out, lse
 
 
@@ -1176,7 +1287,7 @@ def _stream_bwd_inputs(q, k, v, out, g, cos, sin, bias=None):
     """Raise on what the separate passes do not take; returns q, k, v, out
     and g with rows that the prologue can read in 16-byte pieces (copies
     where needed)."""
-    _check_cuda_inputs(q, k, v, bias, cos, sin)
+    _check_cuda_inputs(q, k, v, bias, cos, sin, pitched=True)
     for name, t in (("out", out), ("g", g)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} must match q in shape, dtype and device")
@@ -1228,9 +1339,9 @@ def attention_stream_bwd(q, k, v, out, g, lse, scale, bias=None, cos=None,
     dbias instance, then the sum over the batch groups' slabs,
     `dbias_groups` with `dbias_budget` at the row pitch `dbias_pitch`), the
     dk/dv kernel and, with want_dparam and poly= / rel=, the dcoeff /
-    dtable kernel on the current stream, or raise. A bias whose rows are
-    not whole 16-byte pieces is copied to that pitch first. dq, dk and dv
-    are views of one [B, N, 3, H, D] buffer."""
+    dtable kernel on the current stream, or raise. A bias that does not lie
+    as `pitched_bias` lays it out (rows at that pitch) is copied so first.
+    dq, dk and dv are views of one [B, N, 3, H, D] buffer."""
     global LAUNCHES_STREAM_DQ, LAUNCHES_STREAM_DKV, LAUNCHES_STREAM_DBIAS
     global LAUNCHES_STREAM_DCOEFF, LAUNCHES_STREAM_DTABLE
     _check_rel_covers(rel, q.shape[2])
@@ -1271,8 +1382,7 @@ def attention_stream_bwd(q, k, v, out, g, lse, scale, bias=None, cos=None,
         dqr = torch.empty((b, h, n, d), **f32)
         dkr = torch.empty((b, h, n, d), **f32)
     pitch = dbias_pitch(n)
-    if bias is not None and pitch != n:
-        bias = _pad_seq(bias, pitch, 2)
+    bias = pitched_bias(bias)
     groups = 0
     if want_dbias:
         groups = dbias_groups(b, h, n, dbias_budget, pitch)
@@ -1535,6 +1645,8 @@ class StreamingAttentionFunction(torch.autograd.Function):
             cos, sin = _kernel_freqs((cos_raw, sin_raw), q.shape[1],
                                      q.shape[2], q.device)
         poly = (coeff, grid) if coeff is not None else None
+        if q.device.type != "cpu":  # padded once for both wrappers
+            bias = pitched_bias(bias)
         out, lse = attention_stream_fwd(q, k, v, scale, bias, cos, sin, poly,
                                         table)
         ctx.save_for_backward(q, k, v, out, lse, bias, cos, sin, cos_raw,
