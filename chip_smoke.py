@@ -65,7 +65,8 @@ exits nonzero without a card, or when any phase fails. Phases:
 11b. the one-pass streaming backward (dq, dk, dv, dcoeff / dtable) against
    its twin in four regimes (none, rope-axial, generated polynomial and
    relative bias), f32 and bf16, at (4, 4, 4097, 32), (16, 6, 577, 64) and
-   (2, 4, 16385, 32), every case launched twice and compared bit for bit;
+   (2, 4, 16385, 32), every case launched twice and compared bit for bit,
+   its prologue (the operands rounded once) against its twin bit for bit;
    in forced 1024-key segments; at global offsets (1000, 2000) against a
    shorter key chunk; the dcoeff and dtable kernels of the separate-pass
    backward against their twin;
@@ -94,8 +95,10 @@ exits nonzero without a card, or when any phase fails. Phases:
    the dq kernel's added time for its ds slabs plus the sum kernel) at the
    two shapes, at N=2048 with a bias (dbias's largest case) and at
    N=16385; the one-pass backward (none, polynomial, relative) beside the
-   separate dq + dk/dv passes at the same shapes, its
-   bound and SDPA's backward, and the dcoeff / dtable kernels; train steps
+   separate dq + dk/dv passes at the same shapes, its sweep's, prologue's
+   and dq sum's device times, the cluster size, its bound and SDPA's
+   backward, and on the key chunk of the --q_chunk 2048 epoch, and the
+   dcoeff / dtable kernels; train steps
    of the long-sequence model at N=4097 and N=16385 in rope-mixed,
    rope-axial, polynomial and relative, and of ViT-S/16@384; profiler
    breakdowns of the N=4097 steps;
@@ -848,7 +851,7 @@ def reset_counts(fa, fused_adamw):
     fa.LAUNCHES_STREAM_PROLOGUE = 0
     fa.LAUNCHES_STREAM_FUSED = fa.LAUNCHES_STREAM_DCOEFF = 0
     fa.LAUNCHES_STREAM_DTABLE = fa.LAUNCHES_STREAM_CHUNK_FWD = 0
-    fa.LAUNCHES_STREAM_FWD_PROLOGUE = 0
+    fa.LAUNCHES_STREAM_FWD_PROLOGUE = fa.LAUNCHES_STREAM_FUSED_PROLOGUE = 0
 
 
 def reset_routes(fa):
@@ -889,18 +892,27 @@ def read_counts(fa, fused_adamw):
               "attn_stream_bwd_dkv": fa.LAUNCHES_STREAM_DKV,
               "attn_stream_bwd_dbias": fa.LAUNCHES_STREAM_DBIAS,
               "attn_stream_bwd_fused": fa.LAUNCHES_STREAM_FUSED,
+              "attn_stream_bwd_fused_prologue":
+                  fa.LAUNCHES_STREAM_FUSED_PROLOGUE,
               "attn_stream_bwd_dcoeff": fa.LAUNCHES_STREAM_DCOEFF,
               "attn_stream_bwd_dtable": fa.LAUNCHES_STREAM_DTABLE}
     counts.update({k: v for k, v in stream.items() if v})
     return counts
 
 
-def with_fwd_prologue(expected):
-    """expected launch counts with the streaming forward's prologue: one
-    launch before every whole-sequence and every chunk forward."""
+def with_prologues(expected):
+    """expected launch counts with the streaming prologues: the forward's
+    before every whole-sequence and every chunk forward, the one-pass
+    backward's before every one-pass launch."""
+    expected = dict(expected)
     n = (expected.get("attn_stream_fwd", 0)
          + expected.get("attn_stream_chunk_fwd", 0))
-    return dict(expected, attn_stream_fwd_prologue=n) if n else expected
+    if n:
+        expected["attn_stream_fwd_prologue"] = n
+    if expected.get("attn_stream_bwd_fused"):
+        expected["attn_stream_bwd_fused_prologue"] = expected[
+            "attn_stream_bwd_fused"]
+    return expected
 
 
 def bounded_launches(fa, batch, heads, head_dim, n, q_chunk, kv_chunk=0):
@@ -1006,8 +1018,8 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
             expected["attn_stream_bwd_fused"] = depth * steps
     serve_expected = {"attn_fwd": 0, "attn_bwd": 0, "adamw": 0,
                       fwd: depth * (2560 // serve_bs)}
-    expected = with_fwd_prologue(expected)
-    serve_expected = with_fwd_prologue(serve_expected)
+    expected = with_prologues(expected)
+    serve_expected = with_prologues(serve_expected)
     log(f"  train CLI {pe_name} {model or 'defaults'} {flags or ''}: "
         f"{seconds:.1f} s, CSV "
         f"{rows[0]} + {len(rows) - 1} row(s): {row}")
@@ -1053,7 +1065,7 @@ def check_kernel_vs_plain_training(vit, ts, fused_adamw, datasets, cfg,
     init = vit.init_params(torch.Generator().manual_seed(4), cfg,
                            device=device)
     if expected is not None:
-        expected = with_fwd_prologue(expected)
+        expected = with_prologues(expected)
     losses = {}
     for label, c, step in (
             ("kernels", cfg, fused_adamw.adamw_update),
@@ -1543,7 +1555,7 @@ def serve_longseq(tmp, pe_name, modules, serving):
     ckpt, preds, counts, secs = serve_through_cli(
         tmp, cfg, f"longseq_{pe_name}.npz", images, size // cfg.patch_size,
         modules, batch_size=4, num_heads=cfg.num_heads)
-    expected = with_fwd_prologue({"attn_fwd": 0,
+    expected = with_prologues({"attn_fwd": 0,
                                   "attn_stream_fwd": cfg.depth * 2})
     log(f"  long-sequence {pe_name} N={cfg.seq_len}: predict CLI {secs:.2f} s,"
         f" launches {counts} (expected {expected})")
@@ -1624,11 +1636,23 @@ def fused_errors(got, want):
     return res
 
 
+def fused_prologue_err(fa, q, k, v, g, cos=None, sin=None):
+    """The one-pass backward's prologue against its twin: (max_abs_err, bit
+    for bit, max_abs_err) over its four operands."""
+    got = fa.attention_stream_bwd_fused_prologue(q, k, v, g, cos, sin)
+    torch.cuda.synchronize()
+    want = fa.attention_stream_bwd_fused_prologue_plain(q, k, v, g, cos, sin)
+    err = max(float((x.float() - y.float()).abs().max())
+              for x, y in zip(got, want))
+    return err, all(torch.equal(x, y) for x, y in zip(got, want)), err
+
+
 def check_fused_vs_twin(fa, device):
     """Phase 11b: every case is run and logged, then any failure raises.
     Returns the worst f32-input errors: {"fused"} over dq, dk, dv of all
-    one-pass cases, {"dcoeff", "dtable"} of the separate-pass kernels."""
-    worst = {"fused": 0.0, "dcoeff": 0.0, "dtable": 0.0}
+    one-pass cases, {"prologue"} of its prologue (held bit for bit),
+    {"dcoeff", "dtable"} of the separate-pass kernels."""
+    worst = {"fused": 0.0, "prologue": 0.0, "dcoeff": 0.0, "dtable": 0.0}
     failed = []
     longseq = (4, 4, 4097, 32)
 
@@ -1648,24 +1672,31 @@ def check_fused_vs_twin(fa, device):
              for regime in FUSED_REGIMES]
     for i, (shape, dtype, regime) in enumerate(cases):
         args, kw, _ = fused_inputs(fa, regime, shape, dtype, 500 + i, device)
+        counts = (fa.LAUNCHES_STREAM_FUSED, fa.LAUNCHES_STREAM_FUSED_PROLOGUE)
         got = fa.attention_stream_bwd_fused(*args, **kw)
         again = fa.attention_stream_bwd_fused(*args, **kw)
         torch.cuda.synchronize()
         same = all((x is None and y is None) or torch.equal(x, y)
-                   for x, y in zip(got, again))
+                   for x, y in zip(got, again)) and (
+            fa.LAUNCHES_STREAM_FUSED, fa.LAUNCHES_STREAM_FUSED_PROLOGUE) == (
+            counts[0] + 2, counts[1] + 2)
         want = fa.attention_stream_bwd_fused_plain(*args, **FUSED_TWIN_TILES,
                                                    **kw)
         res = fused_errors(got, want)
         res["two launches"] = (0.0, same, 0.0 if same else 1.0)
+        res["prologue"] = fused_prologue_err(fa, *args[:4], kw.get("cos"),
+                                             kw.get("sin"))
         report("one-pass bwd vs twin", shape, dtype, regime, res)
         if dtype == torch.float32:
             worst["fused"] = max(worst["fused"],
                                  *(res[name][0] for name in ("dq", "dk", "dv")))
+            worst["prologue"] = max(worst["prologue"], res["prologue"][0])
         del args, kw, got, again, want
         torch.cuda.empty_cache()
 
     # Forced 1024-key segments (five launches, the last of one key), rope
-    # applied outside the sweep; then one (shard, chunk) pair of a ring.
+    # applied outside the sweep, launched twice; then one (shard, chunk) pair
+    # of a ring, launched twice.
     real_seg_cols = fa._fused_kv_seg_cols
     for i, (dtype, regime) in enumerate(
             [(torch.float32, regime) for regime in FUSED_REGIMES]
@@ -1677,12 +1708,16 @@ def check_fused_vs_twin(fa, device):
         try:
             before = fa.LAUNCHES_STREAM_FUSED
             got = fa.attention_stream_bwd_fused(*args, **kw)
+            again = fa.attention_stream_bwd_fused(*args, **kw)
             torch.cuda.synchronize()
             launches = fa.LAUNCHES_STREAM_FUSED - before
         finally:
             fa._fused_kv_seg_cols = real_seg_cols
         res = fused_errors(got, want)
-        res["5 launches"] = (float(launches), launches == 5, 0.0)
+        same = all((x is None and y is None) or torch.equal(x, y)
+                   for x, y in zip(got, again))
+        res["5 launches a call"] = (launches / 2, launches == 10, 0.0)
+        res["two launches"] = (0.0, same, 0.0 if same else 1.0)
         report("one-pass bwd in 1024-key segments", longseq, dtype, regime,
                res)
     for i, regime in enumerate(("none", "poly", "rel")):
@@ -1693,14 +1728,20 @@ def check_fused_vs_twin(fa, device):
         args = (q[:, :, rows], k[:, :, cols], v[:, :, cols], g[:, :, rows],
                 lse[:, :, rows], delta[:, :, rows], scale)
         got = fa.streaming_chunk_bwd(*args, 1000, 2000, 4097, **pe)
+        again = fa.streaming_chunk_bwd(*args, 1000, 2000, 4097, **pe)
         torch.cuda.synchronize()
+        same = all((x is None and y is None) or torch.equal(x, y)
+                   for x, y in zip(got, again))
         want = fa.attention_stream_bwd_fused_plain(
             *args, **FUSED_TWIN_TILES, n_valid=4097, row0=1000, col0=2000,
             **pe)
         got = got[:3] + ((got[3], None) if regime == "poly" else
                          (None, got[3]))
+        res = fused_errors(got, want)
+        res["two launches"] = (0.0, same, 0.0 if same else 1.0)
+        res["prologue"] = fused_prologue_err(fa, *args[:4])
         report("one-pass bwd at offsets (1000, 2000), 1500 keys", longseq,
-               torch.float32, regime, fused_errors(got, want))
+               torch.float32, regime, res)
     torch.cuda.empty_cache()
 
     # Rows 9 and 10: the separate-pass backward with want_dparam.
@@ -2022,19 +2063,41 @@ def fused_bound_ms(shape, dtype, kw, products, outputs):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def fused_prologue_bound_ms(shape, dtype, kw, keys=None):
+    """Least time for the one-pass backward's prologue: q and g (rows) and
+    k and v (keys) read once in the input dtype, and the rope tables, over
+    the memory rate; the four bf16 operands written once."""
+    b, h, n, d = shape
+    keys = n if keys is None else keys
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (elem + 2) * 2 * (n + keys) * b * h * d
+    if kw.get("cos") is not None:
+        nbytes += 2 * kw["cos"].numel() * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def time_fused_kernels(fa, device):
     """Phase 14b: the one-pass backward (none / polynomial / relative) and
     the separate dq + dk/dv passes on the same inputs, both as the whole
     backward from g and out (delta included) by CUDA events around the
-    wrappers; the one-pass sweep kernel alone by the profiler's device time
-    per launch; the twin; the bound; SDPA's backward on the same q, k, v
-    (with the materialized bias as a mask that needs a gradient, up to
-    N=4097) as the library yardstick. Then the dcoeff / dtable kernels of
-    the separate-pass backward (with their sums) by the profiler, beside
-    their bound; no PyTorch call computes what they compute. Returns
-    (one-pass rows, parameter-pass rows), each {shape label: {regime: row}}."""
+    wrappers; the one-pass sweep kernel, its prologue and its dq sum alone
+    by the profiler's device time per launch (the sweep in thread-block
+    clusters of fa.FUSED_CLUSTER CTAs); the twin; the bound; SDPA's backward
+    on the same q, k, v (with the materialized bias as a mask that needs a
+    gradient, up to N=4097) as the library yardstick. Then the one-pass
+    backward on the key chunk of most launches of the --q_chunk 2048 epoch
+    (batch 4, the second q-chunk of 2,048 rows against the 4,608 keys of
+    N=4,097, no bias), and the dcoeff / dtable kernels of the separate-pass
+    backward (with their sums) by the profiler, beside their bound; no
+    PyTorch call computes what they compute. Returns (one-pass rows,
+    parameter-pass rows), each {shape label: {regime: row}}."""
     import torch.nn.functional as F
 
+    log(f"  one-pass sweep: thread-block clusters of {fa.FUSED_CLUSTER} "
+        f"CTAs of {fa.STREAM_BWD_ROWS} keys")
+    names = ("attn_stream_bwd_fused_kernel",
+             "attn_stream_bwd_fused_prologue_kernel",
+             "attn_stream_bwd_fused_dq_kernel")
     fused_rows, param_rows = {}, {}
     for label, shape, iters in (("longseq N=4097", (4, 4, 4097, 32), 5),
                                 ("vit-s/16@384", (16, 6, 577, 64), 10),
@@ -2065,10 +2128,14 @@ def time_fused_kernels(fa, device):
             per_call = fa.LAUNCHES_STREAM_FUSED - before
             ms = median_ms(one_pass, **timing)
             separate_ms = median_ms(separate, **timing)
-            sweep, recorded, _ = device_ms_by_kernel(
-                one_pass, 3 * iters, ("attn_stream_bwd_fused_kernel",))
+            sweep, recorded, _ = device_ms_by_kernel(one_pass, 3 * iters,
+                                                     names)
             plain_ms = median_ms(twin, **twin_timing)
             bound_ms, bound_by = fused_bound_ms(shape, torch.float32, kw, 5, 3)
+            pro_bound = fused_prologue_bound_ms(shape, torch.float32, kw)
+            pro_plain = median_ms(
+                lambda: fa.attention_stream_bwd_fused_prologue_plain(
+                    q, k, v, g, kw.get("cos"), kw.get("sin")), **twin_timing)
             library_ms = None
             if regime == "none" or shape[2] <= 4097:
                 qr, kr, vr = (t.detach().clone().requires_grad_()
@@ -2094,14 +2161,17 @@ def time_fused_kernels(fa, device):
             fused_rows[label][regime] = dict(
                 ms=ms, separate_ms=separate_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                sweep_ms=sweep["attn_stream_bwd_fused_kernel"],
+                sweep_ms=sweep[names[0]], prologue_ms=sweep[names[1]],
+                prologue_bound_ms=pro_bound, prologue_plain_ms=pro_plain,
+                dq_sum_ms=sweep[names[2]], cluster=fa.FUSED_CLUSTER,
                 launches_per_call=per_call)
             log(f"  {label} {regime:5s} one-pass backward {ms:.4f} ms "
-                f"({per_call} sweep launch(es) of "
-                f"{sweep['attn_stream_bwd_fused_kernel']:.4f} ms, profiler: "
-                f"{recorded} recorded)  dq + dk/dv passes {separate_ms:.4f} "
-                f"ms  twin {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
-                f"({bound_by})  sdpa backward "
+                f"({per_call} launch(es): sweep {sweep[names[0]]:.4f} ms, "
+                f"prologue {sweep[names[1]]:.4f} ms (bound {pro_bound:.4f}, "
+                f"twin {pro_plain:.4f}), dq sum {sweep[names[2]]:.4f} ms; "
+                f"profiler: {recorded} recorded)  dq + dk/dv passes "
+                f"{separate_ms:.4f} ms  twin {plain_ms:.4f} ms  bound "
+                f"{bound_ms:.4f} ms ({bound_by})  sdpa backward "
                 + (f"{library_ms:.4f} ms" if library_ms is not None
                    else "not measured"))
             if regime != "none":
@@ -2124,7 +2194,67 @@ def time_fused_kernels(fa, device):
                     f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
             del q, k, v, g, lse, out, kw
             torch.cuda.empty_cache()
+    fused_rows["q_chunk 2048 epoch"] = {"none": time_fused_chunk(fa, device)}
     return fused_rows, param_rows
+
+
+def time_fused_chunk(fa, device):
+    """Phase 14b: the one-pass backward on the key chunk of most launches of
+    the --q_chunk 2048 epoch: (4, 4, 2,048 rows, 4,608 keys, 32) f32, rows
+    [2048, 4096) against every key, 4,097 valid, lse and delta of the
+    whole rows. The wrapper by CUDA events, the sweep and the prologue by
+    the profiler, the twin, the bound over the valid keys, and SDPA's
+    backward on the same rows against the valid keys (all keys in one
+    chunk: the same function)."""
+    import torch.nn.functional as F
+
+    shape, r0, rows, n_valid = (4, 4, 4608, 32), 2048, 2048, 4097
+    (q, k, v, g, lse, delta, scale), _, _ = fused_inputs(
+        fa, "none", shape, torch.float32, 740, device)
+    args = (q[:, :, r0:r0 + rows], k, v, g[:, :, r0:r0 + rows],
+            lse[:, :, r0:r0 + rows], delta[:, :, r0:r0 + rows], scale)
+    del q, g
+
+    def chunk():
+        fa.streaming_chunk_bwd(*args, r0, 0, n_valid)
+
+    names = ("attn_stream_bwd_fused_kernel",
+             "attn_stream_bwd_fused_prologue_kernel")
+    ms = median_ms(chunk, iters=10, reps=5, warmup=2)
+    by_name, recorded, _ = device_ms_by_kernel(chunk, 20, names)
+    plain_ms = median_ms(lambda: fa.attention_stream_bwd_fused_plain(
+        *args, **FUSED_TWIN_TILES, n_valid=n_valid, row0=r0),
+        iters=1, reps=3, warmup=1)
+    b, h, _, d = shape
+    flops = 5 * 2 * b * h * rows * n_valid * d
+    nbytes = (4 * (4 * rows + 4 * shape[2]) * d + 4 * 2 * rows) * b * h
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_TENSOR_FLOPS * 1e3
+    bound_ms, bound_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                              else "operations")
+    qr, kr, vr = (t.detach().clone().requires_grad_()
+                  for t in (args[0], k[:, :, :n_valid], v[:, :, :n_valid]))
+    go = args[3]
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qr, kr, vr, scale=scale)
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(qr, kr, vr, scale=scale).backward(go)
+
+    library_ms = (median_ms(sdpa_fwd_bwd, iters=10, reps=5, warmup=2)
+                  - median_ms(sdpa_fwd, iters=10, reps=5, warmup=2))
+    log(f"  q_chunk 2048 epoch chunk (4, 4, {rows} rows, {shape[2]} keys, "
+        f"32) f32 none one-pass backward {ms:.4f} ms (sweep "
+        f"{by_name[names[0]]:.4f} ms, prologue {by_name[names[1]]:.4f} ms; "
+        f"profiler: {recorded} recorded)  twin {plain_ms:.4f} ms  bound "
+        f"{bound_ms:.4f} ms ({bound_by})  sdpa backward {library_ms:.4f} ms")
+    del args, qr, kr, vr, go
+    torch.cuda.empty_cache()
+    return dict(ms=ms, sweep_ms=by_name[names[0]],
+                prologue_ms=by_name[names[1]], plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
 def chunk_case(fa, regime, dtype, seed, device, shape, rows, cols, n_valid):
@@ -2234,7 +2364,7 @@ def bounded_grads(modules, cfg, params, pre, images, labels, expected,
     init, update = ts.make_optimizer(tcfg, 100, copy)
     step = make_bounded_step(cfg, tcfg, update, pre, debug_grads=True, **kw)
     state = init(copy)
-    expected = with_fwd_prologue(expected)
+    expected = with_prologues(expected)
     reset_counts(fa, fused_adamw)
     _, _, metrics, grads = step(copy, state, 0, images, labels)
     counts = read_counts(fa, fused_adamw)
@@ -2782,7 +2912,7 @@ def check_flash_block_grads(vit, ViTConfig, fa, fused_adamw, device):
             grads[impl] = dict(zip(params, torch.autograd.grad(
                 loss, list(params.values()))))
             counts = read_counts(fa, fused_adamw)
-            if impl == "flash_block" and counts != with_fwd_prologue(
+            if impl == "flash_block" and counts != with_prologues(
                     expected):
                 raise AssertionError(f"{label}: flash_block launches {counts}"
                                      f" differ from {expected}")
@@ -3242,6 +3372,7 @@ def main() -> int:
     csrc = "vit_rpe_rope_tpu_torch/ops/csrc/"
     jax_fa = "vit_rpe_rope_tpu/ops/flash_attention.py"
     fused_launches = stream_training["longseq_relative"]["launches"]
+    fused_rel = fused_times["longseq N=4097"]["rel"]
     t_long = stream_times["longseq N=4097 rope-mixed f32"]
     t_384 = stream_times["vit-s/16@384 rel-bias f32"]
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
@@ -3280,7 +3411,15 @@ def main() -> int:
                     t_384["dbias"]),
         kernel_line("attn_stream_bwd_fused", csrc + "attn_stream_bwd_fused.cu",
                     jax_fa + ":1649", fused_launches["attn_stream_bwd_fused"],
-                    fused_err["fused"], fused_times["longseq N=4097"]["rel"]),
+                    fused_err["fused"], fused_rel),
+        kernel_line("attn_stream_bwd_fused_prologue",
+                    csrc + "attn_stream_bwd_fused.cu", jax_fa + ":1736",
+                    fused_launches["attn_stream_bwd_fused_prologue"],
+                    fused_err["prologue"],
+                    dict(ms=fused_rel["prologue_ms"],
+                         plain_ms=fused_rel["prologue_plain_ms"],
+                         bound_ms=fused_rel["prologue_bound_ms"],
+                         bound_by="bytes", library_ms=None)),
         kernel_line("attn_stream_bwd_dcoeff",
                     csrc + "attn_stream_bwd_fused.cu", jax_fa + ":1489",
                     dparam_launches["attn_stream_bwd_dcoeff"],

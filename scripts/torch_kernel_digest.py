@@ -8,10 +8,11 @@ rope-mixed and with a relative bias, the streaming
 forward, the separate-pass backward with the dcoeff / dtable kernels and,
 at ViT-S/16@384's training shape (16, 6, 577, 64) and at (8, 6, 2048, 64),
 with a materialized bias and dbias, and at (4, 4, 4097, 32) with
-rope-mixed's per-head tables and dqr / dkr, the one-pass backward, the
-chunk forward at offsets and at the bounded train step's shape (16,384 rows
-against 66,048 keys), three AdamW steps over the ViT-S/16 and the ViT-tiny/4
-params) and writes the sha256 of every output tensor's bytes to a JSON
+rope-mixed's per-head tables and dqr / dkr, the one-pass backward (also on
+key chunks at the shapes of the --q_chunk 2048 epoch, 2,048 rows against
+4,608 keys, and of the bounded train step, 16,384 rows against 66,048
+keys), the chunk forward at offsets and at the bounded train step's shape,
+three AdamW steps over the ViT-S/16 and the ViT-tiny/4 params) and writes the sha256 of every output tensor's bytes to a JSON
 file. The backward cases take out and lse from the forward's plain twin (at
 the kernels' key tile), not from the forward kernel, so that a change to the
 forward kernel changes the `stream_fwd/*` and `chunk_fwd/*` digests only.
@@ -33,13 +34,17 @@ yardstick, with no digest; beside each, the host's time to issue one call,
 by its clock over the same 20 calls) and, for the dense kernels at those
 two shapes, the streaming forward at (16, 6, 577, 64) and (8, 6, 2048, 64)
 with a bias and at (4, 4, 4097, 32) rope-mixed, the chunk forward at the
-bounded step's shape and the separate-pass backward at its three shapes,
-each kernel's device time (torch.profiler, the mean over 20 calls), so
-that two trees can be timed in turns in one process each on one card:
+bounded step's shape, the separate-pass backward at its three shapes and
+the one-pass backward at (4, 4, 4097, 32) and on its two key chunks, each
+kernel's device time (torch.profiler, the mean over 20 calls), so that two
+trees can be timed in turns in one process each on one card:
 
   for tree in build/parent . . build/parent; do
     python scripts/torch_kernel_digest.py --root $tree --out d.json --time
   done
+
+--only REGEX times only the cases whose name matches (every digest is
+still recorded).
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import sys
 import time
 
@@ -57,7 +63,7 @@ def _digest(t):
                           ).hexdigest()
 
 
-def run(root, out_path, timed):
+def run(root, out_path, timed, only=None):
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -87,7 +93,7 @@ def run(root, out_path, timed):
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        if not timed:
+        if not timed or (only and not re.search(only, name)):
             return
         for _ in range(3):
             call()
@@ -111,7 +117,8 @@ def run(root, out_path, timed):
         for i, t in enumerate(tensors):
             if t is not None:
                 digests[f"{name}/{i}"] = _digest(t)
-        if timed and call is not None:
+        if timed and call is not None and not (only and
+                                               re.search(only, name) is None):
             for _ in range(3):
                 call()
             start, end = (torch.cuda.Event(enable_timing=True)
@@ -238,10 +245,14 @@ def run(root, out_path, timed):
             record(f"stream_dq_dkv/{name}", (), lambda: fa.attention_stream_bwd(
                 q, k, v, out, g, lse, scale, **kw))
             delta = (g * out).sum(dim=-1)
-            record(f"fused_bwd/{name}", fa.attention_stream_bwd_fused(
-                q, k, v, g, lse, delta, scale, **kw),
-                lambda: fa.attention_stream_bwd_fused(
-                    q, k, v, g, lse, delta, scale, **kw))
+
+            def fused():
+                return fa.attention_stream_bwd_fused(q, k, v, g, lse, delta,
+                                                     scale, **kw)
+
+            record(f"fused_bwd/{name}", fused(), fused)
+            if n == 4097:
+                record_kernels(f"fused_bwd/{name}", fused)
             if "cos" not in kw:
                 rows = slice(n // 2, n)
                 record(f"chunk_fwd/{name}", fa.streaming_chunk_fwd(
@@ -296,6 +307,27 @@ def run(root, out_path, timed):
     record("sdpa_fwd/none@16384x66048x32", (), sdpa(
         qc, k[:, :, :n_valid], v[:, :, :n_valid], 32 ** -0.5))
     del q, k, v, qc
+    # the one-pass backward on the key chunks of the bounded train step: the
+    # second q-chunk of the --q_chunk 2048 epoch at N = 4,097 (batch 4,
+    # 2,048 rows against its 4,608 padded keys) and of the step at N =
+    # 65,537 (16,384 rows against 66,048 keys), lse and delta of the twin
+    for label, shape, r0, rows, n_valid in (
+            ("2048x4608x32", (4, 4, 4608, 32), 2048, 2048, 4097),
+            ("16384x66048x32", (1, 4, 66048, 32), 16384, 16384, 65537)):
+        q, k, v, g = qkv(shape, 13)
+        q, g = q[:, :, r0:r0 + rows], g[:, :, r0:r0 + rows]
+        lse = torch.randn(q.shape[:3], generator=torch.Generator(
+            ).manual_seed(14)).to(dev).abs() + 8.0
+        delta = 0.1 * torch.randn(q.shape[:3], generator=torch.Generator(
+            ).manual_seed(15)).to(dev)
+
+        def chunk_bwd():
+            return fa.streaming_chunk_bwd(q, k, v, g, lse, delta, 32 ** -0.5,
+                                          r0, 0, n_valid)
+
+        record(f"fused_chunk/none@{label}", chunk_bwd()[:3], chunk_bwd)
+        record_kernels(f"fused_chunk/none@{label}", chunk_bwd)
+        del q, k, v, g, lse, delta
     # three AdamW steps over the ViT-S/16 params (21,580,426) and the
     # ViT-tiny/4 CIFAR params (the train CLI's default), then the wrapper's
     # time on the same lists
@@ -348,10 +380,11 @@ def main():
     ap.add_argument("--out")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
     ap.add_argument("--time", action="store_true")
+    ap.add_argument("--only", help="time only the cases matching this regex")
     args = ap.parse_args()
     if args.compare:
         raise SystemExit(compare(*args.compare))
-    run(args.root, args.out, args.time)
+    run(args.root, args.out, args.time, args.only)
 
 
 if __name__ == "__main__":

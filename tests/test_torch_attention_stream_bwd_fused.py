@@ -4,8 +4,12 @@ CUDA kernel against the JAX package's `_stream_bwd_fused_kernel` (launched by
 lse and delta), segmented against unsegmented, at chunk offsets against
 `streaming_chunk_bwd`, the separate-pass coefficient / table gradients
 against `_bwd_streaming`, and autograd through `flash_attention(poly= /
-rel=)` against jax.vjp above a lowered streaming threshold. The kernels are
-tested on the card by tests/test_torch_kernels_gpu.py.
+rel=)` against jax.vjp above a lowered streaming threshold; the prologue's
+twin (the operands rounded once) bit for bit against the JAX rotation
+rounded to bf16, on a whole sequence and on a key chunk at offsets; the
+scratch layout against the C entry's comment and the key segments against
+the slab budget. The kernels are tested on the card by
+tests/test_torch_kernels_gpu.py.
 
 Tolerances:
 * dq, dk, dv, twin (bf16 products) vs the like-tiled JAX kernel on the same
@@ -404,3 +408,110 @@ def test_fused_wrapper_refuses_what_the_jax_function_refuses():
         tfa.attention_stream_bwd_fused(x, x, x, x, stats, stats, 0.25,
                                        poly=(torch.zeros(2, 3), 6),
                                        rel=torch.zeros(2, 79))
+
+
+@pytest.mark.parametrize("regime", ["none", "rope-axial", "rope-mixed"])
+@pytest.mark.parametrize("n", [17, 290])
+def test_fused_prologue_twin_rounds_the_jax_operands_once(regime, n):
+    """The one-pass backward's operands as the JAX kernel forms them in
+    every tile (`_rotate_bh` of q and k in float32 over `_prep_freqs'`
+    tables, then bf16; bf16 v and g), once, in rows padded with zeros to
+    stream_bwd_rows(N); and as the separate passes' prologue forms them."""
+    shape = (2, 3, n, 16)
+    q, k, v, extra = stream_inputs(regime, shape, seed=50)
+    g = cotangent(shape, seed=51)
+    args = [torch.from_numpy(x) for x in (q, k, v, g)]
+    kw = twin_pe(args[0], extra)
+    before = tfa.LAUNCHES_STREAM_FUSED_PROLOGUE
+    got = tfa.attention_stream_bwd_fused_prologue(*args, kw["cos"],
+                                                  kw["sin"])
+    assert tfa.LAUNCHES_STREAM_FUSED_PROLOGUE == before  # the twin on the CPU
+    rows = tfa.stream_bwd_rows(n)
+    _, freqs, _ = jax_pe(extra)
+    jq, jk = jnp.asarray(q), jnp.asarray(k)
+    if freqs is not None:
+        cos, sin = jfa._prep_freqs(freqs, 3, n, jnp.float32)
+        jq, jk = jfa._rotate_bh(jq, cos, sin), jfa._rotate_bh(jk, cos, sin)
+    for x, want in zip(got, (jq, jk, v, g)):
+        assert x.shape == (2, 3, rows, 16) and x.dtype == torch.bfloat16
+        assert not x[:, :, n:].any()
+        want = torch.from_numpy(np.array(
+            jnp.asarray(want).astype(jnp.bfloat16).astype(jnp.float32)))
+        assert torch.equal(x[:, :, :n].float(), want)
+    ops, _ = tfa.attention_stream_bwd_prologue(*args[:3], args[3], args[3],
+                                               kw["cos"], kw["sin"])
+    for x, y in zip(got, ops):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("rows,keys", [(190, 90), (17, 129), (1, 1)])
+def test_fused_prologue_twin_on_a_key_chunk(rows, keys):
+    """On a key chunk at offsets (q rows [100, 100 + rows), keys [130, 130 +
+    keys) of a longer sequence; no tables) the prologue only rounds: q, g
+    padded to stream_bwd_rows(rows), k, v to stream_bwd_rows(keys), bit for
+    bit the JAX kernel's bf16 operands of those rows."""
+    q, k, v, _ = stream_inputs("none", (2, 3, 290, 16), seed=52)
+    g = cotangent((2, 3, 290, 16), seed=53)
+    r, c = slice(100, 100 + rows), slice(130, 130 + keys)
+    parts = (q[:, :, r], k[:, :, c], v[:, :, c], g[:, :, r])
+    got = tfa.attention_stream_bwd_fused_prologue(
+        *(torch.from_numpy(np.ascontiguousarray(x)) for x in parts))
+    for x, want, n in zip(got, parts, (rows, keys, keys, rows)):
+        assert x.shape == (2, 3, tfa.stream_bwd_rows(n), 16)
+        assert not x[:, :, n:].any()
+        want = np.array(jnp.asarray(want).astype(jnp.bfloat16).astype(
+            jnp.float32))
+        assert torch.equal(x[:, :, :n].float(), torch.from_numpy(want))
+
+
+@pytest.mark.parametrize("b,h,n,nk,d", [
+    (4, 4, 4097, 4097, 32), (2, 3, 290, 90, 16), (1, 4, 16384, 66048, 32),
+    (16, 6, 577, 577, 64), (1, 1, 1, 1, 16)])
+def test_fused_scratch_shapes_agree_with_the_c_entry(b, h, n, nk, d):
+    """attn_stream_bwd_fused.cu's entry comment: with NQP, NKP = N, NK
+    rounded up to 128, key tiles = ceil(NK / 128) and slabs = ceil(key
+    tiles / CLUSTER), the scratch holds f32 dq slabs [slabs, B, H, NQP, D]
+    and then the bf16 operands qf [B, H, NQP, D], kf and bf16 v [B, H, NKP,
+    D], bf16 g [B, H, NQP, D]; CLUSTER is FUSED_CLUSTER."""
+    source = tfa.STREAM_FUSED_SOURCE.read_text()
+    assert f"constexpr int CLUSTER = {tfa.FUSED_CLUSTER};" in source
+    nqp, nkp = -(-n // 128) * 128, -(-nk // 128) * 128
+    slabs = -(-(-(-nk // 128)) // tfa.FUSED_CLUSTER)
+    assert tfa.fused_slabs(nk) == slabs
+    assert tfa.fused_scratch_shapes(b, h, n, nk, d) == (
+        (slabs, b, h, nqp, d), (b * h * (2 * nqp + 2 * nkp) * d,))
+    ops = torch.arange(b * h * (2 * nqp + 2 * nkp) * d)
+    qf, kf, vb, gb = tfa._fused_operands(ops, b, h, n, nk, d)
+    assert qf.shape == gb.shape == (b, h, nqp, d)
+    assert kf.shape == vb.shape == (b, h, nkp, d)
+    assert int(kf.flatten()[0]) == b * h * nqp * d  # in the C entry's order
+    assert int(gb.flatten()[0]) == b * h * (nqp + 2 * nkp) * d
+
+
+@pytest.mark.parametrize("b,h,n,keys,d,segments", [
+    (1, 4, 65537, 65537, 32, {8: 3, 4: 5, 1: 17}),
+    (4, 4, 4097, 4097, 32, None), (2, 4, 16385, 16385, 32, None),
+    (16, 6, 577, 577, 64, None), (4, 4, 2048, 4608, 32, None),
+    (1, 4, 16384, 66048, 32, {8: 1, 4: 2, 1: 5})])
+def test_fused_segments_hold_the_slabs_within_the_budget(b, h, n, keys, d,
+                                                         segments):
+    """One launch's slabs (one f32 [B, H, stream_bwd_rows(N), D] slab per
+    cluster) stay within FUSED_SCRATCH_BYTES at the repo's shapes (the
+    long-sequence model at N = 4,097 / 16,385, ViT-S/16@384, the bounded
+    step's q-chunks of 2,048 and 16,384 rows, the monolithic step at N =
+    65,537), a launch takes whole clusters, and the monolithic step at N =
+    65,537 and the bounded step's q-chunk there take the segments that the
+    cluster size implies."""
+    cols = tfa._fused_kv_seg_cols(b, h, n, d)
+    cluster_keys = tfa.STREAM_BWD_ROWS * tfa.FUSED_CLUSTER
+    assert cols % cluster_keys == 0
+    slab = b * h * tfa.stream_bwd_rows(n) * d * 4
+    assert tfa.fused_slabs(cols) * slab <= tfa.FUSED_SCRATCH_BYTES
+    assert (tfa.fused_slabs(cols) + 1) * slab > tfa.FUSED_SCRATCH_BYTES
+    if segments is not None:
+        assert -(-keys // cols) == segments[tfa.FUSED_CLUSTER]
+        if n == 65537:  # CTAs per launch
+            assert tfa.fused_slabs(cols) * tfa.FUSED_CLUSTER * h == {
+                8: 992, 4: 496, 1: 124}[tfa.FUSED_CLUSTER]
+    else:
+        assert keys <= cols  # one launch

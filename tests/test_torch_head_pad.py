@@ -136,13 +136,14 @@ def test_head_pad_round_trip_and_limits():
 def test_polynomial_terms_up_to_the_lanes(terms, cols):
     """The kernels take up to 128 terms (the JAX package's lanes); the
     one-pass backward's per-CTA partial sums come in groups of eight
-    (poly_part_cols in csrc/attn_stream.cuh)."""
+    (poly_part_cols in csrc/attn_stream.cuh), one row per CTA of 128 keys
+    (one for these 100)."""
     q = torch.zeros(2, 3, 100, 32)
     coeff = torch.zeros(3, terms)
     got, _, _ = fa._check_generated(q, (coeff, 9), None)
     assert got.shape == (3, terms)
     dparam, part = fa._dparam_scratch(q, 100, coeff, None)
-    assert dparam.shape == (3, terms) and part.shape == (2, 3, 2, cols)
+    assert dparam.shape == (3, terms) and part.shape == (2, 3, 1, cols)
 
 
 def test_polynomial_terms_above_the_lanes_raise():

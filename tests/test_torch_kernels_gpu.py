@@ -25,7 +25,9 @@ lse) needs no running max, so the twin's tiles only reorder float32 sums, and
 what is left are bf16 roundings of p and ds that flip after a last-ulp
 difference (dq, dk, dv: 4e-3 f32 / 1.6e-2 bf16 inputs, as the separate
 passes); the parameter gradients, float32 sums of ds that nearly cancel,
-1e-3 of their largest entry. AdamW: 1e-6 (the same float32 operations, rounded
+1e-3 of their largest entry; the one-pass backward's prologue to its twin
+and to the separate passes' prologue bit for bit, and key chunks that end
+inside a cluster of its CTAs to the twin. AdamW: 1e-6 (the same float32 operations, rounded
 op by op on both sides, but the twin's float32 sqrt on the CPU is not always
 correctly rounded, and on CUDA it divides by a Python scalar as a product with
 the reciprocal); bit for bit against fused_adamw.adamw_exact, every operation
@@ -789,6 +791,71 @@ def test_chunk_bwd_kernel_at_offsets_matches_twin(cuda, regime):
         share_of_largest(x, y, FUSED_TOL[torch.float32])
     dparam = want[3] if regime == "poly" else want[4]
     assert (got[3] is None) == (dparam is None)
+    if dparam is not None:
+        share_of_largest(got[3], dparam, PARAM_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("regime", ["none", "rope-axial", "rope-mixed"])
+@pytest.mark.parametrize("n", [17, 290, 4097])
+def test_fused_prologue_kernel_is_the_twin_bit_for_bit(cuda, n, regime,
+                                                       dtype):
+    """The one-pass backward's prologue (q, k rotated op by op in float32,
+    every operand rounded to bf16 once, rows zero past N) against its twin,
+    and its qf, kf, bf16 v, bf16 g against the separate passes' prologue's,
+    bit for bit; and on a key chunk at offsets (no tables: the chunk's keys
+    and its own rows only rounded)."""
+    shape = (2, 4, n, 32)
+    q, k, v, kw = stream_inputs(regime, shape, dtype, cuda, 7)
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(8))
+    g = g.to(cuda, dtype)
+    before = fa.LAUNCHES_STREAM_FUSED_PROLOGUE
+    got = fa.attention_stream_bwd_fused_prologue(q, k, v, g, kw["cos"],
+                                                 kw["sin"])
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_STREAM_FUSED_PROLOGUE == before + 1
+    want = fa.attention_stream_bwd_fused_prologue_plain(q, k, v, g, kw["cos"],
+                                                        kw["sin"])
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and torch.equal(x, y)
+    ops, _ = fa.attention_stream_bwd_prologue(q, k, v, g, g, kw["cos"],
+                                              kw["sin"])
+    for x, y in zip(got, (ops[0], ops[1], ops[2], ops[3])):
+        assert torch.equal(x, y)
+    rows, cols = slice(n // 3, n), slice(n // 4, n // 4 + n // 2 + 1)
+    args = (q[:, :, rows], k[:, :, cols], v[:, :, cols], g[:, :, rows])
+    got = fa.attention_stream_bwd_fused_prologue(*args)
+    want = fa.attention_stream_bwd_fused_prologue_plain(*args)
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime", ["none", "poly", "rel"])
+@pytest.mark.parametrize("keys", [1, 128, 129, 1000, 1025])
+def test_fused_bwd_kernel_pads_the_last_cluster(cuda, keys, regime):
+    """Key chunks of every count against whole clusters of
+    fa.FUSED_CLUSTER 128-key CTAs: one key, one CTA, one CTA and a key, a
+    cluster short of a CTA, a cluster and a key (the CTAs that pad the grid
+    own no keys), rows [0, 700) at offsets (0, 300); launched twice, bit for
+    bit."""
+    (q, k, v, g, lse, delta, scale), kw = fused_inputs(
+        regime, (2, 4, 1400, 32), torch.float32, cuda, 9)
+    pe = {key: kw[key] for key in ("poly", "rel") if key in kw}
+    rows, cols = slice(0, 700), slice(300, 300 + keys)
+    args = (q[:, :, rows], k[:, :, cols], v[:, :, cols], g[:, :, rows],
+            lse[:, :, rows], delta[:, :, rows], scale)
+    got = fa.streaming_chunk_bwd(*args, 0, 300, 1400, **pe)
+    again = fa.streaming_chunk_bwd(*args, 0, 300, 1400, **pe)
+    torch.cuda.synchronize()
+    for x, y in zip(got, again):
+        assert (x is None and y is None) or torch.equal(x, y)
+    want = fa.attention_stream_bwd_fused_plain(
+        *args, q_tile=512, kv_tile=256, n_valid=1400, row0=0, col0=300, **pe)
+    for x, y in zip(got[:3], want[:3]):
+        share_of_largest(x, y, FUSED_TOL[torch.float32])
+    dparam = want[3] if regime == "poly" else want[4]
     if dparam is not None:
         share_of_largest(got[3], dparam, PARAM_TOL)
 

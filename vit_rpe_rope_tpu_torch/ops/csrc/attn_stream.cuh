@@ -2,8 +2,7 @@
 // attn_stream_bwd.cu, attn_stream_bwd_fused.cu): where a logit's bias comes
 // from (a materialized [H, N, N] tensor, or generated per element from the
 // polynomial coefficients or the relative table), the key mask in global
-// coordinates, the one-pass backward's shared-memory layout, and the integer
-// arguments of the C entry points.
+// coordinates, and the integer arguments of the C entry points.
 
 #pragma once
 
@@ -174,28 +173,5 @@ __device__ __forceinline__ float chunk_logit(float acc, int qi, int kj, int n_k,
   }
   return s;
 }
-
-// Shared memory of one backward CTA: four bf16 [64, D] tiles (q, g, k, v),
-// two f32 [64, max(D, 64)] slabs (s and gv, later the accumulators on their
-// way out) and two bf16 [64, 64] blocks (p and ds).
-template <int D>
-struct BwdLayout {
-  static constexpr int LDX = ldx<D>();
-  static constexpr int SW = D > TK ? D : TK;  // f32 slab width
-  static constexpr int LDS = SW + 4;
-  static constexpr int LDP = TK + 8;          // bf16 [16, 64] row blocks
-  static constexpr size_t TILE_BYTES = size_t(TQ) * LDX * 2;
-  static constexpr size_t SLAB_BYTES = size_t(TQ) * LDS * 4;
-  static constexpr size_t P_BYTES = size_t(TQ) * LDP * 2;
-  static constexpr size_t T0 = 0;  // four bf16 tiles
-  static constexpr size_t S_OFF = 4 * TILE_BYTES;
-  static constexpr size_t U_OFF = S_OFF + SLAB_BYTES;
-  static constexpr size_t P_OFF = U_OFF + SLAB_BYTES;
-  static constexpr size_t R_OFF = P_OFF + P_BYTES;
-  static constexpr size_t BYTES = R_OFF + P_BYTES;
-  static_assert(TILE_BYTES % 128 == 0 && SLAB_BYTES % 128 == 0 &&
-                    P_BYTES % 128 == 0,
-                "shared-memory sections must stay 128-byte aligned");
-};
 
 }  // namespace attn

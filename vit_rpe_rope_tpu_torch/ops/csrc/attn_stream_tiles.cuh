@@ -1,6 +1,7 @@
 // Pieces shared by the streaming kernels that walk one axis in cp.async
-// double-buffered tiles of rounded bf16 operands (attn_stream_fwd.cu and the
-// separate passes of attn_stream_bwd.cu): the CTA shape, the ring of
+// double-buffered tiles of rounded bf16 operands (attn_stream_fwd.cu, the
+// separate passes of attn_stream_bwd.cu and the one-pass
+// attn_stream_bwd_fused.cu): the CTA shape, the ring of
 // shared-memory slots, the 16-byte staging of scratch rows and of a padded
 // f32 bias tile, a head's rope tables, the logit of one mma fragment
 // element and the rotation and rounding of a row's operands.

@@ -21,7 +21,9 @@ package chooses them (`STREAMING_THRESHOLD`, `_dense_attn_fits`):
   (`_stream_bwd_fused_kernel`, launched by
   `_bwd_streaming_fused`, over key segments by `_bwd_fused_segmented`, on a
   key chunk at global offsets by `streaming_chunk_bwd`):
-  ops/csrc/attn_stream_bwd_fused.cu; or, with a materialized bias (dbias) or
+  ops/csrc/attn_stream_bwd_fused.cu, after a prologue that rounds the
+  operands to bf16 once per call (`attention_stream_bwd_fused_prologue`);
+  or, with a materialized bias (dbias) or
   learnable rope frequencies (dqr/dkr), separate dq, dk/dv and dbias passes
   (`_stream_bwd_dq_kernel`, `_stream_bwd_dkv_kernel`,
   `_stream_bwd_dbias_kernel`, launched by `_bwd_streaming`, whose direct
@@ -56,19 +58,22 @@ What is computed, for q, k, v [B, H, N, D]:
 `attention_fwd` / `attention_bwd` / `attention_stream_fwd_prologue` /
 `attention_stream_fwd` / `streaming_chunk_fwd` /
 `attention_stream_bwd_prologue` /
-`attention_stream_bwd` / `attention_stream_bwd_fused` are the kernels'
+`attention_stream_bwd` / `attention_stream_bwd_fused_prologue` /
+`attention_stream_bwd_fused` are the kernels'
 wrappers: on a CUDA tensor they launch the kernel (and count the launch in
 LAUNCHES / LAUNCHES_BWD, with the dense route's own count in
 LAUNCHES_RESIDENT or LAUNCHES_WIDE / LAUNCHES_BWD_RESIDENT or
 LAUNCHES_BWD_WIDE, / LAUNCHES_STREAM_FWD_PROLOGUE / LAUNCHES_STREAM_FWD /
 LAUNCHES_STREAM_CHUNK_FWD / LAUNCHES_STREAM_PROLOGUE / LAUNCHES_STREAM_DQ,
 LAUNCHES_STREAM_DKV, LAUNCHES_STREAM_DBIAS, LAUNCHES_STREAM_DCOEFF and
-LAUNCHES_STREAM_DTABLE / LAUNCHES_STREAM_FUSED, each where its kernel is
+LAUNCHES_STREAM_DTABLE / LAUNCHES_STREAM_FUSED_PROLOGUE /
+LAUNCHES_STREAM_FUSED, each where its kernel is
 launched), on a CPU tensor they run `attention_plain` /
 `attention_bwd_plain` / `attention_stream_fwd_prologue_plain` /
 `attention_stream_plain` (on a whole sequence or a key chunk) /
 `attention_stream_bwd_prologue_plain` /
-`attention_stream_bwd_plain` / `attention_stream_bwd_fused_plain`, the
+`attention_stream_bwd_plain` / `attention_stream_bwd_fused_prologue_plain`
+/ `attention_stream_bwd_fused_plain`, the
 kernels' plain PyTorch twins. Nothing falls back: a CUDA call the kernel
 cannot take raises.
 
@@ -88,6 +93,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -129,9 +135,11 @@ LAUNCHES_STREAM_DBIAS = 0
 LAUNCHES_STREAM_CHUNK_FWD = 0
 LAUNCHES_STREAM_FWD_PROLOGUE = 0
 
-# Launches of the one-pass streaming backward (one per key segment) and of
-# the separate-pass coefficient / table gradient kernels.
+# Launches of the one-pass streaming backward (one per key segment), of its
+# prologue (one before every one-pass launch) and of the separate-pass
+# coefficient / table gradient kernels.
 LAUNCHES_STREAM_FUSED = 0
+LAUNCHES_STREAM_FUSED_PROLOGUE = 0
 LAUNCHES_STREAM_DCOEFF = 0
 LAUNCHES_STREAM_DTABLE = 0
 
@@ -150,9 +158,12 @@ REG_POLY_TERMS = 8
 # (p = exp(s - lse) needs no running max, so here the tiles change only the
 # order of the float32 sums.)
 FUSED_Q_TILE = 256
-# The one-pass kernel keeps each 64-key tile's share of dq in an f32 slab of
-# the size of dq; its wrapper sweeps the keys in segments that keep this
-# scratch within the budget.
+# The one-pass kernel's CTAs own 128 keys each (STREAM_BWD_ROWS) and run in
+# thread-block clusters of FUSED_CLUSTER along the keys; each cluster keeps
+# its share of dq in an f32 slab of the size of dq. Its wrapper sweeps the
+# keys in segments that keep these slabs within the budget
+# (csrc/attn_stream_bwd_fused.cu's CLUSTER is FUSED_CLUSTER).
+FUSED_CLUSTER = 4
 FUSED_SCRATCH_BYTES = 1 << 30
 # The separate-pass backward's dq kernel writes each batch's float32 ds into
 # an [H, N, dbias_pitch(N)] slab for dbias, summed afterwards in batch order;
@@ -671,6 +682,49 @@ def attention_stream_bwd_prologue_plain(q, k, v, out, g, cos=None, sin=None):
     return ops, (g.float() * out.float()).sum(dim=-1)
 
 
+def fused_slabs(nk):
+    """dq slabs of one one-pass launch over nk keys: one per thread-block
+    cluster of FUSED_CLUSTER CTAs of STREAM_BWD_ROWS keys."""
+    return -(-nk // (STREAM_BWD_ROWS * FUSED_CLUSTER))
+
+
+def fused_scratch_shapes(b, h, n, nk, d):
+    """The one-pass kernel's scratch as its C entry lays it out, for n query
+    rows against nk keys: (the f32 dq slabs [fused_slabs(nk), B, H,
+    stream_bwd_rows(n), D], the bf16 operands [B * H * (2 *
+    stream_bwd_rows(n) + 2 * stream_bwd_rows(nk)) * D]: qf, kf, bf16 v,
+    bf16 g, each a [B, H, rows, D] block)."""
+    nqp, nkp = stream_bwd_rows(n), stream_bwd_rows(nk)
+    return ((fused_slabs(nk), b, h, nqp, d),
+            (b * h * (2 * nqp + 2 * nkp) * d,))
+
+
+def _fused_operands(ops, b, h, n, nk, d):
+    """(qf, kf, bf16 v, bf16 g) [B, H, rows, D] views of the flat bf16
+    operands of fused_scratch_shapes."""
+    nqp, nkp = stream_bwd_rows(n), stream_bwd_rows(nk)
+    sizes = [b * h * r * d for r in (nqp, nkp, nkp, nqp)]
+    return tuple(x.view(b, h, -1, d) for x in ops.split(sizes))
+
+
+def attention_stream_bwd_fused_prologue_plain(q, k, v, g, cos=None,
+                                              sin=None):
+    """The one-pass backward's prologue kernel in plain PyTorch: (qf, kf,
+    bf16 v, bf16 g) bfloat16 [B, H, rows, D], qf, kf = bf16(rotate(q)),
+    bf16(rotate(k)) (rotation in float32; whole sequences only), rows
+    stream_bwd_rows(N) for q and g, stream_bwd_rows(NK) for k and v, zero
+    past N / NK."""
+    b, h, n, d = q.shape
+    nk = k.shape[2]
+    qm, km = _rotated_operands(q, k, cos, sin, torch.bfloat16)
+    ops = torch.zeros(fused_scratch_shapes(b, h, n, nk, d)[1],
+                      dtype=torch.bfloat16, device=q.device)
+    parts = _fused_operands(ops, b, h, n, nk, d)
+    for part, x in zip(parts, (qm, km, v, g)):
+        part[:, :, :x.shape[2]] = x.to(torch.bfloat16)
+    return parts
+
+
 def _dparam_zeros(poly, rel, device):
     """Zeroed float32 (dcoeff, dtable) for the generated bias given."""
     f32 = dict(dtype=torch.float32, device=device)
@@ -830,8 +884,8 @@ def _stream_bwd_library():
 
 def _stream_fused_library():
     return cuda_build.load(STREAM_FUSED_SOURCE, _bind_stream(
-        "attn_stream_bwd_fused", "attn_stream_bwd_dcoeff",
-        "attn_stream_bwd_dtable"))
+        "attn_stream_bwd_fused", "attn_stream_bwd_fused_prologue",
+        "attn_stream_bwd_dcoeff", "attn_stream_bwd_dtable"))
 
 
 def _check_cuda_inputs(q, k, v, bias, cos, sin, key_chunk=False,
@@ -1409,8 +1463,8 @@ def attention_stream_bwd(q, k, v, out, g, lse, scale, bias=None, cos=None,
         dcoeff = dtable = None
         if want_dparam:
             dparam, part = _dparam_scratch(q, n, coeff, table)
-            fused_args = (
-                _pointers(q, k, v, g, lse, delta, None, None, None, None,
+            fused_args = (  # the sweep reads the prologue's operands
+                _pointers(q, k, v, g, lse, delta, None, None, None, ops,
                           dparam, part, cos, sin, coeff, table), args[1],
                 _stream_dims(q, cos, coeff, grid, table), float(scale))
             if coeff is not None:
@@ -1433,29 +1487,69 @@ def attention_stream_bwd(q, k, v, out, g, lse, scale, bias=None, cos=None,
 
 def _dparam_scratch(q, nk, coeff, table):
     """(dparam, its per-CTA partial sums) as attn_stream_bwd_fused.cu lays
-    them out for q's rows against nk keys, or (None, None)."""
+    them out for q's rows against nk keys (one CTA per STREAM_BWD_ROWS
+    keys), or (None, None)."""
     b, h, n, _ = q.shape
     f32 = dict(dtype=torch.float32, device=q.device)
-    n_kt = -(-nk // STREAM_TILE)
+    n_kt = -(-nk // STREAM_BWD_ROWS)
     if coeff is not None:
         terms = coeff.shape[1]  # poly_part_cols of csrc/attn_stream.cuh
         cols = max(REG_POLY_TERMS, _round_up(terms, REG_POLY_TERMS))
         return (torch.empty(coeff.shape, **f32),
                 torch.empty((b, h, n_kt, cols), **f32))
-    if table is not None:
+    if table is not None:  # the diagonals of every 64-query tile
         return (torch.empty(table.shape, **f32),
                 torch.empty((b, h, n_kt, _round_up(n, STREAM_TILE)
-                             + STREAM_TILE), **f32))
+                             + STREAM_BWD_ROWS), **f32))
     return None, None
 
 
 def _fused_kv_seg_cols(b, h, n, d):
-    """The most keys one launch of the one-pass kernel takes: each 64-key
-    tile holds an f32 [B, H, N rounded up to 64, D] slab of dq partial sums,
-    and the slabs of one launch stay within FUSED_SCRATCH_BYTES (at least
-    one tile)."""
-    slab = b * h * _round_up(n, STREAM_TILE) * d * 4
-    return STREAM_TILE * max(1, FUSED_SCRATCH_BYTES // slab)
+    """The most keys one launch of the one-pass kernel takes: each cluster
+    of FUSED_CLUSTER CTAs of STREAM_BWD_ROWS keys holds an f32
+    [B, H, stream_bwd_rows(N), D] slab of dq partial sums, and the slabs of
+    one launch stay within FUSED_SCRATCH_BYTES (at least one cluster)."""
+    slab = b * h * stream_bwd_rows(n) * d * 4
+    return (STREAM_BWD_ROWS * FUSED_CLUSTER
+            * max(1, FUSED_SCRATCH_BYTES // slab))
+
+
+def attention_stream_bwd_fused_prologue(q, k, v, g, cos=None, sin=None):
+    """The one-pass backward's prologue kernel's wrapper: (qf, kf, bf16 v,
+    bf16 g) as attention_stream_bwd_fused_prologue_plain. CPU tensors run
+    the twin. CUDA tensors (at a built head dim) launch the kernel on the
+    current stream, or raise. attention_stream_bwd_fused launches it through
+    its own entry point."""
+    global LAUNCHES_STREAM_FUSED_PROLOGUE
+    if q.device.type == "cpu":
+        return attention_stream_bwd_fused_prologue_plain(q, k, v, g, cos, sin)
+    q, k, v, g = _fused_inputs(q, k, v, g, cos, sin)
+    b, h, n, d = q.shape
+    ops = torch.empty(fused_scratch_shapes(b, h, n, k.shape[2], d)[1],
+                      dtype=torch.bfloat16, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _stream_fused_library().attn_stream_bwd_fused_prologue(
+            _pointers(q, k, v, g, None, None, None, None, None, ops, None,
+                      None, cos, sin, None, None),
+            _strides(q, k, v, g, None, None, None),
+            _stream_dims(q, cos, None, 0, None, nk=k.shape[2]), 1.0,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attn_stream_bwd_fused_prologue launch failed: "
+                           f"CUDA error {err}")
+    LAUNCHES_STREAM_FUSED_PROLOGUE += 1
+    return _fused_operands(ops, b, h, n, k.shape[2], d)
+
+
+def _fused_inputs(q, k, v, g, cos, sin):
+    """Raise on what the one-pass kernels do not take; returns q, k, v and
+    g with rows that the prologue can read in 16-byte pieces (copies where
+    needed)."""
+    _check_cuda_inputs(q, k, v, None, cos, sin, key_chunk=True)
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError("g must match q in shape, dtype and device")
+    return tuple(_aligned(t if t.stride(-1) == 1 else t.contiguous())
+                 for t in (q, k, v, g))
 
 
 def attention_stream_bwd_fused(q, k, v, g, lse, delta, scale, cos=None,
@@ -1470,10 +1564,11 @@ def attention_stream_bwd_fused(q, k, v, g, lse, delta, scale, cos=None,
     A key extent wider than `_fused_kv_seg_cols` is swept in segments
     (`_bwd_fused_segmented`). Otherwise CPU tensors run the plain twin with
     the JAX package's tiles and mm_dtype products, and CUDA tensors launch
-    the kernel (bf16 products only) on the current stream, or raise. With
-    as many keys as query rows, dq, dk and dv are views of one
-    [B, N, 3, H, D] buffer."""
-    global LAUNCHES_STREAM_FUSED
+    the prologue (as `attention_stream_bwd_fused_prologue`: the operands
+    rounded once) and the kernel (bf16 products only) on the current
+    stream, through one entry point, or raise. With as many keys as query
+    rows, dq, dk and dv are views of one [B, N, 3, H, D] buffer."""
+    global LAUNCHES_STREAM_FUSED, LAUNCHES_STREAM_FUSED_PROLOGUE
     b, h, n, d = q.shape
     nc = k.shape[2]
     n_valid = n if n_valid is None else int(n_valid)
@@ -1505,9 +1600,7 @@ def attention_stream_bwd_fused(q, k, v, g, lse, delta, scale, cos=None,
         return (dq.to(out_dtype), dk.to(out_dtype), dv.to(out_dtype), dcoeff,
                 dtable)
     _check_bf16_products(mm_dtype)
-    _check_cuda_inputs(q, k, v, None, cos, sin, key_chunk=True)
-    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
-        raise ValueError("g must match q in shape, dtype and device")
+    q, k, v, g = _fused_inputs(q, k, v, g, cos, sin)
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.shape != (b, h, n) or t.dtype != torch.float32
                 or t.device != q.device):
@@ -1515,8 +1608,6 @@ def attention_stream_bwd_fused(q, k, v, g, lse, delta, scale, cos=None,
                              f"q's device")
     coeff, grid, table = _check_generated(q, poly, rel)
     lse, delta = lse.contiguous(), delta.contiguous()
-    if g.stride(-1) != 1:
-        g = g.contiguous()
     f32 = dict(dtype=torch.float32, device=q.device)
     if nc == n:
         dqkv = torch.empty((b, n, 3, h, d), **f32)
@@ -1524,12 +1615,13 @@ def attention_stream_bwd_fused(q, k, v, g, lse, delta, scale, cos=None,
     else:
         dq, dk, dv = (torch.empty((b, rows, h, d), **f32).transpose(1, 2)
                       for rows in (n, nc, nc))
-    n_kt = -(-nc // STREAM_TILE)
-    dq_part = torch.empty((n_kt, b, h, _round_up(n, STREAM_TILE), d), **f32)
+    slabs, ops = fused_scratch_shapes(b, h, n, nc, d)
+    # one buffer: the slabs, then the bf16 operands (two to a float)
+    scratch = torch.empty(math.prod(slabs) + ops[0] // 2, **f32)
     dparam, part = _dparam_scratch(q, nc, coeff, table)
     with torch.cuda.device(q.device):
         err = _stream_fused_library().attn_stream_bwd_fused(
-            _pointers(q, k, v, g, lse, delta, dq, dk, dv, dq_part, dparam,
+            _pointers(q, k, v, g, lse, delta, dq, dk, dv, scratch, dparam,
                       part, cos, sin, coeff, table),
             _strides(q, k, v, g, dq, dk, dv),
             _stream_dims(q, cos, coeff, grid, table, row0=row0, col0=col0,
@@ -1538,6 +1630,7 @@ def attention_stream_bwd_fused(q, k, v, g, lse, delta, scale, cos=None,
     if err != 0:
         raise RuntimeError(f"attn_stream_bwd_fused launch failed: CUDA error "
                            f"{err}")
+    LAUNCHES_STREAM_FUSED_PROLOGUE += 1
     LAUNCHES_STREAM_FUSED += 1
     if nc == n and out_dtype != torch.float32:
         dqkv = dqkv.to(out_dtype)  # one pass over the three gradients
