@@ -9,7 +9,8 @@ exits nonzero without a card, or when any phase fails. Phases:
 1. the card (nvidia-smi name and power limit), versions, the build of the
    kernels (attn_fwd.cu, attn_bwd.cu, attn_stream_fwd.cu,
    attn_stream_bwd.cu, attn_stream_bwd_fused.cu, adamw.cu, block_fused.cu;
-   one nvcc each, in parallel);
+   one nvcc each, in parallel) with each instance's registers and spills
+   (row 12 may not spill);
 2. the attention kernel against its plain PyTorch twin on the card, in five
    PE regimes (none, poly bias, rel bias, rope-axial, rope-mixed), f32 and
    bf16 inputs, at the ViT-S/16@224 shape (N=197, D=64) and the
@@ -122,13 +123,18 @@ exits nonzero without a card, or when any phase fails. Phases:
    bounded and the monolithic step's gradients against the unfused f32
    oracle and each other, and the chunk forward on q, k rotated in PyTorch
    against the whole-sequence forward rotating in the kernel, bit for bit;
-16. the block-level paths: the fused block kernel (block_fused.cu, row 12)
-   against its twin at ViT-tiny/4 (batch 128, f32 and bf16) and at the CPU
-   tests' shape, in none and rope-axial, and at ViT-tiny/4 with rope-mixed's
-   per-head tables (head 0's for every head, as in the JAX package); a
-   6-block forward at ViT-tiny/4
-   timed for the kernel (exactly 6 launches), the per-op block, the twin,
-   torch.nn.TransformerEncoderLayer (none) and the bound;
+16. the block-level paths: the fused block kernel (block_fused.cu, row 12;
+   an image's rows over a thread-block cluster, block_fused.block_plan)
+   against its twin at ViT-tiny/4 (batch 128, one CTA an image) and
+   ViT-S/16@224 (batch 64, a cluster of CTAs an image), f32 and bf16, and at
+   the CPU tests' shape, in none and rope-axial, and at ViT-tiny/4 with
+   rope-mixed's per-head tables (head 0's for every head, as in the JAX
+   package), every case launched twice and compared bit for bit, its
+   weight prologue against its twin bit for bit; a 6-block forward at
+   ViT-tiny/4 (none, rope-axial) and a 12-block ViT-S/16@224 forward
+   (none) timed for the wrapper (exactly one kernel and one prologue launch
+   a block) beside the kernel's and the prologue's device times, the per-op
+   block, the twin, torch.nn.TransformerEncoderLayer (none) and the bound;
    attention_impl="flash_block" against "flash" gradients at ViT-tiny/4
    rope-mixed (N=65) and the long-sequence model in rope-axial (N=4,097);
    one epoch each through the train CLI of ViT-tiny/4 rope-mixed with
@@ -284,11 +290,13 @@ BOUNDED_EPOCH_LR = 5e-4
 # that rounds to the other bf16 neighbour after a last-ulp float32
 # difference (sums in another order, rsqrt, exp) moves the update by a
 # fraction of a bf16 ulp of its largest entries: 2.70e-3 (none) and
-# 1.27e-3 (rope-axial) at ViT-tiny/4, f32, on an H100. A bf16 output is
-# held to the same limit beyond one bf16 ulp of each entry. A kernel
-# without the key mask misses it by 2.35e-2 / 2.92e-2, one without the
-# rotation by 1.35e-1 (scripts/torch_block_mutants.py), so the limit sits
-# below the weakest of those and near twice the seen error.
+# 1.27e-3 (rope-axial) at ViT-tiny/4, 2.78e-3 / 2.81e-3 at ViT-S/16@224,
+# f32, on an H100. A bf16 output is held to the same limit beyond one bf16
+# ulp of each entry. A kernel without the key mask misses it by 2.35e-2 /
+# 2.92e-2 at ViT-tiny/4 and 7.40e-3 / 7.12e-3 at ViT-S/16@224, one without
+# the rotation by 1.35e-1 / 4.45e-1, one that reads only its own CTA's
+# keys by 5.1e-1 (scripts/torch_block_mutants.py), so the limit sits below
+# the weakest of those and within twice the seen error.
 BLOCK_FUSED_TOL = 5e-3
 # The blocks of row 12's timed forward: ViT-tiny/4's depth.
 BLOCK_DEPTH = 6
@@ -2681,20 +2689,21 @@ def time_bounded_steps(modules, vit, datasets, ViTConfig, device, n_steps=3):
     return rows, trace
 
 
-def block_stack(vit, cfg, device, seed):
-    """BLOCK_DEPTH blocks' seeded params (the init with every parameter
-    moved by 0.05 times a normal draw, so that the logits spread over
-    several units and the attention is far from uniform) and the
-    rope-axial tables, rope-mixed's per-head tables (its frequencies moved
-    alike) or None."""
+def block_stack(vit, cfg, device, seed, depth=None):
+    """`depth` (default BLOCK_DEPTH) blocks' seeded params (the init with
+    every parameter moved by 0.05 times a normal draw, so that the logits
+    spread over several units and the attention is far from uniform) and
+    the rope-axial tables, rope-mixed's per-head tables (its frequencies
+    moved alike) or None."""
+    depth = depth or BLOCK_DEPTH
     params = vit.init_params(torch.Generator().manual_seed(seed),
-                             dataclasses.replace(cfg, depth=BLOCK_DEPTH),
+                             dataclasses.replace(cfg, depth=depth),
                              device=device)
     gen = torch.Generator().manual_seed(seed + 1)
     blocks = [{name: params[f"blocks.{i}.{name}"] + 0.05 * torch.randn(
                    params[f"blocks.{i}.{name}"].shape, generator=gen).to(device)
                for name in vit.BLOCK_PARAM_NAMES}
-              for i in range(BLOCK_DEPTH)]
+              for i in range(depth)]
     freqs = None
     if cfg.pos_encoding in ("rope-axial", "rope-mixed"):
         from vit_rpe_rope_tpu_torch import pe as pe_registry
@@ -2724,22 +2733,30 @@ def update_share(got, want, x):
 
 def check_block_fused(block_fused, vit, ViTConfig, device):
     """Phase 16a: row 12 against its twin on the card at ViT-tiny/4 (batch
-    128, N=65, E=192, 6 heads of 32, hidden 768; f32 and bf16 inputs) and at
-    the CPU tests' shape (batch 2, N=17, E=64, 2 heads), in none and
-    rope-axial, and at ViT-tiny/4 in f32 with rope-mixed's per-head tables
-    (every head rotated by head 0's, as in the JAX package); every case
-    launched twice, bit-identical. Returns the worst max |kernel - twin| at
-    ViT-tiny/4 in f32."""
-    worst = 0.0
+    128, N=65, E=192, 6 heads of 32, hidden 768; one CTA an image) and at
+    ViT-S/16@224 (batch 64, N=197, E=384, 6 heads of 64, hidden 1536; a
+    cluster of CTAs an image), f32 and bf16 inputs, and at the CPU tests'
+    shape (batch 2, N=17, E=64, 2 heads), in none and rope-axial, and at
+    ViT-tiny/4 in f32 with rope-mixed's per-head tables (every head rotated
+    by head 0's, as in the JAX package); every case launched twice,
+    bit-identical; the weight prologue against its twin bit for bit at
+    each configuration's plan. Returns the worst max |kernel - twin| at
+    ViT-tiny/4 in f32, and the prologue's (0 when bit-identical)."""
+    worst, prologue_err = 0.0, 0.0
+    vit_s = dict(img_size=224, patch_size=16, embed_dim=384, num_heads=6)
     for label, kw, batch, dtypes, pe_names in (
             ("ViT-tiny/4", {}, 128, (torch.float32, torch.bfloat16),
              ("none", "rope-axial")),
             ("ViT-tiny/4", {}, 128, (torch.float32,), ("rope-mixed",)),
+            ("ViT-S/16@224", vit_s, 64, (torch.float32, torch.bfloat16),
+             ("none", "rope-axial")),
             ("CPU test shape", dict(img_size=16, embed_dim=64, num_heads=2),
              2, (torch.float32,), ("none", "rope-axial"))):
         for pe_name in pe_names:
             cfg = ViTConfig(**kw, pos_encoding=pe_name)
             blocks, freqs = block_stack(vit, cfg, device, 30)
+            plan = block_fused.block_plan(cfg.seq_len, cfg.embed_dim,
+                                          cfg.head_dim, cfg.mlp_hidden_dim)
             for dtype in dtypes:
                 x = torch.randn((batch, cfg.seq_len, cfg.embed_dim),
                                 generator=torch.Generator().manual_seed(31))
@@ -2752,16 +2769,29 @@ def check_block_fused(block_fused, vit, ViTConfig, device):
                 err, share = update_share(got, want, x)
                 ok = share <= tol and torch.equal(got, again)
                 log(f"  fused block vs twin {label} B={batch} N={cfg.seq_len} "
-                    f"{pe_name} {str(dtype)[6:]}: max_abs_err={err:.3e} "
-                    f"({share:.2e} of the update's largest entry, tol "
-                    f"{tol:g}); second launch bit-identical "
-                    f"{torch.equal(got, again)} {'ok' if ok else 'FAIL'}")
+                    f"{pe_name} {str(dtype)[6:]} (cluster {plan['CLUSTER']}, "
+                    f"{plan['TILES']} row tiles a CTA, {plan['SMEM']} bytes): "
+                    f"max_abs_err={err:.3e} ({share:.2e} of the update's "
+                    f"largest entry, tol {tol:g}); second launch "
+                    f"bit-identical {torch.equal(got, again)} "
+                    f"{'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"the fused block kernel disagrees "
                                          f"with its twin: {label} {pe_name}")
                 if label == "ViT-tiny/4" and dtype == torch.float32:
                     worst = max(worst, err)
-    return worst
+            tiles = block_fused.block_weights_bf16(blocks[0], device,
+                                                   cfg.head_dim, plan["KT"])
+            twin = block_fused.block_weights_bf16_plain(blocks[0],
+                                                        cfg.head_dim,
+                                                        plan["KT"])
+            if not torch.equal(tiles, twin):
+                prologue_err = float((tiles.float() - twin.float()).abs()
+                                     .max())
+                raise AssertionError(f"the weight prologue differs from its "
+                                     f"twin at {label}: {prologue_err:.3e}")
+        log(f"  weight prologue vs twin {label}: bit-identical")
+    return worst, prologue_err
 
 
 def encoder_layers(blocks, cfg, device):
@@ -2810,75 +2840,126 @@ def block_bound_ms(cfg, batch, depth):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def prologue_bound_ms(cfg):
+    """Least time for one block's weight prologue: the four float32 matrices
+    read once and each of their entries written once in bf16 (the tiles'
+    padding is a layout of the kernel's, not work of the function)."""
+    e, hid = cfg.embed_dim, cfg.mlp_hidden_dim
+    nbytes = (4 * e * e + 2 * e * hid) * (4 + 2)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+# Row 12's timed forwards (phase 16b), f32: ViT-tiny/4 at its depth, batch
+# 128, and ViT-S/16@224 (bench.py's STRETCH_KW) at its depth, batch 64.
+BLOCK_TIMED = (("ViT-tiny/4", {}, 128, BLOCK_DEPTH, ("none", "rope-axial")),
+               ("ViT-S/16@224", dict(img_size=224, patch_size=16,
+                                     embed_dim=384, num_heads=6), 64, 12,
+                ("none",)))
+
+
 def time_block_fused(block_fused, fa, vit, ViTConfig, device):
-    """Phase 16b: a BLOCK_DEPTH-block forward at ViT-tiny/4, batch 128, f32
-    (CUDA events, medians): the kernel (exactly one launch per block), the
-    per-op block (models.vit._block_body with the row-1 kernel), the twin,
-    and in none one TransformerEncoderLayer call per block; its bound."""
+    """Phase 16b: each BLOCK_TIMED forward (CUDA events, medians): the
+    wrapper (exactly one kernel and one prologue launch per block), the
+    kernel's and the prologue's device time by the profiler, the per-op
+    block (models.vit._block_body with the row-1 kernel), the twin, and in
+    none one TransformerEncoderLayer call per block; its bound. The weight
+    prologue alone on one block (wrapper, twin, bound)."""
     out = {}
-    batch = 128
-    for pe_name in ("none", "rope-axial"):
-        cfg = ViTConfig(pos_encoding=pe_name)
-        blocks, freqs = block_stack(vit, cfg, device, 32)
-        x = torch.randn((batch, cfg.seq_len, cfg.embed_dim),
-                        generator=torch.Generator().manual_seed(33)).to(device)
+    for label, kw, batch, depth, pe_names in BLOCK_TIMED:
+        for pe_name in pe_names:
+            cfg = ViTConfig(**kw, pos_encoding=pe_name)
+            blocks, freqs = block_stack(vit, cfg, device, 32, depth)
+            x = torch.randn((batch, cfg.seq_len, cfg.embed_dim),
+                            generator=torch.Generator().manual_seed(33))
+            x = x.to(device)
 
-        def chain(fn):
-            def run():
-                y = x
-                for bp in blocks:
-                    y = fn(y, bp)
-                return y
-            return run
+            def chain(fn):
+                def run():
+                    y = x
+                    for bp in blocks:
+                        y = fn(y, bp)
+                    return y
+                return run
 
-        fused = chain(lambda y, bp: block_fused.block_forward(y, bp, cfg,
-                                                              freqs))
-        per_op = chain(lambda y, bp: vit._block_body(bp, y, cfg, None, freqs,
-                                                     "flash"))
-        twin = chain(lambda y, bp: block_fused.block_forward_plain(y, bp, cfg,
-                                                                   freqs))
-        with torch.inference_mode():
-            block_fused.LAUNCHES_BLOCK_FUSED = fa.LAUNCHES = 0
-            y = fused()
-            torch.cuda.synchronize()
-            launches = block_fused.LAUNCHES_BLOCK_FUSED
-            if launches != BLOCK_DEPTH or fa.LAUNCHES != 0:
-                raise AssertionError(f"{BLOCK_DEPTH} blocks launched the "
-                                     f"fused kernel {launches} times (and "
-                                     f"attn_fwd {fa.LAUNCHES})")
-            y_op = per_op()
-            share = update_share(y, y_op, x)[1]
-            times = dict(ms=median_ms(fused), per_op_ms=median_ms(per_op),
-                         plain_ms=median_ms(twin, iters=5, reps=3),
-                         library_ms=None, launches=launches,
-                         vs_per_op_share=share)
-            if pe_name == "none":
-                layers = encoder_layers(blocks, cfg, device)
+            fused = chain(lambda y, bp: block_fused.block_forward(y, bp, cfg,
+                                                                  freqs))
+            per_op = chain(lambda y, bp: vit._block_body(bp, y, cfg, None,
+                                                         freqs, "flash"))
+            twin = chain(lambda y, bp: block_fused.block_forward_plain(
+                y, bp, cfg, freqs))
+            plan = block_fused.block_plan(cfg.seq_len, cfg.embed_dim,
+                                          cfg.head_dim, cfg.mlp_hidden_dim)
+            with torch.inference_mode():
+                block_fused.LAUNCHES_BLOCK_FUSED = fa.LAUNCHES = 0
+                block_fused.LAUNCHES_BLOCK_FUSED_PROLOGUE = 0
+                y = fused()
+                torch.cuda.synchronize()
+                launches = block_fused.LAUNCHES_BLOCK_FUSED
+                prologues = block_fused.LAUNCHES_BLOCK_FUSED_PROLOGUE
+                if launches != depth or prologues != depth or fa.LAUNCHES:
+                    raise AssertionError(
+                        f"{depth} blocks launched the fused kernel {launches}"
+                        f" times, its prologue {prologues} (and attn_fwd "
+                        f"{fa.LAUNCHES})")
+                y_op = per_op()
+                share = update_share(y, y_op, x)[1]
+                device_ms, _, _ = device_ms_by_kernel(
+                    fused, 8, ("block_fused_kernel",
+                               "block_fused_prologue_kernel"))
+                times = dict(ms=median_ms(fused),
+                             device_ms=depth * device_ms["block_fused_kernel"],
+                             prologue_device_ms=depth * device_ms[
+                                 "block_fused_prologue_kernel"],
+                             per_op_ms=median_ms(per_op),
+                             plain_ms=median_ms(twin, iters=5, reps=3),
+                             library_ms=None, launches=launches,
+                             prologue_launches=prologues,
+                             vs_per_op_share=share, cluster=plan["CLUSTER"],
+                             active_clusters=block_fused.ACTIVE_CLUSTERS)
+                if pe_name == "none":
+                    layers = encoder_layers(blocks, cfg, device)
 
-                def library():
-                    y_l = x
-                    for layer in layers:
-                        y_l = layer(y_l)
-                    return y_l
+                    def library():
+                        y_l = x
+                        for layer in layers:
+                            y_l = layer(y_l)
+                        return y_l
 
-                times["vs_library_share"] = update_share(y, library(), x)[1]
-                times["library_ms"] = median_ms(library)
-                if times["vs_library_share"] > LOGITS_TOL:
-                    raise AssertionError("TransformerEncoderLayer computes "
-                                         "another block")
-        if share > LOGITS_TOL:
-            raise AssertionError("the fused block and the per-op block "
-                                 "compute different blocks")
-        times["bound_ms"], times["bound_by"] = block_bound_ms(cfg, batch,
-                                                              BLOCK_DEPTH)
-        log(f"  {BLOCK_DEPTH}-block forward ViT-tiny/4 B={batch} {pe_name} "
-            f"f32: fused kernel {times['ms']:.4f} ms ({launches} launches), "
-            f"per-op block {times['per_op_ms']:.4f}, twin "
-            f"{times['plain_ms']:.4f}, TransformerEncoderLayer "
-            f"{times['library_ms']}, bound {times['bound_ms']:.4f} "
-            f"({times['bound_by']}); vs the per-op block {share:.2e} of "
-            f"the update's largest entry")
-        out[pe_name] = times
+                    times["vs_library_share"] = update_share(y, library(),
+                                                             x)[1]
+                    times["library_ms"] = median_ms(library)
+                    if times["vs_library_share"] > LOGITS_TOL:
+                        raise AssertionError("TransformerEncoderLayer "
+                                             "computes another block")
+                bp = blocks[0]
+                times["prologue"] = dict(
+                    ms=median_ms(lambda: block_fused.block_weights_bf16(
+                        bp, device, cfg.head_dim, plan["KT"])),
+                    plain_ms=median_ms(
+                        lambda: block_fused.block_weights_bf16_plain(
+                            bp, cfg.head_dim, plan["KT"]), iters=5, reps=3),
+                    library_ms=None)
+                (times["prologue"]["bound_ms"],
+                 times["prologue"]["bound_by"]) = prologue_bound_ms(cfg)
+            if share > LOGITS_TOL:
+                raise AssertionError("the fused block and the per-op block "
+                                     "compute different blocks")
+            times["bound_ms"], times["bound_by"] = block_bound_ms(cfg, batch,
+                                                                  depth)
+            log(f"  {depth}-block forward {label} B={batch} {pe_name} f32 "
+                f"(cluster {plan['CLUSTER']}, {times['active_clusters']} "
+                f"resident): fused wrapper {times['ms']:.4f} ms ({launches} "
+                f"launches), kernel device {times['device_ms']:.4f}, weight "
+                f"prologue device {times['prologue_device_ms']:.4f}, per-op "
+                f"block {times['per_op_ms']:.4f}, twin "
+                f"{times['plain_ms']:.4f}, TransformerEncoderLayer "
+                f"{times['library_ms']}, bound {times['bound_ms']:.4f} "
+                f"({times['bound_by']}); vs the per-op block {share:.2e} of "
+                f"the update's largest entry; the prologue alone "
+                f"{times['prologue']['ms']:.4f} ms (twin "
+                f"{times['prologue']['plain_ms']:.4f}, bound "
+                f"{times['prologue']['bound_ms']:.4f})")
+            out[f"{label} {pe_name}"] = times
     return out
 
 
@@ -3102,6 +3183,8 @@ def main() -> int:
                 if spill:
                     spilled.append(f"{name} ({spill} bytes)")
         log(f"    instances that spill: {spilled or 'none'}")
+        if any("block_fused" in name for name in spilled):
+            raise AssertionError("the fused block kernel (row 12) spills")
         fa._library(), fa._bwd_library(), fused_adamw._library()
         fa._stream_library(), fa._stream_bwd_library()
         fa._stream_fused_library(), block_fused._library()
@@ -3290,7 +3373,8 @@ def main() -> int:
     with phase("[16] block-level paths: the fused block kernel (row 12), "
                "flash_block training, padded head dims, polynomial degree 8",
                seconds):
-        block_err = check_block_fused(block_fused, vit, ViTConfig, device)
+        block_err, block_prologue_err = check_block_fused(
+            block_fused, vit, ViTConfig, device)
         block_times = time_block_fused(block_fused, fa, vit, ViTConfig,
                                        device)
         flash_block_grads = check_flash_block_grads(vit, ViTConfig, fa,
@@ -3363,7 +3447,8 @@ def main() -> int:
     # long-sequence model with --q_chunk 2048 (phase 15) for the chunk
     # forward, timed at the bounded step's shape at N=65,537; the fused
     # block, which no train or serve path reaches (as in the JAX package),
-    # from its own BLOCK_DEPTH-block forward at ViT-tiny/4 (phase 16).
+    # and its weight prologue from its own BLOCK_DEPTH-block forward at
+    # ViT-tiny/4 (phase 16).
     launches = training["rope-mixed"]["launches"]
     routes = training["rope-mixed"]["routes"]
     stream_launches = stream_training["longseq"]["launches"]
@@ -3436,8 +3521,13 @@ def main() -> int:
                     chunk_err, chunk_times["none"]),
         kernel_line("block_fused", csrc + "block_fused.cu",
                     "vit_rpe_rope_tpu/ops/block_fused.py:74",
-                    block_times["none"]["launches"], block_err,
-                    block_times["none"]),
+                    block_times["ViT-tiny/4 none"]["launches"], block_err,
+                    block_times["ViT-tiny/4 none"]),
+        kernel_line("block_fused_prologue", csrc + "block_fused.cu",
+                    "vit_rpe_rope_tpu/ops/block_fused.py:59",
+                    block_times["ViT-tiny/4 none"]["prologue_launches"],
+                    block_prologue_err,
+                    block_times["ViT-tiny/4 none"]["prologue"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,9 +12,11 @@ rope-mixed's per-head tables and dqr / dkr, the one-pass backward (also on
 key chunks at the shapes of the --q_chunk 2048 epoch, 2,048 rows against
 4,608 keys, and of the bounded train step, 16,384 rows against 66,048
 keys), the chunk forward at offsets and at the bounded train step's shape,
-three AdamW steps over the ViT-S/16 and the ViT-tiny/4 params) and writes the sha256 of every output tensor's bytes to a JSON
-file. The backward cases take out and lse from the forward's plain twin (at
-the kernels' key tile), not from the forward kernel, so that a change to the
+three AdamW steps over the ViT-S/16 and the ViT-tiny/4 params, and the
+fused block forward (row 12) on each case of chip_smoke.py's phase 16a)
+and writes the sha256 of every output tensor's bytes to a JSON file. The
+backward cases take out and lse from the forward's plain twin (at the
+kernels' key tile), not from the forward kernel, so that a change to the
 forward kernel changes the `stream_fwd/*` and `chunk_fwd/*` digests only.
 `--root` names the tree whose `vit_rpe_rope_tpu_torch` is imported, so a
 parent commit unpacked under a git-ignored directory can be run beside the
@@ -45,6 +47,20 @@ trees can be timed in turns in one process each on one card:
 
 --only REGEX times only the cases whose name matches (every digest is
 still recorded).
+
+Row 12 with --time: the 6-block ViT-tiny/4 forward (batch 128, none and
+rope-axial) and the 12-block ViT-S/16@224 forward (batch 64, none), f32,
+the wrapper by CUDA events and the kernels' device times by the profiler,
+beside the per-op block and (none) TransformerEncoderLayer; in a tree whose
+block_fused has cluster_sizes, also every cluster size and tile depth
+block_plan takes (`block6/...`, `block12/.../cluster=...`). A tree
+whose kernel refuses a case (ViT-S/16@224 before the cluster design) prints
+so and records nothing for it:
+
+  for tree in build/parent . . build/parent; do
+    python scripts/torch_kernel_digest.py --root $tree --out d.json --time \
+        --only block
+  done
 """
 
 from __future__ import annotations
@@ -59,8 +75,12 @@ import time
 
 
 def _digest(t):
-    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()
-                          ).hexdigest()
+    import torch
+
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.bfloat16:  # numpy has no bf16: hash the bits
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()
 
 
 def run(root, out_path, timed, only=None):
@@ -76,9 +96,11 @@ def run(root, out_path, timed, only=None):
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     assert fa.__file__.startswith(os.path.abspath(root)), fa.__file__
+    from vit_rpe_rope_tpu_torch.ops import block_fused
+
     cuda_build.build_all([fa.SOURCE, fa.BWD_SOURCE, fa.STREAM_SOURCE,
                           fa.STREAM_BWD_SOURCE, fa.STREAM_FUSED_SOURCE,
-                          fused_adamw.SOURCE])
+                          fused_adamw.SOURCE, block_fused.SOURCE])
     dev = torch.device("cuda")
     digests = {}
 
@@ -352,6 +374,113 @@ def run(root, out_path, timed, only=None):
                                   for group in (lists[0], lists[2],
                                                 lists[3])], adamw_step)
         record_kernels(f"adamw/{label}", adamw_step)
+    # the fused block forward (row 12): phase 16a's cases of chip_smoke.py
+    # (one block of its seeded stack, x from seed 31), then with --time the
+    # BLOCK_DEPTH-block forward at ViT-tiny/4 (batch 128, none and
+    # rope-axial) and 12 blocks of ViT-S/16@224 (batch 64, none), f32, each
+    # beside the per-op block and TransformerEncoderLayer; a tree whose
+    # kernel refuses a case records nothing for it. chip_smoke.py: the
+    # tree's, else this script's repo's.
+    sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    import chip_smoke
+
+    def block_stack(cfg, seed, depth):
+        chip_smoke.BLOCK_DEPTH = depth  # block_stack's depth, in every tree
+        return chip_smoke.block_stack(vit, cfg, dev, seed)
+
+    vit_s = dict(img_size=224, patch_size=16, embed_dim=384, num_heads=6)
+    tiny = {}
+    for label, kw, batch, dtypes, pe_names in (
+            ("vit-tiny4", tiny, 128, (torch.float32, torch.bfloat16),
+             ("none", "rope-axial")),
+            ("vit-tiny4", tiny, 128, (torch.float32,), ("rope-mixed",)),
+            ("cpu-shape", dict(img_size=16, embed_dim=64, num_heads=2), 2,
+             (torch.float32,), ("none", "rope-axial")),
+            ("vit-s16", vit_s, 64, (torch.float32, torch.bfloat16),
+             ("none", "rope-axial"))):
+        for pe_name in pe_names:
+            cfg = ViTConfig(**kw, pos_encoding=pe_name)
+            blocks, freqs = block_stack(cfg, 30, 1)
+            for dtype in dtypes:
+                x = torch.randn((batch, cfg.seq_len, cfg.embed_dim),
+                                generator=torch.Generator().manual_seed(31))
+                x = x.to(dev, dtype)
+                try:
+                    y = block_fused.block_forward(x, blocks[0], cfg, freqs)
+                except ValueError as err:
+                    print(f"{root}  block/{label}-{pe_name}: refused ({err})")
+                    continue
+                record(f"block/{label}-{pe_name}-{str(dtype)[6:]}", [y])
+    sweep = hasattr(block_fused, "cluster_sizes")
+    for label, kw, batch, depth, pe_names in (
+            ("vit-tiny4", tiny, 128, 6, ("none", "rope-axial")),
+            ("vit-s16", vit_s, 64, 12, ("none",))):
+        for pe_name in pe_names:
+            name = f"block{depth}/{label}-{pe_name}"
+            if not timed or (only and not re.search(only, name)):
+                continue
+            cfg = ViTConfig(**kw, pos_encoding=pe_name)
+            blocks, freqs = block_stack(cfg, 32, depth)
+            x = torch.randn((batch, cfg.seq_len, cfg.embed_dim),
+                            generator=torch.Generator().manual_seed(33))
+            x = x.to(dev)
+
+            def chain(fn):
+                def run():
+                    y = x
+                    for bp in blocks:
+                        y = fn(y, bp)
+                    return y
+                return run
+
+            variants = {"": None}
+            if sweep:  # every cluster size and tile depth the plan takes
+                shape = (cfg.seq_len, cfg.embed_dim, cfg.head_dim,
+                         cfg.mlp_hidden_dim)
+                for size in block_fused.cluster_sizes(*shape):
+                    for kt in block_fused.DEPTH_CHOICES:
+                        try:
+                            plan = block_fused.block_plan(*shape, size, kt)
+                        except ValueError:
+                            continue
+                        variants[f"/cluster={size},kt={kt}"] = plan
+            with torch.inference_mode():
+                for suffix, plan in variants.items():
+                    fused = chain(
+                        lambda y, bp, plan=plan:
+                        block_fused.block_forward(y, bp, cfg, freqs)
+                        if plan is None else
+                        block_fused._launch(y, bp, cfg, freqs, plan))
+                    try:
+                        fused()
+                    except ValueError as err:
+                        print(f"{root}  {name}: refused ({err})")
+                        break
+                    record(name + suffix, (), fused)
+                    if not suffix:
+                        record_kernels(name, fused)
+                        if sweep:
+                            plan = block_fused.block_plan(
+                                cfg.seq_len, cfg.embed_dim, cfg.head_dim,
+                                cfg.mlp_hidden_dim)
+                            print(f"{root}  {name}  plan {plan}  clusters "
+                                  f"resident {block_fused.ACTIVE_CLUSTERS}")
+                else:
+                    record(f"{name}/per-op", (), chain(
+                        lambda y, bp: vit._block_body(bp, y, cfg, None, freqs,
+                                                      "flash")))
+                    if freqs is None:
+                        layers = chip_smoke.encoder_layers(blocks, cfg, dev)
+
+                        def library():
+                            y = x
+                            for layer in layers:
+                                y = layer(y)
+                            return y
+
+                        record(f"{name}/TransformerEncoderLayer", (), library)
+            del blocks, x
     with open(out_path, "w") as f:
         json.dump({"device": torch.cuda.get_device_name(0),
                    "digests": digests, "ms": times,

@@ -56,7 +56,10 @@ to 1e-3 of its own largest entry. The fused block forward (row 12) is held to
 its twin to 5e-3 of the output's largest entry for f32 inputs and 1e-2 for bf16
 (the same rounding points; an LN output, q, k, p, o or GELU output that rounds
 to the other bf16 neighbour after a last-ulp difference moves the output by a
-fraction of a bf16 ulp of its largest entries)."""
+fraction of a bf16 ulp of its largest entries); at the plans the wrapper
+does not pick itself (every cluster size and tile depth), f32, to 5e-3 of
+the largest entry of the block's update (output minus x), as chip_smoke.py
+holds its own plans."""
 
 import dataclasses
 
@@ -1446,13 +1449,112 @@ def test_block_fused_kernel_matches_twin(cuda, shape, pe, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pe", ["none", "rope-axial"])
+def test_block_fused_kernel_matches_twin_at_vit_s(cuda, pe, dtype):
+    """ViT-S/16 at 224 px (N=197, E=384, 6 heads of 64, hidden 1536), batch
+    64: more than one CTA's shared memory holds, so the image runs on a
+    cluster (block_fused.block_plan); one launch of the kernel and one of
+    the weight prologue, bit-identical when launched again."""
+    cfg, bp, x, freqs = block_case(64, 224, 16, 384, 6, pe, dtype, cuda,
+                                   seed=21)
+    assert block_fused.block_plan(197, 384, 64, 1536)["CLUSTER"] > 1
+    before = (block_fused.LAUNCHES_BLOCK_FUSED,
+              block_fused.LAUNCHES_BLOCK_FUSED_PROLOGUE)
+    got = block_fused.block_forward(x, bp, cfg, freqs_cis=freqs)
+    torch.cuda.synchronize()
+    assert (block_fused.LAUNCHES_BLOCK_FUSED,
+            block_fused.LAUNCHES_BLOCK_FUSED_PROLOGUE) == (before[0] + 1,
+                                                           before[1] + 1)
+    assert got.dtype == dtype and got.shape == x.shape
+    want = block_fused.block_forward_plain(x, bp, cfg, freqs)
+    share_of_largest(got, want, 5e-3 if dtype == torch.float32 else 1e-2)
+    assert torch.equal(got, block_fused.block_forward(x, bp, cfg,
+                                                      freqs_cis=freqs))
+
+
+BLOCK_CLUSTER_CASES = [
+    (shape, n, size)
+    for shape, n in (((16, 32, 4, 192, 6), 65), ((8, 224, 16, 384, 6), 197),
+                     ((2, 16, 4, 64, 2), 17))
+    for size in block_fused.cluster_sizes(n, shape[3], shape[3] // shape[4],
+                                          4 * shape[3])]
+BLOCK_FUSED_TOL = 5e-3  # chip_smoke.py's, as a share of the block's update
+
+
+def within_update_share(got, want, x, tol):
+    """max |got - want| <= tol * max |want - x| for float32 outputs: the
+    error as a share of the block's update (chip_smoke.update_share), which
+    the residual x in the output would hide under its own size."""
+    assert bool(torch.isfinite(got).all())
+    err = float((got - want).abs().max())
+    assert err <= tol * float((want - x).abs().max()), err
+
+
+def forced_plan(cfg, **kw):
+    return block_fused.block_plan(cfg.seq_len, cfg.embed_dim, cfg.head_dim,
+                                  cfg.mlp_hidden_dim, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pe", ["none", "rope-axial"])
+@pytest.mark.parametrize("shape,n,size", BLOCK_CLUSTER_CASES)
+def test_block_fused_kernel_every_cluster_size(cuda, shape, n, size, pe):
+    """Every cluster size block_plan can take for ViT-tiny/4, ViT-S/16@224
+    and the CPU tests' shape, f32, launched with that plan: the kernel
+    against the twin as a share of the update, launched twice,
+    bit-identical."""
+    cfg, bp, x, freqs = block_case(*shape, pe, torch.float32, cuda, seed=24)
+    assert cfg.seq_len == n
+    plan = forced_plan(cfg, cluster=size)
+    got = block_fused._launch(x, bp, cfg, freqs, plan)
+    want = block_fused.block_forward_plain(x, bp, cfg, freqs)
+    within_update_share(got, want, x, BLOCK_FUSED_TOL)
+    assert torch.equal(got, block_fused._launch(x, bp, cfg, freqs, plan))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kt", [64, 128])
+def test_block_fused_kernel_every_tile_depth(cuda, kt):
+    """ViT-S/16@224 in clusters of 13 (both tile depths fit), rope-axial,
+    f32: the kernel against the twin as a share of the update."""
+    cfg, bp, x, freqs = block_case(8, 224, 16, 384, 6, "rope-axial",
+                                   torch.float32, cuda, seed=26)
+    got = block_fused._launch(x, bp, cfg, freqs,
+                              forced_plan(cfg, cluster=13, kt=kt))
+    within_update_share(got, block_fused.block_forward_plain(x, bp, cfg,
+                                                             freqs),
+                        x, BLOCK_FUSED_TOL)
+
+
+@pytest.mark.gpu
 def test_block_fused_kernel_refuses_what_it_cannot_hold(cuda):
-    """ViT-S/16 at 224 px: one image's float32 residual alone exceeds the
-    227 KB of shared memory a CTA may use."""
-    cfg, bp, x, _ = block_case(2, 224, 16, 384, 6, "none", torch.float32,
-                               cuda, seed=21)
-    with pytest.raises(ValueError, match="232448 bytes"):
+    """ViT-S/16 at 384 px (N=577): the scores of a row tile against more
+    than 208 keys do not fit in a warp's registers; a width whose rows do
+    not fit in 227 KB a CTA in any cluster (E=1024 at N=197) is refused by
+    the plan, both before anything is launched."""
+    cfg, bp, x, _ = block_case(2, 384, 16, 384, 6, "none", torch.float32,
+                               cuda, seed=23)
+    before = block_fused.LAUNCHES_BLOCK_FUSED_PROLOGUE
+    with pytest.raises(ValueError, match="at most 208 tokens"):
         block_fused.block_forward(x, bp, cfg)
+    with pytest.raises(ValueError, match="232448 bytes"):
+        block_fused.block_plan(197, 1024, 64, 4096)
+    assert block_fused.LAUNCHES_BLOCK_FUSED_PROLOGUE == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kt", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_fused_prologue_is_its_twin(cuda, dtype, kt):
+    """The weight prologue lays the four matrices out in the ring's tiles,
+    rounded to bf16, bit for bit as block_weights_bf16_plain (from f32 and
+    from bf16 weights), at ViT-S/16's widths."""
+    _, bp, _, _ = block_case(2, 224, 16, 384, 6, "none", torch.float32,
+                             cuda, seed=25)
+    bp = {k: v.to(dtype) for k, v in bp.items()}
+    got = block_fused.block_weights_bf16(bp, cuda, 64, kt)
+    assert torch.equal(got, block_fused.block_weights_bf16_plain(bp, 64, kt))
 
 
 @pytest.mark.gpu

@@ -97,6 +97,7 @@
 #include <type_traits>
 
 #include "attn_stream_tiles.cuh"
+#include "cluster.cuh"
 
 namespace {
 
@@ -222,29 +223,6 @@ struct Sweep {
                     PIECE % 16 == 0 && BYTES <= 232448,
                 "the sweep's sections must stay aligned and within shared memory");
 };
-
-// The thread-block cluster: the two halves of a barrier of all its threads
-// (arrive releases what the thread wrote to shared memory before it; wait
-// returns once every thread of the cluster has arrived, and acquires it;
-// each thread alternates them), the CTA's rank, and the address of a shared
-// variable in the CTA of another rank (distributed shared memory, read by
-// plain loads).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ int cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return int(r);
-}
-__device__ __forceinline__ const float* cluster_map(const float* p, int rank) {
-  unsigned long long out;
-  asm volatile("mapa.u64 %0, %1, %2;\n" : "=l"(out) : "l"(p), "r"(rank));
-  return reinterpret_cast<const float*>(out);
-}
 
 // The A fragment of rows [r0, r0+16) (queries), columns [c0, c0+16) (keys)
 // of ds from a row-major bf16 tile of ds^T (keys x queries, pitch LD).
