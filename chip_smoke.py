@@ -142,7 +142,20 @@ exits nonzero without a card, or when any phase fails. Phases:
    --num_heads 4 (head dim 48, padded to 64 in the kernels), exact launch
    counts and the learning bar; five
    train steps of the long-sequence model at polynomial degree 8 (nine
-   terms) against the plain path.
+   terms) against the plain path;
+17. regularised training and the visualizers: the ViT-tiny/4 train CLI at
+   its defaults (rope-mixed) with --drop_rate 0.1 --drop_path_rate 0.1
+   --augment, twice with seed 0 (the same CSV row) and once with seed 1
+   (another), each launching the attention kernels and AdamW exactly as
+   phase 8's unregularised epoch, its epoch img/s beside that one's; then
+   with --attn_drop_rate 0.1 too (train steps on the unfused attention,
+   evaluation on attn_fwd); both visualizer CLIs in a scratch directory
+   whose checkpoints/ holds the regularised checkpoint and phase 8's
+   relative one exported to .pth (auto-discovery, --load_model,
+   --compare_models, --compare_thetas): each mode's figures (figures(args):
+   every similarity and FFT matrix) computed on the card against the CPU's,
+   and drawn to PNGs where matplotlib is installed; the exported .pth
+   through the Predictor against its .npz.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -152,6 +165,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import io
 import json
 import math
@@ -305,6 +319,24 @@ BLOCK_DEPTH = 6
 # flash_block (the same attention kernels; float32 sums in another order
 # in the rest of the block).
 FLASH_BLOCK_TOL = 2e-3
+# Phase 17, path B: the ViT-tiny/4 train CLI at its defaults (rope-mixed)
+# with the JAX README's regularisation and the augmentation.
+REGULARISED = {"drop_rate": 0.1, "drop_path_rate": 0.1, "augment": True}
+# What a regularised epoch must reach: a finite CSV, an epoch-mean train
+# loss below ln 10 and a test accuracy of four times chance. Not
+# LEARN_BAR's 90%: the random horizontal flip maps the synthetic task's
+# blob columns 0.25 and 0.75 onto each other, so six of its ten classes
+# pair up and a model that learned the flipped task can tell a pair apart
+# on the (unflipped) test images no better than by a coin: about 70% is
+# the most one epoch can reach.
+REGULARISED_BAR = {"train_loss": math.log(10), "test_acc": 40.0}
+# Phase 17, path A: each matrix of a visualizer's figures computed on the
+# card against the same one computed on the CPU, absolute. The biases and
+# the cos/sin tables are float32 on both (cosf / sinf within a few ulps of
+# each other); the float64 cosine similarity, the normalisation and the FFT
+# then run in numpy on both, so an entry (at most ~4 in magnitude, the log
+# spectrum) differs by a few float32 ulps at most.
+VIZ_TOL = 1e-5
 
 
 def log(*args):
@@ -939,22 +971,26 @@ def bounded_launches(fa, batch, heads, head_dim, n, q_chunk, kv_chunk=0):
 
 
 def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
-                      q_chunk=None, lr=None, flags=None):
-    """Phases 8, 13 and 15 for one PE mode: the train CLI on synthetic
+                      q_chunk=None, lr=None, flags=None, keep=None):
+    """Phases 8, 13, 15 and 17 for one PE mode: the train CLI on synthetic
     CIFAR-10 for one epoch (run in a scratch directory, so the default logs/
     and checkpoints/ land there), with every count reset just before and
     read just after; then the best checkpoint through the Predictor. `model`
     is None for the CLI's defaults (ViT-tiny/4, dense kernels, held to
-    LEARN_BAR) or the ViTConfig fields of a model on the streaming route,
-    which is held to `bar` when one is given. q_chunk: train and evaluate
-    through the bounded-program driver (--q_chunk). lr: --lr, else the
-    CLI's default. flags: more CLI flags that keep the defaults' dense
-    route (--attention_impl flash_block, --num_heads)."""
+    `bar`, else LEARN_BAR) or the ViTConfig fields of a model on the
+    streaming route, which is held to `bar` when one is given. q_chunk:
+    train and evaluate through the bounded-program driver (--q_chunk). lr:
+    --lr, else the CLI's default. flags: more CLI flags that keep the
+    defaults' dense route (--attention_impl flash_block, --num_heads, the
+    regularisation flags; True for a flag without a value; with
+    --attn_drop_rate the train steps run the unfused attention, as in the
+    JAX package, and only evaluation launches the forward kernel). keep: a
+    path the best checkpoint is copied to."""
     fa, fused_adamw, train_cli, serving, datasets = modules
     argv = ["--dataset", "cifar10", "--synthetic", "--epochs", "1",
             "--pos_encoding", pe_name, "--batch_size", str(batch)]
     for key, value in {**(model or {}), **(flags or {})}.items():
-        argv += [f"--{key}", str(value)]
+        argv += [f"--{key}"] if value is True else [f"--{key}", str(value)]
     if q_chunk:
         argv += ["--q_chunk", str(q_chunk)]
     if lr is not None:
@@ -977,11 +1013,15 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
             with open(summary["log_file"]) as f:
                 rows = [line.strip().split(",") for line in f]
             ckpt = os.path.abspath(summary["ckpt_path"])
+            if keep:
+                shutil.copy(ckpt, keep)
             params, cfg, mean, std, native, _ = serving.load_serving_state(
                 ckpt, grid_size=grid, num_heads=heads)
             predictor = serving.Predictor.from_params(params, cfg, mean, std,
                                                       native)
-            test = datasets.synthetic("cifar10", seed=0)
+            # The CLI's synthetic data follow --seed.
+            test = datasets.synthetic("cifar10",
+                                      seed=int((flags or {}).get("seed", 0)))
             reset_counts(fa, fused_adamw)
             preds = np.concatenate(
                 [predictor.predict(test.test_x[s:s + serve_bs])
@@ -999,7 +1039,9 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
     fwd = "attn_fwd" if model is None else "attn_stream_fwd"
     expected = {"attn_fwd": 0, "attn_bwd": 0, "adamw": steps,
                 fwd: depth * (steps + evals)}
-    if model is None:
+    if model is None and (flags or {}).get("attn_drop_rate"):
+        expected["attn_fwd"] = depth * evals  # the train steps: the oracle
+    elif model is None:
         expected["attn_bwd"] = depth * steps
     elif q_chunk:
         # The bounded driver: chunk forwards in every train and eval step,
@@ -1040,7 +1082,7 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
     if not all(math.isfinite(float(row[key])) for key in header):
         raise AssertionError(f"{pe_name}: the CSV row is not finite: {row}")
     test_acc = float(row["test_acc"])
-    if model is None:
+    if model is None and bar is None:
         bar = LEARN_BAR[pe_name]
     for key, limit in (bar or {}).items():
         value = float(row[key])
@@ -3132,6 +3174,194 @@ def check_repaired_shapes(fa, device):
     return worst
 
 
+def check_regularised_training(train_modules, plain, plain_later, keep_dir):
+    """Phase 17, path B: the ViT-tiny/4 train CLI at its defaults in
+    rope-mixed with REGULARISED, twice with seed 0 and once with seed 1, then
+    with --attn_drop_rate 0.1 as well; each run's launch counts are exact
+    (train_through_cli). The first three launch the attention kernels and
+    AdamW exactly as the unregularised epoch `plain` (phase 8) did; seed 0
+    repeats its CSV row and seed 1 does not. The epochs' img/s are printed
+    beside `plain`'s and `plain_later`'s (phase 16's, nearer in time: the
+    epoch is host-bound). Returns the runs; the first one's best checkpoint
+    is kept in keep_dir."""
+    runs = {
+        "seed 0": train_through_cli(
+            "rope-mixed", train_modules, flags=REGULARISED,
+            bar=REGULARISED_BAR,
+            keep=os.path.join(keep_dir, "regularised.npz")),
+        "seed 0 again": train_through_cli(
+            "rope-mixed", train_modules, flags=REGULARISED,
+            bar=REGULARISED_BAR),
+        "seed 1": train_through_cli(
+            "rope-mixed", train_modules, flags={**REGULARISED, "seed": 1},
+            bar=REGULARISED_BAR),
+        "attn_drop_rate 0.1": train_through_cli(
+            "rope-mixed", train_modules,
+            flags={**REGULARISED, "attn_drop_rate": 0.1},
+            bar=REGULARISED_BAR)}
+    keys = ("attn_fwd", "attn_bwd", "adamw")
+    want = {key: plain["launches"][key] for key in keys}
+    log(f"  epoch img/s: unregularised (phase 8) "
+        f"{plain['images_per_s']:.1f}, (phase 16) "
+        f"{plain_later['images_per_s']:.1f}; "
+        + "; ".join(f"{label} {run['images_per_s']:.1f}"
+                    for label, run in runs.items()))
+    log(f"  launches: unregularised {want}; "
+        + "; ".join(f"{label} {dict((k, run['launches'][k]) for k in keys)}"
+                    for label, run in runs.items()))
+    for label in ("seed 0", "seed 0 again", "seed 1"):
+        got = {key: runs[label]["launches"][key] for key in keys}
+        if got != want:
+            raise AssertionError(f"regularised epoch ({label}) launched "
+                                 f"{got}, the unregularised one {want}")
+    if runs["attn_drop_rate 0.1"]["launches"]["attn_bwd"] != 0:
+        raise AssertionError("attention-prob dropout launched the backward "
+                             "kernel")
+    fields = ("train_loss", "train_acc", "test_loss", "test_acc")
+    rows = {label: tuple(run["csv"][k] for k in fields)
+            for label, run in runs.items()}
+    log(f"  CSV rows {fields}: {rows}")
+    if rows["seed 0"] != rows["seed 0 again"]:
+        raise AssertionError("two regularised epochs with seed 0 differ")
+    if rows["seed 0"] == rows["seed 1"]:
+        raise AssertionError("seeds 0 and 1 gave the same regularised epoch")
+    return runs
+
+
+def figure_leaves(figures):
+    """The arrays and the other values (kinds, names, grids, patterns) of a
+    visualizer's figures(args), in order."""
+    arrays, rest = [], []
+
+    def walk(item):
+        if isinstance(item, np.ndarray):
+            arrays.append(item)
+        elif isinstance(item, (tuple, list)):
+            for x in item:
+                walk(x)
+        else:
+            rest.append(item)
+
+    walk(figures)
+    return arrays, rest
+
+
+def check_visualizers(modules, keep_dir, device, test_images):
+    """Phase 17, path A: in a scratch directory whose checkpoints/ holds the
+    regularised rope-mixed checkpoint and phase 8's relative one exported
+    to .pth (utils.checkpoint.export_torch), each mode of both visualizer
+    CLIs (auto-discovery, --load_model, --compare_models, --compare_thetas)
+    computes its figures on the card, held to the same figures computed on
+    the CPU (VIZ_TOL), and, where matplotlib is installed, draws them (every
+    PNG written); then the exported .pth through the Predictor on the card
+    against its .npz on one batch of test images (depth launches of
+    attn_fwd)."""
+    (fa, fused_adamw, serving, checkpoint, vit, ViTConfig, pe_cli,
+     rope_cli) = modules
+    drawing = importlib.util.find_spec("matplotlib") is not None
+    cwd = os.getcwd()
+    out = {"pngs": 0 if drawing else "not drawn: matplotlib is not "
+                                     "installed"}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            os.makedirs("checkpoints")
+            mixed = shutil.copy(os.path.join(keep_dir, "regularised.npz"),
+                                "checkpoints/cifar10_rope-mixed_best.npz")
+            plain_mixed = os.path.join(keep_dir, "phase8_rope-mixed.npz")
+            rel_npz = os.path.join(keep_dir, "phase8_relative.npz")
+            rel_pth = checkpoint.export_torch(
+                rel_npz, "checkpoints/cifar10_relative_best.pth")
+            # rope-axial has no trained ViT-tiny/4 checkpoint in this run:
+            # seeded random weights.
+            axial_cfg = ViTConfig(pos_encoding="rope-axial")
+            axial = checkpoint.save(
+                "cifar10_rope-axial_seeded.npz",
+                vit.init_params(torch.Generator().manual_seed(17), axial_cfg,
+                                device="cpu"),
+                vit.buffers(axial_cfg),
+                aliases=vit.reference_alias_keys(axial_cfg))
+            runs = [
+                (pe_cli, []),  # auto-discovery of checkpoints/
+                (pe_cli, ["--load_model", "--model_path", mixed,
+                          "--model_config", "rope-mixed"]),
+                (pe_cli, ["--compare_models", "--model_paths", plain_mixed,
+                          mixed, rel_pth, "--model_configs", "rope-mixed",
+                          "rope-mixed", "relative"]),
+                (rope_cli, ["--compare_thetas"]),
+                (rope_cli, ["--load_model", "--model_path", mixed,
+                            "--model_config", "rope-mixed"]),
+                (rope_cli, ["--compare_models", "--axial_model_path", axial,
+                            "--mixed_model_path", mixed])]
+            errs = []
+            t0 = time.perf_counter()
+            for i, (cli, argv) in enumerate(runs):
+                name = cli.__name__.rsplit(".", 1)[-1]
+                with contextlib.redirect_stdout(io.StringIO()) as text:
+                    card = cli.figures(cli.get_args(
+                        argv + ["--device", str(device)]))
+                    cpu = cli.figures(cli.get_args(argv + ["--device", "cpu"]))
+                if "Skipping" in text.getvalue():
+                    raise AssertionError(f"{name} {argv}: {text.getvalue()}")
+                (card_arrays, card_rest), (cpu_arrays, cpu_rest) = (
+                    figure_leaves(card), figure_leaves(cpu))
+                if card_rest != cpu_rest or len(card_arrays) != len(
+                        cpu_arrays):
+                    raise AssertionError(f"{name} {argv}: the card's figures "
+                                         f"are not the CPU's: {card_rest} / "
+                                         f"{cpu_rest}")
+                err = max(float(np.max(np.abs(
+                    a.astype(np.float64) - b.astype(np.float64))))
+                    for a, b in zip(card_arrays, cpu_arrays))
+                errs.append(err)
+                drawn = []
+                if drawing:
+                    out_dir = os.path.join("visualizations", str(i))
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        cli.main(argv + ["--device", str(device), "--dpi",
+                                         "100", "--output_dir", out_dir])
+                    drawn = sorted(os.listdir(out_dir))
+                    if len(drawn) != len(card) or not all(
+                            p.endswith(".png") for p in drawn):
+                        raise AssertionError(f"{name} {argv}: {drawn} for "
+                                             f"{len(card)} figures")
+                    out["pngs"] += len(drawn)
+                log(f"  {name} {' '.join(argv) or '(auto-discovery)'}: "
+                    f"{len(card)} figure(s) {[kind for kind, _ in card]}, "
+                    f"{len(card_arrays)} matrices, card vs CPU "
+                    f"{err:.2e}; PNGs {drawn if drawing else out['pngs']}")
+            out["seconds_cli"] = time.perf_counter() - t0
+            out["card_vs_cpu"] = max(errs)
+            if not max(errs) <= VIZ_TOL:
+                raise AssertionError(f"the card's figures differ from the "
+                                     f"CPU's by {max(errs)} (limit {VIZ_TOL})")
+
+            # The exported .pth serves as its .npz does.
+            predictors = {}
+            for label, path in (("npz", rel_npz), ("pth", rel_pth)):
+                params, cfg, mean, std, native, _ = \
+                    serving.load_serving_state(path)
+                predictors[label] = serving.Predictor.from_params(
+                    params, cfg, mean, std, native)
+            want = predictors["npz"].logits(test_images)
+            reset_counts(fa, fused_adamw)
+            got = predictors["pth"].logits(test_images)
+            counts = read_counts(fa, fused_adamw)
+            check_resident(fa, "Predictor on the exported .pth")
+            same = bool(np.array_equal(got, want))
+            log(f"  Predictor on the exported .pth: {len(test_images)} "
+                f"images, logits equal to the .npz's: {same}, launches "
+                f"{counts} (expected {cfg.depth} attn_fwd)")
+            if not same or counts != {"attn_fwd": cfg.depth, "attn_bwd": 0,
+                                      "adamw": 0}:
+                raise AssertionError("the exported .pth does not serve as "
+                                     "its .npz")
+            out["pth_launches"] = counts
+        finally:
+            os.chdir(cwd)
+    return out
+
+
 def kernel_line(name, source, replaces, launches, max_abs_err, times):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3243,9 +3473,13 @@ def main() -> int:
     with phase("[7] AdamW kernel vs twin on the ViT-S/16 params", seconds):
         adamw_err = check_adamw(fused_adamw, vit, vit_s, device)
 
+    # Phase 8's best checkpoints, for the visualizers of phase 17.
+    keep_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     with phase("[8] training at full width through the train CLI", seconds):
         train_modules = (fa, fused_adamw, train_cli, serving, datasets)
-        training = {pe_name: train_through_cli(pe_name, train_modules)
+        training = {pe_name: train_through_cli(
+                        pe_name, train_modules,
+                        keep=os.path.join(keep_dir, f"phase8_{pe_name}.npz"))
                     for pe_name in ("rope-mixed", "relative")}
 
     with phase("[9] kernel path vs plain path, 5 train steps", seconds):
@@ -3400,6 +3634,26 @@ def main() -> int:
         torch.cuda.empty_cache()
         repaired = check_repaired_shapes(fa, device)
 
+    with phase("[17] regularised training through the train CLI, the "
+               "visualizer CLIs on trained checkpoints", seconds):
+        from vit_rpe_rope_tpu_torch.cli import pe_similarity_visualizer
+        from vit_rpe_rope_tpu_torch.cli import rope_visualizer
+
+        t0 = time.perf_counter()
+        regularised = check_regularised_training(
+            train_modules, training["rope-mixed"], block_training["flash"],
+            keep_dir)
+        regularised_seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        visualizers = check_visualizers(
+            (fa, fused_adamw, serving, checkpoint, vit, ViTConfig,
+             pe_similarity_visualizer, rope_visualizer), keep_dir, device,
+            datasets.synthetic("cifar10", seed=0).test_x[:128])
+        visualizers["seconds"] = time.perf_counter() - t0
+        log(f"  path B (four regularised epochs) {regularised_seconds:.1f} s,"
+            f" path A (visualizers) {visualizers['seconds']:.1f} s")
+        shutil.rmtree(keep_dir)
+
     summary = {"card": card, "attention": attn, "serving": serve_times,
                "serving_profile": serve_trace, "training": training,
                "kernel_vs_plain_losses": paths, "train_step": step_times,
@@ -3427,6 +3681,9 @@ def main() -> int:
                "block_training": block_training,
                "poly8_kernel_vs_plain_losses": poly8_paths,
                "repaired_shapes_vs_twins": repaired,
+               "regularised_training": regularised,
+               "regularised_seconds": regularised_seconds,
+               "visualizers": visualizers,
                "phase_seconds": seconds}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

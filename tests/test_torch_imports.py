@@ -32,7 +32,9 @@ def test_port_modules_import_without_jax():
     modules = port_modules()
     for name in ("ops.flash_attention", "ops.fused_adamw", "ops.cuda_build",
                  "train.loop", "train.train_step", "cli.train",
-                 "data.datasets", "utils.flatten", "utils.checkpoint"):
+                 "data.datasets", "utils.flatten", "utils.checkpoint",
+                 "viz.similarity", "viz.rope_freq",
+                 "cli.pe_similarity_visualizer", "cli.rope_visualizer"):
         assert f"vit_rpe_rope_tpu_torch.{name}" in modules
     code = (
         "import importlib, re, sys\n"

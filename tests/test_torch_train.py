@@ -384,6 +384,12 @@ def test_fit_side_effects_and_resume(tmp_path, monkeypatch):
     ("zero1", True), ("augment", True), ("steps_per_dispatch", 4),
     ("profile_dir", "trace"), ("debug_nans", True)])
 def test_fit_refuses_unported_fields(field, value):
+    if field == "augment":
+        # Ported (tests/test_torch_regularize.py); bounded stepping still
+        # refuses it, as in the JAX package.
+        with pytest.raises(ValueError, match="augment"):
+            TrainConfig(dataset="mnist", q_chunk=16, augment=value)
+        return
     with pytest.raises(NotImplementedError, match=field):
         loop.fit(ViTConfig(**cfg_kw()),
                  TrainConfig(dataset="mnist", **{field: value}),
@@ -402,10 +408,18 @@ def test_fit_refuses_bounded_stepping():
 
 @pytest.mark.parametrize("kw", [dict(drop_rate=0.1), dict(remat=True)])
 def test_training_forward_refuses_dropout_and_remat(kw):
+    """Remat is refused in a training forward. Dropout is ported
+    (tests/test_torch_regularize.py): it acts only with a generator, so a
+    forward without one, with grad or not, is the deterministic one."""
     cfg = ViTConfig(**cfg_kw(**kw))
     _, params = both_params(cfg_kw(), seed=6)
     x = torch.zeros(2, 32, 32, 1)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        vit.apply(params, x, cfg)
+    if cfg.remat:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            vit.apply(params, x, cfg)
+    else:
+        torch.testing.assert_close(vit.apply(params, x, cfg),
+                                   vit.apply(params, x, ViTConfig(**cfg_kw())),
+                                   rtol=0, atol=0)
     with torch.no_grad():  # the eval forward, where they are inactive
         assert vit.apply(params, x, cfg).shape == (2, 10)

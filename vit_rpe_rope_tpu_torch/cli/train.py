@@ -7,10 +7,13 @@ plus --device.
       --epochs 1 --pos_encoding rope-mixed
 
 Runs on the CUDA device; --device cpu runs on the CPU. --q_chunk (and
---kv_chunk) train through the bounded-program driver (train/bounded.py). The
-extensions this package does not port yet (parallel layers, ZeRO-1,
-augmentation, remat, dropout, profiling, NaN debugging, fused multi-step
-dispatch) are refused when set to a non-default value.
+--kv_chunk) train through the bounded-program driver (train/bounded.py),
+which refuses --drop_rate, --attn_drop_rate, --drop_path_rate and
+--augment, as the JAX package's does. --attn_drop_rate runs the attention
+on the unfused oracle (the mask lives on the probabilities). The extensions
+this package does not port yet (parallel layers, ZeRO-1, remat, profiling,
+NaN debugging, fused multi-step dispatch) are refused when set to a
+non-default value.
 """
 
 from __future__ import annotations
@@ -178,15 +181,19 @@ def main(argv=None):
         "--sequence_parallel": args.sequence_parallel > 1,
         "--pipeline_parallel": args.pipeline_parallel > 1,
         "--zero1": args.zero1,
-        "--augment": args.augment,
         "--remat": args.remat,
-        "--drop_rate": args.drop_rate > 0,
-        "--attn_drop_rate": args.attn_drop_rate > 0,
-        "--drop_path_rate": args.drop_path_rate > 0,
         "--profile_dir": args.profile_dir is not None,
         "--debug_nans": args.debug_nans,
         "--steps_per_dispatch": args.steps_per_dispatch > 1,
     })
+    regularised = [flag for flag, on in {
+        "--drop_rate": args.drop_rate > 0,
+        "--attn_drop_rate": args.attn_drop_rate > 0,
+        "--drop_path_rate": args.drop_path_rate > 0,
+        "--augment": args.augment}.items() if on]
+    if args.q_chunk > 0 and regularised:
+        parser.error(f"--q_chunk (bounded-program stepping) does not support "
+                     f"{', '.join(regularised)}")
     from vit_rpe_rope_tpu_torch.configs import TrainConfig, ViTConfig
     from vit_rpe_rope_tpu_torch.train.loop import fit
 
@@ -206,6 +213,9 @@ def main(argv=None):
         attention_impl=args.attention_impl,
         compute_dtype=args.compute_dtype,
         remat_policy=args.remat_policy,
+        drop_rate=args.drop_rate,
+        attn_drop_rate=args.attn_drop_rate,
+        drop_path_rate=args.drop_path_rate,
     )
     tcfg = TrainConfig(
         dataset=args.dataset,
@@ -219,6 +229,7 @@ def main(argv=None):
         seed=args.seed,
         synthetic_data=args.synthetic,
         resume=args.resume,
+        augment=args.augment,
         pp_microbatches=args.pp_microbatches,
         grad_accum=args.grad_accum,
         q_chunk=args.q_chunk,

@@ -40,8 +40,8 @@ class ViTConfig:
     rope_theta: float = 100.0
     poly_degree: int = 3
     poly_shared_heads: bool = True
-    # Regularization rates, validated as in the JAX package. Dropout and
-    # drop-path are not ported: a training forward with a rate > 0 raises.
+    # Regularization rates, validated as in the JAX package; they act in a
+    # forward given a generator (train mode, models.vit.apply).
     drop_rate: float = 0.0
     attn_drop_rate: float = 0.0
     drop_path_rate: float = 0.0

@@ -17,8 +17,11 @@ as in the reference), so reference .pth files and the JAX package's
 checkpoints load into it strictly. Its forward is `apply`.
 
 Inputs are NHWC, as in the JAX package. `apply` is differentiable end to end
-(the attention kernels carry an autograd Function); dropout, drop-path and
-remat are not ported, and a training forward that asks for them raises.
+(the attention kernels carry an autograd Function). Train mode is an
+explicit torch.Generator (the JAX package's `rng`): with one, the config's
+dropout, attention-prob dropout and drop-path rates apply, their masks drawn
+from it in the forward's order; without one the forward is deterministic.
+Remat is not ported, and a training forward that asks for it raises.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from vit_rpe_rope_tpu_torch.configs import (
     ViTConfig,
 )
 from vit_rpe_rope_tpu_torch.ops import block_vjp
-from vit_rpe_rope_tpu_torch.ops import flash_attention
+from vit_rpe_rope_tpu_torch.ops import flash_attention, layers
 from vit_rpe_rope_tpu_torch.ops import reference_attention
 from vit_rpe_rope_tpu_torch.ops.layers import layer_norm, linear
 from vit_rpe_rope_tpu_torch.utils.device import resolve_device
@@ -161,27 +164,53 @@ def _attention_impl(cfg: ViTConfig) -> str:
     return impl
 
 
-def _logits_bias(pe_mod, params, cfg: ViTConfig):
+def _dropout(x, rate, generator):
+    """Inverted dropout, torch nn.Dropout's train mode (keep-scaled)."""
+    keep = 1.0 - rate
+    return layers.drop(x, layers.keep_mask(x.shape, keep, generator), keep)
+
+
+def _drop_path(x, rate, generator):
+    """Stochastic depth per sample (timm DropPath): zero a residual branch
+    for a random subset of examples, survivors scaled by 1/keep."""
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    return layers.drop(x, layers.keep_mask(shape, keep, generator), keep)
+
+
+def _logits_bias(pe_mod, params, cfg: ViTConfig, generator=None):
     """Materialized [H, L, L] attention bias — or, when the streaming
     attention kernel will run above its threshold with a polynomial or
     relative PE, a 1-tuple marker (coeff_hk,) / (table,) telling _block_body
     to let the kernel GENERATE the bias from the coefficients / table, so
-    that no [H, L, L] tensor exists in the forward."""
+    that no [H, L, L] tensor exists in the forward. Attention-prob dropout
+    in train mode (a generator and a rate) needs the materialized bias: it
+    runs on the unfused attention."""
+    attn_drop_possible = cfg.attn_drop_rate > 0.0 and generator is not None
     if (cfg.pos_encoding in ("polynomial", "relative")
             and _attention_impl(cfg) == "flash"
-            and cfg.seq_len > flash_attention.STREAMING_THRESHOLD):
+            and cfg.seq_len > flash_attention.STREAMING_THRESHOLD
+            and not attn_drop_possible):
         if cfg.pos_encoding == "polynomial":
             return (pe_mod.coeff_per_head(params, cfg),)
         return (pe_mod.table_per_head(params, cfg),)
     return pe_mod.attn_bias(params, cfg)
 
 
-def _block_body(block_params: dict, x, cfg, bias, freqs_cis, impl):
-    """One pre-LN block on un-prefixed block params."""
+def _block_body(block_params: dict, x, cfg, bias, freqs_cis, impl,
+                generator=None):
+    """One pre-LN block on un-prefixed block params.
+
+    With a generator and nonzero rates, dropout lands where the reference
+    modules place it, its masks drawn in this order: the attention
+    probabilities, after the attention projection (then drop-path on that
+    branch), after each MLP linear (then drop-path on that branch). Without
+    a generator the block is deterministic."""
+    drop = generator is not None and cfg.has_dropout
     if impl == "flash_block":
-        if bias is None:  # none, absolute, rope-axial, rope-mixed
+        if bias is None and not drop:  # none, absolute, rope-axial/-mixed
             return block_vjp.block_apply(cfg, block_params, x, freqs_cis)
-        impl = "flash"  # bias modes: the per-call boundary, as in JAX
+        impl = "flash"  # bias modes, dropout: the per-call boundary, as in JAX
     eps = cfg.layer_norm_eps
     h = layer_norm(x, block_params["norm1.weight"],
                     block_params["norm1.bias"], eps)
@@ -193,7 +222,8 @@ def _block_body(block_params: dict, x, cfg, bias, freqs_cis, impl):
     qkv = linear(h, block_params["attn.qkv.weight"])
     q, k, v = qkv.view(bsz, n, 3, nh, dh).permute(2, 0, 3, 1, 4).unbind(0)
     scale = dh ** -0.5
-    if impl == "flash":
+    attn_dropping = drop and cfg.attn_drop_rate > 0
+    if impl == "flash" and not attn_dropping:
         if isinstance(bias, tuple):  # generated-bias marker (_logits_bias)
             gen = ({"poly": (bias[0], cfg.grid_size)}
                    if cfg.pos_encoding == "polynomial" else {"rel": bias[0]})
@@ -203,31 +233,49 @@ def _block_body(block_params: dict, x, cfg, bias, freqs_cis, impl):
             attn_out = flash_attention.flash_attention(
                 q, k, v, scale, bias=bias, freqs_cis=freqs_cis)
     else:
+        # Attention-prob dropout needs the materialized probabilities, so it
+        # runs on the unfused attention, as in the JAX package.
         attn_out = reference_attention.attention(
-            q, k, v, scale, bias=bias, freqs_cis=freqs_cis)
+            q, k, v, scale, bias=bias, freqs_cis=freqs_cis,
+            dropout_rate=cfg.attn_drop_rate if attn_dropping else 0.0,
+            generator=generator if attn_dropping else None)
     attn_out = attn_out.transpose(1, 2).reshape(bsz, n, e)
     attn_out = linear(attn_out, block_params["attn.proj.weight"],
                        block_params["attn.proj.bias"])
+    if drop and cfg.drop_rate > 0:
+        attn_out = _dropout(attn_out, cfg.drop_rate, generator)
+    if drop and cfg.drop_path_rate > 0:
+        attn_out = _drop_path(attn_out, cfg.drop_path_rate, generator)
     x = x + attn_out
     h = layer_norm(x, block_params["norm2.weight"],
                     block_params["norm2.bias"], eps)
     h = linear(h, block_params["mlp.fc1.weight"], block_params["mlp.fc1.bias"])
     h = F.gelu(h, approximate="none")  # torch nn.GELU default = exact erf
+    if drop and cfg.drop_rate > 0:
+        h = _dropout(h, cfg.drop_rate, generator)
     h = linear(h, block_params["mlp.fc2.weight"], block_params["mlp.fc2.bias"])
+    if drop and cfg.drop_rate > 0:
+        h = _dropout(h, cfg.drop_rate, generator)
+    if drop and cfg.drop_path_rate > 0:
+        h = _drop_path(h, cfg.drop_path_rate, generator)
     return x + h
 
 
 def _refuse_unported_training(params, cfg: ViTConfig):
-    if not (cfg.has_dropout or cfg.remat) or not torch.is_grad_enabled():
+    if not cfg.remat or not torch.is_grad_enabled():
         return
     if any(v.requires_grad for v in params.values()):
         raise NotImplementedError(
-            "dropout / drop-path rates > 0 and remat are not ported to the "
-            "PyTorch package yet (training forward asked for them)")
+            "remat is not ported to the PyTorch package yet (training "
+            "forward asked for it)")
 
 
-def forward_features(params, images, cfg: ViTConfig):
-    """[B, H, W, C] images -> [B, L, E] token features after all blocks."""
+def forward_features(params, images, cfg: ViTConfig, generator=None):
+    """[B, H, W, C] images -> [B, L, E] token features after all blocks.
+
+    generator: a torch.Generator on the images' device for train-mode
+    dropout / drop-path (one stream for all blocks, drawn in order); None is
+    the deterministic (eval) forward."""
     _refuse_unported_training(params, cfg)
     pe_mod = pe_registry.get(cfg.pos_encoding)
     dtype = _DTYPES[cfg.compute_dtype]
@@ -241,7 +289,7 @@ def forward_features(params, images, cfg: ViTConfig):
     if pe_mod.KIND == PE_KIND_EMBED_ADDITIVE:
         x = pe_mod.add_embedding(params, x)
     elif pe_mod.KIND == PE_KIND_LOGITS_BIAS:
-        bias = _logits_bias(pe_mod, params, cfg)  # once per forward
+        bias = _logits_bias(pe_mod, params, cfg, generator)  # once
     elif pe_mod.KIND == PE_KIND_QK_ROTATION:
         freqs_cis = pe_mod.freqs_cis(params, cfg, device=x.device)
 
@@ -249,14 +297,16 @@ def forward_features(params, images, cfg: ViTConfig):
     for i in range(cfg.depth):
         block_params = {name: params[f"blocks.{i}.{name}"]
                         for name in BLOCK_PARAM_NAMES}
-        x = _block_body(block_params, x, cfg, bias, freqs_cis, impl)
+        x = _block_body(block_params, x, cfg, bias, freqs_cis, impl,
+                        generator)
     return x
 
 
-def apply(params, images, cfg: ViTConfig):
+def apply(params, images, cfg: ViTConfig, generator=None):
     """Full forward: [B, H, W, C] images -> [B, num_classes] float32 logits
-    (classification from the cls token)."""
-    x = forward_features(params, images, cfg)
+    (classification from the cls token). generator enables train-mode
+    dropout (see forward_features)."""
+    x = forward_features(params, images, cfg, generator)
     x = layer_norm(x, params["norm.weight"], params["norm.bias"],
                     cfg.layer_norm_eps)
     logits = linear(x[:, 0], params["head.weight"], params["head.bias"])

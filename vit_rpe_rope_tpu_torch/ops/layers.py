@@ -1,5 +1,6 @@
 """The block's plain layers, shared by models.vit, train/bounded.py and
-ops/block_vjp.py."""
+ops/block_vjp.py, and the dropout masks of models.vit and
+ops/reference_attention."""
 
 from __future__ import annotations
 
@@ -21,3 +22,16 @@ def linear(x, weight, bias=None):
     if bias is not None:
         y = y + bias.to(x.dtype)
     return y
+
+
+def keep_mask(shape, keep, generator):
+    """Bernoulli(keep) mask of `shape` drawn from `generator` on its device:
+    u < keep for u uniform in [0, 1), as jax.random.bernoulli draws it.
+    Every dropout mask of the port is drawn here, in the forward's order."""
+    return torch.rand(shape, generator=generator,
+                      device=generator.device) < keep
+
+
+def drop(x, mask, keep):
+    """Inverted dropout: x / keep where mask holds, else 0."""
+    return torch.where(mask, x / keep, torch.zeros_like(x))

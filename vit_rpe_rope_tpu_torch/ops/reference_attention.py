@@ -1,15 +1,16 @@
-"""Unfused multi-head attention — the trusted oracle (eval only).
+"""Unfused multi-head attention — the trusted oracle, and the route of
+attention-prob dropout (the mask lives on the materialized probabilities).
 
 PE plugs in through the reference's three modes: q/k rotation (cos/sin
 supplied, cls token excluded), an additive [H, N, N] logits bias, or
 neither. Logits and softmax statistics are float32 whatever the input dtype.
-Attention-prob dropout comes with the training slice of the port.
 """
 
 from __future__ import annotations
 
 import torch
 
+from vit_rpe_rope_tpu_torch.ops import layers
 from vit_rpe_rope_tpu_torch.ops.rotary import apply_rotary_emb
 
 
@@ -23,11 +24,15 @@ def rotate_qk_skip_cls(q, k, freqs_cis):
     return q, k
 
 
-def attention(q, k, v, scale, bias=None, freqs_cis=None):
+def attention(q, k, v, scale, bias=None, freqs_cis=None, dropout_rate=0.0,
+              generator=None):
     """Scaled dot-product MHA over [B, H, N, D] inputs -> [B, H, N, D].
 
     bias: optional [H, N, N] additive logits bias (relative / polynomial).
     freqs_cis: optional (cos, sin) for rotary PE (axial / mixed).
+    dropout_rate / generator: train-mode inverted dropout on the softmax
+    probabilities (the reference's Attention.attn_drop), its mask drawn from
+    `generator`; off when the rate is 0 or there is no generator.
     """
     if freqs_cis is not None:
         q, k = rotate_qk_skip_cls(q, k, freqs_cis)
@@ -39,5 +44,9 @@ def attention(q, k, v, scale, bias=None, freqs_cis=None):
     m = logits.amax(dim=-1, keepdim=True)
     lse = m + torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True))
     probs = torch.exp(logits - lse)
+    if dropout_rate > 0.0 and generator is not None:
+        keep = 1.0 - dropout_rate
+        probs = layers.drop(probs, layers.keep_mask(probs.shape, keep,
+                                                    generator), keep)
     out = torch.matmul(probs.to(v.dtype).float(), v.float())
     return out.to(v.dtype)

@@ -24,6 +24,7 @@ import csv
 import os
 import sys
 import time
+import warnings
 from datetime import datetime
 
 import numpy as np
@@ -50,7 +51,6 @@ def _refuse_unported(tcfg: TrainConfig) -> None:
          else "sequence_parallel > 1"): tcfg.sequence_parallel > 1,
         "pipeline_parallel > 1": tcfg.pipeline_parallel > 1,
         "zero1": tcfg.zero1,
-        "augment": tcfg.augment,
         "steps_per_dispatch > 1": tcfg.steps_per_dispatch > 1,
         "profile_dir": tcfg.profile_dir is not None,
         "debug_nans": tcfg.debug_nans,
@@ -108,17 +108,18 @@ def _progress(desc, done, total, stacked):
 
 
 def _run_epoch(step_fn, state, data_x, data_y, epoch_idx, desc, train: bool,
-               k: int = 1, verbose: bool = True):
+               k: int = 1, verbose: bool = True, epoch: int = 0):
     """Drive one epoch; returns (state, avg_batch_loss, accuracy_pct,
     images_per_sec). k > 1: each train step consumes k index rows
-    (gradient accumulation; epoch_idx is padded to a multiple of k)."""
+    (gradient accumulation; epoch_idx is padded to a multiple of k). Train
+    steps get `epoch`, which seeds their draws."""
     steps = epoch_idx.shape[0]
     metrics = []
     t0 = time.perf_counter()
     for i, s in enumerate(range(0, steps, k)):
         if train:
             params, opt_state, m = step_fn(state[0], state[1], s, data_x,
-                                           data_y, epoch_idx)
+                                           data_y, epoch_idx, epoch=epoch)
             state = (params, opt_state)
         else:
             m = step_fn(state[0], s, data_x, data_y, epoch_idx)
@@ -149,7 +150,8 @@ def _bounded_fns(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess):
                                      q_chunk=tcfg.q_chunk,
                                      kv_chunk=tcfg.kv_chunk, grad_accum=accum)
 
-    def train_fn(params, opt_state, row, data_x, data_y, epoch_idx):
+    def train_fn(params, opt_state, row, data_x, data_y, epoch_idx, epoch=0):
+        del epoch  # the bounded driver draws nothing: no dropout, no augment
         imgs, labels, mask = ts._gather_batch(
             data_x, data_y, epoch_idx[row:row + accum].reshape(-1))
         if accum > 1:
@@ -171,6 +173,12 @@ def fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool = True,
     (best_acc, log_file, ckpt_path, history, num_params, num_devices)."""
     _refuse_unported(tcfg)
     device = resolve_device(device)
+    if cfg.attn_drop_rate > 0 and cfg.seq_len > 2048:
+        warnings.warn(
+            "attn_drop_rate > 0 materializes the attention probabilities "
+            f"(the dropout mask lives on them), so at seq_len={cfg.seq_len} "
+            "the streaming attention is bypassed and each block allocates "
+            "O(B*H*N^2) memory", stacklevel=2)
 
     os.makedirs(tcfg.log_dir, exist_ok=True)
     os.makedirs(tcfg.ckpt_dir, exist_ok=True)
@@ -194,7 +202,8 @@ def fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool = True,
     rows_per_epoch = -(-len(bundle.train_y) // tcfg.batch_size)
     steps_per_epoch = -(-rows_per_epoch // accum)  # optimizer steps
     preprocess = ts.make_preprocess(cfg, bundle.mean, bundle.std,
-                                    bundle.train_x.shape[1])
+                                    bundle.train_x.shape[1],
+                                    augment=tcfg.augment)
 
     params = vit.init_params(torch.Generator().manual_seed(tcfg.seed), cfg,
                              device=device)
@@ -224,7 +233,7 @@ def fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool = True,
         train_fn, eval_fn = _bounded_fns(cfg, tcfg, opt_update, preprocess)
     else:
         train_fn = ts.make_train_step(cfg, opt_update, preprocess,
-                                      accum=accum)
+                                      accum=accum, seed=tcfg.seed)
         eval_fn = ts.make_eval_step(cfg, preprocess)
     eval_idx = ts.epoch_indices(len(bundle.test_y), tcfg.batch_size,
                                 False).to(device)
@@ -239,7 +248,7 @@ def fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool = True,
                              seed=tcfg.seed, epoch=epoch), accum).to(device)
         (params, opt_state), train_loss, train_acc, train_ips = _run_epoch(
             train_fn, (params, opt_state), train_x, train_y, epoch_idx,
-            "Training", True, k=accum, verbose=verbose)
+            "Training", True, k=accum, verbose=verbose, epoch=epoch)
         _, test_loss, test_acc, _ = _run_epoch(
             eval_fn, (params, None), test_x, test_y, eval_idx, "Testing",
             False, verbose=verbose)

@@ -3,7 +3,7 @@
 A checkpoint is one flat state dict under the reference's state_dict keys:
 an .npz (the JAX package's format) or a torch .pth (the reference's). Both
 load here; `save` writes .npz with the per-block alias keys, so the key set
-equals the reference's.
+equals the reference's, and `export_torch` turns such an .npz into a .pth.
 
 The resumable train state (`save_train_state` / `load_train_state`) is the
 JAX package's `_last.npz` format: the params, the optimizer state's leaves
@@ -98,3 +98,30 @@ def load_train_state(path: str, n_opt_leaves: int):
     leaves = [state[f"__opt.{i}"] for i in range(n_opt_leaves)]
     return (params, leaves, int(state["__epoch"]) + 1,
             float(state["__best_acc"]))
+
+
+def export_torch(npz_path: str, pth_path: str | None = None) -> str:
+    """Convert an .npz checkpoint to a torch .pth state_dict that the
+    reference model loads strictly: the alias keys written by
+    save(aliases=...) complete the reference key set; "__"-prefixed extras
+    are dropped. Returns the path written (default: the .npz path with
+    .pth)."""
+    state = load_state(npz_path)
+    sd = {k: torch.from_numpy(np.array(v)) for k, v in state.items()
+          if not k.startswith("__")}
+    if pth_path is None:
+        pth_path = (npz_path[:-4] + ".pth" if npz_path.endswith(".npz")
+                    else npz_path + ".pth")
+    torch.save(sd, pth_path)
+    return pth_path
+
+
+def find_checkpoint(ckpt_dir: str, dataset: str,
+                    pos_encoding: str) -> str | None:
+    """{ckpt_dir}/{dataset}_{pos_encoding}_best.npz, else the reference's
+    .pth of that name, else None."""
+    for ext in (".npz", ".pth"):
+        p = os.path.join(ckpt_dir, f"{dataset}_{pos_encoding}_best{ext}")
+        if os.path.exists(p):
+            return p
+    return None

@@ -1,5 +1,6 @@
-"""Checkpoint introspection: rebuild a ViTConfig from a saved state dict by
-shape-sniffing the reference key contract.
+"""Checkpoint introspection: rebuild a ViTConfig, or the PE state the
+visualizers read, from a saved state dict by shape-sniffing the reference
+key contract.
 
 * embed_dim from patch_embed.weight [E, C, P, P] or *.qkv.weight [3E, E];
 * per-method grid/head inference: relative table [H, 2L-1] -> L; polynomial
@@ -7,6 +8,9 @@ shape-sniffing the reference key contract.
   rope-mixed freqs [2, H, head_dim/2];
 * the reference hard-codes grid_size 8 whenever the checkpoint filename
   contains 'cifar10' — preserved.
+
+Reads .npz checkpoints and reference torch .pth ones
+(utils.checkpoint.load_state handles each).
 """
 
 from __future__ import annotations
@@ -15,6 +19,22 @@ import math
 import os
 
 import numpy as np
+
+from vit_rpe_rope_tpu_torch.utils import checkpoint
+
+
+class PEModel:
+    """Introspected PE state: method, PE params (pos_embed.* keys, numpy
+    arrays) and the architecture facts inferred from shapes."""
+
+    def __init__(self, method, params, embed_dim, num_heads, head_dim,
+                 grid_size):
+        self.method = method
+        self.params = params
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.head_dim = head_dim
+        self.grid_size = grid_size
 
 
 def infer_embed_dim(state: dict) -> int | None:
@@ -46,6 +66,69 @@ def _method_from_filename(path: str):
         if f"_{m}_" in name or name.startswith(f"{m}_"):
             return m
     return None
+
+
+def load_pe_model(path: str, method: str, grid_size: int = 14,
+                  num_heads: int = 6) -> PEModel:
+    """The PE state of checkpoint `path` read as a `method` model. Raises a
+    ValueError naming the pos_embed keys present when the checkpoint lacks
+    the method's key."""
+    state = checkpoint.load_state(path)
+    pe_params = {k: np.asarray(v) for k, v in state.items()
+                 if k.startswith("pos_embed.")}
+    sniffed_dim = infer_embed_dim(state)
+    embed_dim = sniffed_dim or 192
+    grid = grid_from_filename(path, grid_size)
+    head_dim = embed_dim // num_heads
+
+    required = {
+        "absolute": "pos_embed.pos_embed",
+        "relative": "pos_embed.relative_position_bias_table",
+        "polynomial": "pos_embed.coefficients",
+        "rope-axial": "pos_embed.inv_freq",
+        "rope-mixed": "pos_embed.freqs",
+    }
+    need = required.get(method)
+    if need is not None and need not in pe_params:
+        guesses = [m for m, k in required.items() if k in pe_params]
+        raise ValueError(
+            f"checkpoint {path} has no '{need}' — it does not look like a "
+            f"'{method}' model (pos_embed keys present: "
+            f"{sorted(pe_params) or 'none'}"
+            + (f"; looks like {guesses}" if guesses else "") + ")")
+
+    if method == "relative":
+        table = pe_params["pos_embed.relative_position_bias_table"]
+        num_heads = int(table.shape[0])
+        seq_len = (int(table.shape[1]) + 1) // 2  # 2L-1 -> L
+        g = int(math.isqrt(seq_len - 1))
+        if g * g == seq_len - 1:
+            grid = g
+        head_dim = embed_dim // num_heads
+    elif method == "polynomial":
+        coeff = pe_params["pos_embed.coefficients"]
+        if coeff.ndim == 2:
+            num_heads = int(coeff.shape[0])
+        head_dim = embed_dim // num_heads
+    elif method == "rope-axial":
+        inv_freq = pe_params["pos_embed.inv_freq"]
+        head_dim = 4 * int(inv_freq.shape[0])
+        if sniffed_dim is None:
+            # A PE-only checkpoint (no patch_embed / qkv keys): the width
+            # is head_dim * num_heads (inv_freq has head_dim // 4 entries).
+            embed_dim = head_dim * num_heads
+    elif method == "rope-mixed":
+        freqs = pe_params["pos_embed.freqs"]
+        num_heads = int(freqs.shape[1])
+        head_dim = 2 * int(freqs.shape[2])
+        if sniffed_dim is None:
+            # As for rope-axial; freqs is [2, H, head_dim / 2].
+            embed_dim = head_dim * num_heads
+    elif method == "absolute":
+        pass  # the max_len table carries no grid information
+    else:
+        raise ValueError(f"Unsupported model_config: {method}")
+    return PEModel(method, pe_params, embed_dim, num_heads, head_dim, grid)
 
 
 def infer_vit_config(state: dict, path: str = "", num_heads: int = 6,
@@ -122,3 +205,14 @@ def infer_vit_config(state: dict, path: str = "", num_heads: int = 6,
                      in_chans=in_chans, num_classes=num_classes,
                      embed_dim=embed_dim, depth=depth, num_heads=num_heads,
                      pos_encoding=method, **kw)
+
+
+def discover_checkpoints(ckpt_dir: str, methods) -> dict:
+    """{method: path} for every {ckpt_dir}/cifar10_{method}_best.{npz,pth}
+    that exists."""
+    found = {}
+    for m in methods:
+        p = checkpoint.find_checkpoint(ckpt_dir, "cifar10", m)
+        if p:
+            found[m] = p
+    return found
