@@ -156,6 +156,22 @@ exits nonzero without a card, or when any phase fails. Phases:
    every similarity and FFT matrix) computed on the card against the CPU's,
    and drawn to PNGs where matplotlib is installed; the exported .pth
    through the Predictor against its .npz.
+18. the k-step driver, remat, --debug_nans, --profile_dir and the C++
+   decoders: (a) the ViT-tiny/4 train CLI at its defaults (rope-mixed, 100
+   steps of 128) with --steps_per_dispatch 1 and 4 in turns (1, 4, 4, 1):
+   each epoch's img/s, the CUDA graph's capture time, exact launches (one
+   replay a dispatch of 4 captured steps after one warm-up step, AdamW
+   through its device-table entry) and the CSV rows compared; the AdamW
+   table entry against the IEEE op-by-op reference bit for bit (3 live
+   steps, 1 not live) and its times; (b) remat off, full, dots and softmax
+   at ViT-S/16@224 rope-mixed f32 batch 64 and at the long-sequence model
+   at N = 16,385 rope-axial batch 2: a train step's time, the peak memory
+   of a forward and backward, the attention launches (the forward twice
+   under remat) and the gradients against remat off; (c) a poisoned run
+   under --debug_nans raises FloatingPointError, a clean one repeats its
+   row; (d) --profile_dir writes a Chrome trace naming the kernels; (e)
+   IDX and CIFAR files decoded by the C++ library (or numpy where it
+   cannot be built; the decoder that ran is printed) equal to numpy's.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -163,6 +179,7 @@ The line before the last is a JSON object {"kernels": [...]}; the last is
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import importlib.util
@@ -885,6 +902,7 @@ def check_adamw(fused_adamw, vit, cfg, device):
 
 def reset_counts(fa, fused_adamw):
     fa.LAUNCHES = fa.LAUNCHES_BWD = fused_adamw.LAUNCHES_ADAMW = 0
+    fused_adamw.LAUNCHES_ADAMW_TABLE = 0
     reset_routes(fa)
     fa.LAUNCHES_STREAM_FWD = fa.LAUNCHES_STREAM_DQ = 0
     fa.LAUNCHES_STREAM_DKV = fa.LAUNCHES_STREAM_DBIAS = 0
@@ -924,6 +942,8 @@ def read_counts(fa, fused_adamw):
     torch.cuda.synchronize()
     counts = {"attn_fwd": fa.LAUNCHES, "attn_bwd": fa.LAUNCHES_BWD,
               "adamw": fused_adamw.LAUNCHES_ADAMW}
+    if fused_adamw.LAUNCHES_ADAMW_TABLE:
+        counts["adamw_table"] = fused_adamw.LAUNCHES_ADAMW_TABLE
     stream = {"attn_stream_fwd": fa.LAUNCHES_STREAM_FWD,
               "attn_stream_chunk_fwd": fa.LAUNCHES_STREAM_CHUNK_FWD,
               "attn_stream_fwd_prologue": fa.LAUNCHES_STREAM_FWD_PROLOGUE,
@@ -972,7 +992,7 @@ def bounded_launches(fa, batch, heads, head_dim, n, q_chunk, kv_chunk=0):
 
 def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
                       q_chunk=None, lr=None, flags=None, keep=None):
-    """Phases 8, 13, 15 and 17 for one PE mode: the train CLI on synthetic
+    """Phases 8, 13, 15, 17 and 18 for one PE mode: the train CLI on synthetic
     CIFAR-10 for one epoch (run in a scratch directory, so the default logs/
     and checkpoints/ land there), with every count reset just before and
     read just after; then the best checkpoint through the Predictor. `model`
@@ -982,10 +1002,12 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
     train and evaluate through the bounded-program driver (--q_chunk). lr:
     --lr, else the CLI's default. flags: more CLI flags that keep the
     defaults' dense route (--attention_impl flash_block, --num_heads, the
-    regularisation flags; True for a flag without a value; with
-    --attn_drop_rate the train steps run the unfused attention, as in the
-    JAX package, and only evaluation launches the forward kernel). keep: a
-    path the best checkpoint is copied to."""
+    regularisation flags, --steps_per_dispatch; True for a flag without a
+    value; with --attn_drop_rate the train steps run the unfused attention,
+    as in the JAX package, and only evaluation launches the forward kernel;
+    with --steps_per_dispatch k > 1 each dispatch replays a CUDA graph of k
+    steps, after one warm-up step). keep: a path the best checkpoint is
+    copied to."""
     fa, fused_adamw, train_cli, serving, datasets = modules
     argv = ["--dataset", "cifar10", "--synthetic", "--epochs", "1",
             "--pos_encoding", pe_name, "--batch_size", str(batch)]
@@ -1039,8 +1061,16 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
     fwd = "attn_fwd" if model is None else "attn_stream_fwd"
     expected = {"attn_fwd": 0, "attn_bwd": 0, "adamw": steps,
                 fwd: depth * (steps + evals)}
+    spd = int((flags or {}).get("steps_per_dispatch", 1))
     if model is None and (flags or {}).get("attn_drop_rate"):
         expected["attn_fwd"] = depth * evals  # the train steps: the oracle
+    elif model is None and spd > 1:
+        # One CUDA graph replay per dispatch of spd captured steps (padded
+        # ones too), after one warm-up step; AdamW through its table entry.
+        graphed = -(-steps // spd) * spd + 1
+        expected.update(attn_fwd=depth * (graphed + evals),
+                        attn_bwd=depth * graphed, adamw=0,
+                        adamw_table=graphed)
     elif model is None:
         expected["attn_bwd"] = depth * steps
     elif q_chunk:
@@ -1097,7 +1127,8 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
                              f"from {expected}/{serve_expected}")
     return dict(seconds=seconds, csv=row, launches=counts, routes=routes,
                 served_acc=served_acc,
-                images_per_s=summary["history"][0]["images_per_sec"])
+                images_per_s=summary["history"][0]["images_per_sec"],
+                capture_seconds=summary.get("capture_seconds"))
 
 
 def check_kernel_vs_plain_training(vit, ts, fused_adamw, datasets, cfg,
@@ -3362,6 +3393,449 @@ def check_visualizers(modules, keep_dir, device, test_images):
     return out
 
 
+# Phase 18 (a): the graph epoch.
+GRAPH_K = 4
+
+
+def check_graph_epochs(train_modules):
+    """Phase 18a: the ViT-tiny/4 train CLI at its defaults (rope-mixed, 100
+    steps of 128) with --steps_per_dispatch 1 and GRAPH_K in turns (1, k,
+    k, 1), each with exact launch counts (train_through_cli: the graph
+    epochs launch the attention kernels and AdamW's table entry once per
+    captured step and replay, after one warm-up step). Prints each epoch's
+    img/s, the graph's capture time and the CSV rows; the rows of the two
+    drivers are compared and any difference printed."""
+    runs = []
+    for k in (1, GRAPH_K, GRAPH_K, 1):
+        run = train_through_cli("rope-mixed", train_modules,
+                                flags={"steps_per_dispatch": k})
+        runs.append((k, run))
+    fields = ("train_loss", "train_acc", "test_loss", "test_acc")
+    log("  graph epoch, ViT-tiny/4 rope-mixed, 100 steps of 128: "
+        + "; ".join(f"k={k} {run['images_per_s']:.1f} img/s"
+                    + (f" (capture {run['capture_seconds']:.3f} s)"
+                       if run["capture_seconds"] is not None else "")
+                    for k, run in runs))
+    rows = {k: tuple(run["csv"][f] for f in fields) for k, run in runs}
+    per_step = [run for k, run in runs if k == 1]
+    graphed = [run for k, run in runs if k == GRAPH_K]
+    diffs = {f: max(abs(float(a["csv"][f]) - float(b["csv"][f]))
+                    for a in per_step for b in graphed) for f in fields}
+    same = all(tuple(r["csv"][f] for f in fields) == rows[1]
+               for _, r in runs)
+    log(f"  CSV rows {fields}: k=1 {rows[1]}, k={GRAPH_K} {rows[GRAPH_K]}; "
+        f"bit-equal across all four epochs: {same}; largest differences "
+        f"between the drivers {diffs}")
+    for k, run in runs:
+        log(f"    k={k} launches {run['launches']}")
+    if any(run["capture_seconds"] is None for run in graphed):
+        raise AssertionError("the k-step epoch captured no CUDA graph")
+    return dict(
+        runs=[dict(k=k, images_per_s=run["images_per_s"],
+                   capture_seconds=run["capture_seconds"], csv=run["csv"],
+                   launches=run["launches"], seconds=run["seconds"])
+              for k, run in runs],
+        rows_bit_equal=same, row_differences=diffs)
+
+
+def check_adamw_table(fused_adamw, vit, cfg, device):
+    """Phase 18a': the AdamW kernel's device-table entry on the ViT-S/16
+    params: three live steps and one not live, against the IEEE op-by-op
+    reference (fused_adamw.adamw_exact) bit for bit and its twin to
+    ADAMW_TOL; then its times (the wrapper by CUDA events, the kernel's
+    device time by the profiler), its twin's, torch.optim.AdamW
+    (fused=True) as the yardstick, and the bound (bytes: p, g, mu, nu read,
+    p, mu, nu written, as the by-value entry)."""
+    gen = torch.Generator().manual_seed(23)
+    params = vit.init_params(gen, cfg, device=device)
+    keys = list(params)
+    p = [params[k] for k in keys]
+    mu = [torch.zeros_like(t) for t in p]
+    nu = [torch.zeros_like(t) for t in p]
+    schedule = lambda step: 1e-3 * (0.9 ** step)  # noqa: E731
+    _, update = fused_adamw.make_fused_adamw(params, schedule,
+                                             weight_decay=0.05)
+    rows = [(*update.hyper(c), 1.0) for c in (1, 2, 3)]
+    rows.append((0.0, 1.0, 1.0, 0.0))
+    table = fused_adamw.hyper_rows(rows, device)
+    exact = ([t.clone() for t in p], [t.clone() for t in mu],
+             [t.clone() for t in nu])
+    twin = ([t.clone() for t in p], [t.clone() for t in mu],
+            [t.clone() for t in nu])
+    fused_adamw.LAUNCHES_ADAMW_TABLE = 0
+    for j, (lr, c1, c2, live) in enumerate(rows):
+        grads = [torch.randn(t.shape, generator=gen).to(device) for t in p]
+        fused_adamw.adamw_update_table(p, grads, mu, nu, table[j], 0.9,
+                                       0.999, 1e-8, 0.05)
+        if live:
+            new = fused_adamw.adamw_exact(exact[0], grads, exact[1],
+                                          exact[2], lr, c1, c2, 0.9, 0.999,
+                                          1e-8, 0.05)
+            for old, x in zip(exact, new):
+                for o, n in zip(old, x):
+                    o.copy_(n)
+            fused_adamw.adamw_plain(twin[0], grads, twin[1], twin[2], lr, c1,
+                                    c2, 0.9, 0.999, 1e-8, 0.05)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for got, want in zip((p, mu, nu), exact)
+                  for a, b in zip(got, want))
+    worst, ok = 0.0, True
+    for got, want in zip((p, mu, nu), twin):
+        for a, b in zip(got, want):
+            err, good = worst_err(a, b, ADAMW_TOL)
+            worst, ok = max(worst, err), ok and good
+    launches = fused_adamw.LAUNCHES_ADAMW_TABLE
+    log(f"  AdamW table entry vs the IEEE op-by-op reference, "
+        f"{vit.num_params(params):,} params, 3 live steps and 1 not live: "
+        f"bit-identical {bitwise}; vs twin max_abs_err={worst:.3e}; "
+        f"launches {launches}")
+    if not (bitwise and ok and launches == 4):
+        raise AssertionError("the AdamW table entry disagrees with its IEEE "
+                             "reference or its twin")
+    grads = [torch.randn(t.shape, generator=gen).to(device) for t in p]
+    lists = (p, grads, mu, nu)
+
+    def step():
+        fused_adamw.adamw_update_table(*lists, table[0], 0.9, 0.999, 1e-8,
+                                       0.01)
+
+    ms = median_ms(step)
+    by_name, recorded, calls = device_ms_by_kernel(step, 20,
+                                                   ("adamw_kernel",))
+    lr, c1, c2, _ = rows[0]
+    plain_ms = median_ms(lambda: fused_adamw.adamw_plain(
+        *lists, lr, c1, c2, 0.9, 0.999, 1e-8, 0.01), iters=5)
+    torch_params = [torch.nn.Parameter(t.clone()) for t in p]
+    for tp, g in zip(torch_params, grads):
+        tp.grad = g
+    opt = torch.optim.AdamW(torch_params, lr=1e-3, weight_decay=0.01,
+                            fused=True)
+    library_ms = median_ms(opt.step)
+    n = vit.num_params(params)
+    bound_ms = 7 * 4 * n / HBM_BYTES_PER_S * 1e3
+    log(f"  AdamW table entry, {n:,} params: wrapper {ms:.4f} ms  kernel "
+        f"device time {by_name['adamw_kernel']:.4f} ms (profiler, {recorded}"
+        f" of {calls} launches recorded)  torch fused AdamW "
+        f"{library_ms:.4f} ms  bound {bound_ms:.4f} ms (bytes)  twin "
+        f"{plain_ms:.4f} ms")
+    return worst, dict(ms=ms, device_ms=by_name["adamw_kernel"],
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by="bytes", num_params=n)
+
+
+# Phase 18 (b): remat at ViT-S/16@224 (rope-mixed, batch 64, dense kernels)
+# and at the long-sequence model at N = 16,385 (rope-axial, batch 2, the
+# streaming forward and the one-pass backward).
+REMAT_POLICIES = (None, "full", "dots", "softmax")
+# (label, config fields, batch, image size fed: ViT-S/16@224 takes 32x32
+# images upsampled on the device, as in phase 10)
+REMAT_CASES = (
+    ("ViT-S/16@224 rope-mixed", dict(VIT_S, pos_encoding="rope-mixed"), 64,
+     32),
+    ("longseq N=16385 rope-axial",
+     dict(LONGSEQ, img_size=512, pos_encoding="rope-axial"), 2, 512))
+
+
+def check_remat(vit, ts, fa, fused_adamw, ViTConfig, TrainConfig, device):
+    """Phase 18b: for each model and each of REMAT_POLICIES, one forward and
+    backward on the same params and images: the attention launches (the
+    recompute launches the forward again under every policy: the kernels'
+    ctypes launches are invisible to a selective policy), the peak device
+    memory above the params (torch.cuda.max_memory_allocated after
+    reset_peak_memory_stats, minus what was allocated before), every
+    gradient against remat off (as a share of its largest entry), and the
+    time of a whole train step (fwd, bwd, AdamW) by CUDA events."""
+    from vit_rpe_rope_tpu_torch.data import datasets
+
+    out = {}
+    mean, std = datasets.NORMALIZATION["cifar10"]
+    for label, fields, batch, native in REMAT_CASES:
+        base = ViTConfig(**fields)
+        rng = np.random.default_rng(18)
+        images = torch.from_numpy(rng.integers(
+            0, 256, (batch, native, native, 3), dtype=np.uint8)).to(device)
+        labels = torch.from_numpy(np.arange(batch, dtype=np.int32) % 10).to(
+            device)
+        pre = ts.make_preprocess(base, mean, std, native)
+        x = pre(images)
+        params = {k: v.requires_grad_() for k, v in vit.init_params(
+            torch.Generator().manual_seed(18), base, device=device).items()}
+        reference = None
+        out[label] = {}
+        for policy in REMAT_POLICIES:
+            cfg = (base if policy is None else
+                   dataclasses.replace(base, remat=True,
+                                       remat_policy=policy))
+
+            def grads():
+                logits = vit.apply(params, x, cfg)
+                loss = torch.nn.functional.cross_entropy(logits,
+                                                         labels.long())
+                return torch.autograd.grad(loss, list(params.values()))
+
+            grads()  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base_bytes = torch.cuda.memory_allocated()
+            reset_counts(fa, fused_adamw)
+            g = grads()
+            counts = read_counts(fa, fused_adamw)
+            peak = torch.cuda.max_memory_allocated() - base_bytes
+            if reference is None:
+                reference, share = g, 0.0
+                bitwise = True
+            else:
+                share = max(float((a - b).abs().max())
+                            / max(float(b.abs().max()), 1e-30)
+                            for a, b in zip(g, reference))
+                bitwise = all(torch.equal(a, b) for a, b in zip(g, reference))
+            del g
+            step_params = {k: v.detach().clone().requires_grad_()
+                           for k, v in params.items()}
+            init, update = ts.make_optimizer(TrainConfig(dataset="cifar10"),
+                                             100, step_params)
+            step = ts.make_train_step(cfg, update, pre)
+            idx = torch.arange(batch, device=device)[None]
+            state = [step_params, init(step_params)]
+
+            def run():
+                state[0], state[1], m = step(state[0], state[1], 0, images,
+                                             labels, idx)
+                return m
+
+            n_steps = 5 if label.startswith("ViT-S") else 3
+            run()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(n_steps):
+                run()
+            end.record()
+            end.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+            device_ms = start.elapsed_time(end) / n_steps
+            del state, step_params, step
+            name = policy or "off"
+            out[label][name] = dict(
+                step_ms=wall_ms, device_ms=device_ms, peak_bytes=peak,
+                launches=counts, grad_share_vs_off=share,
+                grads_bit_equal=bitwise)
+            log(f"  remat {name:7s} {label}, batch {batch}: {wall_ms:.2f} ms "
+                f"a train step ({device_ms:.2f} ms between device events), "
+                f"peak {peak / 2**20:.1f} MiB above the params in fwd+bwd, "
+                f"launches {counts}, gradients vs remat off: largest share "
+                f"{share:.3e} (bit-equal {bitwise})")
+            torch.cuda.empty_cache()
+        off = out[label]["off"]["launches"]
+        fwd = max(("attn_fwd", "attn_stream_fwd"),
+                  key=lambda key: off.get(key, 0))
+        if not off.get(fwd):
+            raise AssertionError(f"{label}: no attention forward launched")
+        for name in ("full", "dots", "softmax"):
+            got = out[label][name]
+            if got["launches"].get(fwd) != 2 * off[fwd]:
+                raise AssertionError(f"remat {name} {label}: {fwd} launched "
+                                     f"{got['launches'].get(fwd)} times, "
+                                     f"expected 2 x {off[fwd]}")
+            if got["grad_share_vs_off"] > 1e-6:
+                raise AssertionError(f"remat {name} {label}: gradients "
+                                     f"differ from remat off by "
+                                     f"{got['grad_share_vs_off']:.3e}")
+        for name in ("full", "dots"):
+            if out[label][name]["peak_bytes"] >= out[label]["off"][
+                    "peak_bytes"]:
+                raise AssertionError(f"remat {name} {label} holds no less "
+                                     f"memory than remat off")
+        del params, reference, x
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def small_dataset(datasets, n_train=1024, n_test=256, poison=False):
+    """datasets.get_dataset (what the train CLI loads) swapped for the
+    synthetic set at n_train / n_test examples; poison: a normalisation std
+    of 0, so that the pre-processed images are infinite and the first
+    product of the train step makes NaNs."""
+    real = datasets.get_dataset
+
+    def get_dataset(dataset, data_dir, use_synthetic, seed):
+        bundle = datasets.synthetic(dataset, n_train=n_train, n_test=n_test,
+                                    seed=seed)
+        if poison:
+            bundle.std = np.zeros_like(bundle.std)
+        return bundle
+
+    datasets.get_dataset = get_dataset
+    try:
+        yield
+    finally:
+        datasets.get_dataset = real
+
+
+TINY_ARGV = ["--dataset", "cifar10", "--synthetic", "--epochs", "1",
+             "--pos_encoding", "rope-mixed"]
+
+
+def cli_row(train_cli, argv):
+    """The CSV row of one run of the train CLI in a scratch directory."""
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            summary = train_cli.main(TINY_ARGV + argv)
+            with open(summary["log_file"]) as f:
+                return list(f)[1].strip()
+        finally:
+            os.chdir(cwd)
+
+
+def check_debug_nans(train_cli, datasets, nan_check):
+    """Phase 18c: the ViT-tiny/4 train CLI on 1,024 synthetic examples (8
+    steps): poisoned (std 0), --debug_nans raises FloatingPointError; clean,
+    the CSV row with --debug_nans equals the one without; the sanitizer is
+    off after each run."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+    def off():
+        return (not nan_check.ACTIVE and not torch.is_anomaly_enabled()
+                and _get_current_dispatch_mode() is None)
+
+    with small_dataset(datasets, poison=True):
+        t0 = time.perf_counter()
+        try:
+            cli_row(train_cli, ["--debug_nans"])
+        except FloatingPointError as e:
+            raised = str(e)
+        else:
+            raise AssertionError("a poisoned run under --debug_nans did not "
+                                 "raise FloatingPointError")
+        poisoned_s = time.perf_counter() - t0
+    if not off():
+        raise AssertionError("the sanitizer is still on after a raise")
+    with small_dataset(datasets):
+        t0 = time.perf_counter()
+        plain = cli_row(train_cli, [])
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sanitized = cli_row(train_cli, ["--debug_nans"])
+        sanitized_s = time.perf_counter() - t0
+    log(f"  --debug_nans, poisoned: FloatingPointError '{raised}' after "
+        f"{poisoned_s:.1f} s; clean: row {plain} in {plain_s:.1f} s, with "
+        f"the sanitizer {sanitized} in {sanitized_s:.1f} s; equal "
+        f"{plain == sanitized}; sanitizer off afterwards {off()}")
+    if plain != sanitized or not off():
+        raise AssertionError("--debug_nans changed a clean run's row or "
+                             "stayed on")
+    return dict(raised=raised, row=plain, seconds=dict(
+        poisoned=poisoned_s, plain=plain_s, sanitized=sanitized_s))
+
+
+PROFILED_KERNELS = ("attn_fwd_resident_kernel", "attn_bwd_resident_kernel",
+                    "adamw_kernel")
+
+
+def check_profile_dir(train_cli, datasets):
+    """Phase 18d: one epoch of the ViT-tiny/4 train CLI on 1,024 synthetic
+    examples with --profile_dir: a Chrome trace that names the train
+    step's kernels (PROFILED_KERNELS) and its aten ops."""
+    with tempfile.TemporaryDirectory() as prof, small_dataset(datasets):
+        t0 = time.perf_counter()
+        cli_row(train_cli, ["--profile_dir", prof])
+        seconds = time.perf_counter() - t0
+        paths = [os.path.join(prof, name) for name in os.listdir(prof)]
+        traces = [p for p in paths if p.endswith(".pt.trace.json")]
+        if len(traces) != 1:
+            raise AssertionError(f"--profile_dir wrote {paths}")
+        size = os.path.getsize(traces[0])
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    found = {k: sum(k in n for n in names) for k in PROFILED_KERNELS}
+    device_events = sum(e.get("cat") == "kernel" for e in events)
+    log(f"  --profile_dir: {os.path.basename(traces[0])}, {size:,} bytes, "
+        f"{len(events):,} events ({device_events:,} kernel events) in "
+        f"{seconds:.1f} s; kernel names found {found}; aten::mm "
+        f"{'aten::mm' in names}")
+    if not all(found.values()) or "aten::mm" not in names:
+        raise AssertionError(f"the trace does not name the train step's "
+                             f"kernels: {found}")
+    return dict(bytes=size, events=len(events), kernel_events=device_events,
+                kernels_found=found, seconds=seconds)
+
+
+def write_idx(path, arr, gz=False):
+    data = bytes([0, 0, 8, arr.ndim]) + b"".join(
+        int(d).to_bytes(4, "big") for d in arr.shape) + arr.tobytes()
+    if gz:
+        import gzip
+
+        with gzip.open(path + ".gz", "wb") as f:
+            f.write(data)
+    else:
+        with open(path, "wb") as f:
+            f.write(data)
+
+
+def check_decoders(datasets, native):
+    """Phase 18e: MNIST IDX files (two raw, two .gz) and CIFAR-10 binary
+    batches written here, decoded by data/datasets.py: which decoder ran
+    (datasets.DECODERS: the C++ library of utils/native.py, or numpy where
+    it could not be built) and the arrays against what was written."""
+    rng = np.random.default_rng(18)
+    mnist = {"train-images-idx3-ubyte": rng.integers(0, 256, (600, 28, 28)),
+             "train-labels-idx1-ubyte": rng.integers(0, 10, (600,)),
+             "t10k-images-idx3-ubyte": rng.integers(0, 256, (100, 28, 28)),
+             "t10k-labels-idx1-ubyte": rng.integers(0, 10, (100,))}
+    records = {name: rng.integers(0, 256, (200, 3073)) for name in
+               [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]}
+    t0 = time.perf_counter()
+    lib = native.load()
+    build_s = time.perf_counter() - t0
+    before = collections.Counter(datasets.DECODERS)
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, arr) in enumerate(mnist.items()):
+            write_idx(os.path.join(tmp, name), arr.astype(np.uint8),
+                      gz=i % 2 == 1)
+        os.makedirs(os.path.join(tmp, "cifar-10-batches-bin"))
+        for name, rec in records.items():
+            rec = rec.astype(np.uint8)
+            rec[:, 0] %= 10
+            records[name] = rec
+            rec.tofile(os.path.join(tmp, "cifar-10-batches-bin",
+                                    f"{name}.bin"))
+        t0 = time.perf_counter()
+        got_m = datasets.load_mnist(tmp)
+        got_c = datasets.load_cifar10(tmp)
+        decode_s = time.perf_counter() - t0
+    ran = dict(collections.Counter(datasets.DECODERS) - before)
+    want_c = {name: (rec[:, 1:].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1),
+                     rec[:, 0].astype(np.int32))
+              for name, rec in records.items()}
+    equal = (
+        np.array_equal(got_m.train_x[..., 0], mnist["train-images-idx3-ubyte"])
+        and np.array_equal(got_m.train_y, mnist["train-labels-idx1-ubyte"])
+        and np.array_equal(got_m.test_x[..., 0], mnist["t10k-images-idx3-ubyte"])
+        and np.array_equal(got_m.test_y, mnist["t10k-labels-idx1-ubyte"])
+        and np.array_equal(got_c.train_x, np.concatenate(
+            [want_c[f"data_batch_{i}"][0] for i in range(1, 6)]))
+        and np.array_equal(got_c.train_y, np.concatenate(
+            [want_c[f"data_batch_{i}"][1] for i in range(1, 6)]))
+        and np.array_equal(got_c.test_x, want_c["test_batch"][0])
+        and np.array_equal(got_c.test_y, want_c["test_batch"][1]))
+    decoders = {f"{fmt} {dec}": n for (fmt, dec), n in ran.items()}
+    log(f"  decoders: C++ library {'built at ' + str(native.library_path()) if lib is not None else 'NOT built (numpy ran)'} "
+        f"({build_s:.2f} s); decodes by decoder {decoders}; arrays equal to "
+        f"the numpy arrays written {equal} ({decode_s * 1e3:.1f} ms)")
+    if not equal:
+        raise AssertionError("the decoded datasets differ from the files")
+    return dict(native_built=lib is not None, decoders=decoders,
+                build_seconds=build_s, decode_ms=decode_s * 1e3)
+
+
 def kernel_line(name, source, replaces, launches, max_abs_err, times):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3654,6 +4128,20 @@ def main() -> int:
             f" path A (visualizers) {visualizers['seconds']:.1f} s")
         shutil.rmtree(keep_dir)
 
+    with phase("[18] the k-step driver on a CUDA graph, remat, --debug_nans, "
+               "--profile_dir, the C++ decoders", seconds):
+        from vit_rpe_rope_tpu_torch.utils import native, nan_check
+
+        graph_epochs = check_graph_epochs(train_modules)
+        adamw_table_err, adamw_table = check_adamw_table(fused_adamw, vit,
+                                                         vit_s, device)
+        torch.cuda.empty_cache()
+        remat = check_remat(vit, ts, fa, fused_adamw, ViTConfig, TrainConfig,
+                            device)
+        debug_nans = check_debug_nans(train_cli, datasets, nan_check)
+        profile_dir = check_profile_dir(train_cli, datasets)
+        decoders = check_decoders(datasets, native)
+
     summary = {"card": card, "attention": attn, "serving": serve_times,
                "serving_profile": serve_trace, "training": training,
                "kernel_vs_plain_losses": paths, "train_step": step_times,
@@ -3684,6 +4172,9 @@ def main() -> int:
                "regularised_training": regularised,
                "regularised_seconds": regularised_seconds,
                "visualizers": visualizers,
+               "graph_epochs": graph_epochs, "adamw_table": adamw_table,
+               "remat": remat, "debug_nans": debug_nans,
+               "profile_dir": profile_dir, "decoders": decoders,
                "phase_seconds": seconds}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3731,6 +4222,10 @@ def main() -> int:
         kernel_line("adamw", "vit_rpe_rope_tpu_torch/ops/csrc/adamw.cu",
                     "vit_rpe_rope_tpu/ops/fused_adamw.py:51",
                     launches["adamw"], adamw_err, adamw),
+        kernel_line("adamw_table", "vit_rpe_rope_tpu_torch/ops/csrc/adamw.cu",
+                    "vit_rpe_rope_tpu/ops/fused_adamw.py:51",
+                    graph_epochs["runs"][1]["launches"]["adamw_table"],
+                    adamw_table_err, adamw_table),
         kernel_line("attn_stream_fwd", csrc + "attn_stream_fwd.cu",
                     jax_fa + ":873", stream_launches["attn_stream_fwd"],
                     stream_err["fwd"], t_long["fwd_kernel"]),

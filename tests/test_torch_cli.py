@@ -184,11 +184,9 @@ def test_train_parser_matches_jax_parser():
     # bounded stepping over the KV ring, and with dropout or augmentation
     ["--q_chunk", "64", "--sequence_parallel", "2"],
     ["--q_chunk", "64", "--drop_rate", "0.1"], ["--q_chunk", "64",
-                                                 "--augment"], ["--remat"],
+                                                 "--augment"],
     ["--q_chunk", "64", "--attn_drop_rate", "0.1"],
-    ["--q_chunk", "64", "--drop_path_rate", "0.1"],
-    ["--remat", "--drop_rate", "0.1"], ["--profile_dir", "trace"],
-    ["--debug_nans"], ["--steps_per_dispatch", "4"]])
+    ["--q_chunk", "64", "--drop_path_rate", "0.1"]])
 def test_train_cli_refuses_unported_flags(flag, capsys):
     """Unported features are refused as such. Dropout, drop-path and
     --augment are ported (tests/test_torch_regularize.py); the bounded

@@ -34,7 +34,8 @@ def test_port_modules_import_without_jax():
                  "train.loop", "train.train_step", "cli.train",
                  "data.datasets", "utils.flatten", "utils.checkpoint",
                  "viz.similarity", "viz.rope_freq",
-                 "cli.pe_similarity_visualizer", "cli.rope_visualizer"):
+                 "cli.pe_similarity_visualizer", "cli.rope_visualizer",
+                 "utils.native", "utils.nan_check", "ops.launches"):
         assert f"vit_rpe_rope_tpu_torch.{name}" in modules
     code = (
         "import importlib, re, sys\n"

@@ -1717,3 +1717,123 @@ def test_resident_dbias_over_a_lowered_slab_budget(cuda, b, slabs, dtype):
     assert fa.dbias_groups(b, h, n, budget, fa._round_up(n, 4)) <= slabs
     run_route_case("rel", (b, h, n, d), dtype, cuda, seed=80,
                    dbias_budget=budget)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("live", [1.0, 0.0])
+@pytest.mark.parametrize("case", ["1 leaf", "MAX_GRADS+1 leaves"])
+def test_adamw_table_entry_is_exact_bit_for_bit(cuda, case, live):
+    """The device-table entry reads (lr, c1, c2, live) from device memory:
+    live, it equals adamw_exact bit for bit, as the by-value entry does;
+    not live, it leaves p, mu and nu as they were. Its launches count in
+    LAUNCHES_ADAMW_TABLE."""
+    numels = ADAMW_CASES[case]
+    lists = adamw_leaves(numels, cuda, seed=33)
+    want, _ = adamw_exact(lists)
+    if not live:
+        want = [[t.clone() for t in lists[i]] for i in (0, 2, 3)]
+    lr, c1, c2 = ADAMW_HYPER[:3]
+    rows = fused_adamw.hyper_rows([(0.0, 1.0, 1.0, 0.0), (lr, c1, c2, live)],
+                                  cuda)
+    before = (fused_adamw.LAUNCHES_ADAMW, fused_adamw.LAUNCHES_ADAMW_TABLE)
+    fused_adamw.adamw_update_table(*lists, rows[1], *ADAMW_HYPER[3:])
+    torch.cuda.synchronize()
+    n_launches = len(fused_adamw.build_table(
+        [0] * len(numels), [0] * len(numels), [0] * len(numels), numels)[1])
+    assert (fused_adamw.LAUNCHES_ADAMW,
+            fused_adamw.LAUNCHES_ADAMW_TABLE) == (before[0],
+                                                  before[1] + n_launches)
+    for group, exact in zip((lists[0], lists[2], lists[3]), want):
+        for x, y in zip(group, exact):
+            assert torch.equal(x, y)
+
+
+def graph_run(k, accum, steps, device, graphed, pe="rope-mixed"):
+    """`steps` optimizer steps of ViT-tiny/4 (depth cut to 2) at batch 32
+    through make_train_multi_step, on the CUDA graph or (graphed False)
+    eagerly under the NaN sanitizer's flag; returns the params, the AdamW
+    state, the metrics, the launch counts and the driver."""
+    from vit_rpe_rope_tpu_torch.configs import TrainConfig
+    from vit_rpe_rope_tpu_torch.data import datasets
+    from vit_rpe_rope_tpu_torch.ops import launches
+    from vit_rpe_rope_tpu_torch.train import train_step as ts
+    from vit_rpe_rope_tpu_torch.utils import nan_check
+
+    cfg = ViTConfig(depth=2, pos_encoding=pe)
+    bundle = datasets.synthetic("cifar10", n_train=32 * steps * accum - 5,
+                                n_test=8, seed=3)
+    pre = ts.make_preprocess(cfg, bundle.mean, bundle.std, 32)
+    params = vit.init_params(torch.Generator().manual_seed(3), cfg,
+                             device=device)
+    for v in params.values():
+        v.requires_grad_(True)
+    init, update = ts.make_optimizer(TrainConfig(dataset="cifar10"), steps,
+                                     params)
+    state = init(params)
+    fn = ts.make_train_multi_step(cfg, update, pre, k, accum=accum)
+    idx = ts.pad_epoch_indices(ts.epoch_indices(
+        len(bundle.train_y), 32, True, seed=3), k * accum).to(device)
+    x, y = ts.epoch_order_data(torch.from_numpy(bundle.train_x).to(device),
+                               torch.from_numpy(bundle.train_y).to(device),
+                               idx)
+    metrics = []
+    before = launches.counts()
+    nan_check.ACTIVE = not graphed  # the driver's reason to run eagerly
+    try:
+        for row in range(0, idx.shape[0], k * accum):
+            params, state, m = fn(params, state, row, x, y, idx)
+            metrics.append(m)
+    finally:
+        nan_check.ACTIVE = False
+    torch.cuda.synchronize()
+    return params, state, torch.cat(metrics), launches.since(before), fn
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,accum,steps", [(4, 1, 8), (3, 1, 4), (2, 2, 4)])
+def test_graph_driver_is_the_eager_driver_bit_for_bit(cuda, k, accum, steps):
+    """The k steps replayed from one CUDA graph equal the same k steps run
+    eagerly, bit for bit (params, moments, count, metrics; padded steps
+    where k does not divide the steps); the counts add each replay's
+    launches: the graph run launches the attention kernels and the AdamW
+    table entry once per captured step and replay, plus the one warm-up
+    step."""
+    eager = graph_run(k, accum, steps, cuda, graphed=False)
+    graph = graph_run(k, accum, steps, cuda, graphed=True)
+    assert graph[4].capture_seconds is not None
+    assert eager[4].capture_seconds is None
+    assert eager[1][2] == graph[1][2] == steps
+    assert torch.equal(eager[2], graph[2])
+    for key in eager[0]:
+        assert torch.equal(eager[0][key], graph[0][key]), key
+        assert torch.equal(eager[1][0][key], graph[1][0][key]), key
+        assert torch.equal(eager[1][1][key], graph[1][1][key]), key
+    dispatches = -(-steps // k)
+    name = "vit_rpe_rope_tpu_torch.ops.flash_attention"
+    adamw = "vit_rpe_rope_tpu_torch.ops.fused_adamw"
+    depth = 2
+    # both drivers run every step of a dispatch, padded ones too
+    assert eager[3][name, "LAUNCHES"] == depth * dispatches * k * accum
+    assert graph[3][name, "LAUNCHES"] == depth * (dispatches * k + 1) * accum
+    assert graph[3][name, "LAUNCHES_BWD"] == graph[3][name, "LAUNCHES"]
+    assert eager[3][adamw, "LAUNCHES_ADAMW"] == steps
+    assert (adamw, "LAUNCHES_ADAMW") not in graph[3]
+    assert graph[3][adamw, "LAUNCHES_ADAMW_TABLE"] == dispatches * k + 1
+
+
+@pytest.mark.gpu
+def test_graph_capture_failure_raises(cuda, monkeypatch):
+    """A step that cannot be captured (here: one that reads a value on the
+    host) makes the driver raise; it never falls back to eager steps."""
+    from vit_rpe_rope_tpu_torch.train import train_step as ts
+
+    real = ts._grads_and_metrics
+
+    def syncing(*args):
+        grads, metrics = real(*args)
+        float(metrics[0])  # a host read: illegal while capturing
+        return grads, metrics
+
+    monkeypatch.setattr(ts, "_grads_and_metrics", syncing)
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        graph_run(2, 1, 2, cuda, graphed=True)

@@ -10,10 +10,14 @@ Runs on the CUDA device; --device cpu runs on the CPU. --q_chunk (and
 --kv_chunk) train through the bounded-program driver (train/bounded.py),
 which refuses --drop_rate, --attn_drop_rate, --drop_path_rate and
 --augment, as the JAX package's does. --attn_drop_rate runs the attention
-on the unfused oracle (the mask lives on the probabilities). The extensions
-this package does not port yet (parallel layers, ZeRO-1, remat, profiling,
-NaN debugging, fused multi-step dispatch) are refused when set to a
-non-default value.
+on the unfused oracle (the mask lives on the probabilities). --remat
+recomputes each block in the backward (--remat_policy full, dots or
+softmax); --steps_per_dispatch k > 1 runs k steps per dispatch, one CUDA
+graph replay on the card (eagerly where the steps draw random numbers or
+under --debug_nans); --profile_dir writes a torch.profiler Chrome trace;
+--debug_nans raises FloatingPointError at the first NaN. The extensions
+this package does not port yet (parallel layers, ZeRO-1) are refused when
+set to a non-default value.
 """
 
 from __future__ import annotations
@@ -108,13 +112,16 @@ def build_parser() -> argparse.ArgumentParser:
                           "{pos_encoding}_last.npz (params + optimizer + "
                           "epoch; the reference always restarts from scratch)")
     ext.add_argument("--profile_dir", type=str, default=None,
-                     help="[extension] profiler trace output (not ported)")
+                     help="[extension] torch.profiler Chrome trace of the "
+                          "run, written to this directory")
     ext.add_argument("--debug_nans", action="store_true",
-                     help="[extension] NaN sanitizer (not ported)")
+                     help="[extension] NaN sanitizer: raise "
+                          "FloatingPointError at the first NaN, forward or "
+                          "backward")
     ext.add_argument("--steps_per_dispatch", type=int, default=0,
-                     help="[extension] train steps fused into one dispatch "
-                          "via lax.scan (0 = auto: a divisor of "
-                          "steps-per-epoch ≤32 on TPU, 1 on CPU)")
+                     help="[extension] train steps per dispatch: one CUDA "
+                          "graph replay of k captured steps on the card "
+                          "(0 = auto: 1 on every device)")
     ext.add_argument("--model_parallel", type=int, default=1,
                      help="[extension] tensor-parallel degree: shard attention"
                           " heads and the MLP hidden dim over the mesh's"
@@ -181,10 +188,6 @@ def main(argv=None):
         "--sequence_parallel": args.sequence_parallel > 1,
         "--pipeline_parallel": args.pipeline_parallel > 1,
         "--zero1": args.zero1,
-        "--remat": args.remat,
-        "--profile_dir": args.profile_dir is not None,
-        "--debug_nans": args.debug_nans,
-        "--steps_per_dispatch": args.steps_per_dispatch > 1,
     })
     regularised = [flag for flag, on in {
         "--drop_rate": args.drop_rate > 0,
@@ -212,6 +215,7 @@ def main(argv=None):
         rope_mixed_compat_scramble=args.rope_mixed_compat_scramble,
         attention_impl=args.attention_impl,
         compute_dtype=args.compute_dtype,
+        remat=args.remat,
         remat_policy=args.remat_policy,
         drop_rate=args.drop_rate,
         attn_drop_rate=args.attn_drop_rate,
@@ -235,6 +239,8 @@ def main(argv=None):
         q_chunk=args.q_chunk,
         kv_chunk=args.kv_chunk,
         steps_per_dispatch=args.steps_per_dispatch,
+        profile_dir=args.profile_dir,
+        debug_nans=args.debug_nans,
     )
     summary = fit(cfg, tcfg, device=args.device)
     print(f"\nDone. Best Test Acc: {summary['best_acc']:.2f}% | "

@@ -55,8 +55,9 @@ class ViTConfig:
     # Compute dtype for activations inside blocks ("float32" or "bfloat16").
     # Params and softmax statistics stay float32 either way.
     compute_dtype: str = "float32"
-    # Training-only knobs, kept so configs compare equal across packages
-    # (remat is not ported: a training forward with remat=True raises).
+    # Recompute each block in the backward (models.vit.remat_block_fn),
+    # "full", or selectively: "dots" saves the linears' products,
+    # "softmax" everything but the unfused attention's probabilities.
     remat: bool = False
     remat_policy: str = "full"
 

@@ -5,22 +5,27 @@ The reference delegates to torchvision: MNIST with Resize(img_size) +
 Normalize(0.1307, 0.3081), CIFAR-10 with Normalize((0.4914, 0.4822,
 0.4465), (0.2023, 0.1994, 0.2010)), batch 128, shuffle train only, no
 augmentation. Here the standard on-disk formats are decoded directly with
-numpy (the same files torchvision would download), with a procedural
-dataset (--synthetic) when the files are absent. Decoded arrays are uint8
-NHWC; float conversion, resize and normalization run on the device in the
-train step (train/train_step.make_preprocess). The JAX package's C++ fast
-decoders (utils/native.py) are not ported: the numpy paths decode the same
-bytes.
+the C++ decoders of native/dataio.cpp (utils/native.py: IDX raw and .gz,
+CIFAR binary batches, the CHW->HWC transpose of the python batches), or
+with numpy where that library cannot be built (the same bytes either way),
+with a procedural dataset (--synthetic) when the files are absent. Each
+decode adds one to DECODERS[(format, "native" | "numpy")], so a caller can
+see which path ran. Decoded arrays are uint8 NHWC; float conversion, resize
+and normalization run on the device in the train step
+(train/train_step.make_preprocess).
 """
 
 from __future__ import annotations
 
+import collections
 import gzip
 import os
 import pickle
 import struct
 
 import numpy as np
+
+from vit_rpe_rope_tpu_torch.utils import native
 
 # Normalization constants, exactly the reference's.
 NORMALIZATION = {
@@ -32,6 +37,10 @@ NORMALIZATION = {
 }
 
 NATIVE_SIZE = {"mnist": 28, "cifar10": 32}
+
+# Decodes since import, by (format, decoder): format "idx", "cifar_bin" or
+# "chw_to_hwc"; decoder "native" (utils/native.py) or "numpy".
+DECODERS: collections.Counter = collections.Counter()
 
 
 class DatasetBundle:
@@ -57,6 +66,11 @@ def _open_maybe_gz(path):
 
 
 def _read_idx(path):
+    arr = native.idx_decode(path)  # handles the .gz twin too
+    if arr is not None:
+        DECODERS["idx", "native"] += 1
+        return arr
+    DECODERS["idx", "numpy"] += 1
     with _open_maybe_gz(path) as f:
         magic = struct.unpack(">I", f.read(4))[0]
         ndim = magic & 0xFF
@@ -84,6 +98,15 @@ def load_mnist(root: str) -> DatasetBundle:
 # CIFAR-10 — python pickle batches or the binary format
 # ---------------------------------------------------------------------------
 
+def _chw_to_hwc(chw):
+    hwc = native.chw_to_hwc(chw)
+    if hwc is not None:
+        DECODERS["chw_to_hwc", "native"] += 1
+        return hwc
+    DECODERS["chw_to_hwc", "numpy"] += 1
+    return chw.transpose(0, 2, 3, 1)
+
+
 def load_cifar10(root: str) -> DatasetBundle:
     py_dir = os.path.join(root, "cifar-10-batches-py")
     bin_dir = os.path.join(root, "cifar-10-batches-bin")
@@ -92,14 +115,20 @@ def load_cifar10(root: str) -> DatasetBundle:
             with open(os.path.join(py_dir, name), "rb") as f:
                 d = pickle.load(f, encoding="bytes")
             chw = d[b"data"].reshape(-1, 3, 32, 32)
-            return chw.transpose(0, 2, 3, 1), np.array(d[b"labels"], np.int32)
+            return _chw_to_hwc(chw), np.array(d[b"labels"], np.int32)
 
         xs, ys = zip(*(read_batch(f"data_batch_{i}") for i in range(1, 6)))
         train_x, train_y = np.concatenate(xs), np.concatenate(ys)
         test_x, test_y = read_batch("test_batch")
     elif os.path.isdir(bin_dir):
         def read_bin(name):
-            rec = np.fromfile(os.path.join(bin_dir, name), dtype=np.uint8)
+            path = os.path.join(bin_dir, name)
+            decoded = native.cifar_decode(path)
+            if decoded is not None:
+                DECODERS["cifar_bin", "native"] += 1
+                return decoded
+            DECODERS["cifar_bin", "numpy"] += 1
+            rec = np.fromfile(path, dtype=np.uint8)
             rec = rec.reshape(-1, 3073)
             y = rec[:, 0].astype(np.int32)
             x = rec[:, 1:].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)

@@ -21,14 +21,18 @@ Inputs are NHWC, as in the JAX package. `apply` is differentiable end to end
 explicit torch.Generator (the JAX package's `rng`): with one, the config's
 dropout, attention-prob dropout and drop-path rates apply, their masks drawn
 from it in the forward's order; without one the forward is deterministic.
-Remat is not ported, and a training forward that asks for it raises.
+With cfg.remat each block is recomputed in the backward
+(`remat_block_fn`), under one of the JAX package's three policies.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from vit_rpe_rope_tpu_torch import pe as pe_registry
 from vit_rpe_rope_tpu_torch.configs import (
@@ -261,13 +265,88 @@ def _block_body(block_params: dict, x, cfg, bias, freqs_cis, impl,
     return x + h
 
 
-def _refuse_unported_training(params, cfg: ViTConfig):
-    if not cfg.remat or not torch.is_grad_enabled():
-        return
-    if any(v.requires_grad for v in params.values()):
-        raise NotImplementedError(
-            "remat is not ported to the PyTorch package yet (training "
-            "forward asked for it)")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """JAX's dots_with_no_batch_dims_saveable: the outputs of products
+    without batch dimensions (the block's linears) are saved; everything
+    else, the attention's batched products included, is recomputed."""
+    del ctx, args, kwargs
+    save = op in _DOTS
+    return (torch_checkpoint.CheckpointPolicy.MUST_SAVE if save
+            else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _softmax_policy(ctx, op, *args, **kwargs):
+    """Everything is saved except the float32 attention probabilities of
+    the unfused attention, which ops/reference_attention.py computes under
+    the tag "attn_softmax" (JAX's checkpoint_name). The kernels materialize
+    no probabilities, so on their route everything is saved."""
+    del ctx, op, args, kwargs
+    recompute = reference_attention.current_tag() == "attn_softmax"
+    return (torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE if recompute
+            else torch_checkpoint.CheckpointPolicy.MUST_SAVE)
+
+
+_POLICIES = {"dots": _dots_policy, "softmax": _softmax_policy}
+
+
+def _replaying_draws(fn, generator):
+    """fn, made to draw the same masks when checkpoint recomputes it: the
+    generator's state at the first call is set again for every later call
+    (the recompute), and the state that call found is put back after it.
+    (checkpoint's preserve_rng_state covers the global generators only,
+    never an explicit one.)"""
+    if generator is None:
+        return fn
+    state = generator.get_state()
+    calls = [0]
+
+    def run(*args):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*args)
+        after = generator.get_state()
+        generator.set_state(state)
+        try:
+            return fn(*args)
+        finally:
+            generator.set_state(after)
+
+    return run
+
+
+def remat_block_fn(cfg: ViTConfig, fn):
+    """`fn` (a block: _block_body's signature, the generator as keyword)
+    recomputed in the backward per cfg.remat / cfg.remat_policy, identity
+    when remat is off: the single home of the policy mapping, as in the JAX
+    package. Each call goes through torch.utils.checkpoint (non-reentrant);
+    "full" recomputes everything, "dots" and "softmax" are selective
+    (_dots_policy, _softmax_policy). A call without grad runs fn as it is.
+
+    The attention kernels launch through ctypes, which a policy cannot see:
+    it sees only the torch.empty of their outputs. So under every policy
+    the recompute launches the attention forward again (bit-identical
+    output); a remat train step launches it twice per block."""
+    if not cfg.remat:
+        return fn
+    policy = _POLICIES.get(cfg.remat_policy)
+
+    def checkpointed(*args, generator=None):
+        run = _replaying_draws(fn, generator)
+        if not torch.is_grad_enabled():
+            return run(*args, generator)
+        kw = {}
+        if policy is not None:
+            kw["context_fn"] = functools.partial(
+                torch_checkpoint.create_selective_checkpoint_contexts, policy)
+        # The port draws nothing from the global generators.
+        return torch_checkpoint.checkpoint(run, *args, generator,
+                                           use_reentrant=False,
+                                           preserve_rng_state=False, **kw)
+
+    return checkpointed
 
 
 def forward_features(params, images, cfg: ViTConfig, generator=None):
@@ -276,7 +355,6 @@ def forward_features(params, images, cfg: ViTConfig, generator=None):
     generator: a torch.Generator on the images' device for train-mode
     dropout / drop-path (one stream for all blocks, drawn in order); None is
     the deterministic (eval) forward."""
-    _refuse_unported_training(params, cfg)
     pe_mod = pe_registry.get(cfg.pos_encoding)
     dtype = _DTYPES[cfg.compute_dtype]
     x = patch_embed(params, images.to(dtype), cfg)  # [B, S, E]
@@ -294,11 +372,12 @@ def forward_features(params, images, cfg: ViTConfig, generator=None):
         freqs_cis = pe_mod.freqs_cis(params, cfg, device=x.device)
 
     impl = _attention_impl(cfg)
+    block_fn = remat_block_fn(cfg, _block_body)
     for i in range(cfg.depth):
         block_params = {name: params[f"blocks.{i}.{name}"]
                         for name in BLOCK_PARAM_NAMES}
-        x = _block_body(block_params, x, cfg, bias, freqs_cis, impl,
-                        generator)
+        x = block_fn(block_params, x, cfg, bias, freqs_cis, impl,
+                     generator=generator)
     return x
 
 

@@ -47,6 +47,7 @@ import torch
 from vit_rpe_rope_tpu_torch.ops import cuda_build
 from vit_rpe_rope_tpu_torch.ops.flash_attention import (
     _prep_freqs, _rotate, _round_up)
+from vit_rpe_rope_tpu_torch.utils import nan_check
 
 SOURCE = cuda_build.CSRC / "block_fused.cu"
 
@@ -377,7 +378,9 @@ def block_forward(x, block_params, cfg, freqs_cis=None, batch_tile: int = 8):
         raise ValueError(f"x {tuple(x.shape)} does not fit E="
                          f"{cfg.embed_dim} or its batch is out of range")
     lay = block_plan(n, e, cfg.head_dim, cfg.mlp_hidden_dim)
-    return _launch(x, block_params, cfg, freqs_cis, lay)
+    out = _launch(x, block_params, cfg, freqs_cis, lay)
+    nan_check.check("block_fused", out)
+    return out
 
 
 def _launch(x, block_params, cfg, freqs_cis, lay):

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from vit_rpe_rope_tpu_torch.ops import flash_attention as fa
 from vit_rpe_rope_tpu_torch.ops.layers import layer_norm, linear
+from vit_rpe_rope_tpu_torch.utils import nan_check
 
 _INV_SQRT_2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
@@ -190,6 +191,7 @@ class BlockFunction(torch.autograd.Function):
         bp = dict(zip(names, params))
         freqs = (cos_raw, sin_raw) if cos_raw is not None else None
         y, res = _primal(cfg, bp, x, freqs)
+        nan_check.check("block", y)
         x_, x2, f1, q, k, v, ao, lse, cos, sin = res
         ctx.save_for_backward(x_, x2, f1, q, k, v, ao, lse, cos, sin,
                               cos_raw, sin_raw, *params)
@@ -206,6 +208,7 @@ class BlockFunction(torch.autograd.Function):
         grads, dx, dfreqs = _block_bwd(ctx.cfg, bp, freqs, res,
                                        dy.contiguous(), want_dfreqs)
         dcos, dsin = dfreqs if dfreqs is not None else (None, None)
+        nan_check.check("block_bwd", dx, dcos, dsin, *grads.values())
         return (None, None, dx, dcos, dsin, *(grads[nm] for nm in ctx.names))
 
 

@@ -28,6 +28,13 @@
 // chunks start at multiples of 4096 elements) moves as float4 loads and
 // stores, each thread issuing all its loads before it uses them; the rest of
 // a leaf's last chunk, and any unaligned chunk, goes element by element.
+//
+// Two entries launch the one kernel. adamw_step takes lr, c1 and c2 by
+// value. adamw_step_table reads them, and a live flag, from four floats in
+// device memory: a step captured in a CUDA graph then takes the values the
+// host writes there before each replay (a by-value argument would stay the
+// one of the captured step), and a step whose flag is 0 (a padded step of
+// a k-step dispatch) leaves p, mu and nu as they were.
 
 #include <cuda_runtime.h>
 
@@ -78,9 +85,18 @@ __device__ __forceinline__ void adamw4(float4& p, const float4 g, float4& mu, fl
 
 // chunks: this launch's (leaf, first element) pairs; its leaves' gradients
 // are grads.g[leaf - leaf0].
+// table: nullptr, or the device floats (lr, c1, c2, live) that replace
+// hp's first three; live == 0 makes the launch a no-op.
 __global__ void __launch_bounds__(THREADS)
     adamw_kernel(const Leaf* __restrict__ leaves, const long long* __restrict__ chunks,
-                 const int leaf0, const Grads grads, const Hyper hp) {
+                 const int leaf0, const Grads grads, Hyper hp,
+                 const float* __restrict__ table) {
+  if (table != nullptr) {
+    if (table[3] == 0.0f) return;
+    hp.lr = table[0];
+    hp.c1 = table[1];
+    hp.c2 = table[2];
+  }
   const long long leaf = chunks[2 * blockIdx.x];
   const long long start = chunks[2 * blockIdx.x + 1];
   const Leaf L = leaves[leaf];
@@ -130,6 +146,22 @@ extern "C" int adamw_chunk() { return CHUNK; }
 
 extern "C" int adamw_max_grads() { return MAX_GRADS; }
 
+namespace {
+
+int launch(const void* leaves, const void* chunks, int n_chunks, int leaf0, int n_grads,
+           const void* const* grads, const Hyper& hp, const float* table, void* stream) {
+  if (n_grads < 0 || n_grads > MAX_GRADS) return int(cudaErrorInvalidValue);
+  if (n_chunks <= 0) return 0;
+  Grads gs = {};
+  for (int i = 0; i < n_grads; ++i) gs.g[i] = static_cast<const float*>(grads[i]);
+  adamw_kernel<<<n_chunks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Leaf*>(leaves), static_cast<const long long*>(chunks), leaf0, gs, hp,
+      table);
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+
 // Plain C entry point (bound with ctypes). leaves: device array of records
 // {p, mu, nu, numel} (3 pointers and an int64 each); chunks: device array of
 // this launch's n_chunks (leaf, first element) int64 pairs, one per CHUNK
@@ -141,12 +173,18 @@ extern "C" int adamw_step(const void* leaves, const void* chunks, int n_chunks, 
                           int n_grads, const void* const* grads, float lr, float c1, float c2,
                           float b1, float b2, float omb1, float omb2, float eps, float wd,
                           void* stream) {
-  if (n_grads < 0 || n_grads > MAX_GRADS) return int(cudaErrorInvalidValue);
-  if (n_chunks <= 0) return 0;
-  Grads gs = {};
-  for (int i = 0; i < n_grads; ++i) gs.g[i] = static_cast<const float*>(grads[i]);
   const Hyper hp{lr, c1, c2, b1, b2, omb1, omb2, eps, wd};
-  adamw_kernel<<<n_chunks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const Leaf*>(leaves), static_cast<const long long*>(chunks), leaf0, gs, hp);
-  return int(cudaGetLastError());
+  return launch(leaves, chunks, n_chunks, leaf0, n_grads, grads, hp, nullptr, stream);
+}
+
+// As adamw_step, with lr, c1, c2 and the live flag read on the device from
+// table[0..3] (float32, 16-byte aligned) when the kernel runs.
+extern "C" int adamw_step_table(const void* leaves, const void* chunks, int n_chunks, int leaf0,
+                                int n_grads, const void* const* grads, const void* table,
+                                float b1, float b2, float omb1, float omb2, float eps, float wd,
+                                void* stream) {
+  if (table == nullptr) return int(cudaErrorInvalidValue);
+  const Hyper hp{0.0f, 1.0f, 1.0f, b1, b2, omb1, omb2, eps, wd};
+  return launch(leaves, chunks, n_chunks, leaf0, n_grads, grads, hp,
+                static_cast<const float*>(table), stream);
 }

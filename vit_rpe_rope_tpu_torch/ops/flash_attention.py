@@ -98,6 +98,7 @@ import math
 import torch
 
 from vit_rpe_rope_tpu_torch.ops import cuda_build
+from vit_rpe_rope_tpu_torch.utils import nan_check
 
 LANE = 128
 NEG_INF = -1e30
@@ -1703,6 +1704,7 @@ class FlashAttentionFunction(torch.autograd.Function):
             cos, sin = _kernel_freqs((cos_raw, sin_raw), q.shape[1],
                                      q.shape[2], q.device)
         out = attention_fwd(q, k, v, scale, bias, cos, sin)
+        nan_check.check("attn_fwd", out)
         ctx.save_for_backward(q, k, v, out, bias, cos, sin, cos_raw, sin_raw)
         ctx.scale = scale
         return out
@@ -1718,6 +1720,7 @@ class FlashAttentionFunction(torch.autograd.Function):
         if want_drot:
             dcos, dsin = _rot_grads_to_dfreqs(q, k, dqr, dkr,
                                               (cos_raw, sin_raw))
+        nan_check.check("attn_bwd", dq, dk, dv, dbias, dcos, dsin)
         return dq, dk, dv, dbias, dcos, dsin, None
 
 
@@ -1742,6 +1745,7 @@ class StreamingAttentionFunction(torch.autograd.Function):
             bias = pitched_bias(bias)
         out, lse = attention_stream_fwd(q, k, v, scale, bias, cos, sin, poly,
                                         table)
+        nan_check.check("attn_stream_fwd", out, lse)
         ctx.save_for_backward(q, k, v, out, lse, bias, cos, sin, cos_raw,
                               sin_raw, coeff, table)
         ctx.scale, ctx.grid = scale, grid
@@ -1776,6 +1780,8 @@ class StreamingAttentionFunction(torch.autograd.Function):
             dcoeff = dcoeff.to(coeff.dtype)
         if dtable is not None:
             dtable = dtable.to(table.dtype)
+        nan_check.check("attn_stream_bwd", dq, dk, dv, dbias, dcos, dsin,
+                        dcoeff, dtable)
         return dq, dk, dv, dbias, dcos, dsin, dcoeff, dtable, None, None
 
 
@@ -1806,8 +1812,10 @@ def flash_attention(q, k, v, scale, bias=None, freqs_cis=None, poly=None,
     if not use_dense(h, n, has_biasish):
         if not training:
             bias, cos, sin = prepare_pe(h, n, q.device, bias, freqs_cis)
-            return attention_stream_fwd(q, k, v, scale, bias, cos, sin, poly,
-                                        rel)[0]
+            out = attention_stream_fwd(q, k, v, scale, bias, cos, sin, poly,
+                                       rel)[0]
+            nan_check.check("attn_stream_fwd", out)
+            return out
         if bias is not None:
             bias = _dense_bias(h, n, q.device, bias)
         coeff, grid = poly if poly is not None else (None, 0)
@@ -1818,7 +1826,9 @@ def flash_attention(q, k, v, scale, bias=None, freqs_cis=None, poly=None,
         return FlashAttentionFunction.apply(q, k, v, bias, cos_raw, sin_raw,
                                             scale)
     bias, cos, sin = prepare_pe(h, n, q.device, bias, freqs_cis, poly, rel)
-    return attention_fwd(q, k, v, scale, bias, cos, sin)
+    out = attention_fwd(q, k, v, scale, bias, cos, sin)
+    nan_check.check("attn_fwd", out)
+    return out
 
 
 def _dense_bias(h, n, device, bias=None, poly=None, rel=None):

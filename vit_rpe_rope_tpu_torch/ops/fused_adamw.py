@@ -23,6 +23,13 @@ The kernel reads the leaves' records and its chunk list from a device table
 checks, only when that set changes (TABLE_BUILDS counts the builds). The
 gradients, new tensors every step, go to the kernel by value, so a step with
 an unchanged parameter set makes no host-to-device copy.
+
+`adamw_update_table` launches the same kernel through its second entry,
+which reads lr, c1, c2 and a live flag from four float32 values in device
+memory (a row of `hyper_rows`) when it runs: the update of a step captured
+in a CUDA graph (train_step.make_train_multi_step), whose host fills those
+values before each replay; a row whose flag is 0 leaves p, mu and nu as
+they were. It counts its launches in LAUNCHES_ADAMW_TABLE.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from vit_rpe_rope_tpu_torch.ops import cuda_build
+from vit_rpe_rope_tpu_torch.utils import nan_check
 
 SOURCE = cuda_build.CSRC / "adamw.cu"
 
@@ -42,8 +50,10 @@ SOURCE = cuda_build.CSRC / "adamw.cu"
 CHUNK = 4096
 MAX_GRADS = 480
 
-# Launches of the CUDA kernel since the count was last reset.
+# Launches of the CUDA kernel since the count was last reset: through the
+# by-value entry, and through the device-table entry.
 LAUNCHES_ADAMW = 0
+LAUNCHES_ADAMW_TABLE = 0
 
 # Device tables built since the count was last reset.
 TABLE_BUILDS = 0
@@ -51,6 +61,9 @@ TABLE_BUILDS = 0
 # Device tables kept, the most recently used last.
 _TABLES: collections.OrderedDict = collections.OrderedDict()
 _KEPT_TABLES = 8
+# Tables read by a captured CUDA graph: never dropped while the process runs
+# (a replay reads them by address).
+_CAPTURED_TABLES: dict = {}
 
 
 def _bind(lib):
@@ -64,6 +77,13 @@ def _bind(lib):
         + [ctypes.c_int] * 3                        # n_chunks leaf0 n_grads
         + [ctypes.POINTER(ctypes.c_void_p)]         # grads (host array)
         + [ctypes.c_float] * 9 + [ctypes.c_void_p])  # hyper stream
+    lib.adamw_step_table.restype = ctypes.c_int
+    lib.adamw_step_table.argtypes = (
+        [ctypes.c_void_p, ctypes.c_void_p]          # leaves chunks
+        + [ctypes.c_int] * 3                        # n_chunks leaf0 n_grads
+        + [ctypes.POINTER(ctypes.c_void_p)]         # grads (host array)
+        + [ctypes.c_void_p]                         # (lr, c1, c2, live)
+        + [ctypes.c_float] * 6 + [ctypes.c_void_p])  # b1 .. wd, stream
     if (lib.adamw_chunk(), lib.adamw_max_grads()) != (CHUNK, MAX_GRADS):
         raise RuntimeError("adamw.cu's CHUNK / MAX_GRADS differ from "
                            "fused_adamw.CHUNK / MAX_GRADS")
@@ -153,10 +173,18 @@ def _device_table(params, mus, nus):
     the full checks, when they are new."""
     global TABLE_BUILDS
     key = table_key(params, mus, nus)
-    entry = _TABLES.get(key)
+    capturing = params[0].is_cuda and torch.cuda.is_current_stream_capturing()
+    entry = _CAPTURED_TABLES.get(key) or _TABLES.get(key)
     if entry is not None:
-        _TABLES.move_to_end(key)
+        if key in _TABLES:
+            _TABLES.move_to_end(key)
+        if capturing:
+            _CAPTURED_TABLES[key] = entry
         return entry
+    if capturing:
+        raise RuntimeError("the AdamW device table of these parameters must "
+                           "be built before a CUDA graph capture (run one "
+                           "step first)")
     device = params[0].device
     for i, (p, mu, nu) in enumerate(zip(params, mus, nus, strict=True)):
         for name, t in (("param", p), ("mu", mu), ("nu", nu)):
@@ -181,6 +209,53 @@ def _device_table(params, mus, nus):
     return entry
 
 
+def _grad_pointers(grads, params, numels):
+    """The gradients' device pointers, checked against the leaves; the list
+    of contiguous copies made (autograd may hand a transposed view), which
+    must live until the launch is enqueued."""
+    if len(grads) != len(numels):
+        raise ValueError(f"{len(grads)} grads for {len(numels)} params")
+    dev = params[0].get_device()
+    keep, g_ptrs = [], []
+    for i, (g, n) in enumerate(zip(grads, numels)):
+        if g.dtype != torch.float32 or g.get_device() != dev:
+            raise TypeError(f"leaf {i}: grad must be float32 on "
+                            f"{params[0].device}, got {g.dtype} on "
+                            f"{g.device}")
+        if g.numel() != n:
+            raise ValueError(f"leaf {i}: grad has {g.numel()} elements, "
+                             f"param {n}")
+        if not g.is_contiguous():
+            g = g.contiguous()
+            keep.append(g)
+        g_ptrs.append(g.data_ptr())
+    return g_ptrs, keep
+
+
+def _launch_all(params, mus, nus, grads, launch_one):
+    """One launch per group of MAX_GRADS leaves: launch_one(base, chunks,
+    n_chunks, leaf0, n_leaves, grad pointer array, stream) -> CUDA error."""
+    table, launches, numels = _device_table(params, mus, nus)
+    g_ptrs, keep = _grad_pointers(grads, params, numels)
+    base = table.data_ptr()
+    chunks = base + 8 * 4 * len(numels)
+    n = 0
+    with torch.cuda.device(params[0].get_device()):
+        stream = torch.cuda.current_stream().cuda_stream
+        for leaf0, n_leaves, c0, n_chunks in launches:
+            if n_chunks == 0:  # only empty leaves: nothing to launch
+                continue
+            err = launch_one(
+                base, chunks + 16 * c0, n_chunks, leaf0, n_leaves,
+                (ctypes.c_void_p * n_leaves)(*g_ptrs[leaf0:leaf0 + n_leaves]),
+                stream)
+            if err != 0:
+                raise RuntimeError(f"adamw launch failed: CUDA error {err}")
+            n += 1
+    del keep  # the copies lived until their launches were enqueued
+    return n
+
+
 def adamw_update(params, grads, mus, nus, lr, c1, c2, b1=0.9, b2=0.999,
                  eps=1e-8, weight_decay=0.01):
     """The kernel's wrapper over lists of float32 leaves (p, g, mu, nu of
@@ -194,38 +269,47 @@ def adamw_update(params, grads, mus, nus, lr, c1, c2, b1=0.9, b2=0.999,
                     weight_decay)
         return
     lib = _library()
-    table, launches, numels = _device_table(params, mus, nus)
-    if len(grads) != len(numels):
-        raise ValueError(f"{len(grads)} grads for {len(numels)} params")
-    dev = params[0].get_device()
-    keep, g_ptrs = [], []
-    for i, (g, n) in enumerate(zip(grads, numels)):
-        if g.dtype != torch.float32 or g.get_device() != dev:
-            raise TypeError(f"leaf {i}: grad must be float32 on "
-                            f"{params[0].device}, got {g.dtype} on "
-                            f"{g.device}")
-        if g.numel() != n:
-            raise ValueError(f"leaf {i}: grad has {g.numel()} elements, "
-                             f"param {n}")
-        if not g.is_contiguous():  # autograd may hand a transposed view
-            g = g.contiguous()
-            keep.append(g)
-        g_ptrs.append(g.data_ptr())
-    base = table.data_ptr()
-    chunks = base + 8 * 4 * len(numels)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        for leaf0, n_leaves, c0, n_chunks in launches:
-            if n_chunks == 0:  # only empty leaves: nothing to launch
-                continue
-            err = lib.adamw_step(
-                base, chunks + 16 * c0, n_chunks, leaf0, n_leaves,
-                (ctypes.c_void_p * n_leaves)(*g_ptrs[leaf0:leaf0 + n_leaves]),
-                lr, c1, c2, b1, b2, 1.0 - b1, 1.0 - b2, eps, weight_decay,
-                stream)
-            if err != 0:
-                raise RuntimeError(f"adamw launch failed: CUDA error {err}")
-            LAUNCHES_ADAMW += 1
+    LAUNCHES_ADAMW += _launch_all(
+        params, mus, nus, grads,
+        lambda *a: lib.adamw_step(*a[:6], lr, c1, c2, b1, b2, 1.0 - b1,
+                                  1.0 - b2, eps, weight_decay, a[6]))
+    nan_check.check("adamw", *params)
+
+
+def hyper_rows(rows, device):
+    """[len(rows), 4] float32 (lr, c1, c2, live) rows for
+    adamw_update_table, from (lr, c1, c2, live) tuples (live: 0 or 1)."""
+    return torch.tensor(rows, dtype=torch.float32).reshape(-1, 4).to(device)
+
+
+def adamw_update_table(params, grads, mus, nus, hyper, b1=0.9, b2=0.999,
+                       eps=1e-8, weight_decay=0.01):
+    """The kernel's device-table entry: as adamw_update, with lr, c1, c2 and
+    the live flag read from `hyper`, four contiguous float32 values on the
+    leaves' device (a row of hyper_rows), when the kernel runs; a flag of 0
+    leaves every leaf as it was. CPU tensors run the plain twin on the
+    values read on the host."""
+    global LAUNCHES_ADAMW_TABLE
+    if not params:
+        return
+    if hyper.shape != (4,) or hyper.dtype != torch.float32 \
+            or hyper.device != params[0].device or not hyper.is_contiguous():
+        raise ValueError("hyper must be 4 contiguous float32 values on the "
+                         "params' device")
+    if params[0].device.type == "cpu":
+        lr, c1, c2, live = hyper.tolist()
+        if live != 0.0:
+            adamw_plain(params, grads, mus, nus, lr, c1, c2, b1, b2, eps,
+                        weight_decay)
+        return
+    if hyper.data_ptr() % 16:
+        raise ValueError("hyper must be 16-byte aligned")
+    lib = _library()
+    LAUNCHES_ADAMW_TABLE += _launch_all(
+        params, mus, nus, grads,
+        lambda *a: lib.adamw_step_table(*a[:6], hyper.data_ptr(), b1, b2,
+                                        1.0 - b1, 1.0 - b2, eps, weight_decay,
+                                        a[6]))
 
 
 def bias_corrections(count: int, b1: float, b2: float):
@@ -245,21 +329,41 @@ def make_fused_adamw(template: dict, schedule, b1=0.9, b2=0.999, eps=1e-8,
 
     `step` applies one update to lists of leaves (default: the kernel's
     wrapper; adamw_plain runs the twin on any device). params, mu and nu
-    are updated in place and returned."""
+    are updated in place and returned.
+
+    For a step captured in a CUDA graph, update carries two more functions:
+    update.hyper(count) -> (lr, c1, c2) of the step that brings the count
+    to `count`, the values `update` itself uses, and
+    update.from_table(grads, state, params, row), the update through
+    adamw_update_table on a device row of hyper_rows; it leaves the count
+    to the caller, who advances it by the live steps."""
     keys = list(template)
 
     def init(params):
         return ({k: torch.zeros_like(params[k]) for k in keys},
                 {k: torch.zeros_like(params[k]) for k in keys}, 0)
 
+    def hyper(count):
+        lr = float(schedule(count - 1))  # lr of the pre-increment count
+        return (lr, *bias_corrections(count, b1, b2))
+
+    def leaves(grads, state, params):
+        mu, nu, _ = state
+        return ([params[k] for k in keys], [grads[k] for k in keys],
+                [mu[k] for k in keys], [nu[k] for k in keys])
+
     def update(grads, state, params):
         mu, nu, count = state
         count += 1
-        lr = float(schedule(count - 1))  # lr of the pre-increment count
-        c1, c2 = bias_corrections(count, b1, b2)
-        step([params[k] for k in keys], [grads[k] for k in keys],
-             [mu[k] for k in keys], [nu[k] for k in keys], lr, c1, c2, b1,
-             b2, eps, weight_decay)
+        step(*leaves(grads, state, params), *hyper(count), b1, b2, eps,
+             weight_decay)
         return params, (mu, nu, count)
 
+    def from_table(grads, state, params, row):
+        adamw_update_table(*leaves(grads, state, params), row, b1, b2, eps,
+                           weight_decay)
+        return params, state
+
+    update.hyper = hyper
+    update.from_table = from_table
     return init, update

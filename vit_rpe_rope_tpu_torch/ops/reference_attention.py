@@ -4,14 +4,38 @@ attention-prob dropout (the mask lives on the materialized probabilities).
 PE plugs in through the reference's three modes: q/k rotation (cos/sin
 supplied, cls token excluded), an additive [H, N, N] logits bias, or
 neither. Logits and softmax statistics are float32 whatever the input dtype.
+
+The probabilities are computed under the tag "attn_softmax" (`tagged`,
+the JAX package's checkpoint_name), which the "softmax" remat policy of
+models.vit reads to recompute them.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from vit_rpe_rope_tpu_torch.ops import layers
 from vit_rpe_rope_tpu_torch.ops.rotary import apply_rotary_emb
+
+
+_TAGS: list = []  # names of the tensors being computed, innermost last
+
+
+@contextlib.contextmanager
+def tagged(name: str):
+    """Name the tensors computed inside (JAX's checkpoint_name): a remat
+    policy reads the name with current_tag()."""
+    _TAGS.append(name)
+    try:
+        yield
+    finally:
+        _TAGS.pop()
+
+
+def current_tag():
+    return _TAGS[-1] if _TAGS else None
 
 
 def rotate_qk_skip_cls(q, k, freqs_cis):
@@ -43,7 +67,9 @@ def attention(q, k, v, scale, bias=None, freqs_cis=None, dropout_rate=0.0,
     # The JAX oracle's one-pass normalization: probs = exp(logits - lse).
     m = logits.amax(dim=-1, keepdim=True)
     lse = m + torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True))
-    probs = torch.exp(logits - lse)
+    shifted = logits - lse
+    with tagged("attn_softmax"):
+        probs = torch.exp(shifted)
     if dropout_rate > 0.0 and generator is not None:
         keep = 1.0 - dropout_rate
         probs = layers.drop(probs, layers.keep_mask(probs.shape, keep,

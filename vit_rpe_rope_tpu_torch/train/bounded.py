@@ -16,7 +16,9 @@ JAX package's train/bounded.py: one optimizer step as many short pieces.
   inputs (the role of the JAX driver's per-piece jax.vjp). The residuals are
   explicit and bounded: the block inputs, the attention outputs and their
   logsumexp; q/k/v are recomputed, not saved; no autograd graph spans more
-  than one piece. The dk/dv accumulators are float32.
+  than one piece. The dk/dv accumulators are float32. This schedule is
+  gradient checkpointing already, so cfg.remat and cfg.remat_policy change
+  nothing here, as in the JAX driver.
 * kv_chunk > 0 also segments the key axis of the backward (outer loop over
   key segments, inner over q-chunks): dk/dv are complete per segment and
   written once in the compute dtype, so no full-width float32 accumulator

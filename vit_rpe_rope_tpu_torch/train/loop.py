@@ -8,9 +8,13 @@ line, a per-epoch stdout summary, and the best-accuracy checkpoint
 {ckpt_dir}/{dataset}_{pos_encoding}_best.npz (with the reference's alias
 keys). Extensions kept from the JAX package: `_last.npz` every epoch and
 --resume, in the JAX package's file format (either package resumes the
-other's file). With q_chunk > 0 the steps and the evaluation go through the
-bounded-program driver (train/bounded.py), one step per dispatch, as in the
-JAX package.
+other's file); steps_per_dispatch k > 1, k steps per call of the k-step
+driver (train_step.make_train_multi_step: one CUDA-graph replay on the
+card) over the epoch-ordered feed; profile_dir, a torch.profiler trace of
+the run; debug_nans, the NaN sanitizer (utils/nan_check.py). With q_chunk
+> 0 the steps and the evaluation go through the bounded-program driver
+(train/bounded.py), one step per dispatch, as in the JAX package.
+steps_per_dispatch 0 (auto) is one step per dispatch on every device.
 
 Metric semantics match the reference: epoch train/test loss is the MEAN OF
 BATCH-MEAN losses; accuracy is 100 · correct / total examples. Metrics stay
@@ -20,6 +24,7 @@ progress refresh).
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import os
 import sys
@@ -36,6 +41,7 @@ from vit_rpe_rope_tpu_torch.models import vit
 from vit_rpe_rope_tpu_torch.train import train_step as ts
 from vit_rpe_rope_tpu_torch.train.bounded import make_bounded_step
 from vit_rpe_rope_tpu_torch.utils import checkpoint
+from vit_rpe_rope_tpu_torch.utils import nan_check
 from vit_rpe_rope_tpu_torch.utils.device import resolve_device
 from vit_rpe_rope_tpu_torch.utils.flatten import Flattener
 
@@ -51,9 +57,6 @@ def _refuse_unported(tcfg: TrainConfig) -> None:
          else "sequence_parallel > 1"): tcfg.sequence_parallel > 1,
         "pipeline_parallel > 1": tcfg.pipeline_parallel > 1,
         "zero1": tcfg.zero1,
-        "steps_per_dispatch > 1": tcfg.steps_per_dispatch > 1,
-        "profile_dir": tcfg.profile_dir is not None,
-        "debug_nans": tcfg.debug_nans,
     }
     fields = [name for name, on in asked.items() if on]
     if fields:
@@ -110,8 +113,9 @@ def _progress(desc, done, total, stacked):
 def _run_epoch(step_fn, state, data_x, data_y, epoch_idx, desc, train: bool,
                k: int = 1, verbose: bool = True, epoch: int = 0):
     """Drive one epoch; returns (state, avg_batch_loss, accuracy_pct,
-    images_per_sec). k > 1: each train step consumes k index rows
-    (gradient accumulation; epoch_idx is padded to a multiple of k). Train
+    images_per_sec). k > 1: each call consumes k index rows (gradient
+    accumulation and/or several steps per dispatch; epoch_idx is padded to
+    a multiple of k) and returns one metrics row per optimizer step. Train
     steps get `epoch`, which seeds their draws."""
     steps = epoch_idx.shape[0]
     metrics = []
@@ -123,11 +127,11 @@ def _run_epoch(step_fn, state, data_x, data_y, epoch_idx, desc, train: bool,
             state = (params, opt_state)
         else:
             m = step_fn(state[0], s, data_x, data_y, epoch_idx)
-        metrics.append(m)
+        metrics.append(m.reshape(-1, 3))
         if verbose and i % POSTFIX_EVERY == 0 and i > 0:
             _progress(desc, i, -(-steps // k),
-                      torch.stack(metrics[:-1]).cpu().numpy())
-    stacked = torch.stack(metrics).cpu().numpy()
+                      torch.cat(metrics[:-1]).cpu().numpy())
+    stacked = torch.cat(metrics).cpu().numpy()
     if verbose and len(metrics) > POSTFIX_EVERY:
         sys.stdout.write("\n")
     # Drop fully-padded steps (count == 0) so the mean-of-batch-means
@@ -166,12 +170,47 @@ def _bounded_fns(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess):
     return train_fn, eval_fn
 
 
+@contextlib.contextmanager
+def _profiled(tcfg: TrainConfig, device, trace_name: str):
+    """torch.profiler over the body when tcfg.profile_dir is set (CPU
+    activity, and CUDA activity on the card), stopped in a finally, as the
+    JAX loop stops its trace; it writes {profile_dir}/{trace_name}.pt.trace
+    .json, a Chrome trace."""
+    if not tcfg.profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(tcfg.profile_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            tcfg.profile_dir, f"{trace_name}.pt.trace.json"))
+
+
 def fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool = True,
         device=None) -> dict:
     """Full training run on one device (default: the CUDA device; raises
     when there is none unless device="cpu"). Returns a summary dict
-    (best_acc, log_file, ckpt_path, history, num_params, num_devices)."""
+    (best_acc, log_file, ckpt_path, history, num_params, num_devices,
+    capture_seconds: the k-step driver's CUDA-graph capture, else None).
+    With tcfg.debug_nans the whole run is under the NaN sanitizer, which is
+    off again when fit returns or raises."""
     _refuse_unported(tcfg)
+    sanitizer = nan_check.debug_nans() if tcfg.debug_nans \
+        else contextlib.nullcontext()
+    with sanitizer:
+        return _fit(cfg, tcfg, verbose, device)
+
+
+def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
     device = resolve_device(device)
     if cfg.attn_drop_rate > 0 and cfg.seq_len > 2048:
         warnings.warn(
@@ -229,56 +268,77 @@ def fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool = True,
     for v in params.values():
         v.requires_grad_(True)
 
+    # Optimizer steps per dispatch: auto (0) stays 1 on every device; the
+    # bounded driver is host-scheduled, one step per dispatch.
+    k = 1 if tcfg.q_chunk > 0 else max(1, tcfg.steps_per_dispatch)
+    k = min(k, steps_per_epoch)
+    stride = k * accum  # index rows per dispatch
     if tcfg.q_chunk > 0:
         train_fn, eval_fn = _bounded_fns(cfg, tcfg, opt_update, preprocess)
     else:
-        train_fn = ts.make_train_step(cfg, opt_update, preprocess,
-                                      accum=accum, seed=tcfg.seed)
+        if k > 1:
+            train_fn = ts.make_train_multi_step(
+                cfg, opt_update, preprocess, k, accum=accum, seed=tcfg.seed,
+                feed="ordered")
+        else:
+            train_fn = ts.make_train_step(cfg, opt_update, preprocess,
+                                          accum=accum, seed=tcfg.seed)
         eval_fn = ts.make_eval_step(cfg, preprocess)
     eval_idx = ts.epoch_indices(len(bundle.test_y), tcfg.batch_size,
                                 False).to(device)
 
     ckpt_path = None
     history = []
-    for epoch in range(start_epoch, tcfg.epochs):
-        if verbose:
-            print(f"\nEpoch: {epoch + 1}/{tcfg.epochs}")
-        epoch_idx = ts.pad_epoch_indices(
-            ts.epoch_indices(len(bundle.train_y), tcfg.batch_size, True,
-                             seed=tcfg.seed, epoch=epoch), accum).to(device)
-        (params, opt_state), train_loss, train_acc, train_ips = _run_epoch(
-            train_fn, (params, opt_state), train_x, train_y, epoch_idx,
-            "Training", True, k=accum, verbose=verbose, epoch=epoch)
-        _, test_loss, test_acc, _ = _run_epoch(
-            eval_fn, (params, None), test_x, test_y, eval_idx, "Testing",
-            False, verbose=verbose)
+    with _profiled(tcfg, device,
+                   f"{tcfg.dataset}_{cfg.pos_encoding}_{timestamp}"):
+        for epoch in range(start_epoch, tcfg.epochs):
+            if verbose:
+                print(f"\nEpoch: {epoch + 1}/{tcfg.epochs}")
+            epoch_idx = ts.pad_epoch_indices(
+                ts.epoch_indices(len(bundle.train_y), tcfg.batch_size, True,
+                                 seed=tcfg.seed, epoch=epoch),
+                stride).to(device)
+            ep_x, ep_y = train_x, train_y
+            if k > 1:  # one gather per epoch; each dispatch takes a slice
+                ep_x, ep_y = ts.epoch_order_data(train_x, train_y, epoch_idx)
+            (params, opt_state), train_loss, train_acc, train_ips = \
+                _run_epoch(train_fn, (params, opt_state), ep_x, ep_y,
+                           epoch_idx, "Training", True, k=stride,
+                           verbose=verbose, epoch=epoch)
+            del ep_x, ep_y
+            _, test_loss, test_acc, _ = _run_epoch(
+                eval_fn, (params, None), test_x, test_y, eval_idx,
+                "Testing", False, verbose=verbose)
 
-        host_params = {k: v.detach().cpu() for k, v in params.items()}
-        if test_acc > best_acc:
-            best_acc = test_acc
-            ckpt_path = checkpoint.save(
-                f"{tcfg.ckpt_dir}/{tcfg.dataset}_{cfg.pos_encoding}_best.npz",
-                host_params, vit.buffers(cfg),
-                aliases=vit.reference_alias_keys(cfg))
-        if tcfg.save_last:
-            checkpoint.save_train_state(
-                last_path, host_params, opt_to_disk(opt_state, flattener, cfg),
-                epoch, best_acc)
+            host_params = {k: v.detach().cpu() for k, v in params.items()}
+            if test_acc > best_acc:
+                best_acc = test_acc
+                ckpt_path = checkpoint.save(
+                    f"{tcfg.ckpt_dir}/{tcfg.dataset}_{cfg.pos_encoding}"
+                    f"_best.npz", host_params, vit.buffers(cfg),
+                    aliases=vit.reference_alias_keys(cfg))
+            if tcfg.save_last:
+                checkpoint.save_train_state(
+                    last_path, host_params,
+                    opt_to_disk(opt_state, flattener, cfg), epoch, best_acc)
 
-        with open(log_file, "a", newline="") as f:
-            csv.writer(f).writerow(
-                [epoch + 1, train_loss, train_acc, test_loss, test_acc,
-                 best_acc])
-        history.append(
-            dict(epoch=epoch + 1, train_loss=train_loss, train_acc=train_acc,
-                 test_loss=test_loss, test_acc=test_acc,
-                 images_per_sec=train_ips))
-        if verbose:
-            print(f"Train Loss: {train_loss:.4f}, Train Acc: {train_acc:.2f}%")
-            print(f"Test Loss: {test_loss:.4f}, Test Acc: {test_acc:.2f}%")
-            print(f"Best Test Acc: {best_acc:.2f}% "
-                  f"({train_ips:,.0f} images/sec train)")
+            with open(log_file, "a", newline="") as f:
+                csv.writer(f).writerow(
+                    [epoch + 1, train_loss, train_acc, test_loss, test_acc,
+                     best_acc])
+            history.append(
+                dict(epoch=epoch + 1, train_loss=train_loss,
+                     train_acc=train_acc, test_loss=test_loss,
+                     test_acc=test_acc, images_per_sec=train_ips))
+            if verbose:
+                print(f"Train Loss: {train_loss:.4f}, "
+                      f"Train Acc: {train_acc:.2f}%")
+                print(f"Test Loss: {test_loss:.4f}, "
+                      f"Test Acc: {test_acc:.2f}%")
+                print(f"Best Test Acc: {best_acc:.2f}% "
+                      f"({train_ips:,.0f} images/sec train)")
 
     return dict(best_acc=best_acc, log_file=log_file, ckpt_path=ckpt_path,
                 history=history, num_params=vit.num_params(params),
-                num_devices=1)
+                num_devices=1, capture_seconds=getattr(
+                    train_fn, "capture_seconds", None))

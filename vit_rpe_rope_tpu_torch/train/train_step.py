@@ -17,6 +17,20 @@ package's train/train_step.py.
   seeded from (seed, epoch, row) as the JAX package folds its key: one for
   the augmentation draws, one for the dropout masks, as the JAX step splits
   its key in two.
+* make_train_multi_step runs k optimizer steps per call: on the CUDA device
+  as one replay of a CUDA graph that holds the k steps, fed from the
+  epoch-ordered data (epoch_order_data) through static buffers; on the CPU,
+  and wherever a step draws random numbers or --debug_nans reads values on
+  the host, as the same k steps run eagerly.
+
+The JAX package's k-step drivers (make_train_multi_step,
+make_flat_train_multi_step over a flat depth-stacked vector,
+make_fused_adamw_multi_step) exist to put k steps in one XLA program; the
+flat vector was their device for cutting XLA's per-leaf work. The port keeps
+its reference-keyed dict, whose AdamW already updates every leaf in one
+launch from a device table, and ports their observable contract: k steps
+per dispatch, padded steps as no-ops, the trajectory of the per-step
+driver.
 
 The JAX package shuffles, augments and drops out with jax.random, which the
 port cannot reproduce without jax: epoch_indices shuffles with a
@@ -27,13 +41,17 @@ into both packages, and replay one package's draws in the other).
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from vit_rpe_rope_tpu_torch.configs import TrainConfig, ViTConfig, cosine_lr_by_epoch
 from vit_rpe_rope_tpu_torch.models import vit
-from vit_rpe_rope_tpu_torch.ops.fused_adamw import make_fused_adamw
+from vit_rpe_rope_tpu_torch.ops import launches
+from vit_rpe_rope_tpu_torch.ops.fused_adamw import hyper_rows, make_fused_adamw
+from vit_rpe_rope_tpu_torch.utils import nan_check
 
 
 def make_optimizer(tcfg: TrainConfig, steps_per_epoch: int, template: dict):
@@ -66,6 +84,7 @@ def make_preprocess(cfg: ViTConfig, mean, std, native_size: int,
     refuse_downsampling(native_size)
     mean = torch.as_tensor(mean, dtype=torch.float32)
     std = torch.as_tensor(std, dtype=torch.float32)
+    on_device = {}  # (mean, std) per device: no host copy inside a step
 
     def preprocess(images_u8, generator=None):
         refuse_downsampling(images_u8.shape[1])
@@ -77,8 +96,12 @@ def make_preprocess(cfg: ViTConfig, mean, std, native_size: int,
             x = x.permute(0, 2, 3, 1)
         if augment and generator is not None:
             x = augment_apply(x, *augment_draws(generator, x.shape[0]))
-        return (x - mean.to(x.device)) / std.to(x.device)
+        if x.device not in on_device:
+            on_device[x.device] = (mean.to(x.device), std.to(x.device))
+        mean_d, std_d = on_device[x.device]
+        return (x - mean_d) / std_d
 
+    preprocess.augment = augment
     return preprocess
 
 
@@ -129,6 +152,47 @@ def _gather_batch(data_x, data_y, idx):
     return data_x[safe], data_y[safe], mask
 
 
+def _fetch_batch_ordered(data_x, data_y, idx, row):
+    """A batch of EPOCH-ORDERED buffers (epoch_order_data): one contiguous
+    slice at row·batch instead of a gather by index; idx, the row of the
+    index matrix, is the padding mask's source only (the JAX package's
+    fetch on one data shard)."""
+    mask = (idx >= 0).float()
+    b = idx.shape[0]
+    return data_x[row * b:(row + 1) * b], data_y[row * b:(row + 1) * b], mask
+
+
+def epoch_order_data(data_x, data_y, epoch_idx):
+    """One epoch's batches laid out contiguously, in the order of the
+    [steps, batch] index matrix: one gather per epoch, after which each
+    step's batch is a slice (_fetch_batch_ordered). Padded entries (-1)
+    take example 0, as _gather_batch does, and stay masked by the index
+    matrix, so the steps see what the gather feed gives them."""
+    perm = epoch_idx.reshape(-1).clamp(min=0)
+    return data_x[perm], data_y[perm]
+
+
+def _make_fetch(feed: str):
+    """feed "gather" -> None (the masked gather by index, _gather_batch);
+    "ordered" -> _fetch_batch_ordered, over data passed through
+    epoch_order_data for the current index matrix."""
+    if feed == "gather":
+        return None
+    if feed == "ordered":
+        return _fetch_batch_ordered
+    raise ValueError(f"unknown feed mode: {feed!r}")
+
+
+def pick_steps_per_dispatch(steps_per_epoch: int, cap: int = 32) -> int:
+    """Largest divisor of steps_per_epoch <= cap: a dispatch of that many
+    steps needs no padded no-op steps."""
+    best = 1
+    for k in range(2, min(cap, steps_per_epoch) + 1):
+        if steps_per_epoch % k == 0:
+            best = k
+    return best
+
+
 def _loss_and_metrics(params, imgs, labels, mask, cfg, preprocess,
                       apply_fn=None, generators=None):
     """(sum over real examples of the cross-entropy, count of correct
@@ -147,49 +211,216 @@ def _loss_and_metrics(params, imgs, labels, mask, cfg, preprocess,
     return loss_sum, correct
 
 
+def _grads_and_metrics(params, cfg, preprocess, batches):
+    """One optimizer step's gradients over its rows. batches: one (imgs,
+    labels, mask, generators) per row (generators: the row's pair of
+    step_generators, or None where the step draws nothing). One row: the
+    gradient of the batch-mean loss; more: raw gradients of the per-row
+    loss sums, summed and divided by the total real-example count, which
+    equals one step on the concatenated batch. Returns (grads dict,
+    metrics [loss, correct, count])."""
+    keys = list(params.values())
+    if len(batches) == 1:
+        imgs, labels, mask, gens = batches[0]
+        loss_sum, correct = _loss_and_metrics(params, imgs, labels, mask, cfg,
+                                              preprocess, generators=gens)
+        count = mask.sum()
+        loss = loss_sum / count.clamp(min=1.0)
+        grads = torch.autograd.grad(loss, keys)
+    else:
+        grads, loss_sum, correct, count = None, 0.0, 0.0, 0.0
+        for imgs, labels, mask, gens in batches:
+            ls, cor = _loss_and_metrics(params, imgs, labels, mask, cfg,
+                                        preprocess, generators=gens)
+            g = torch.autograd.grad(ls, keys)
+            grads = g if grads is None else [x + y for x, y in zip(grads, g)]
+            loss_sum = loss_sum + ls.detach()
+            correct = correct + cor
+            count = count + mask.sum()
+        safe_count = count.clamp(min=1.0)
+        grads = [g / safe_count for g in grads]
+        loss = loss_sum / safe_count
+    return (dict(zip(params, grads)),
+            torch.stack([loss.detach(), correct, count]))
+
+
 def make_train_step(cfg: ViTConfig, update, preprocess, accum: int = 1,
                     seed: int = 0):
     """Returns train_step(params, opt_state, row, data_x, data_y, epoch_idx,
     epoch=0) -> (params, opt_state, metrics [loss, correct, count]) for the
     optimizer `update` of make_optimizer. Row `row` of the [steps, batch]
     index matrix is the batch; accum > 1 consumes rows row..row+accum-1 as
-    one optimizer step: raw gradients of the per-row loss sums are summed
-    and divided by the total real-example count, which equals one step on
-    the concatenated batch. Each row draws its augmentation and dropout from
-    step_generators(seed, epoch, row). Params are leaf tensors that require
-    grad; update changes them in place."""
-
-    def row_loss(params, row, data_x, data_y, epoch_idx, epoch):
-        imgs, labels, mask = _gather_batch(data_x, data_y, epoch_idx[row])
-        loss_sum, correct = _loss_and_metrics(
-            params, imgs, labels, mask, cfg, preprocess,
-            generators=step_generators(seed, epoch, row, data_x.device))
-        return loss_sum, correct, mask.sum()
+    one optimizer step (_grads_and_metrics). Each row draws its augmentation
+    and dropout from step_generators(seed, epoch, row). Params are leaf
+    tensors that require grad; update changes them in place."""
 
     def train_step(params, opt_state, row, data_x, data_y, epoch_idx,
                    epoch=0):
-        if accum == 1:
-            loss_sum, correct, count = row_loss(params, row, data_x, data_y,
-                                                epoch_idx, epoch)
-            loss = loss_sum / count.clamp(min=1.0)
-            grads = torch.autograd.grad(loss, list(params.values()))
-        else:
-            grads, loss_sum, correct, count = None, 0.0, 0.0, 0.0
-            for a in range(accum):
-                ls, cor, cnt = row_loss(params, row + a, data_x, data_y,
-                                        epoch_idx, epoch)
-                g = torch.autograd.grad(ls, list(params.values()))
-                grads = g if grads is None else [x + y for x, y in zip(grads, g)]
-                loss_sum = loss_sum + ls.detach()
-                correct = correct + cor
-                count = count + cnt
-            safe_count = count.clamp(min=1.0)
-            grads = [g / safe_count for g in grads]
-            loss = loss_sum / safe_count
-        params, opt_state = update(dict(zip(params, grads)), opt_state, params)
-        return params, opt_state, torch.stack([loss.detach(), correct, count])
+        batches = [(*_gather_batch(data_x, data_y, epoch_idx[row + a]),
+                    step_generators(seed, epoch, row + a, data_x.device))
+                   for a in range(accum)]
+        grads, metrics = _grads_and_metrics(params, cfg, preprocess, batches)
+        params, opt_state = update(grads, opt_state, params)
+        return params, opt_state, metrics
 
     return train_step
+
+
+def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
+                          accum: int = 1, seed: int = 0,
+                          feed: str = "ordered"):
+    """k optimizer steps per call: fn(params, opt_state, row, data_x,
+    data_y, epoch_idx, epoch=0) -> (params, opt_state, metrics [k, 3]),
+    each step taking `accum` index rows (rows row .. row + k·accum - 1;
+    epoch_idx padded to a multiple of k·accum with pad_epoch_indices).
+    feed "ordered": data_x, data_y are the epoch's ordered buffers
+    (epoch_order_data); "gather": the staged dataset. A step whose rows are
+    all padding is a no-op: it reports count 0 and leaves params, both
+    moments and the AdamW count as they were, so the k-step driver follows
+    the per-step driver's trajectory.
+
+    On CUDA tensors the k steps are captured once, on the first call, into
+    a torch.cuda.CUDAGraph, and every call replays it: before the replay,
+    one device-to-device copy each fills static buffers with the call's
+    k·accum batches (images, labels, index rows), and one copy the k rows
+    of (lr, c1, c2, live) that the AdamW kernel's device-table entry reads
+    (`update` is make_optimizer's, with .hyper and .from_table); the host
+    advances the AdamW count by the live steps. The first call first runs
+    one step, marked not live, on a side stream (it builds the AdamW
+    table and what each kernel sets up once), then captures; a capture
+    that fails raises. Launch counts (ops/launches) count the replays.
+    fn.capture_seconds holds the warm-up and capture time.
+
+    The same k steps run eagerly on CPU tensors (the graph's plain
+    version), and on CUDA tensors where a step draws random numbers
+    (dropout, drop-path, augmentation: the per-row generators of
+    step_generators cannot be captured) or the NaN sanitizer is on (it
+    reads values on the host); the first eager call on CUDA says so on
+    stdout."""
+    fetch = _make_fetch(feed)
+    stride = k * accum
+    draws = cfg.has_dropout or getattr(preprocess, "augment", False)
+    live_rows = {"idx": None, "rows": None}  # host copy, once per epoch
+    graph = {}
+
+    def stage(data_x, data_y, epoch_idx, row):
+        """(images, labels, index rows) of rows row .. row + stride - 1."""
+        idx = epoch_idx[row:row + stride]
+        if fetch is None:
+            flat = idx.reshape(-1).clamp(min=0)
+            return data_x[flat], data_y[flat], idx
+        b = idx.shape[1]
+        return (data_x[row * b:(row + stride) * b],
+                data_y[row * b:(row + stride) * b], idx)
+
+    def live(epoch_idx, row):
+        if live_rows["idx"] is not epoch_idx:
+            live_rows["idx"] = epoch_idx
+            live_rows["rows"] = (epoch_idx >= 0).any(dim=1).tolist()
+        rows = live_rows["rows"]
+        return [any(rows[row + j * accum:row + (j + 1) * accum])
+                for j in range(k)]
+
+    def steps(params, opt_state, x, y, idx, step_update, gens=None, n=k):
+        """n steps on staged rows; step_update(j, grads, state, params)."""
+        metrics = []
+        for j in range(n):
+            batches = []
+            for a in range(accum):
+                r = j * accum + a
+                batches.append((*_fetch_batch_ordered(x, y, idx[r], r),
+                                gens(r) if gens else None))
+            grads, m = _grads_and_metrics(params, cfg, preprocess, batches)
+            params, opt_state = step_update(j, grads, opt_state, params)
+            metrics.append(m)
+        return params, opt_state, torch.stack(metrics)
+
+    def eager(params, opt_state, row, data_x, data_y, epoch_idx, epoch):
+        x, y, idx = stage(data_x, data_y, epoch_idx, row)
+        is_live = live(epoch_idx, row)
+        gens = None
+        if draws:
+            def gens(r):
+                return step_generators(seed, epoch, row + r, x.device)
+
+        def step_update(j, grads, state, p):
+            return update(grads, state, p) if is_live[j] else (p, state)
+
+        return steps(params, opt_state, x, y, idx, step_update, gens)
+
+    def table_update(j, grads, state, p):
+        return update.from_table(grads, state, p, graph["hyper"][j])
+
+    def capture(params, opt_state, x, y, idx):
+        t0 = time.perf_counter()
+        device = x.device
+        graph.update(x=x.clone(), y=y.clone(), idx=idx.clone(),
+                     hyper=hyper_rows([(0.0, 1.0, 1.0, 0.0)] * k, device))
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):  # one step, its row not live
+            steps(params, opt_state, graph["x"], graph["y"], graph["idx"],
+                  table_update, n=1)
+        torch.cuda.current_stream(device).wait_stream(side)
+        before = launches.counts()
+        g = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(g):
+                _, _, metrics = steps(params, opt_state, graph["x"],
+                                      graph["y"], graph["idx"], table_update)
+        except Exception as e:
+            raise RuntimeError(f"capturing {k} train steps in a CUDA graph "
+                               f"failed: {e}") from e
+        captured = launches.since(before)
+        launches.add(captured, -1)  # recorded, not run
+        graph.update(graph=g, metrics=metrics, launches=captured,
+                     params=[p.data_ptr() for p in params.values()])
+        fn.capture_seconds = time.perf_counter() - t0
+
+    def replay(params, opt_state, row, data_x, data_y, epoch_idx):
+        x, y, idx = stage(data_x, data_y, epoch_idx, row)
+        mu, nu, count = opt_state
+        rows = []
+        for is_live in live(epoch_idx, row):
+            if is_live:
+                count += 1
+                rows.append((*update.hyper(count), 1.0))
+            else:
+                rows.append((0.0, 1.0, 1.0, 0.0))
+        if "graph" not in graph:
+            capture(params, opt_state, x, y, idx)
+        elif graph["params"] != [p.data_ptr() for p in params.values()]:
+            raise ValueError("the k-step graph was captured on other "
+                             "parameter storages")
+        graph["x"].copy_(x)
+        graph["y"].copy_(y)
+        graph["idx"].copy_(idx)
+        graph["hyper"].copy_(hyper_rows(rows, "cpu").pin_memory(),
+                             non_blocking=True)
+        graph["graph"].replay()
+        launches.add(graph["launches"])
+        return params, (mu, nu, count), graph["metrics"].clone()
+
+    told = []
+
+    def fn(params, opt_state, row, data_x, data_y, epoch_idx, epoch=0):
+        if data_x.device.type == "cpu":
+            return eager(params, opt_state, row, data_x, data_y, epoch_idx,
+                         epoch)
+        if draws or nan_check.ACTIVE:
+            if not told:
+                told.append(True)
+                why = ("the train steps draw random numbers (dropout, "
+                       "drop-path or augmentation)" if draws else
+                       "the NaN sanitizer reads values on the host")
+                print(f"steps_per_dispatch {k}: {why}, so the {k} steps of "
+                      f"a dispatch run eagerly, without a CUDA graph")
+            return eager(params, opt_state, row, data_x, data_y, epoch_idx,
+                         epoch)
+        return replay(params, opt_state, row, data_x, data_y, epoch_idx)
+
+    fn.capture_seconds = None
+    return fn
 
 
 def make_eval_step(cfg: ViTConfig, preprocess):
