@@ -172,6 +172,28 @@ exits nonzero without a card, or when any phase fails. Phases:
    row; (d) --profile_dir writes a Chrome trace naming the kernels; (e)
    IDX and CIFAR files decoded by the C++ library (or numpy where it
    cannot be built; the decoder that ran is printed) equal to numpy's.
+19. int8 serving and serving artifacts: (a) phase 3's seeded ViT-S/16@224
+   rope-mixed checkpoint through the predict CLI with --int8 in each mode
+   (w8a8, w8a8-static calibrated with --calib on 64 of the images, w8a16),
+   256 images at batch 64: exact attn_fwd launches (12 a batch, and 12 for
+   the calibration forward; all resident) and torch._int_mm calls (50 a
+   batch; none in w8a16, counted in quant.LAUNCHES_INT_MM), every int8
+   product against the CPU's on the card's own inputs (bit for bit; w8a16
+   within one bf16 rounding), the logits against the CPU's forward and the
+   card's float32 logits; (b) phase 8's trained ViT-tiny/4 rope-mixed and
+   relative checkpoints: int8 top-1 agreement with float32 on 256 test
+   images at least 95% in every mode; (c) the long-sequence model at N =
+   4,097 in rope-axial, batch 4, w8a16 (bf16 q, k, v) through the
+   Predictor: one streaming forward and prologue a block, logits close to
+   float32, the forward and the streaming wrapper timed in bf16 against
+   f32, the model exported on the card and replayed bit for bit; (d)
+   ViT-S/16@224 exported on the card in float32 and w8a8 (torch.export,
+   symbolic batch), saved, loaded in a fresh process that imports only
+   vit_rpe_rope_tpu_torch.serving and replayed at batches 64 and 37,
+   bit-equal to the live Predictors with 12 attn_fwd launches a replay;
+   (e) device forward times at batch 64 of float32, the three int8 modes
+   and the float32 artifact, and one int8 product at the fc1 shape
+   (12,608 x 384 x 1,536) against float32 and bf16 torch.matmul.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -642,11 +664,9 @@ def time_serving(kernel, reference, images):
         for _ in range(n_calls):
             pred.logits(batch)
         dt = time.perf_counter() - t0
-        params = pred.model.params()
         u8 = torch.from_numpy(batch).to(pred.device)
-        with torch.inference_mode():
-            fwd_ms = median_ms(lambda: pred._infer(params, u8), iters=5,
-                               reps=5, warmup=2)
+        fwd_ms = median_ms(lambda: pred.forward(u8), iters=5, reps=5,
+                           warmup=2)
         out[label] = dict(img_per_s=64 * n_calls / dt, forward_ms=fwd_ms)
         log(f"  serving ViT-S/16@224 bs64 ({label} attention): "
             f"{64 * n_calls / dt:.1f} img/s end to end, device forward "
@@ -661,18 +681,16 @@ def profile_forward(predictor, images, n_iter=3):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    params = predictor.model.params()
     u8 = torch.from_numpy(images[:64]).to(predictor.device)
-    with torch.inference_mode():
-        predictor._infer(params, u8)
+    predictor.forward(u8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_iter):
+            predictor.forward(u8)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n_iter):
-                predictor._infer(params, u8)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
@@ -1682,10 +1700,7 @@ def serve_vit_s_384(fa, vit, serving, datasets, device):
     times = {}
     for label, pred in (("kernel", kernel), ("reference", reference)):
         u8 = torch.from_numpy(images).to(device)
-        model_params = pred.model.params()
-        with torch.inference_mode():
-            ms = median_ms(lambda: pred._infer(model_params, u8), iters=3,
-                           reps=3, warmup=1)
+        ms = median_ms(lambda: pred.forward(u8), iters=3, reps=3, warmup=1)
         times[label] = dict(forward_ms=ms, img_per_s=64e3 / ms)
         log(f"  serving ViT-S/16@384 bs64 ({label} attention): device "
             f"forward {ms:.3f} ms/batch ({64e3 / ms:.1f} img/s)")
@@ -3836,6 +3851,417 @@ def check_decoders(datasets, native):
                 build_seconds=build_s, decode_ms=decode_s * 1e3)
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: int8 serving and serving artifacts
+# ---------------------------------------------------------------------------
+
+INT8_MODES = ("w8a8", "w8a8-static", "w8a16")
+# An int8 forward against the float32 forward of the same params, relative
+# L2 of the logits: the JAX package's bounds (tests/test_quant.py).
+INT8_F32_TOL = {"w8a8": 0.05, "w8a8-static": 0.08, "w8a16": 0.08}
+# The card's int8 products against the same products on the CPU, each on
+# the card's own inputs to it, relative L2: w8a8 and w8a8-static bit for bit
+# (the same IEEE divide, round and clip, an exact int32 sum, the same
+# float32 dequantization); w8a16 within one bf16 rounding of its output
+# (2^-8: cuBLAS and the CPU sum the bf16 products in another order).
+INT8_PRODUCT_TOL = {"w8a8": 0.0, "w8a8-static": 0.0, "w8a16": 2.0 ** -8}
+# The card's int8 logits against the same mode's forward on the CPU: the
+# attention kernel and cuBLAS sum in another order than the CPU, an
+# activation that then lands on the other side of an int8 rounding boundary
+# moves by a whole step, and the next blocks carry it on; over 12 blocks the
+# two forwards differ as two int8 roundings of one float32 forward do
+# (2.2e-2 in w8a8 at ViT-S/16@224 on an H100). So the logits are held
+# to INT8_F32_TOL and the products, which do not cascade, to
+# INT8_PRODUCT_TOL.
+# Top-1 agreement of int8 with float32 on trained models (tests/test_quant.py).
+INT8_AGREE = 0.95
+INT8_BOPS = 1979e12           # H100 SXM dense int8 tensor-core peak
+CALIB_IMAGES = 64             # w8a8-static calibration images
+INT_MM_SHAPE = (12608, 384, 1536)  # fc1 at ViT-S/16@224, batch 64
+
+
+def rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-12))
+
+
+def int8_products(cfg, batches, mode):
+    """torch._int_mm calls of `batches` int8 forwards: the patch embedding,
+    four linears a block and the head; none in w8a16 (bf16 matmuls)."""
+    return 0 if mode == "w8a16" else batches * (2 + 4 * cfg.depth)
+
+
+def int8_product_errors(quant, ts, qparams, cfg, mode, images, mean, std,
+                        native):
+    """Every int8 product of one int8 forward on the card (8 images),
+    recomputed on the CPU on the card's own inputs to it: {key: (relative
+    L2, max abs)} of the worst product. No cascade: each product sees the
+    same inputs on both devices."""
+    records = []
+    lin = quant._make_lin(qparams, mode)
+
+    def recording(x, wkey, bias=None):
+        y = lin(x, wkey, bias)
+        records.append((wkey, x, bias, y))
+        return y
+
+    pre = ts.make_preprocess(cfg, mean, std, native)
+    device = next(iter(qparams.values())).device
+    with torch.inference_mode():
+        quant._forward_with_lin(
+            qparams, pre(torch.from_numpy(images[:8]).to(device)), cfg,
+            recording, torch.float32 if mode == "w8a8" else torch.bfloat16)
+    cpu = quant._make_lin({k: v.cpu() for k, v in qparams.items()}, mode)
+    worst = (0.0, 0.0, None)
+    for wkey, x, bias, y in records:
+        want = cpu(x.cpu(), wkey, None if bias is None else bias.cpu())
+        got = y.cpu()
+        rel = rel_l2(got.float().numpy(), want.float().numpy())
+        if rel >= worst[0]:
+            worst = (rel, float((got.float() - want.float()).abs().max()),
+                     wkey)
+    return dict(products=len(records), worst_rel_l2=worst[0],
+                worst_max_abs=worst[1], worst_key=worst[2])
+
+
+def check_int8_cli(tmp, modules, cfg, images):
+    """Phase 19a: phase 3's seeded ViT-S/16@224 rope-mixed checkpoint
+    through the predict CLI with --int8 in each mode (w8a8-static
+    calibrated with --calib on CALIB_IMAGES of the images), 256 images at
+    batch 64, every count reset just before and read just after: attn_fwd
+    exactly 12 a batch (and 12 for the calibration forward), all resident,
+    torch._int_mm exactly 50 a batch. Then the same quantized state through
+    the Predictor on the card: every product against the CPU's on the
+    card's inputs (INT8_PRODUCT_TOL), the logits against the same mode's
+    forward on the CPU (a batch of 8) and against the card's float32 logits
+    (INT8_F32_TOL). Returns
+    ({mode: result}, {mode: card Predictor}, the float32 Predictor,
+    params)."""
+    fa, vit, checkpoint, predict, serving, quant, fused_adamw, ts = modules
+    params = vit.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    ckpt = checkpoint.save(os.path.join(tmp, "vit_s16_rope-mixed.npz"), params,
+                           vit.buffers(cfg),
+                           aliases=vit.reference_alias_keys(cfg))
+    inputs = os.path.join(tmp, "int8_input.npz")
+    calib_path = os.path.join(tmp, "int8_calib.npz")
+    np.savez(inputs, images=images)
+    np.savez(calib_path, images=images[:CALIB_IMAGES])
+    grid = cfg.img_size // cfg.patch_size
+    f32 = serving.Predictor.from_params(*serving.load_serving_state(
+        ckpt, grid_size=grid, num_heads=cfg.num_heads)[:5])
+    f32_logits = batched_logits(f32, images)
+    batches = len(images) // 64
+    results, predictors = {}, {}
+    for mode in INT8_MODES:
+        static = mode == "w8a8-static"
+        argv = [ckpt, "--input", inputs, "--batch_size", "64",
+                "--grid_size", str(grid), "--num_heads", str(cfg.num_heads),
+                "--int8", "--int8_mode", mode]
+        if static:
+            argv += ["--calib", calib_path]
+        torch.cuda.synchronize()
+        reset_counts(fa, fused_adamw)
+        quant.LAUNCHES_INT_MM = 0
+        t0 = time.perf_counter()
+        preds = predict.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts(fa, fused_adamw)
+        counts["int_mm"] = quant.LAUNCHES_INT_MM
+        check_resident(fa, f"predict CLI --int8_mode {mode}")
+        expected = {"attn_fwd": cfg.depth * (batches + int(static)),
+                    "attn_bwd": 0, "adamw": 0,
+                    "int_mm": int8_products(cfg, batches, mode)}
+        qparams, qcfg, mean, std, native, _ = serving.load_serving_state(
+            ckpt, grid_size=grid, num_heads=cfg.num_heads, int8=mode,
+            calib_images_u8=images[:CALIB_IMAGES] if static else None)
+        card = serving.Predictor.from_params(qparams, qcfg, mean, std, native,
+                                             int8=mode)
+        cpu = serving.Predictor.from_params(qparams, qcfg, mean, std, native,
+                                            device="cpu", int8=mode)
+        got = batched_logits(card, images)
+        rel_cpu = rel_l2(got[:8], cpu.logits(images[:8]))
+        products = int8_product_errors(
+            quant, ts, {k: v.to(card.device) for k, v in qparams.items()},
+            qcfg, mode, images, mean, std, native)
+        rel_f32 = rel_l2(got, f32_logits)
+        agree = float((np.argmax(got, -1) == np.argmax(f32_logits, -1)).mean())
+        log(f"  predict CLI ViT-S/16@224 --int8_mode {mode}: {len(preds)} "
+            f"images in {seconds:.2f} s, launches {counts} (expected "
+            f"{expected}); each of the {products['products']} products vs the "
+            f"CPU's on its inputs: worst rel L2 "
+            f"{products['worst_rel_l2']:.3e} (max abs "
+            f"{products['worst_max_abs']:.3e}, {products['worst_key']}; tol "
+            f"{INT8_PRODUCT_TOL[mode]:g}); logits vs the CPU's forward (8 "
+            f"images) rel L2 {rel_cpu:.3e} (tol {INT8_F32_TOL[mode]:g}), vs "
+            f"float32 on the card rel L2 {rel_f32:.4f} (tol "
+            f"{INT8_F32_TOL[mode]:g}), top-1 agreement {agree:.4f}")
+        if counts != expected:
+            raise AssertionError(f"{mode}: launch counts differ")
+        if not np.array_equal(np.argmax(got, -1), preds):
+            raise AssertionError(f"{mode}: CLI predictions differ from the "
+                                 f"Predictor's")
+        if not np.isfinite(got).all() or got.shape != (len(images), 10):
+            raise AssertionError(f"{mode}: bad logits {got.shape}")
+        if products["worst_rel_l2"] > INT8_PRODUCT_TOL[mode]:
+            raise AssertionError(f"{mode}: an int8 product on the card "
+                                 f"differs from the CPU's: {products}")
+        if rel_cpu > INT8_F32_TOL[mode] or rel_f32 > INT8_F32_TOL[mode]:
+            raise AssertionError(f"{mode}: int8 logits out of bounds")
+        results[mode] = dict(seconds=seconds, launches=counts,
+                             products_vs_cpu=products,
+                             rel_l2_vs_cpu=rel_cpu, rel_l2_vs_f32=rel_f32,
+                             top1_agreement_vs_f32=agree)
+        predictors[mode] = card
+    return results, predictors, f32, params
+
+
+def check_int8_agreement(serving, datasets, keep_dir):
+    """Phase 19b: phase 8's trained ViT-tiny/4 checkpoints (rope-mixed,
+    relative) served in each int8 mode: top-1 agreement with float32 on
+    256 test images of the synthetic CIFAR-10 at least INT8_AGREE
+    (w8a8-static calibrated on 64 training images)."""
+    data = datasets.synthetic("cifar10", seed=0)
+    images, calib = data.test_x[:256], data.train_x[:CALIB_IMAGES]
+    out = {}
+    for pe_name in ("rope-mixed", "relative"):
+        ckpt = os.path.join(keep_dir, f"phase8_{pe_name}.npz")
+        state = serving.load_serving_state(ckpt)
+        f32 = batched_logits(serving.Predictor.from_params(*state[:5]), images)
+        for mode in INT8_MODES:
+            q = serving.load_serving_state(
+                ckpt, int8=mode,
+                calib_images_u8=calib if mode == "w8a8-static" else None)
+            got = batched_logits(serving.Predictor.from_params(
+                *q[:5], int8=mode), images)
+            agree = float((np.argmax(got, -1) == np.argmax(f32, -1)).mean())
+            acc = 100.0 * float((np.argmax(got, -1) == data.test_y[:256])
+                                .mean())
+            f32_acc = 100.0 * float((np.argmax(f32, -1) == data.test_y[:256])
+                                    .mean())
+            log(f"  trained ViT-tiny/4 {pe_name} {mode}: top-1 agreement with "
+                f"float32 {agree:.4f} (bar {INT8_AGREE}), accuracy {acc:.2f}% "
+                f"(float32 {f32_acc:.2f}%)")
+            if agree < INT8_AGREE:
+                raise AssertionError(f"{pe_name} {mode}: int8 agrees with "
+                                     f"float32 on {agree:.4f} of the images")
+            out[f"{pe_name} {mode}"] = dict(agreement=agree, accuracy=acc,
+                                            f32_accuracy=f32_acc)
+    return out
+
+
+def check_int8_streaming(fa, vit, serving, mean, std, device):
+    """Phase 19c: the long-sequence model (N = 4,097) in rope-axial at batch
+    4, w8a16 (bfloat16 q, k, v) through the Predictor: exactly one
+    streaming forward and one prologue a block, finite logits within
+    INT8_F32_TOL of float32; the forward's times against float32, the
+    streaming wrapper alone with bfloat16 against float32 inputs; then the
+    same model exported on the card (w8a16) and replayed: bit-equal to the
+    live Predictor, the same launches."""
+    from vit_rpe_rope_tpu_torch.configs import ViTConfig
+
+    cfg = ViTConfig(**LONGSEQ, pos_encoding="rope-axial")
+    params = vit.init_params(torch.Generator().manual_seed(12), cfg,
+                             device="cpu")
+    size = cfg.img_size
+    images = np.random.default_rng(12).integers(
+        0, 256, (4, size, size, 3), dtype=np.uint8)
+    f32 = serving.Predictor.from_params(params, cfg, mean, std, size)
+    q = serving.Predictor.from_params(params, cfg, mean, std, size,
+                                      int8="w8a16")
+
+    def counted(pred):
+        torch.cuda.synchronize()
+        fa.LAUNCHES = fa.LAUNCHES_STREAM_FWD = 0
+        fa.LAUNCHES_STREAM_FWD_PROLOGUE = 0
+        logits = pred.logits(images)
+        return logits, {"attn_fwd": fa.LAUNCHES,
+                        "attn_stream_fwd": fa.LAUNCHES_STREAM_FWD,
+                        "attn_stream_fwd_prologue":
+                            fa.LAUNCHES_STREAM_FWD_PROLOGUE}
+
+    got, counts = counted(q)
+    want = f32.logits(images)
+    expected = {"attn_fwd": 0, "attn_stream_fwd": cfg.depth,
+                "attn_stream_fwd_prologue": cfg.depth}
+    rel = rel_l2(got, want)
+    u8 = torch.from_numpy(images).to(device)
+    times = {label: median_ms(lambda: pred.forward(u8), iters=3, reps=5,
+                              warmup=2)
+             for label, pred in (("f32", f32), ("w8a16", q))}
+    shape = (4, cfg.num_heads, cfg.seq_len, cfg.head_dim)
+    wrapper = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qq, kk, vv, kw, _ = stream_inputs(fa, "rope-axial", shape, dtype, 19,
+                                          device)
+        wrapper[str(dtype)[6:]] = median_ms(
+            lambda: fa.attention_stream_fwd(qq, kk, vv, shape[-1] ** -0.5,
+                                            **kw))
+    t0 = time.perf_counter()
+    exported = serving.export_model(params, cfg, mean, std, size,
+                                    int8="w8a16")
+    export_s = time.perf_counter() - t0
+    replay = serving.Predictor(exported.module(), (size, size, 3),
+                               device=device)
+    again, replay_counts = counted(replay)
+    log(f"  long-sequence rope-axial N={cfg.seq_len} batch 4 w8a16: launches "
+        f"{counts} (expected {expected}), logits vs float32 rel L2 {rel:.4f} "
+        f"(tol {INT8_F32_TOL['w8a16']:g}); forward {times['w8a16']:.3f} ms "
+        f"(float32 {times['f32']:.3f} ms); the streaming wrapper at {shape} "
+        f"bf16 {wrapper['bfloat16']:.4f} ms, f32 {wrapper['float32']:.4f} ms;"
+        f" exported in {export_s:.1f} s, replay bit-equal "
+        f"{np.array_equal(again, got)}, launches {replay_counts}")
+    if counts != expected or replay_counts != expected:
+        raise AssertionError("w8a16 streaming launches differ")
+    if not np.isfinite(got).all() or rel > INT8_F32_TOL["w8a16"]:
+        raise AssertionError(f"w8a16 streaming logits: rel L2 {rel}")
+    if not np.array_equal(again, got):
+        raise AssertionError("the streaming artifact differs from the live "
+                             "Predictor")
+    return dict(launches=counts, export_launches=replay_counts,
+                rel_l2_vs_f32=rel, forward_ms=times, wrapper_ms=wrapper,
+                export_seconds=export_s)
+
+
+# Run in a fresh process by check_artifacts: imports only the serving module
+# (which loads the kernels' custom ops with the artifact), replays each
+# artifact at batches 64 and 37 and writes the logits and the attention
+# launches counted during each replay.
+ARTIFACT_REPLAY = """
+import json, sys, time
+import numpy as np
+import torch
+from vit_rpe_rope_tpu_torch import serving
+images = np.load(sys.argv[1])
+out = {}
+for path in sys.argv[2:]:
+    t0 = time.perf_counter()
+    pred = serving.Predictor.from_artifact(path)
+    fa = sys.modules["vit_rpe_rope_tpu_torch.ops.flash_attention"]
+    out[path] = {"load_seconds": time.perf_counter() - t0}
+    for b in (64, 37):
+        torch.cuda.synchronize()
+        fa.LAUNCHES = fa.LAUNCHES_RESIDENT = fa.LAUNCHES_WIDE = 0
+        np.save(f"{path}.{b}.npy", pred.logits(images[:b]))
+        out[path][b] = {"attn_fwd": fa.LAUNCHES,
+                        "resident": fa.LAUNCHES_RESIDENT,
+                        "wide": fa.LAUNCHES_WIDE}
+print(json.dumps(out))
+"""
+
+
+def check_artifacts(tmp, serving, cfg, params, live, images, mean, std):
+    """Phase 19d: ViT-S/16@224 rope-mixed exported on the card in float32
+    and w8a8, saved, and replayed in a fresh process that imports only
+    vit_rpe_rope_tpu_torch.serving, at batches 64 and 37: logits bit-equal
+    to the live Predictors', attn_fwd launched 12 times a replay (all
+    resident). Returns the results and the float32 artifact's program
+    (replayed in this process for phase 19e)."""
+    paths, out, programs = [], {}, {}
+    for label, int8 in (("f32", False), ("w8a8", "w8a8")):
+        t0 = time.perf_counter()
+        exported = serving.export_model(params, cfg, mean, std, 32,
+                                        int8=int8)
+        export_s = time.perf_counter() - t0
+        path = serving.save_artifact(os.path.join(tmp, f"vit_s16_{label}"),
+                                     exported)
+        paths.append(path)
+        programs[label] = exported
+        out[label] = dict(export_seconds=export_s,
+                          bytes=os.path.getsize(path))
+    np.save(os.path.join(tmp, "images.npy"), images[:64])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", ARTIFACT_REPLAY,
+         os.path.join(tmp, "images.npy"), *paths],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    replay_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"artifact replay failed:\n{proc.stderr[-4000:]}")
+    replayed = json.loads(proc.stdout.strip().splitlines()[-1])
+    for (label, int8), path in zip((("f32", False), ("w8a8", "w8a8")), paths):
+        pred = live[label]
+        res = replayed[path]
+        for b in (64, 37):
+            got = np.load(f"{path}.{b}.npy")
+            want = pred.logits(images[:b])
+            counts = res[str(b)]
+            same = np.array_equal(got, want)
+            log(f"  artifact {label} ({out[label]['bytes']:,} bytes, exported "
+                f"in {out[label]['export_seconds']:.1f} s, loaded in "
+                f"{res['load_seconds']:.1f} s in a fresh process) batch {b}: "
+                f"bit-equal to the live Predictor {same}, launches {counts}")
+            if not same:
+                raise AssertionError(f"artifact {label} batch {b} differs "
+                                     f"from the live Predictor: max "
+                                     f"{np.abs(got - want).max():.3e}")
+            if counts != {"attn_fwd": cfg.depth, "resident": cfg.depth,
+                          "wide": 0}:
+                raise AssertionError(f"artifact {label}: launches {counts}")
+        out[label].update(load_seconds=res["load_seconds"],
+                          launches={b: res[str(b)] for b in (64, 37)})
+    out["replay_process_seconds"] = replay_s
+    return out, programs["f32"]
+
+
+def int_mm_bound_ms(m, k, n):
+    nbytes = m * k + k * n + 4 * m * n  # int8 in, int32 out
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * k * n / INT8_BOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_int8_serving(serving, quant, predictors, f32, program, images,
+                      device):
+    """Phase 19e: device forward times at batch 64 (CUDA events, medians) of
+    the float32, w8a8, w8a8-static and w8a16 Predictors and of the float32
+    artifact's program; one int8 product at the fc1 shape (torch._int_mm
+    alone and through quant._int_mm's padding) against the float32 and the
+    bfloat16 torch.matmul (TF32 off), with its bound; a profiler breakdown
+    of each int8 mode's forward (phase 5c does float32's)."""
+    u8 = torch.from_numpy(images[:64]).to(device)
+    artifact = serving.Predictor(program.module(), (32, 32, 3), device=device)
+    rows = {}
+    for label, pred in (("f32", f32), *predictors.items(),
+                        ("f32 artifact", artifact)):
+        ms = median_ms(lambda: pred.forward(u8), iters=5, reps=5, warmup=2)
+        rows[label] = dict(forward_ms=ms, img_per_s=64e3 / ms)
+        log(f"  serving ViT-S/16@224 bs64 {label:12s}: device forward "
+            f"{ms:.3f} ms/batch ({64e3 / ms:.1f} img/s)")
+    traces = {}
+    for label, pred in predictors.items():
+        log(f"  {label}:")
+        traces[label] = profile_forward(pred, images)
+    m, k, n = INT_MM_SHAPE
+    gen = torch.Generator().manual_seed(19)
+    a = torch.randint(-127, 128, (m, k), generator=gen,
+                      dtype=torch.int8).to(device)
+    w = torch.randint(-127, 128, (n, k), generator=gen,
+                      dtype=torch.int8).to(device)
+    a_pad = torch.cat([a, a.new_zeros((quant.INT_MM_PAD_ROWS, k))])
+    xf, wf = a.float(), w.float()
+    xb, wb = xf.bfloat16(), wf.bfloat16()
+    if not torch.equal(quant._int_mm(a, w).cpu(), quant._int_mm(a.cpu(),
+                                                                w.cpu())):
+        raise AssertionError("torch._int_mm on the card differs from the CPU")
+    products = dict(
+        int_mm=median_ms(lambda: torch._int_mm(a_pad, w.t())),
+        int_mm_padded=median_ms(lambda: quant._int_mm(a, w)),
+        f32_matmul=median_ms(lambda: torch.matmul(xf, wf.t())),
+        bf16_matmul=median_ms(lambda: torch.matmul(xb, wb.t())))
+    bound, bound_by = int_mm_bound_ms(m + quant.INT_MM_PAD_ROWS, k, n)
+    products.update(bound_ms=bound, bound_by=bound_by, shape=[m, k, n])
+    log(f"  int8 product at fc1 ({m} x {k} x {n}): torch._int_mm "
+        f"{products['int_mm']:.4f} ms, with the padding "
+        f"{products['int_mm_padded']:.4f} ms, float32 matmul "
+        f"{products['f32_matmul']:.4f} ms, bfloat16 matmul "
+        f"{products['bf16_matmul']:.4f} ms, bound {bound:.4f} ms "
+        f"({bound_by})")
+    return dict(serving=rows, product=products, profiles=traces)
+
+
 def kernel_line(name, source, replaces, launches, max_abs_err, times):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3844,7 +4270,9 @@ def kernel_line(name, source, replaces, launches, max_abs_err, times):
             "bound_by": times["bound_by"], "library_ms": times["library_ms"],
             **{key: times[key] for key in ("group", "group_ms",
                                            "group_library_ms", "per_op_ms",
-                                           "routes", "device_ms")
+                                           "routes", "device_ms",
+                                           "int8_launches",
+                                           "export_launches")
                if key in times}}
 
 
@@ -4126,7 +4554,6 @@ def main() -> int:
         visualizers["seconds"] = time.perf_counter() - t0
         log(f"  path B (four regularised epochs) {regularised_seconds:.1f} s,"
             f" path A (visualizers) {visualizers['seconds']:.1f} s")
-        shutil.rmtree(keep_dir)
 
     with phase("[18] the k-step driver on a CUDA graph, remat, --debug_nans, "
                "--profile_dir, the C++ decoders", seconds):
@@ -4141,6 +4568,37 @@ def main() -> int:
         debug_nans = check_debug_nans(train_cli, datasets, nan_check)
         profile_dir = check_profile_dir(train_cli, datasets)
         decoders = check_decoders(datasets, native)
+
+    with phase("[19] int8 serving (w8a8, w8a8-static, w8a16) and serving "
+               "artifacts", seconds):
+        from vit_rpe_rope_tpu_torch import quant
+
+        t0 = time.perf_counter()
+        images = np.random.default_rng(0).integers(
+            0, 256, (256, 32, 32, 3), dtype=np.uint8)
+        mean, std = datasets.NORMALIZATION["cifar10"]
+        with tempfile.TemporaryDirectory() as tmp:
+            int8_cli, int8_preds, f32_pred, vit_s_params = check_int8_cli(
+                tmp, (fa, vit, checkpoint, predict, serving, quant,
+                      fused_adamw, ts), vit_s, images)
+            int8_agree = check_int8_agreement(serving, datasets, keep_dir)
+            int8_stream = check_int8_streaming(fa, vit, serving, mean, std,
+                                               device)
+            torch.cuda.empty_cache()
+            artifacts, f32_program = check_artifacts(
+                tmp, serving, vit_s, vit_s_params,
+                {"f32": f32_pred, "w8a8": int8_preds["w8a8"]}, images, mean,
+                std)
+            int8_times = time_int8_serving(serving, quant, int8_preds,
+                                           f32_pred, f32_program, images,
+                                           device)
+        del int8_preds, f32_pred, f32_program
+        torch.cuda.empty_cache()
+        shutil.rmtree(keep_dir)
+        int8_serving = dict(cli=int8_cli, agreement=int8_agree,
+                            streaming=int8_stream, artifacts=artifacts,
+                            times=int8_times,
+                            seconds=time.perf_counter() - t0)
 
     summary = {"card": card, "attention": attn, "serving": serve_times,
                "serving_profile": serve_trace, "training": training,
@@ -4175,7 +4633,7 @@ def main() -> int:
                "graph_epochs": graph_epochs, "adamw_table": adamw_table,
                "remat": remat, "debug_nans": debug_nans,
                "profile_dir": profile_dir, "decoders": decoders,
-               "phase_seconds": seconds}
+               "int8_serving": int8_serving, "phase_seconds": seconds}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
@@ -4214,7 +4672,11 @@ def main() -> int:
         kernel_line("attn_fwd", "vit_rpe_rope_tpu_torch/ops/csrc/attn_fwd.cu",
                     "vit_rpe_rope_tpu/ops/flash_attention.py:70",
                     launches["attn_fwd"], max_abs_err,
-                    dict(attn["rope-mixed f32"], routes=routes)),
+                    dict(attn["rope-mixed f32"], routes=routes,
+                         int8_launches=int8_cli["w8a8"]["launches"][
+                             "attn_fwd"],
+                         export_launches=artifacts["f32"]["launches"][64][
+                             "attn_fwd"])),
         kernel_line("attn_bwd", "vit_rpe_rope_tpu_torch/ops/csrc/attn_bwd.cu",
                     "vit_rpe_rope_tpu/ops/flash_attention.py:130",
                     launches["attn_bwd"], bwd_err,
@@ -4228,7 +4690,12 @@ def main() -> int:
                     adamw_table_err, adamw_table),
         kernel_line("attn_stream_fwd", csrc + "attn_stream_fwd.cu",
                     jax_fa + ":873", stream_launches["attn_stream_fwd"],
-                    stream_err["fwd"], t_long["fwd_kernel"]),
+                    stream_err["fwd"],
+                    dict(t_long["fwd_kernel"],
+                         int8_launches=int8_stream["launches"][
+                             "attn_stream_fwd"],
+                         export_launches=int8_stream["export_launches"][
+                             "attn_stream_fwd"])),
         kernel_line("attn_stream_fwd_prologue", csrc + "attn_stream_fwd.cu",
                     jax_fa + ":918",
                     stream_launches["attn_stream_fwd_prologue"],

@@ -1,7 +1,9 @@
 """PyTorch port, CLIs: the predict CLI against the JAX package's on one
-checkpoint, the HTTP server against the Predictor it wraps, the train CLI's
-flag surface against the JAX package's, a train CLI run on the CPU, and the
-flags of features not ported yet, which must be refused."""
+checkpoint, the HTTP server against the Predictor it wraps, the flag
+surfaces of the three CLIs against the JAX package's, a train CLI run on
+the CPU, the JAX CLIs' conflict errors, and the flags of features not
+ported yet, which must be refused. (int8, --export and --artifact through
+the CLIs: tests/test_torch_export.py.)"""
 
 import io
 import json
@@ -86,21 +88,39 @@ def test_predict_cli_matches_jax_cli_on_the_streaming_route(tmp_path, capsys,
     assert "relative ViT d64 depth 2 heads 4 patch 4 @ 48px" in out
 
 
-@pytest.mark.parametrize("flag", [["--export", "m.bin"], ["--artifact", "a"],
-                                  ["--int8"], ["--export_data_parallel", "2"]])
+@pytest.mark.parametrize("flag", [
+    ["--artifact", "a.pt2", "--export", "m.pt2"],
+    ["ckpt.npz", "--artifact", "a.pt2"],
+    ["--artifact", "a.pt2", "--int8"],
+    ["ckpt.npz", "--export_data_parallel", "2"]])
 def test_predict_cli_refuses_unported_flags(flag, capsys):
+    """The JAX CLI's conflict errors: an artifact with --export, with a
+    checkpoint, with --int8; and sharded export, still not ported (the
+    parallel layers, ROADMAP Queue A item 5). Each before any file is
+    read."""
     with pytest.raises(SystemExit) as exc:
-        predict.main(["ckpt.npz", *flag])
+        predict.main(flag)
     assert exc.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if "--export_data_parallel" in flag:
+        assert "not ported" in err and "Queue A item 5" in err
+    else:
+        assert "cannot be combined with a checkpoint, --export, or --int8" \
+            in err
 
 
-@pytest.mark.parametrize("flag", [["--artifact", "a"], ["--int8"]])
+@pytest.mark.parametrize("flag", [
+    ["ckpt.npz", "--artifact", "a.pt2"],
+    ["ckpt.npz", "--int8", "--int8_mode", "w8a8-static"]])
 def test_serve_cli_refuses_unported_flags(flag, capsys):
+    """The JAX server's conflict errors: an artifact with a checkpoint;
+    w8a8-static without --calib images."""
     with pytest.raises(SystemExit) as exc:
-        serve.main(["ckpt.npz", *flag], serve_forever=False)
+        serve.main(flag, serve_forever=False)
     assert exc.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert ("needs --calib" if "--int8" in flag
+            else "cannot be combined with a checkpoint or --int8") in err
 
 
 @pytest.fixture(scope="module")
@@ -167,6 +187,21 @@ def flag_surface(parser):
     return {a.dest: (tuple(a.option_strings), a.default, a.choices, a.type,
                      a.nargs, a.const)
             for a in parser._actions if a.dest != "help"}
+
+
+@pytest.mark.parametrize("name", ["predict", "serve"])
+def test_serving_parsers_match_jax_parsers(name):
+    """The predict and serve CLIs take the JAX package's flags (int8,
+    --int8_mode, --calib, --export, --artifact, ...) with the same
+    defaults and choices, plus --device."""
+    from vit_rpe_rope_tpu.cli import serve as jserve
+
+    ours = {"predict": predict, "serve": serve}[name]
+    jax_cli = {"predict": jpredict, "serve": jserve}[name]
+    got = flag_surface(ours.build_parser())
+    want = flag_surface(jax_cli.build_parser())
+    assert got.pop("device") == (("--device",), None, None, str, None, None)
+    assert got == want
 
 
 def test_train_parser_matches_jax_parser():

@@ -35,7 +35,8 @@ def test_port_modules_import_without_jax():
                  "data.datasets", "utils.flatten", "utils.checkpoint",
                  "viz.similarity", "viz.rope_freq",
                  "cli.pe_similarity_visualizer", "cli.rope_visualizer",
-                 "utils.native", "utils.nan_check", "ops.launches"):
+                 "utils.native", "utils.nan_check", "ops.launches",
+                 "quant", "serving", "utils.convert"):
         assert f"vit_rpe_rope_tpu_torch.{name}" in modules
     code = (
         "import importlib, re, sys\n"

@@ -59,10 +59,15 @@ to the other bf16 neighbour after a last-ulp difference moves the output by a
 fraction of a bf16 ulp of its largest entries); at the plans the wrapper
 does not pick itself (every cluster size and tile depth), f32, to 5e-3 of
 the largest entry of the block's update (output minus x), as chip_smoke.py
-holds its own plans."""
+holds its own plans. int8 serving: torch._int_mm behind quant's padding at
+the head's shapes bit-equal to the CPU's int32; the serving forward's custom
+ops (torch.ops.vit_rpe_rope.*) bit-equal to the wrappers they wrap, counted
+as theirs; an artifact exported on the card bit-equal to the live Predictor
+at batches 1, 5 and 37."""
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -1837,3 +1842,112 @@ def test_graph_capture_failure_raises(cuda, monkeypatch):
     monkeypatch.setattr(ts, "_grads_and_metrics", syncing)
     with pytest.raises(RuntimeError, match="CUDA graph"):
         graph_run(2, 1, 2, cuda, graphed=True)
+
+
+# ---------------------------------------------------------------------------
+# int8 serving and serving artifacts: torch._int_mm behind quant's padding,
+# the serving forward's custom ops, an artifact exported on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 2, 5, 8, 15, 16])
+@pytest.mark.parametrize("k", [16, 48])
+def test_int_mm_padded_shapes_match_the_cpu(cuda, rows, k):
+    """quant._int_mm at the head's shape (10 classes) and small batches,
+    which torch._int_mm on CUDA takes only zero-padded: the card's int32
+    product bit-equal to the CPU's, counted once."""
+    from vit_rpe_rope_tpu_torch import quant
+
+    gen = torch.Generator().manual_seed(rows * 100 + k)
+    x = torch.randint(-127, 128, (rows, k), generator=gen, dtype=torch.int8)
+    w = torch.randint(-127, 128, (10, k), generator=gen, dtype=torch.int8)
+    before = quant.LAUNCHES_INT_MM
+    got = quant._int_mm(x.to(cuda), w.to(cuda))
+    torch.cuda.synchronize()
+    assert quant.LAUNCHES_INT_MM == before + 1
+    assert got.dtype == torch.int32 and got.shape == (rows, 10)
+    assert torch.equal(got.cpu(), quant._int_mm(x, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("regime", REGIMES)
+def test_dense_custom_op_is_its_wrapper(cuda, regime, dtype):
+    """torch.ops.vit_rpe_rope.attn_fwd on CUDA tensors (strided q, k, v as a
+    block makes them) is attention_fwd bit for bit, counted as one launch,
+    laid out as its fake tensor says."""
+    b, h, n, d = 4, 6, 197, 64
+    q, k, v, kw = inputs(regime, (b, h, n, d), dtype, cuda, seed=21)
+    q, k, v = torch.stack([q, k, v]).permute(1, 3, 0, 2, 4).contiguous() \
+        .permute(2, 0, 3, 1, 4).unbind(0)  # views of one [B, N, 3, H, D]
+    bias, cos, sin = fa.prepare_pe(h, n, cuda, **kw)
+    before = fa.LAUNCHES
+    got = torch.ops.vit_rpe_rope.attn_fwd(q, k, v, d ** -0.5, bias, cos, sin)
+    want = fa.attention_fwd(q, k, v, d ** -0.5, bias, cos, sin)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 2
+    assert got.stride() == (n * h * d, d, h * d, 1)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("regime", ["none", "bias", "poly", "rel",
+                                    "rope-axial", "rope-mixed"])
+def test_streaming_custom_op_is_its_wrapper(cuda, regime, dtype):
+    """torch.ops.vit_rpe_rope.attn_stream_fwd is attention_stream_fwd bit
+    for bit (out and lse), one forward and one prologue launch."""
+    b, h, n, d = 2, 4, 577, 32
+    q, k, v, kw = inputs("rel" if regime == "bias" else regime,
+                         (b, h, n, d), dtype, cuda, seed=22)
+    bias, cos, sin = fa.prepare_pe(h, n, cuda,
+                                   freqs_cis=kw.get("freqs_cis"))
+    coeff, grid, table = None, 0, None
+    if regime == "bias":
+        bias = fa._dense_bias(h, n, cuda, rel=kw["rel"])
+    elif regime == "poly":
+        coeff, grid = kw["poly"]
+    elif regime == "rel":
+        table = kw["rel"]
+    before = (fa.LAUNCHES_STREAM_FWD, fa.LAUNCHES_STREAM_FWD_PROLOGUE)
+    out, lse = torch.ops.vit_rpe_rope.attn_stream_fwd(
+        q, k, v, d ** -0.5, bias, cos, sin, coeff, grid, table)
+    want, want_lse = fa.attention_stream_fwd(
+        q, k, v, d ** -0.5, bias, cos, sin,
+        (coeff, grid) if coeff is not None else None, table)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES_STREAM_FWD, fa.LAUNCHES_STREAM_FWD_PROLOGUE) == (
+        before[0] + 2, before[1] + 2)
+    assert out.stride() == (n * h * d, d, h * d, 1)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, "w8a8"])
+def test_artifact_exported_on_the_card_replays_bit_equal(cuda, tmp_path,
+                                                         int8):
+    """A ViT-tiny/4-like model (depth 2) exported on the card, saved and
+    loaded: bit-equal to the live Predictor at batches 1, 5 and 37, the
+    dense kernel launched once a block per replay."""
+    from vit_rpe_rope_tpu_torch import serving
+
+    cfg = ViTConfig(img_size=32, patch_size=4, embed_dim=192, depth=2,
+                    num_heads=6, pos_encoding="rope-mixed")
+    params = vit.init_params(torch.Generator().manual_seed(23), cfg,
+                             device="cpu")
+    live = serving.Predictor.from_params(params, cfg, 0.5, 0.25, 32,
+                                         device=cuda, int8=int8)
+    path = serving.save_artifact(
+        str(tmp_path / "m"), serving.export_model(params, cfg, 0.5, 0.25, 32,
+                                                  int8=int8, device=cuda))
+    served = serving.Predictor.from_artifact(path, device=cuda)
+    with pytest.raises(ValueError, match="exported for cuda"):
+        serving.Predictor.from_artifact(path, device="cpu")
+    images = torch.randint(0, 256, (37, 32, 32, 3),
+                           generator=torch.Generator().manual_seed(24),
+                           dtype=torch.uint8).numpy()
+    for b in (1, 5, 37):
+        before = fa.LAUNCHES
+        got = served.logits(images[:b])
+        assert fa.LAUNCHES == before + cfg.depth
+        assert np.array_equal(got, live.logits(images[:b])), b

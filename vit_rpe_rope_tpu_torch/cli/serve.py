@@ -1,7 +1,9 @@
 """HTTP inference server: a stdlib http.server wrapper around
-serving.Predictor.
+serving.Predictor, the end of the deployment path: train -> checkpoint ->
+(int8) -> (export) -> serve over HTTP.
 
   python -m vit_rpe_rope_tpu_torch.cli.serve ckpt.npz --port 8000
+  python -m vit_rpe_rope_tpu_torch.cli.serve --artifact model.pt2 --port 8000
 
 Endpoints:
   GET  /health   -> {"status": "ok", "input_shape": [...]}
@@ -11,21 +13,22 @@ Endpoints:
 
 Requests are served one at a time (a threading.Lock serializes device work;
 the ThreadingHTTPServer still overlaps request parsing and IO with compute).
-Runs on the CUDA device; --device cpu runs on the CPU. Artifacts and int8
-are not ported yet: their flags are refused.
+Runs on the CUDA device; --device cpu runs on the CPU (an artifact serves on
+the device type it was exported on).
 """
 
 from __future__ import annotations
 
 import argparse
 
-from vit_rpe_rope_tpu_torch.cli.predict import reject_unported
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="ViT HTTP inference server")
     p.add_argument("checkpoint", nargs="?", default=None,
-                   help="trained checkpoint (.npz / reference .pth)")
+                   help="trained checkpoint (.npz / reference .pth); omit "
+                        "when using --artifact")
+    p.add_argument("--artifact", type=str, default=None,
+                   help="serve a .pt2 artifact instead of a checkpoint")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--dataset", type=str, default="auto",
@@ -33,15 +36,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_heads", type=int, default=6)
     p.add_argument("--grid_size", type=int, default=None)
     p.add_argument("--rope_mixed_compat_scramble", action="store_true")
+    p.add_argument("--int8", action="store_true",
+                   help="serve the int8 quantized path (quant.py)")
+    p.add_argument("--int8_mode", type=str, default="w8a8",
+                   choices=["w8a8", "w8a8-static", "w8a16"],
+                   help="w8a8: int8 products; w8a8-static: int8 products "
+                        "with offline-calibrated per-tensor scales (--calib "
+                        "required); w8a16: weight-only (bf16 matmuls over "
+                        "dequantized int8 weights)")
+    p.add_argument("--calib", type=str, default=None,
+                   help="npz with 'images' (uint8) for w8a8-static "
+                        "activation-scale calibration")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; 'cpu' runs on the "
                         "CPU)")
     p.add_argument("--max_batch", type=int, default=1024,
                    help="reject request batches larger than this")
-    p.add_argument("--artifact", type=str, default=None,
-                   help="not ported yet (refused)")
-    p.add_argument("--int8", action="store_true",
-                   help="not ported yet (refused)")
     return p
 
 
@@ -58,9 +68,10 @@ def make_server(predictor, host: str, port: int, max_batch: int):
     lock = threading.Lock()
     # Bound request-body memory BEFORE reading it: max_batch images of the
     # served shape (uncompressed .npz ≈ raw bytes) + labels/headers slack.
+    # A -1 dim (a shape the predictor leaves open) counts as 1024.
     el = 1
     for dim in predictor.in_shape:
-        el *= dim
+        el *= dim if dim > 0 else 1024
     max_body = max_batch * el + (1 << 20)
 
     class Handler(BaseHTTPRequestHandler):
@@ -124,7 +135,7 @@ def make_server(predictor, host: str, port: int, max_batch: int):
                 return
             want = tuple(predictor.in_shape)
             got = tuple(images.shape[1:])
-            if want != got:
+            if any(w > 0 and w != g for w, g in zip(want, got)):
                 self._reply(400, {"error": f"image shape {list(got)} does "
                                            f"not match the served model's "
                                            f"{list(want)}"})
@@ -153,20 +164,40 @@ def make_server(predictor, host: str, port: int, max_batch: int):
 def main(argv=None, serve_forever: bool = True):
     parser = build_parser()
     args = parser.parse_args(argv)
-    reject_unported(parser, {"--artifact": args.artifact is not None,
-                             "--int8": args.int8})
-    if args.checkpoint is None:
-        parser.error("need a checkpoint")
+    if args.artifact is None and args.checkpoint is None:
+        parser.error("need a checkpoint or --artifact")
+    if args.artifact is not None and (args.checkpoint is not None
+                                      or args.int8):
+        parser.error("--artifact cannot be combined with a checkpoint or "
+                     "--int8")
 
     from vit_rpe_rope_tpu_torch import serving
 
-    params, cfg, mean, std, native, dataset = serving.load_serving_state(
-        args.checkpoint, dataset=args.dataset, num_heads=args.num_heads,
-        grid_size=args.grid_size,
-        rope_mixed_compat_scramble=args.rope_mixed_compat_scramble)
-    predictor = serving.Predictor.from_params(params, cfg, mean, std, native,
-                                              device=args.device)
-    desc = f"{args.checkpoint} ({cfg.pos_encoding}, {dataset} contract)"
+    int8 = args.int8_mode if args.int8 else False
+    if args.artifact is not None:
+        predictor = serving.Predictor.from_artifact(args.artifact,
+                                                    device=args.device)
+        desc = f"artifact {args.artifact}"
+    else:
+        calib_u8 = None
+        if int8 == "w8a8-static":
+            if args.calib is None:
+                parser.error("--int8_mode w8a8-static needs --calib "
+                             "images.npz")
+            import numpy as np
+
+            with np.load(args.calib) as z:
+                calib_u8 = z["images"]
+        params, cfg, mean, std, native, dataset = serving.load_serving_state(
+            args.checkpoint, dataset=args.dataset, num_heads=args.num_heads,
+            grid_size=args.grid_size,
+            rope_mixed_compat_scramble=args.rope_mixed_compat_scramble,
+            int8=int8, calib_images_u8=calib_u8, device=args.device)
+        predictor = serving.Predictor.from_params(params, cfg, mean, std,
+                                                  native, device=args.device,
+                                                  int8=int8)
+        desc = (f"{args.checkpoint} ({cfg.pos_encoding}, {dataset} contract"
+                + (f", int8 {int8}" if int8 else "") + ")")
 
     server = make_server(predictor, args.host, args.port, args.max_batch)
     print(f"Serving {desc} on http://{args.host}:{server.server_address[1]} "

@@ -78,7 +78,9 @@ kernels' plain PyTorch twins. Nothing falls back: a CUDA call the kernel
 cannot take raises.
 
 `flash_attention` takes the route's autograd Function when grad is enabled
-and an input requires it, and calls the forward wrapper directly otherwise.
+and an input requires it, and otherwise calls the forward wrapper through
+its `torch.library` custom op (`attn_fwd_op`, `attn_stream_fwd_op`), which
+`torch.export` keeps as one node (the serving artifacts).
 On the dense route the gradient of a bias built from polynomial coefficients
 or a relative table flows from dbias through torch autograd of the bias
 generator; on the streaming route the one-pass kernel sums it per element
@@ -1786,6 +1788,70 @@ class StreamingAttentionFunction(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
+# The serving forward's two entries as torch.library custom ops
+# (torch.ops.vit_rpe_rope.attn_fwd / attn_stream_fwd), so that torch.export
+# keeps each launch as one opaque node of the graph: the pointer and stride
+# checks, the alignment copies and the ctypes launch run inside the op, on
+# real tensors. Each op's implementation, for CUDA and CPU tensors, is the
+# wrapper, which dispatches on the tensors' device as always: the kernel
+# (launch counts included, also when an exported program replays) or its
+# plain twin. The output is [B, H, N, D] laid out as [B, N, H, D] on both
+# devices, as the fake tensors say.
+# ---------------------------------------------------------------------------
+
+def _token_major(out):
+    """out [B, H, N, D] as a [B, N, H, D] tensor transposed (itself where it
+    lies so already)."""
+    b, h, n, d = out.shape
+    if out.stride() == (n * h * d, d, h * d, 1):
+        return out
+    laid = torch.empty((b, n, h, d), dtype=out.dtype,
+                       device=out.device).transpose(1, 2)
+    return laid.copy_(out)
+
+
+def _token_major_like(q):
+    b, h, n, d = q.shape
+    return q.new_empty((b, n, h, d)).transpose(1, 2)
+
+
+@torch.library.custom_op(
+    "vit_rpe_rope::attn_fwd", mutates_args=(), device_types=("cuda", "cpu"),
+    schema="(Tensor q, Tensor k, Tensor v, float scale, Tensor? bias, "
+           "Tensor? cos, Tensor? sin) -> Tensor")
+def attn_fwd_op(q, k, v, scale, bias, cos, sin):
+    """attention_fwd as a custom op (row 1)."""
+    return _token_major(attention_fwd(q, k, v, scale, bias, cos, sin))
+
+
+@attn_fwd_op.register_fake
+def _attn_fwd_op_fake(q, k, v, scale, bias, cos, sin):
+    return _token_major_like(q)
+
+
+@torch.library.custom_op(
+    "vit_rpe_rope::attn_stream_fwd", mutates_args=(),
+    device_types=("cuda", "cpu"),
+    schema="(Tensor q, Tensor k, Tensor v, float scale, Tensor? bias, "
+           "Tensor? cos, Tensor? sin, Tensor? coeff, int grid, "
+           "Tensor? table) -> (Tensor, Tensor)")
+def attn_stream_fwd_op(q, k, v, scale, bias, cos, sin, coeff, grid, table):
+    """attention_stream_fwd as a custom op (row 3 and its prologue): (out,
+    lse); poly is (coeff, grid) where coeff is given."""
+    poly = (coeff, grid) if coeff is not None else None
+    out, lse = attention_stream_fwd(q, k, v, scale, bias, cos, sin, poly,
+                                    table)
+    return _token_major(out), lse
+
+
+@attn_stream_fwd_op.register_fake
+def _attn_stream_fwd_op_fake(q, k, v, scale, bias, cos, sin, coeff, grid,
+                             table):
+    b, h, n, _ = q.shape
+    return _token_major_like(q), q.new_empty((b, h, n), dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
 # Public entry: routing and bias / rope preparation (the JAX `_forward` and
 # the dense branch of `_bwd`)
 # ---------------------------------------------------------------------------
@@ -1812,8 +1878,9 @@ def flash_attention(q, k, v, scale, bias=None, freqs_cis=None, poly=None,
     if not use_dense(h, n, has_biasish):
         if not training:
             bias, cos, sin = prepare_pe(h, n, q.device, bias, freqs_cis)
-            out = attention_stream_fwd(q, k, v, scale, bias, cos, sin, poly,
-                                       rel)[0]
+            coeff, grid = poly if poly is not None else (None, 0)
+            out = torch.ops.vit_rpe_rope.attn_stream_fwd(
+                q, k, v, scale, bias, cos, sin, coeff, int(grid), rel)[0]
             nan_check.check("attn_stream_fwd", out)
             return out
         if bias is not None:
@@ -1826,7 +1893,7 @@ def flash_attention(q, k, v, scale, bias=None, freqs_cis=None, poly=None,
         return FlashAttentionFunction.apply(q, k, v, bias, cos_raw, sin_raw,
                                             scale)
     bias, cos, sin = prepare_pe(h, n, q.device, bias, freqs_cis, poly, rel)
-    out = attention_fwd(q, k, v, scale, bias, cos, sin)
+    out = torch.ops.vit_rpe_rope.attn_fwd(q, k, v, scale, bias, cos, sin)
     nan_check.check("attn_fwd", out)
     return out
 

@@ -1,5 +1,6 @@
 """The kernels' launch counts (the LAUNCHES* integers of the wrappers'
-modules) read and advanced together.
+modules, and quant's count of torch._int_mm calls) read and advanced
+together.
 
 A wrapper adds one to its count where it launches its kernel. Inside a CUDA
 graph capture that launch is recorded, not run, and every replay runs it
@@ -14,7 +15,8 @@ import importlib
 
 MODULES = ("vit_rpe_rope_tpu_torch.ops.flash_attention",
            "vit_rpe_rope_tpu_torch.ops.fused_adamw",
-           "vit_rpe_rope_tpu_torch.ops.block_fused")
+           "vit_rpe_rope_tpu_torch.ops.block_fused",
+           "vit_rpe_rope_tpu_torch.quant")
 
 
 def counts() -> dict:

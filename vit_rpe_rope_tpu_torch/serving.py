@@ -1,15 +1,29 @@
-"""Serving: checkpoint -> Predictor -> logits / class ids on uint8 images.
+"""Serving: checkpoint -> (int8) -> (exported artifact) -> Predictor ->
+logits / class ids on uint8 images.
 
 The serving input contract is raw dataset-format pixels (uint8 NHWC at the
 dataset's native size); normalization and the resize to the model's size run
 on the device in front of the forward.
 
-CLIs: `python -m vit_rpe_rope_tpu_torch.cli.predict` (classify) and
-`python -m vit_rpe_rope_tpu_torch.cli.serve` (HTTP). Exported artifacts,
-int8 and multi-device serving come with later slices of the port.
+An artifact (`export_model`, `save_artifact`, `.pt2`) is the whole
+pipeline — uint8 decode, normalize, resize, forward — traced once by
+`torch.export` with the params (float32, or int8 with their scales) held in
+it as buffers and a symbolic batch dimension, so one export serves any
+batch size. The attention kernels are in its graph as the custom ops of
+`ops/flash_attention.py` (`torch.ops.vit_rpe_rope.*`), so replaying it
+needs torch and that module, which `load_artifact` imports, but no
+checkpoint and no model code. An artifact is for the device type it was
+exported on (the kernels on CUDA, their plain twins on the CPU). Python
+checks evaluated while tracing (the `--debug_nans` sanitizer) are not in
+it: an artifact carries no sanitizer.
+
+CLIs: `python -m vit_rpe_rope_tpu_torch.cli.predict` (classify / export /
+serve an artifact) and `python -m vit_rpe_rope_tpu_torch.cli.serve` (HTTP).
 """
 
 from __future__ import annotations
+
+import json
 
 import numpy as np
 import torch
@@ -19,27 +33,155 @@ from vit_rpe_rope_tpu_torch.models import vit
 from vit_rpe_rope_tpu_torch.train import train_step as ts
 from vit_rpe_rope_tpu_torch.utils.device import resolve_device
 
+ARTIFACT_SUFFIX = ".pt2"
+# The artifact's own description, stored beside the program in the archive.
+_META = "serving.json"
+# The multi-device exports and serving (export_model(mesh=),
+# --export_data_parallel) belong to the parallel layers.
+MESH_ITEM = "ROADMAP Queue A item 5 (the parallel layers)"
 
-def make_infer_fn(cfg: ViTConfig, mean, std, native_size: int):
+
+def _is_quantized_state(params: dict) -> bool:
+    """True when `params` is already quant.quantize_params output, so that
+    callers quantize once and share the result across Predictor and
+    export_model."""
+    return any(k.endswith(":q8") for k in params)
+
+
+def _int8_mode(int8) -> str | None:
+    """The int8 option normalized: False -> None, True -> "w8a8", or an
+    explicit mode ("w8a8" / "w8a8-static" / "w8a16")."""
+    if not int8:
+        return None
+    return "w8a8" if int8 is True else str(int8)
+
+
+def make_infer_fn(cfg: ViTConfig, mean, std, native_size: int, int8=False):
     """(params, images uint8 [B, native, native, C]) -> logits [B, classes]
     with the eval preprocessing (normalize + resize to cfg.img_size) in
-    front of the forward."""
+    front of the forward. int8: a truthy value expects quantize_params
+    output and runs quant.apply_q8 in that mode (True is "w8a8")."""
     preprocess = ts.make_preprocess(cfg, mean, std, native_size)
+    mode = _int8_mode(int8)
 
     def infer(params, images_u8):
-        return vit.apply(params, preprocess(images_u8), cfg)
+        x = preprocess(images_u8)
+        if mode is not None:
+            from vit_rpe_rope_tpu_torch import quant
+
+            return quant.apply_q8(params, x, cfg, mode=mode)
+        return vit.apply(params, x, cfg)
 
     return infer
 
 
+def _serving_params(params, cfg, int8, device) -> dict:
+    """params (tensors or arrays; float32, or already quantized) -> the
+    serving state on `device`: quantized first when int8 asks for it."""
+    params = {k: v if isinstance(v, torch.Tensor)
+              else torch.from_numpy(np.array(v)) for k, v in params.items()}
+    if int8 and not _is_quantized_state(params):
+        from vit_rpe_rope_tpu_torch import quant
+
+        params = quant.quantize_params(params, cfg)
+    return {k: v.detach().to(device) for k, v in params.items()}
+
+
+class _Served(torch.nn.Module):
+    """The serving pipeline as a module for torch.export: the params as
+    buffers (dict keys hold '.' and ':', so they are numbered), forward =
+    infer(params, images_u8)."""
+
+    def __init__(self, params: dict, infer):
+        super().__init__()
+        self._keys = list(params)
+        for i, value in enumerate(params.values()):
+            self.register_buffer(f"p{i}", value)
+        self._infer = infer
+
+    def forward(self, images_u8):
+        params = {key: getattr(self, f"p{i}")
+                  for i, key in enumerate(self._keys)}
+        return self._infer(params, images_u8)
+
+
+def export_model(params, cfg: ViTConfig, mean, std, native_size: int,
+                 batch: int | None = None, int8=False, mesh=None,
+                 device=None) -> torch.export.ExportedProgram:
+    """torch.export of preprocess + forward on `device` (default: the CUDA
+    device), the params held as buffers of the exported module. batch=None
+    exports a symbolic batch dimension (any batch >= 1); an int pins a
+    static batch. int8 quantizes first where params are float32 (the
+    artifact then holds the int8 weights). mesh: sharded exports belong to
+    the parallel layers, not ported yet (raises)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"export_model(mesh=...): sharded exports are not ported; see "
+            f"{MESH_ITEM}")
+    device = resolve_device(device)
+    state = _serving_params(params, cfg, int8, device)
+    module = _Served(state, make_infer_fn(cfg, mean, std, native_size,
+                                          int8=int8))
+    example = torch.zeros((2 if batch is None else int(batch), native_size,
+                           native_size, cfg.in_chans), dtype=torch.uint8,
+                          device=device)
+    dynamic = None
+    if batch is None:
+        dynamic = ({0: torch.export.Dim("batch", min=1)},)
+    with torch.no_grad():
+        return torch.export.export(module, (example,), dynamic_shapes=dynamic)
+
+
+def _artifact_input(exported):
+    """The fake tensor of the artifact's one input: its shape (the batch
+    symbolic or pinned) and device."""
+    (name,) = exported.graph_signature.user_inputs
+    node = next(n for n in exported.graph.nodes
+                if n.op == "placeholder" and n.name == name)
+    return node.meta["val"]
+
+
+def artifact_device_type(exported) -> str:
+    """The device type ("cuda" / "cpu") an exported program serves on."""
+    return _artifact_input(exported).device.type
+
+
+def save_artifact(path: str, exported) -> str:
+    """Write `exported` (export_model's) to `path` (ARTIFACT_SUFFIX added
+    where missing), with the device type and input shape it serves."""
+    if not path.endswith(ARTIFACT_SUFFIX):
+        path = path + ARTIFACT_SUFFIX
+    meta = {"device_type": artifact_device_type(exported),
+            "in_shape": [int(d) for d in _artifact_input(exported).shape[1:]]}
+    torch.export.save(exported, path, extra_files={_META: json.dumps(meta)})
+    return path
+
+
+def load_artifact(path: str):
+    """-> (ExportedProgram, meta {"device_type", "in_shape"})."""
+    from vit_rpe_rope_tpu_torch.ops import flash_attention  # noqa: F401
+    # (importing it registers the kernels' custom ops the graph calls)
+
+    extra = {_META: ""}
+    exported = torch.export.load(path, extra_files=extra)
+    return exported, json.loads(extra[_META])
+
+
 def load_serving_state(checkpoint_path: str, dataset: str = "auto",
                        num_heads: int = 6, grid_size: int | None = None,
-                       rope_mixed_compat_scramble: bool = False):
+                       rope_mixed_compat_scramble: bool = False,
+                       int8=False, calib_images_u8=None, device=None):
     """Checkpoint (.npz / reference .pth) -> (params, cfg, mean, std,
     native_size, dataset). The architecture is reconstructed from the
     checkpoint's shapes (viz.introspect.infer_vit_config); dataset="auto"
     picks the normalization contract by channel count (1=mnist,
-    3=cifar10). params are CPU tensors; Predictor.from_params places them."""
+    3=cifar10). params are CPU tensors; Predictor.from_params places them.
+    int8: quantized params (quant.quantize_params).
+
+    calib_images_u8: uint8 [B, native, native, C] images for int8
+    "w8a8-static", preprocessed with the serving path's normalize / resize
+    and fed to quant.calibrate_act_scales as one batch, on `device`
+    (default: the CUDA device)."""
     import dataclasses
 
     from vit_rpe_rope_tpu_torch.data.datasets import NATIVE_SIZE, NORMALIZATION
@@ -57,31 +199,73 @@ def load_serving_state(checkpoint_path: str, dataset: str = "auto",
     mean, std = NORMALIZATION[dataset]
     native = NATIVE_SIZE[dataset]
     params, _ = checkpoint.split_state(state, vit.buffers(cfg))
+    if int8:
+        from vit_rpe_rope_tpu_torch import quant
+
+        calib = None
+        if _int8_mode(int8) == "w8a8-static":
+            if calib_images_u8 is None:
+                raise ValueError(
+                    "int8 mode 'w8a8-static' needs calibration images "
+                    "(calib_images_u8= / --calib): per-tensor activation "
+                    "scales are measured offline")
+            device = resolve_device(device)
+            calib_u8 = np.asarray(calib_images_u8)
+            if calib_u8.ndim == 3:
+                calib_u8 = calib_u8[None]
+            pre = ts.make_preprocess(cfg, mean, std, native)
+            calib = pre(torch.from_numpy(np.ascontiguousarray(calib_u8))
+                        .to(device))
+            params = {k: v.to(device) for k, v in params.items()}
+        params = quant.quantize_params(params, cfg, calib_images=calib)
+        params = {k: v.cpu() for k, v in params.items()}
     return params, cfg, mean, std, native, dataset
 
 
 class Predictor:
-    """Serving wrapper around a VisionTransformer on one device: `logits`
-    and `predict` on uint8 image batches (numpy in, numpy out)."""
+    """Serving wrapper on one device: `logits` and `predict` on uint8 image
+    batches (numpy in, numpy out) around `call_fn` (uint8 tensor on the
+    device -> logits tensor): a live forward (`from_params`) or a replayed
+    artifact (`from_artifact`, which needs no model code or params).
+    Ragged batches are padded with zero images up to a multiple of `pad_to`
+    and the padding's logits sliced off."""
 
-    def __init__(self, model: vit.VisionTransformer, mean, std,
-                 native_size: int):
-        cfg = model.cfg
-        self.model = model.eval()
-        self.device = next(model.parameters()).device
-        self.in_shape = (native_size, native_size, cfg.in_chans)
-        self._infer = make_infer_fn(cfg, mean, std, native_size)
+    def __init__(self, call_fn, in_shape, pad_to: int = 1, device=None):
+        self._call = call_fn
+        self.in_shape = tuple(in_shape)  # (native, native, chans)
+        self._pad_to = pad_to
+        self.device = torch.device(device if device is not None else "cpu")
 
     @classmethod
     def from_params(cls, params, cfg: ViTConfig, mean, std, native_size: int,
-                    device=None):
-        """params: canonical flat dict (tensors or arrays). device: where to
-        serve (default: the CUDA device; raises when there is none)."""
+                    device=None, int8=False):
+        """params: canonical flat dict (tensors or arrays), float32 or
+        quantize_params output. device: where to serve (default: the CUDA
+        device; raises when there is none). int8: the quant mode (True is
+        "w8a8"); float32 params are quantized first."""
         device = resolve_device(device)
-        params = {k: (v if isinstance(v, torch.Tensor)
-                      else torch.from_numpy(np.array(v))).to(device)
-                  for k, v in params.items()}
-        return cls(vit.VisionTransformer(params, cfg), mean, std, native_size)
+        state = _serving_params(params, cfg, int8, device)
+        infer = make_infer_fn(cfg, mean, std, native_size, int8=int8)
+        return cls(lambda images_u8: infer(state, images_u8),
+                   (native_size, native_size, cfg.in_chans), device=device)
+
+    @classmethod
+    def from_artifact(cls, path: str, device=None):
+        """A saved artifact on `device` (default: the CUDA device), which
+        must be of the device type it was exported on."""
+        device = resolve_device(device)
+        exported, meta = load_artifact(path)
+        if meta["device_type"] != device.type:
+            raise ValueError(
+                f"artifact {path} was exported for {meta['device_type']}; "
+                f"it cannot serve on {device.type}")
+        return cls(exported.module(), meta["in_shape"], device=device)
+
+    def forward(self, images_u8):
+        """uint8 tensor [B, native, native, C] on the device -> logits
+        tensor, without gradients."""
+        with torch.inference_mode():
+            return self._call(images_u8)
 
     def logits(self, images_u8) -> np.ndarray:
         images_u8 = np.asarray(images_u8)
@@ -89,10 +273,13 @@ class Predictor:
             raise ValueError(f"expected uint8 images, got {images_u8.dtype}")
         if images_u8.ndim == 3:
             images_u8 = images_u8[None]
+        n = images_u8.shape[0]
+        pad = -n % self._pad_to
+        if pad:
+            images_u8 = np.concatenate(
+                [images_u8, np.zeros((pad,) + images_u8.shape[1:], np.uint8)])
         x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(self.device)
-        with torch.inference_mode():
-            out = self._infer(self.model.params(), x)
-        return out.cpu().numpy()
+        return self.forward(x).cpu().numpy()[:n]
 
     def predict(self, images_u8) -> np.ndarray:
         """-> int class ids [B]."""

@@ -36,3 +36,17 @@ def adamw_state_from_jax(mu: dict, nu: dict, count) -> tuple:
                 for k, v in tree.items()}
 
     return to_torch(mu), to_torch(nu), int(np.asarray(count))
+
+
+def qparams_from_jax(np_qparams: dict, cfg) -> dict:
+    """The JAX package's quant.quantize_params output ({key: numpy array},
+    moved to the host) -> the port's qparams (CPU tensors): the int8
+    `{key}:q8`, float32 `{key}:scale` and scalar `{key}:act_scale` entries
+    with their dtypes kept, every other key as params_from_jax converts
+    it (no buffers or alias keys are added)."""
+    quantized = {k: torch.from_numpy(np.array(v))
+                 for k, v in np_qparams.items() if ":" in k}
+    rest = params_from_jax({k: v for k, v in np_qparams.items()
+                            if ":" not in k}, cfg)
+    return {**{k: v for k, v in rest.items() if k in np_qparams},
+            **quantized}
