@@ -194,6 +194,25 @@ exits nonzero without a card, or when any phase fails. Phases:
    (e) device forward times at batch 64 of float32, the three int8 modes
    and the float32 artifact, and one int8 product at the fc1 shape
    (12,608 x 384 x 1,536) against float32 and bf16 torch.matmul.
+20. data parallelism, ZeRO-1 and antialiased downsampling: (a) the ViT-tiny/4
+   train CLI at its defaults for one epoch, plainly and then under
+   torchrun's variables at world size 1 (an NCCL group of this process)
+   without and with --zero1, and with --zero1 --steps_per_dispatch 4 (its
+   one slice through AdamW's device-table entry in the CUDA graph): the CSV
+   row and every array of `_last.npz` bit-equal to the plain run's, the
+   launches, each step time; (b)
+   the same epoch on two ranks that share the card over gloo
+   (--dist_backend gloo), each a process of its own, plain and with
+   --zero1: the ranks' final params bit-equal, ZeRO-1's equal to plain
+   data parallelism's, rank 0's CSV row within DP_ROW_TOL / DP_ACC_TOL of
+   the one-rank row, one CSV, each rank's launches of rows 1, 2 and 11 (the
+   attention at the half batch of 64, AdamW once a step); (c) the epoch
+   with --img_size 16 on the 32 px images (the antialiased resize), exact
+   launches, the learning bar, the best checkpoint served to its CSV
+   accuracy, make_preprocess on the card against the CPU; (d) the
+   Predictor over make_mesh(num_devices=1) bit-equal to the one-device
+   Predictor, and --export_data_parallel 2 through the predict CLI exiting
+   with "only 1 devices visible" on a one-card machine.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -4262,6 +4281,459 @@ def time_int8_serving(serving, quant, predictors, f32, program, images,
     return dict(serving=rows, product=products, profiles=traces)
 
 
+# Phase 20: data parallelism, ZeRO-1, antialiased downsampling.
+DP_STEP_TOL = 1e-4       # two ranks vs one: relative, each loss of the
+DP_EARLY_STEPS = 5       # first steps (the gradient summed over two half
+#   batches: float32 sums in another order). The epoch's row is not held to
+#   it: on the synthetic task the loss collapses within the epoch, and the
+#   step at which it does amplifies any difference (both rows must learn).
+DOWNSAMPLE_TOL = 1e-6    # make_preprocess 32 -> 16 px, card vs CPU
+DP_WORKER_TIMEOUT = 300  # seconds for one two-rank launch
+CSV_FIELDS = ("train_loss", "train_acc", "test_loss", "test_acc")
+
+# One rank of phase 20b, in a process of its own: the train CLI under
+# torchrun's environment (set by the caller) once per run of the JSON
+# payload {label: [port, argv]}, each in {out}/{label} with the launch
+# counts reset before it; each run's final params, launch counts, per-step
+# losses and the batch sizes the attention wrappers saw go to
+# {out}/{label}/rank{RANK}.npz / .json.
+DP_RANK = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+from vit_rpe_rope_tpu_torch.cli import train as train_cli
+from vit_rpe_rope_tpu_torch.ops import flash_attention as fa, fused_adamw
+from vit_rpe_rope_tpu_torch.train import train_step as ts
+
+out, runs = sys.argv[1], json.loads(sys.argv[2])
+rank = os.environ["RANK"]
+final, batches, losses = {}, {}, []
+make = ts.make_train_step
+
+def make_train_step(*args, **kw):
+    step = make(*args, **kw)
+
+    def recorded(*a, **k):
+        result = step(*a, **k)
+        final["params"] = result[0]
+        losses.append(result[2][0])
+        return result
+
+    return recorded
+
+ts.make_train_step = make_train_step
+for name in ("fwd", "bwd"):
+    def wrapped(q, *a, _fn=getattr(fa, "attention_" + name), _n=name, **k):
+        batches["attn_" + _n].add(int(q.shape[0]))
+        return _fn(q, *a, **k)
+    setattr(fa, "attention_" + name, wrapped)
+for label, (port, argv) in runs.items():
+    os.environ["MASTER_PORT"] = str(port)
+    run_dir = os.path.join(out, label)
+    os.makedirs(run_dir, exist_ok=True)
+    os.chdir(run_dir)
+    fa.LAUNCHES = fa.LAUNCHES_BWD = 0
+    fused_adamw.LAUNCHES_ADAMW = fused_adamw.LAUNCHES_ADAMW_TABLE = 0
+    batches.update(attn_fwd=set(), attn_bwd=set())
+    losses.clear()
+    t0 = time.perf_counter()
+    summary = train_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    np.savez(f"rank{rank}.npz", **{k: v.detach().cpu().numpy()
+                                   for k, v in final["params"].items()})
+    with open(f"rank{rank}.json", "w") as f:
+        json.dump(dict(seconds=seconds, history=summary["history"],
+                       log_file=summary["log_file"],
+                       num_devices=summary["num_devices"],
+                       launches={"attn_fwd": fa.LAUNCHES,
+                                 "attn_bwd": fa.LAUNCHES_BWD,
+                                 "adamw": fused_adamw.LAUNCHES_ADAMW,
+                                 "adamw_table":
+                                     fused_adamw.LAUNCHES_ADAMW_TABLE},
+                       batches={k: sorted(v) for k, v in batches.items()},
+                       step_losses=[float(x) for x in losses]), f)
+"""
+
+
+def free_port() -> int:
+    with contextlib.closing(__import__("socket").socket()) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def torchrun_env(world: int, rank: int = 0):
+    """torchrun's environment variables for one rank on this host, set for
+    the body and removed after it."""
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank))
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield env
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def cli_epoch(train_modules, argv, world_env=None, keep_dir=None):
+    """One epoch of the train CLI (TINY_ARGV + argv) in a scratch directory
+    with the counts reset just before and read just after; world_env: a
+    torchrun_env to run it under (a process group of one, this process).
+    Returns the CSV row, every array of `_last.npz`, the launches and the
+    times; the best checkpoint is copied into keep_dir when one is given."""
+    from vit_rpe_rope_tpu_torch.train import train_step as ts
+
+    fa, fused_adamw, train_cli, _, _ = train_modules
+    losses, make = [], ts.make_train_step
+
+    def make_train_step(*args, **kw):  # records each step's loss
+        step = make(*args, **kw)
+
+        def recorded(*a, **k):
+            result = step(*a, **k)
+            losses.append(result[2][0])
+            return result
+
+        return recorded
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        ts.make_train_step = make_train_step
+        try:
+            with (world_env or contextlib.nullcontext()):
+                reset_counts(fa, fused_adamw)
+                t0 = time.perf_counter()
+                summary = train_cli.main(TINY_ARGV + argv)
+                counts = read_counts(fa, fused_adamw)
+                seconds = time.perf_counter() - t0
+            routes = check_resident(fa, f"train CLI {argv}")
+            with open(summary["log_file"]) as f:
+                row = list(f)[1].strip()
+            with np.load(os.path.join(
+                    tmp, "checkpoints",
+                    "cifar10_rope-mixed_last.npz")) as z:
+                last = {k: z[k] for k in z.files}
+            ckpt = None
+            if keep_dir:
+                ckpt = shutil.copy(os.path.abspath(summary["ckpt_path"]),
+                                   keep_dir)
+        finally:
+            ts.make_train_step = make
+            os.chdir(cwd)
+    ips = summary["history"][0]["images_per_sec"]
+    return dict(row=row, last=last, launches=counts, routes=routes,
+                seconds=seconds, images_per_s=ips,
+                step_ms=1000.0 * 128 / ips, num_devices=summary["num_devices"],
+                ckpt=ckpt, step_losses=[float(x) for x in losses])
+
+
+def state_differences(a: dict, b: dict) -> dict:
+    """{key: largest |difference| relative to b's largest entry} of the
+    arrays of two `_last.npz` that differ."""
+    out = {}
+    for key in b:
+        if not np.array_equal(a[key], b[key]):
+            want = np.asarray(b[key], np.float64)
+            out[key] = float(np.abs(np.asarray(a[key], np.float64) - want)
+                             .max() / max(np.abs(want).max(), 1e-30))
+    return out
+
+
+def csv_fields(row: str) -> dict:
+    values = row.split(",")
+    return dict(zip(("epoch",) + CSV_FIELDS + ("best_acc",),
+                    map(float, values)))
+
+
+def check_world_one(train_modules):
+    """Phase 20a: the ViT-tiny/4 train CLI at its defaults for one epoch,
+    plainly, then under torchrun's variables at world size 1 (an NCCL
+    group of this process) without and with --zero1, then with --zero1 and
+    --steps_per_dispatch GRAPH_K without a group (ZeRO-1's one slice
+    through AdamW's device-table entry in the CUDA graph), then plainly
+    again (the step times in turns): each CSV row and `_last.npz` against
+    the plain run's, bit for bit, the launches and the step times."""
+    graphed = -(-100 // GRAPH_K) * GRAPH_K + 1  # captured steps + warm-up
+    cases = (("nccl", [], True, None),
+             ("nccl_zero1", ["--zero1"], True, None),
+             ("zero1_graph", ["--zero1", "--steps_per_dispatch",
+                              str(GRAPH_K)], False,
+              {"attn_fwd": 6 * (graphed + 20), "attn_bwd": 6 * graphed,
+               "adamw": 0, "adamw_table": graphed}))
+    runs = {"plain": cli_epoch(train_modules, [])}
+    for label, argv, group, _ in cases:
+        runs[label] = cli_epoch(train_modules, argv,
+                                torchrun_env(1) if group else None)
+        if runs[label]["num_devices"] != 1:
+            raise AssertionError(f"{label}: {runs[label]['num_devices']} "
+                                 f"devices")
+    runs["plain_again"] = cli_epoch(train_modules, [])
+    plain = runs["plain"]
+    if runs["plain_again"]["row"] != plain["row"]:
+        raise AssertionError("two plain epochs of one seed differ")
+    out = {}
+    for label, _, _, expected in cases:
+        run = runs[label]
+        expected = expected or plain["launches"]
+        diffs = state_differences(run["last"], plain["last"])
+        same = run["row"] == plain["row"] and not diffs
+        out[label] = dict(bit_equal=same, row=run["row"], differences=diffs,
+                          launches=run["launches"], step_ms=run["step_ms"],
+                          images_per_s=run["images_per_s"])
+        log(f"  world 1 {label}: CSV row {run['row']} (plain "
+            f"{plain['row']}); _last.npz and row bit-equal to the plain "
+            f"run: {same}{'' if same else f' (differences {diffs})'}; "
+            f"launches {run['launches']} (expected {expected}); "
+            f"{run['step_ms']:.3f} ms a step (plain "
+            f"{plain['step_ms']:.3f} before, "
+            f"{runs['plain_again']['step_ms']:.3f} after), "
+            f"{run['images_per_s']:.1f} img/s")
+        if not same:
+            raise AssertionError(f"{label} at world size 1 differs from the "
+                                 f"plain run: {diffs}")
+        if run["launches"] != expected:
+            raise AssertionError(f"{label}: launches {run['launches']}, "
+                                 f"expected {expected}")
+    out["plain"] = dict(row=plain["row"], launches=plain["launches"],
+                        step_losses=plain["step_losses"],
+                        step_ms=[plain["step_ms"],
+                                 runs["plain_again"]["step_ms"]],
+                        images_per_s=plain["images_per_s"])
+    return out, runs
+
+
+def two_ranks(runs):
+    """Phase 20b: the train CLI (TINY_ARGV + argv, for each label: argv of
+    `runs`) on two ranks sharing the card over gloo, each rank a process of
+    its own (DP_RANK) that trains every run in turn, in one scratch
+    directory; a rank that fails, or a launch that outlasts
+    DP_WORKER_TIMEOUT, fails the phase. Returns, per label, each rank's
+    record with its final params, rank 0's CSV row and the CSVs written;
+    and the launch's seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    payload = json.dumps({label: [free_port(), TINY_ARGV + argv
+                                  + ["--dist_backend", "gloo"]]
+                          for label, argv in runs.items()})
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", WORLD_SIZE="2",
+                   PYTHONPATH=root + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", DP_RANK, tmp, payload], cwd=tmp,
+            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=DP_WORKER_TIMEOUT)[0]
+                    for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        seconds = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"rank {r} of {list(runs)} failed "
+                                     f"({p.returncode}):\n{text[-4000:]}")
+        out = {}
+        for label in runs:
+            run_dir = os.path.join(tmp, label)
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(run_dir, f"rank{r}.json")) as f:
+                    record = json.load(f)
+                with np.load(os.path.join(run_dir, f"rank{r}.npz")) as z:
+                    record["params"] = {k: z[k] for k in z.files}
+                ranks.append(record)
+            with open(os.path.join(run_dir, ranks[0]["log_file"])) as f:
+                row = list(f)[1].strip()
+            out[label] = dict(ranks=ranks, row=row, csvs=os.listdir(
+                os.path.join(run_dir, "logs")))
+    return out, seconds
+
+
+def check_two_ranks(world_one):
+    """Phase 20b: plain data parallelism and --zero1 on two gloo ranks that
+    share the card: the ranks' params bit-equal, ZeRO-1's equal to plain
+    data parallelism's, the first DP_EARLY_STEPS step losses within
+    DP_STEP_TOL of the one-rank run's (phase 20a), both rows past the
+    learning bar, each rank's launches of rows 1, 2 and 11 (the attention
+    at the half batch, AdamW once a step)."""
+    one = csv_fields(world_one["plain"]["row"])
+    one_losses = np.asarray(world_one["plain"]["step_losses"])
+    expected = {"attn_fwd": 6 * 120, "attn_bwd": 6 * 100, "adamw": 100,
+                "adamw_table": 0}
+    out = {}
+    # plain data parallelism again after --zero1: the step times in turns
+    # (a process's first epoch also loads the kernels)
+    runs, seconds = two_ranks({"dp": [], "zero1": ["--zero1"],
+                               "dp_again": []})
+    log(f"  two gloo ranks: {seconds:.1f} s for the launch (both runs)")
+    for label, run in runs.items():
+        r0, r1 = run["ranks"]
+        same = all(np.array_equal(r0["params"][k], r1["params"][k])
+                   for k in r0["params"])
+        fields = csv_fields(run["row"])
+        rel = {k: abs(fields[k] - one[k]) / max(abs(one[k]), 1e-30)
+               for k in ("train_loss", "test_loss")}
+        pts = {k: abs(fields[k] - one[k]) for k in ("train_acc", "test_acc")}
+        step_rel = (np.abs(np.asarray(r0["step_losses"]) - one_losses)
+                    / np.abs(one_losses))
+        apart = np.flatnonzero(step_rel > 1e-3)
+        early = [float(f"{x:.3g}") for x in step_rel[:DP_EARLY_STEPS]]
+        tenth = [float(f"{x:.3g}") for x in step_rel[::10]]
+        log(f"    {label} step losses against one rank, relative: first "
+            f"{DP_EARLY_STEPS} {early}, every 10th {tenth}; first step past "
+            f"1e-3: {int(apart[0]) if apart.size else None}")
+        rank_seconds = [round(r["seconds"], 1) for r in run["ranks"]]
+        log(f"  two gloo ranks {label}: rank seconds {rank_seconds}; CSV row "
+            f"{run['row']} (one rank: {world_one['plain']['row']}); "
+            f"relative {rel}, points {pts}; ranks' params bit-equal {same}; "
+            f"CSVs written {run['csvs']}")
+        for r, rec in enumerate(run["ranks"]):
+            ips = rec["history"][0]["images_per_sec"]
+            log(f"    rank {r}: launches {rec['launches']} (expected "
+                f"{expected}), attention batch sizes {rec['batches']}, "
+                f"{1000.0 * 128 / ips:.3f} ms a step ({ips:.1f} img/s), "
+                f"devices {rec['num_devices']}")
+            if rec["launches"] != expected:
+                raise AssertionError(f"{label} rank {r}: launches "
+                                     f"{rec['launches']}, expected "
+                                     f"{expected}")
+            if rec["batches"] != {"attn_fwd": [64], "attn_bwd": [64]}:
+                raise AssertionError(f"{label} rank {r}: attention batches "
+                                     f"{rec['batches']}, expected [64]")
+            if rec["num_devices"] != 2:
+                raise AssertionError(f"{label} rank {r}: "
+                                     f"{rec['num_devices']} devices")
+        if r1["log_file"] is not None or len(run["csvs"]) != 1:
+            raise AssertionError(f"{label}: rank 1 wrote a CSV, or not one "
+                                 f"CSV: {run['csvs']}")
+        if not same:
+            raise AssertionError(f"{label}: the ranks' params differ")
+        if step_rel[:DP_EARLY_STEPS].max() > DP_STEP_TOL:
+            raise AssertionError(f"{label}: the first step losses differ "
+                                 f"from one rank's: {step_rel[:5]}")
+        if not (fields["train_loss"] < LEARN_BAR["rope-mixed"]["train_loss"]
+                and fields["test_acc"] > LEARN_BAR["rope-mixed"]["test_acc"]):
+            raise AssertionError(f"{label}: two ranks did not learn: "
+                                 f"{run['row']}")
+        out[label] = dict(row=run["row"], relative=rel, points=pts,
+                          step_relative=step_rel.tolist(),
+                          seconds=[r["seconds"] for r in run["ranks"]],
+                          launches=[r["launches"] for r in run["ranks"]],
+                          step_ms=[1000.0 * 128
+                                   / r["history"][0]["images_per_sec"]
+                                   for r in run["ranks"]],
+                          params=r0["params"])
+    zero1_same = all(np.array_equal(out["zero1"]["params"][k],
+                                    out["dp"]["params"][k])
+                     for k in out["dp"]["params"])
+    log(f"  two ranks: --zero1 params bit-equal to plain data parallelism's: "
+        f"{zero1_same}; rows {out['zero1']['row']} / {out['dp']['row']}")
+    if not zero1_same or out["dp_again"]["row"] != out["dp"]["row"]:
+        raise AssertionError("two ranks: ZeRO-1's params differ from plain "
+                             "data parallelism's, or two plain runs differ")
+    for label in out:
+        del out[label]["params"]
+    out["zero1_bit_equal_to_dp"] = zero1_same
+    out["launch_seconds"] = seconds
+    return out
+
+
+def check_downsampling(train_modules, ts, datasets, device, keep_dir):
+    """Phase 20c: one epoch of the train CLI at its defaults with
+    --img_size 16 on the synthetic 32 px CIFAR-10 (the antialiased resize
+    in every step; N = 17, the dense kernels), exact launches, the learning
+    bar, the best checkpoint served to its CSV accuracy, and make_preprocess
+    on the card against the CPU on the same batch."""
+    fa, fused_adamw, train_cli, serving, _ = train_modules
+    run = cli_epoch(train_modules, ["--img_size", "16"], keep_dir=keep_dir)
+    expected = {"attn_fwd": 6 * 120, "attn_bwd": 6 * 100, "adamw": 100}
+    fields = csv_fields(run["row"])
+    params, cfg, mean, std, native, _ = serving.load_serving_state(
+        run["ckpt"], grid_size=4)
+    test = datasets.synthetic("cifar10", seed=0)
+    predictor = serving.Predictor.from_params(params, cfg, mean, std, native)
+    preds = np.concatenate([predictor.predict(test.test_x[s:s + 128])
+                            for s in range(0, len(test.test_y), 128)])
+    served = 100.0 * float((preds == test.test_y).mean())
+    pre = ts.make_preprocess(cfg, mean, std, native)
+    batch = torch.from_numpy(test.test_x[:128])
+    card = pre(batch.to(device)).cpu()
+    cpu = pre(batch)
+    err = float((card - cpu).abs().max())
+    log(f"  --img_size 16: CSV row {run['row']}, launches {run['launches']} "
+        f"(expected {expected}), {run['step_ms']:.3f} ms a step; served "
+        f"accuracy {served:.4f}% (CSV {fields['test_acc']}); make_preprocess "
+        f"32 -> 16 on the card vs the CPU: {err:.3e} (tol {DOWNSAMPLE_TOL})")
+    if run["launches"] != expected:
+        raise AssertionError(f"--img_size 16: launches {run['launches']}")
+    if (cfg.img_size, tuple(card.shape)) != (16, (128, 16, 16, 3)):
+        raise AssertionError(f"--img_size 16: model {cfg.img_size} px, "
+                             f"images {tuple(card.shape)}")
+    for key, limit in REGULARISED_BAR.items():
+        if not (fields[key] > limit if key == "test_acc"
+                else fields[key] < limit):
+            raise AssertionError(f"--img_size 16 did not learn: {key} "
+                                 f"{fields[key]} (bar {limit})")
+    if abs(served - fields["test_acc"]) > 1e-9 or err > DOWNSAMPLE_TOL:
+        raise AssertionError("--img_size 16: served accuracy or the resize "
+                             "on the card is off")
+    return dict(row=run["row"], launches=run["launches"],
+                step_ms=run["step_ms"], served_acc=served,
+                preprocess_max_abs_err=err, ckpt=run["ckpt"])
+
+
+def check_dp_serving(modules, ckpt, images):
+    """Phase 20d: Predictor.from_params(mesh=make_mesh(num_devices=1)) on
+    the card against the one-device Predictor (logits bit for bit, the
+    attention launched once a block a batch), and --export_data_parallel 2
+    through the predict CLI on a one-card machine exits with the JAX
+    CLI's words."""
+    fa, fused_adamw, serving, predict, make_mesh = modules
+    params, cfg, mean, std, native, _ = serving.load_serving_state(
+        ckpt, grid_size=4)
+    one = serving.Predictor.from_params(params, cfg, mean, std, native)
+    mesh = make_mesh(num_devices=1)
+    sharded = serving.Predictor.from_params(params, cfg, mean, std, native,
+                                            mesh=mesh)
+    want = one.logits(images)
+    reset_counts(fa, fused_adamw)
+    got = sharded.logits(images)
+    launches = read_counts(fa, fused_adamw)
+    same = bool(np.array_equal(got, want))
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            predict.main([ckpt, "--grid_size", "4", "--export",
+                          os.path.join(tmp, "dp2.pt2"),
+                          "--export_data_parallel", "2"])
+        except SystemExit as e:
+            refused = str(e.code)
+        else:
+            refused = None
+    n_cards = torch.cuda.device_count()
+    log(f"  data-parallel Predictor over {mesh.devices} (width "
+        f"{mesh.size}): {len(images)} images, logits bit-equal to the "
+        f"one-device Predictor {same}, launches {launches}; "
+        f"--export_data_parallel 2 on {n_cards} card(s): {refused!r}")
+    if not same or launches["attn_fwd"] != cfg.depth:
+        raise AssertionError("the data-parallel Predictor differs from the "
+                             "one-device one")
+    if n_cards < 2 and (refused is None
+                        or f"only {n_cards} devices visible" not in refused):
+        raise AssertionError(f"--export_data_parallel 2 on {n_cards} "
+                             f"card(s): {refused!r}")
+    return dict(bit_equal=same, launches=launches, refused=refused)
+
+
 def kernel_line(name, source, replaces, launches, max_abs_err, times):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4272,7 +4744,8 @@ def kernel_line(name, source, replaces, launches, max_abs_err, times):
                                            "group_library_ms", "per_op_ms",
                                            "routes", "device_ms",
                                            "int8_launches",
-                                           "export_launches")
+                                           "export_launches",
+                                           "dp_launches")
                if key in times}}
 
 
@@ -4600,6 +5073,27 @@ def main() -> int:
                             times=int8_times,
                             seconds=time.perf_counter() - t0)
 
+    with phase("[20] data parallelism and ZeRO-1 (world size 1 over NCCL, "
+               "two gloo ranks sharing the card), antialiased downsampling, "
+               "data-parallel serving", seconds):
+        from vit_rpe_rope_tpu_torch.parallel.mesh import make_mesh
+
+        t0 = time.perf_counter()
+        world_one, _ = check_world_one(train_modules)
+        two = check_two_ranks(world_one)
+        p20_dir = tempfile.mkdtemp(prefix="chip_smoke_p20_")
+        downsampling = check_downsampling(train_modules, ts, datasets,
+                                          device, p20_dir)
+        dp_serving = check_dp_serving(
+            (fa, fused_adamw, serving, predict, make_mesh),
+            downsampling["ckpt"],
+            datasets.synthetic("cifar10", seed=0).test_x[:256])
+        shutil.rmtree(p20_dir)
+        data_parallel = dict(world_one=world_one, two_ranks=two,
+                             downsampling=downsampling,
+                             serving=dp_serving,
+                             seconds=time.perf_counter() - t0)
+
     summary = {"card": card, "attention": attn, "serving": serve_times,
                "serving_profile": serve_trace, "training": training,
                "kernel_vs_plain_losses": paths, "train_step": step_times,
@@ -4633,7 +5127,8 @@ def main() -> int:
                "graph_epochs": graph_epochs, "adamw_table": adamw_table,
                "remat": remat, "debug_nans": debug_nans,
                "profile_dir": profile_dir, "decoders": decoders,
-               "int8_serving": int8_serving, "phase_seconds": seconds}
+               "int8_serving": int8_serving,
+               "data_parallel": data_parallel, "phase_seconds": seconds}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
@@ -4657,6 +5152,9 @@ def main() -> int:
     # ViT-tiny/4 (phase 16).
     launches = training["rope-mixed"]["launches"]
     routes = training["rope-mixed"]["routes"]
+    # Phase 20b's launches on each of two gloo ranks: plain data
+    # parallelism, and --zero1 (AdamW over the rank's slice).
+    dp_launches = {label: two[label]["launches"] for label in ("dp", "zero1")}
     stream_launches = stream_training["longseq"]["launches"]
     dbias_launches = stream_training["vit_s_384"]["launches"][
         "attn_stream_bwd_dbias"]
@@ -4676,14 +5174,20 @@ def main() -> int:
                          int8_launches=int8_cli["w8a8"]["launches"][
                              "attn_fwd"],
                          export_launches=artifacts["f32"]["launches"][64][
-                             "attn_fwd"])),
+                             "attn_fwd"],
+                         dp_launches={k: [r["attn_fwd"] for r in v]
+                                      for k, v in dp_launches.items()})),
         kernel_line("attn_bwd", "vit_rpe_rope_tpu_torch/ops/csrc/attn_bwd.cu",
                     "vit_rpe_rope_tpu/ops/flash_attention.py:130",
                     launches["attn_bwd"], bwd_err,
-                    dict(bwd["rope-mixed f32"], routes=routes)),
+                    dict(bwd["rope-mixed f32"], routes=routes,
+                         dp_launches={k: [r["attn_bwd"] for r in v]
+                                      for k, v in dp_launches.items()})),
         kernel_line("adamw", "vit_rpe_rope_tpu_torch/ops/csrc/adamw.cu",
                     "vit_rpe_rope_tpu/ops/fused_adamw.py:51",
-                    launches["adamw"], adamw_err, adamw),
+                    launches["adamw"], adamw_err,
+                    dict(adamw, dp_launches={k: [r["adamw"] for r in v]
+                                             for k, v in dp_launches.items()})),
         kernel_line("adamw_table", "vit_rpe_rope_tpu_torch/ops/csrc/adamw.cu",
                     "vit_rpe_rope_tpu/ops/fused_adamw.py:51",
                     graph_epochs["runs"][1]["launches"]["adamw_table"],

@@ -361,7 +361,8 @@ def test_bounded_step_refuses_what_is_not_ported():
                              TrainConfig(dataset="cifar10"), None, pre)
     for kw in (dict(mesh=object()), dict(seq_parallel=2),
                dict(force_ring=True)):
-        with pytest.raises(NotImplementedError, match="Queue A item 5"):
+        with pytest.raises(NotImplementedError,
+                           match="the context-parallel ring"):
             make(**kw)
     with pytest.raises(ValueError, match="does not support dropout"):
         bounded.make_bounded_step(

@@ -93,20 +93,35 @@ def test_predict_cli_matches_jax_cli_on_the_streaming_route(tmp_path, capsys,
     ["ckpt.npz", "--artifact", "a.pt2"],
     ["--artifact", "a.pt2", "--int8"],
     ["ckpt.npz", "--export_data_parallel", "2"]])
-def test_predict_cli_refuses_unported_flags(flag, capsys):
+def test_predict_cli_refuses_unported_flags(flag, capsys, tmp_path):
     """The JAX CLI's conflict errors: an artifact with --export, with a
-    checkpoint, with --int8; and sharded export, still not ported (the
-    parallel layers, ROADMAP Queue A item 5). Each before any file is
-    read."""
+    checkpoint, with --int8, each before any file is read. A data-parallel
+    export (--export_data_parallel 2) is no longer refused: on the CPU it
+    runs over two "cpu" entries, and its artifact, served through
+    --artifact, splits each batch in two and predicts as the checkpoint
+    does."""
+    if "--export_data_parallel" in flag:
+        cfg = JaxViTConfig(**KW)
+        params = jvit.init_params(jax.random.PRNGKey(2), cfg)
+        ckpt = jckpt.save(str(tmp_path / "cifar10_relative_best.npz"),
+                          params, jvit.buffers(cfg),
+                          aliases=jvit.reference_alias_keys(cfg))
+        inputs, _, _ = write_inputs(tmp_path, n=7)
+        artifact = str(tmp_path / "dp2.pt2")
+        want = predict.main([ckpt, "--input", inputs, "--export", artifact,
+                             *flag[1:], "--device", "cpu"])
+        assert "sharded over 2 devices" in capsys.readouterr().out
+        _, meta = serving.load_artifact(artifact)
+        assert meta["data_parallel"] == 2
+        got = predict.main(["--artifact", artifact, "--input", inputs,
+                            "--batch_size", "5", "--device", "cpu"])
+        np.testing.assert_array_equal(got, want)
+        return
     with pytest.raises(SystemExit) as exc:
         predict.main(flag)
     assert exc.value.code == 2
-    err = capsys.readouterr().err
-    if "--export_data_parallel" in flag:
-        assert "not ported" in err and "Queue A item 5" in err
-    else:
-        assert "cannot be combined with a checkpoint, --export, or --int8" \
-            in err
+    assert "cannot be combined with a checkpoint, --export, or --int8" \
+        in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flag", [
@@ -208,6 +223,8 @@ def test_train_parser_matches_jax_parser():
     got = flag_surface(train.build_parser())
     want = flag_surface(jtrain.build_parser())
     assert got.pop("device") == (("--device",), None, None, str, None, None)
+    assert got.pop("dist_backend") == (("--dist_backend",), None,
+                                       ["nccl", "gloo"], str, None, None)
     assert got == want
     args = train.build_parser().parse_args(["--no-poly_shared_heads"])
     assert args.poly_shared_heads is False and args.dataset == "mnist"
@@ -222,16 +239,36 @@ def test_train_parser_matches_jax_parser():
                                                  "--augment"],
     ["--q_chunk", "64", "--attn_drop_rate", "0.1"],
     ["--q_chunk", "64", "--drop_path_rate", "0.1"]])
-def test_train_cli_refuses_unported_flags(flag, capsys):
-    """Unported features are refused as such. Dropout, drop-path and
-    --augment are ported (tests/test_torch_regularize.py); the bounded
-    driver (--q_chunk) refuses them, as the JAX package's does."""
+def test_train_cli_refuses_unported_flags(flag, capsys, tmp_path,
+                                          monkeypatch):
+    """Unported features are refused as such, naming their ROADMAP Queue A
+    item. Dropout, drop-path and --augment are ported
+    (tests/test_torch_regularize.py); the bounded driver (--q_chunk)
+    refuses them, as the JAX package's does. --zero1 is ported
+    (tests/test_torch_data_parallel.py): it trains through the CLI."""
+    if flag == ["--zero1"]:
+        monkeypatch.setattr(
+            datasets, "get_dataset",
+            lambda dataset, data_dir, use_synthetic, seed: datasets.synthetic(
+                dataset, n_train=32, n_test=16, seed=seed))
+        summary = train.main([
+            "--synthetic", *flag, "--epochs", "1", "--batch_size", "16",
+            "--depth", "1", "--embed_dim", "32", "--num_heads", "2",
+            "--log_dir", str(tmp_path / "logs"), "--ckpt_dir",
+            str(tmp_path / "ckpts"), "--device", "cpu"])
+        assert "Done. Best Test Acc" in capsys.readouterr().out
+        assert summary["num_devices"] == 1
+        with np.load(tmp_path / "ckpts" / "mnist_absolute_last.npz") as z:
+            assert int(z["__opt.0"]) == 2 and z["__opt.1"].ndim == 1
+        return
     with pytest.raises(SystemExit) as exc:
         train.main(["--synthetic", *flag])
     assert exc.value.code == 2
     bounded_refusal = "--q_chunk" in flag and "--sequence_parallel" not in flag
-    assert ("does not support" if bounded_refusal else "not ported") in \
-        capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert ("does not support" if bounded_refusal else "not ported") in err
+    if not bounded_refusal:
+        assert "ROADMAP Queue A" in err
 
 
 def test_train_cli_runs_flash_block_on_the_cpu(tmp_path, monkeypatch,

@@ -38,6 +38,7 @@ from vit_rpe_rope_tpu_torch.configs import ViTConfig
 from vit_rpe_rope_tpu_torch.data.datasets import NORMALIZATION
 from vit_rpe_rope_tpu_torch.models import vit
 from vit_rpe_rope_tpu_torch.ops import flash_attention as tfa
+from vit_rpe_rope_tpu_torch.parallel.mesh import Mesh, make_mesh
 from vit_rpe_rope_tpu_torch.utils import checkpoint
 
 KW = dict(img_size=32, patch_size=4, embed_dim=192, depth=2, num_heads=6,
@@ -155,11 +156,13 @@ def test_artifact_holds_the_custom_ops_and_no_model_code(deployed):
     """The w8a8 artifact's graph calls the attention through the custom
     op, once a block, and the int8 products through torch._int_mm; every
     node is a torch op (no Python model code); its description names the
-    device type and input shape it serves. (chip_smoke.py phase 19 loads
+    device type and input shape it serves, and its data-parallel width
+    (one device). (chip_smoke.py phase 19 loads
     the card's artifacts in a fresh process that imports only
     vit_rpe_rope_tpu_torch.serving.)"""
     exported, meta = deployed["loaded"]["w8a8"]
-    assert meta == {"device_type": "cpu", "in_shape": [32, 32, 3]}
+    assert meta == {"device_type": "cpu", "in_shape": [32, 32, 3],
+                    "data_parallel": 1}
     targets = [n.target for n in exported.graph.nodes
                if n.op == "call_function"]
     assert targets.count(torch.ops.vit_rpe_rope.attn_fwd.default) == 2
@@ -212,13 +215,32 @@ def test_predictor_pads_ragged_batches():
 
 
 def test_wrong_device_and_mesh_raise(deployed):
+    """An artifact on another device type raises. export_model(mesh=) is
+    ported: over a 2-entry CPU mesh it exports the one-device program for
+    half a batch and records the width; a static batch must divide it, and
+    a process group's mesh is not a serving mesh."""
     with pytest.raises(ValueError, match="exported for cpu.*on cuda"):
         serving.Predictor.from_artifact(deployed["artifacts"][None],
                                         device="cuda")
-    cfg = deployed["cfg"]
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        serving.export_model(deployed["params"], cfg, MEAN, STD, 32,
-                             mesh=object(), device="cpu")
+    cfg, params = deployed["cfg"], deployed["params"]
+    mesh = make_mesh(num_devices=2, devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="static batch 5 must divide"):
+        serving.export_model(params, cfg, MEAN, STD, 32, batch=5, mesh=mesh)
+    with pytest.raises(ValueError, match="not a process group"):
+        serving.export_model(params, cfg, MEAN, STD, 32,
+                             mesh=Mesh(devices=("cpu",), ranks=(0, 1)))
+    exported = serving.export_model(params, cfg, MEAN, STD, 32, batch=4,
+                                    mesh=mesh)
+    assert exported.data_parallel == 2
+    assert tuple(serving._artifact_input(exported).shape) == (2, 32, 32, 3)
+    images = deployed["images"][:4]
+    call = serving.data_parallel_call([exported.module()] * 2,
+                                      [torch.device("cpu")] * 2)
+    with torch.no_grad():
+        got = call(torch.from_numpy(images)).numpy()
+    np.testing.assert_array_equal(
+        got, np.concatenate([deployed["served"][None].logits(images[:2]),
+                             deployed["served"][None].logits(images[2:])]))
 
 
 def test_static_mode_needs_calibration_images(deployed, capsys):

@@ -1834,8 +1834,8 @@ def test_graph_capture_failure_raises(cuda, monkeypatch):
 
     real = ts._grads_and_metrics
 
-    def syncing(*args):
-        grads, metrics = real(*args)
+    def syncing(*args, **kwargs):
+        grads, metrics = real(*args, **kwargs)
         float(metrics[0])  # a host read: illegal while capturing
         return grads, metrics
 

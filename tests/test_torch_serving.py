@@ -92,7 +92,8 @@ def test_predictor_matches_jax_above_streaming_threshold(pe_name, monkeypatch):
 def test_predictor_takes_images_at_the_model_size():
     """Images already at the model's size pass through without a resize
     (the JAX package's preprocess built for that native size is the
-    yardstick); larger ones are refused like any downsampling."""
+    yardstick); larger ones are shrunk with the antialiased resize, as the
+    JAX package's preprocess built for their size shrinks them."""
     kw = dict(img_size=64, patch_size=16, embed_dim=64, depth=1, num_heads=4,
               pos_encoding="none")
     jcfg, jp = jax_params(dict(kw, attention_impl="flash"))
@@ -102,8 +103,9 @@ def test_predictor_takes_images_at_the_model_size():
         {k: np.asarray(v) for k, v in jp.items()}, ViTConfig(**kw), MEAN, STD,
         32, device="cpu")
     np.testing.assert_allclose(pred.logits(u8), want, rtol=2e-3, atol=2e-3)
-    with pytest.raises(NotImplementedError, match="downsampling"):
-        pred.logits(uint8_images(1, size=96))
+    big = uint8_images(2, size=96, seed=5)
+    want = jserving.Predictor.from_params(jp, jcfg, MEAN, STD, 96).logits(big)
+    np.testing.assert_allclose(pred.logits(big), want, rtol=2e-3, atol=2e-3)
 
 
 @pytest.mark.parametrize("native,img", [(32, 224), (28, 224), (32, 64),
@@ -126,8 +128,19 @@ def test_preprocess_matches_jax(native, img):
 
 
 def test_downsampling_is_refused():
-    with pytest.raises(NotImplementedError, match="downsampling"):
-        ts.make_preprocess(ViTConfig(img_size=16, patch_size=4), MEAN, STD, 32)
+    """No longer refused: shrinking 32 px CIFAR images to 16 px is the
+    antialiased resize of jax.image.resize (its cases at other sizes:
+    tests/test_torch_preprocess.py)."""
+    u8 = np.random.default_rng(4).integers(0, 256, (2, 32, 32, 3),
+                                           dtype=np.uint8)
+    kw = dict(img_size=16, patch_size=4)
+    want = jts.make_preprocess(JaxViTConfig(**kw), MEAN, STD, 32)(
+        jnp.asarray(u8))
+    got = ts.make_preprocess(ViTConfig(**kw), MEAN, STD, 32)(
+        torch.from_numpy(u8))
+    assert tuple(got.shape) == (2, 16, 16, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
 
 
 @pytest.mark.parametrize("pe_name", PE_NAMES)

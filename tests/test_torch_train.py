@@ -382,12 +382,33 @@ def test_fit_side_effects_and_resume(tmp_path, monkeypatch):
 @pytest.mark.parametrize("field,value", [
     ("model_parallel", 2), ("sequence_parallel", 2), ("pipeline_parallel", 2),
     ("zero1", True), ("augment", True)])
-def test_fit_refuses_unported_fields(field, value):
+def test_fit_refuses_unported_fields(field, value, tmp_path, monkeypatch):
     if field == "augment":
         # Ported (tests/test_torch_regularize.py); bounded stepping still
         # refuses it, as in the JAX package.
         with pytest.raises(ValueError, match="augment"):
             TrainConfig(dataset="mnist", q_chunk=16, augment=value)
+        return
+    if field == "zero1":
+        # Ported (tests/test_torch_data_parallel.py): in one process its one
+        # slice is the whole flat vector, and the run is the replicated
+        # optimizer's, bit for bit.
+        small_data(monkeypatch)
+        cfg = ViTConfig(**cfg_kw(pos_encoding="rope-axial"))
+        state = {}
+        for zero1 in (False, True):
+            ckpts = tmp_path / f"ckpts_{zero1}"
+            loop.fit(cfg, TrainConfig(dataset="mnist", batch_size=32,
+                                      epochs=1, synthetic_data=True,
+                                      log_dir=str(tmp_path / "logs"),
+                                      ckpt_dir=str(ckpts), zero1=zero1),
+                     verbose=False, device="cpu")
+            with np.load(ckpts / "mnist_rope-axial_last.npz") as z:
+                state[zero1] = {k: z[k] for k in z.files}
+        assert int(state[True]["__opt.0"]) == 3
+        for key in state[False]:
+            np.testing.assert_array_equal(state[True][key], state[False][key],
+                                          err_msg=key)
         return
     with pytest.raises(NotImplementedError, match=field):
         loop.fit(ViTConfig(**cfg_kw()),

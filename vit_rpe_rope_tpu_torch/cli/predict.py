@@ -22,8 +22,10 @@ absolute, rope, shared-coefficient polynomial) default to grid 8; pass
       --grid_size 14 --int8 --int8_mode w8a16 --export vit_s_w8a16.pt2
 
 Runs on the CUDA device; --device cpu runs on the CPU (an artifact serves
-on the device type it was exported on). Sharded export
-(--export_data_parallel > 1) is not ported yet and is refused.
+on the device type it was exported on). --export_data_parallel N exports a
+data-parallel artifact over N devices (serving.export_model(mesh=)): each
+batch is split into N equal shards, one per device; it needs N CUDA
+devices (or runs N "cpu" entries with --device cpu).
 """
 
 from __future__ import annotations
@@ -61,8 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "reference's (head, position) memory scramble — use "
                         "for reference-trained .pth")
     p.add_argument("--export_data_parallel", type=int, default=1,
-                   help="a sharded artifact over this many devices: not "
-                        "ported yet (refused when > 1)")
+                   help="export a data-parallel artifact: the batch split "
+                        "over this many devices; replay requires the same "
+                        "device count (serving.export_model mesh=)")
     p.add_argument("--int8", action="store_true",
                    help="post-training int8 quantization (quant.py); mode "
                         "per --int8_mode")
@@ -82,24 +85,26 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def reject_unported(parser: argparse.ArgumentParser, asked: dict) -> None:
-    """argparse error naming every {flag: was_asked_for} that is asked for:
-    those features are not ported yet and are never silently ignored."""
-    flags = [flag for flag, on in asked.items() if on]
-    if flags:
-        parser.error(f"{', '.join(flags)}: not ported to the PyTorch "
-                     f"package yet")
+def _export_mesh(n: int, device):
+    """The mesh of n devices for --export_data_parallel n: the first n CUDA
+    devices (n "cpu" entries on the CPU); exits, as the JAX CLI does, where
+    fewer are visible."""
+    from vit_rpe_rope_tpu_torch.parallel.mesh import local_devices, make_mesh
+    from vit_rpe_rope_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    devices = ([device] * n if device.type == "cpu"
+               else local_devices(device.type))
+    mesh = make_mesh(num_devices=n, devices=devices)
+    if mesh.size != n:
+        raise SystemExit(f"--export_data_parallel {n}: only {mesh.size} "
+                         f"devices visible")
+    return mesh
 
 
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.export_data_parallel > 1:
-        from vit_rpe_rope_tpu_torch.serving import MESH_ITEM
-
-        parser.error(f"--export_data_parallel {args.export_data_parallel}: "
-                     f"sharded artifacts are not ported to the PyTorch "
-                     f"package yet; see {MESH_ITEM}")
     if args.artifact is None and args.checkpoint is None:
         parser.error("need a checkpoint or --artifact")
     if args.artifact is not None and (args.checkpoint is not None
@@ -147,12 +152,18 @@ def main(argv=None):
                 params, cfg, mean, std, native, device=args.device,
                 int8=int8)
         if args.export:
+            mesh = None
+            if args.export_data_parallel > 1:
+                mesh = _export_mesh(args.export_data_parallel, args.device)
             exported = serving.export_model(params, cfg, mean, std, native,
-                                            int8=int8, device=args.device)
+                                            int8=int8, mesh=mesh,
+                                            device=args.device)
             path = serving.save_artifact(args.export, exported)
+            shard_note = (f", sharded over {mesh.size} devices"
+                          if mesh is not None else "")
             print(f"Exported {path} ({os.path.getsize(path):,} bytes, "
                   f"device {serving.artifact_device_type(exported)}, "
-                  f"symbolic batch)")
+                  f"symbolic batch{shard_note})")
 
     if not args.input:
         return None

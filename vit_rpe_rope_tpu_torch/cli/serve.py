@@ -14,7 +14,9 @@ Endpoints:
 Requests are served one at a time (a threading.Lock serializes device work;
 the ThreadingHTTPServer still overlaps request parsing and IO with compute).
 Runs on the CUDA device; --device cpu runs on the CPU (an artifact serves on
-the device type it was exported on).
+the device type it was exported on; a data-parallel artifact, from
+cli.predict --export_data_parallel N, splits each request's batch over N
+devices and needs them).
 """
 
 from __future__ import annotations

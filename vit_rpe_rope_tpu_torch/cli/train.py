@@ -16,15 +16,26 @@ softmax); --steps_per_dispatch k > 1 runs k steps per dispatch, one CUDA
 graph replay on the card (eagerly where the steps draw random numbers or
 under --debug_nans); --profile_dir writes a torch.profiler Chrome trace;
 --debug_nans raises FloatingPointError at the first NaN. The extensions
-this package does not port yet (parallel layers, ZeRO-1) are refused when
-set to a non-default value.
+this package does not port yet (tensor, context and pipeline parallelism)
+are refused when set to a non-default value.
+
+Data parallelism: launch one rank per device with torchrun, and each rank
+takes its share of every batch (the world size must divide --batch_size);
+--zero1 also shards the AdamW moments over the ranks:
+
+  python -m torch.distributed.run --nproc_per_node 2 \\
+      -m vit_rpe_rope_tpu_torch.cli.train --dataset cifar10 --synthetic \\
+      --epochs 1 --zero1
+
+The ranks talk over NCCL on CUDA (one rank per card) and over gloo with
+--device cpu; --dist_backend gloo lets several ranks share one card. Only
+rank 0 prints and writes the CSV and the checkpoints.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from vit_rpe_rope_tpu_torch.cli.predict import reject_unported
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -177,17 +188,35 @@ def build_parser() -> argparse.ArgumentParser:
     ext.add_argument("--device", type=str, default=None,
                      help="[extension] torch device (default: cuda; 'cpu' "
                           "runs on the CPU)")
+    ext.add_argument("--dist_backend", type=str, default=None,
+                     choices=["nccl", "gloo"],
+                     help="[extension] torch.distributed backend of the "
+                          "ranks under torchrun (default: nccl on CUDA, gloo "
+                          "on the CPU; gloo lets several ranks share one "
+                          "card)")
     return parser
+
+
+def reject_unported(parser: argparse.ArgumentParser, asked: dict) -> None:
+    """argparse error naming every {flag: (was_asked_for, ROADMAP Queue A
+    item)} that is asked for: those features are not ported yet and are
+    never silently ignored."""
+    flags = [(flag, item) for flag, (on, item) in asked.items() if on]
+    if flags:
+        parser.error(f"{', '.join(flag for flag, _ in flags)}: not ported "
+                     f"to the PyTorch package yet; see ROADMAP Queue A, "
+                     f"{', '.join(item for _, item in flags)}")
 
 
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     reject_unported(parser, {
-        "--model_parallel": args.model_parallel > 1,
-        "--sequence_parallel": args.sequence_parallel > 1,
-        "--pipeline_parallel": args.pipeline_parallel > 1,
-        "--zero1": args.zero1,
+        "--model_parallel": (args.model_parallel > 1, "tensor parallelism"),
+        "--sequence_parallel": (args.sequence_parallel > 1,
+                                "the context-parallel ring"),
+        "--pipeline_parallel": (args.pipeline_parallel > 1,
+                                "GPipe pipeline parallelism"),
     })
     regularised = [flag for flag, on in {
         "--drop_rate": args.drop_rate > 0,
@@ -198,6 +227,7 @@ def main(argv=None):
         parser.error(f"--q_chunk (bounded-program stepping) does not support "
                      f"{', '.join(regularised)}")
     from vit_rpe_rope_tpu_torch.configs import TrainConfig, ViTConfig
+    from vit_rpe_rope_tpu_torch.parallel import distributed
     from vit_rpe_rope_tpu_torch.train.loop import fit
 
     cfg = ViTConfig(
@@ -238,14 +268,24 @@ def main(argv=None):
         grad_accum=args.grad_accum,
         q_chunk=args.q_chunk,
         kv_chunk=args.kv_chunk,
+        zero1=args.zero1,
         steps_per_dispatch=args.steps_per_dispatch,
         profile_dir=args.profile_dir,
         debug_nans=args.debug_nans,
     )
-    summary = fit(cfg, tcfg, device=args.device)
-    print(f"\nDone. Best Test Acc: {summary['best_acc']:.2f}% | "
-          f"params: {summary['num_params']:,} | "
-          f"devices: {summary['num_devices']} | log: {summary['log_file']}")
+    # torchrun's environment: join its process group (a no-op without one)
+    joined = (not distributed.is_initialized()
+              and distributed.initialize(args.dist_backend, args.device))
+    try:
+        summary = fit(cfg, tcfg, device=args.device)
+    finally:
+        if joined:
+            distributed.finalize()
+    if summary["log_file"] is not None:  # rank 0, or the one process
+        print(f"\nDone. Best Test Acc: {summary['best_acc']:.2f}% | "
+              f"params: {summary['num_params']:,} | "
+              f"devices: {summary['num_devices']} | log: "
+              f"{summary['log_file']}")
     return summary
 
 

@@ -17,6 +17,15 @@ exported on (the kernels on CUDA, their plain twins on the CPU). Python
 checks evaluated while tracing (the `--debug_nans` sanitizer) are not in
 it: an artifact carries no sanitizer.
 
+Data-parallel serving (the JAX package's mesh= paths): over a mesh of
+local devices (parallel.mesh.make_mesh(num_devices=N)) a batch is padded
+with zero images to a multiple of the mesh's width, split into equal
+shards, one per device, each served by the forward on its device, and the
+logits are concatenated on the first device. A data-parallel artifact is
+the one-device program and the width it was exported for; loading it where
+fewer devices of its type are visible raises. On the CPU a mesh of N "cpu"
+entries runs the same padding and splitting.
+
 CLIs: `python -m vit_rpe_rope_tpu_torch.cli.predict` (classify / export /
 serve an artifact) and `python -m vit_rpe_rope_tpu_torch.cli.serve` (HTTP).
 """
@@ -30,15 +39,13 @@ import torch
 
 from vit_rpe_rope_tpu_torch.configs import ViTConfig
 from vit_rpe_rope_tpu_torch.models import vit
+from vit_rpe_rope_tpu_torch.parallel import mesh as mesh_mod
 from vit_rpe_rope_tpu_torch.train import train_step as ts
 from vit_rpe_rope_tpu_torch.utils.device import resolve_device
 
 ARTIFACT_SUFFIX = ".pt2"
 # The artifact's own description, stored beside the program in the archive.
 _META = "serving.json"
-# The multi-device exports and serving (export_model(mesh=),
-# --export_data_parallel) belong to the parallel layers.
-MESH_ITEM = "ROADMAP Queue A item 5 (the parallel layers)"
 
 
 def _is_quantized_state(params: dict) -> bool:
@@ -87,6 +94,42 @@ def _serving_params(params, cfg, int8, device) -> dict:
     return {k: v.detach().to(device) for k, v in params.items()}
 
 
+def _serving_devices(mesh, device):
+    """The devices a Predictor or an export serves on: the mesh's local
+    devices, or the one `device` (default: the CUDA device)."""
+    if mesh is None:
+        return [resolve_device(device)]
+    if mesh.distributed:
+        raise ValueError("data-parallel serving takes a mesh of local "
+                         "devices (make_mesh(num_devices=...)), not a "
+                         "process group's")
+    devices = [resolve_device(d) for d in mesh.devices]
+    if device is not None and resolve_device(device) != devices[0]:
+        raise ValueError(f"device {device} differs from the mesh's first "
+                         f"device {devices[0]}")
+    return devices
+
+
+def data_parallel_call(calls, devices):
+    """(uint8 batch on devices[0]) -> logits on devices[0]: the batch split
+    into len(devices) equal shards, shard i served by calls[i] on
+    devices[i], the logits concatenated in order (the JAX batch sharding
+    over 'data'). The batch must be a multiple of the width (Predictor
+    pads it)."""
+    n = len(devices)
+
+    def call(images_u8):
+        if images_u8.shape[0] % n:
+            raise ValueError(f"batch {images_u8.shape[0]} is not a multiple "
+                             f"of the {n}-way data axis")
+        shards = images_u8.chunk(n)
+        logits = [fn(x.to(d, non_blocking=True))
+                  for fn, x, d in zip(calls, shards, devices)]
+        return torch.cat([out.to(devices[0]) for out in logits])
+
+    return call
+
+
 class _Served(torch.nn.Module):
     """The serving pipeline as a module for torch.export: the params as
     buffers (dict keys hold '.' and ':', so they are numbered), forward =
@@ -112,24 +155,34 @@ def export_model(params, cfg: ViTConfig, mean, std, native_size: int,
     device), the params held as buffers of the exported module. batch=None
     exports a symbolic batch dimension (any batch >= 1); an int pins a
     static batch. int8 quantizes first where params are float32 (the
-    artifact then holds the int8 weights). mesh: sharded exports belong to
-    the parallel layers, not ported yet (raises)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"export_model(mesh=...): sharded exports are not ported; see "
-            f"{MESH_ITEM}")
-    device = resolve_device(device)
+    artifact then holds the int8 weights).
+
+    mesh: a mesh of local devices (parallel.mesh.make_mesh) for
+    data-parallel serving: the program is exported on its first device for
+    one shard of the batch (a static batch must be a multiple of the
+    width, and the program takes batch / width), and the width is recorded
+    (`data_parallel` on the returned program, kept by save_artifact), so
+    that Predictor.from_artifact splits every batch over as many devices."""
+    devices = _serving_devices(mesh, device)
+    width = len(devices)
+    if batch is not None and batch % width:
+        raise ValueError(f"static batch {batch} must divide the {width}-way "
+                         f"data axis")
+    device = devices[0]
     state = _serving_params(params, cfg, int8, device)
     module = _Served(state, make_infer_fn(cfg, mean, std, native_size,
                                           int8=int8))
-    example = torch.zeros((2 if batch is None else int(batch), native_size,
-                           native_size, cfg.in_chans), dtype=torch.uint8,
-                          device=device)
+    example = torch.zeros((2 if batch is None else int(batch) // width,
+                           native_size, native_size, cfg.in_chans),
+                          dtype=torch.uint8, device=device)
     dynamic = None
     if batch is None:
         dynamic = ({0: torch.export.Dim("batch", min=1)},)
     with torch.no_grad():
-        return torch.export.export(module, (example,), dynamic_shapes=dynamic)
+        exported = torch.export.export(module, (example,),
+                                       dynamic_shapes=dynamic)
+    exported.data_parallel = width
+    return exported
 
 
 def _artifact_input(exported):
@@ -148,23 +201,29 @@ def artifact_device_type(exported) -> str:
 
 def save_artifact(path: str, exported) -> str:
     """Write `exported` (export_model's) to `path` (ARTIFACT_SUFFIX added
-    where missing), with the device type and input shape it serves."""
+    where missing), with the device type and input shape it serves and its
+    data-parallel width."""
     if not path.endswith(ARTIFACT_SUFFIX):
         path = path + ARTIFACT_SUFFIX
     meta = {"device_type": artifact_device_type(exported),
-            "in_shape": [int(d) for d in _artifact_input(exported).shape[1:]]}
+            "in_shape": [int(d) for d in _artifact_input(exported).shape[1:]],
+            "data_parallel": getattr(exported, "data_parallel", 1)}
     torch.export.save(exported, path, extra_files={_META: json.dumps(meta)})
     return path
 
 
 def load_artifact(path: str):
-    """-> (ExportedProgram, meta {"device_type", "in_shape"})."""
+    """-> (ExportedProgram, meta {"device_type", "in_shape",
+    "data_parallel"})."""
     from vit_rpe_rope_tpu_torch.ops import flash_attention  # noqa: F401
     # (importing it registers the kernels' custom ops the graph calls)
 
     extra = {_META: ""}
     exported = torch.export.load(path, extra_files=extra)
-    return exported, json.loads(extra[_META])
+    meta = json.loads(extra[_META])
+    meta.setdefault("data_parallel", 1)  # artifacts written before it
+    exported.data_parallel = meta["data_parallel"]
+    return exported, meta
 
 
 def load_serving_state(checkpoint_path: str, dataset: str = "auto",
@@ -223,11 +282,12 @@ def load_serving_state(checkpoint_path: str, dataset: str = "auto",
 
 
 class Predictor:
-    """Serving wrapper on one device: `logits` and `predict` on uint8 image
-    batches (numpy in, numpy out) around `call_fn` (uint8 tensor on the
-    device -> logits tensor): a live forward (`from_params`) or a replayed
-    artifact (`from_artifact`, which needs no model code or params).
-    Ragged batches are padded with zero images up to a multiple of `pad_to`
+    """Serving wrapper: `logits` and `predict` on uint8 image batches (numpy
+    in, numpy out) around `call_fn` (uint8 tensor on `device` -> logits
+    tensor): a live forward (`from_params`) or a replayed artifact
+    (`from_artifact`, which needs no model code or params), on one device
+    or split over a mesh's devices (data_parallel_call). Ragged batches are
+    padded with zero images up to a multiple of `pad_to` (the mesh's width)
     and the padding's logits sliced off."""
 
     def __init__(self, call_fn, in_shape, pad_to: int = 1, device=None):
@@ -238,28 +298,61 @@ class Predictor:
 
     @classmethod
     def from_params(cls, params, cfg: ViTConfig, mean, std, native_size: int,
-                    device=None, int8=False):
+                    device=None, int8=False, mesh=None):
         """params: canonical flat dict (tensors or arrays), float32 or
         quantize_params output. device: where to serve (default: the CUDA
         device; raises when there is none). int8: the quant mode (True is
-        "w8a8"); float32 params are quantized first."""
-        device = resolve_device(device)
-        state = _serving_params(params, cfg, int8, device)
+        "w8a8"); float32 params are quantized first. mesh: a mesh of local
+        devices (parallel.mesh.make_mesh): the params on each of its
+        devices, every batch split over them (data_parallel_call)."""
+        devices = _serving_devices(mesh, device)
+        state = _serving_params(params, cfg, int8, devices[0])
+        states = [state] + [{k: v.to(d) for k, v in state.items()}
+                            for d in devices[1:]]
         infer = make_infer_fn(cfg, mean, std, native_size, int8=int8)
-        return cls(lambda images_u8: infer(state, images_u8),
-                   (native_size, native_size, cfg.in_chans), device=device)
+        calls = [lambda images_u8, st=st: infer(st, images_u8)
+                 for st in states]
+        in_shape = (native_size, native_size, cfg.in_chans)
+        if mesh is None:
+            return cls(calls[0], in_shape, device=devices[0])
+        return cls(data_parallel_call(calls, devices), in_shape,
+                   pad_to=len(devices), device=devices[0])
 
     @classmethod
     def from_artifact(cls, path: str, device=None):
         """A saved artifact on `device` (default: the CUDA device), which
-        must be of the device type it was exported on."""
+        must be of the device type it was exported on. A data-parallel
+        artifact of width n serves on the first n devices of that type (n
+        "cpu" entries on the CPU), each shard on its own copy of the
+        program, and raises where fewer devices are visible."""
         device = resolve_device(device)
         exported, meta = load_artifact(path)
         if meta["device_type"] != device.type:
             raise ValueError(
                 f"artifact {path} was exported for {meta['device_type']}; "
                 f"it cannot serve on {device.type}")
-        return cls(exported.module(), meta["in_shape"], device=device)
+        width = meta["data_parallel"]
+        if width == 1:
+            return cls(exported.module(), meta["in_shape"], device=device)
+        devices = (mesh_mod.local_devices("cuda") if device.type == "cuda"
+                   else [device] * width)
+        if len(devices) < width:
+            raise ValueError(f"artifact {path} was exported for {width} "
+                             f"devices; this process has {len(devices)}")
+        devices = devices[:width]
+        home = _artifact_input(exported).device
+        calls = [exported.module()]
+        for d in devices[1:]:
+            if d == home:
+                calls.append(calls[0])
+                continue
+            from torch.export.passes import move_to_device_pass
+
+            copy, _ = load_artifact(path)  # the pass moves it in place
+            calls.append(move_to_device_pass(
+                copy, {str(home): str(d)}).module())
+        return cls(data_parallel_call(calls, devices), meta["in_shape"],
+                   pad_to=width, device=devices[0])
 
     def forward(self, images_u8):
         """uint8 tensor [B, native, native, C] on the device -> logits

@@ -28,7 +28,7 @@ JAX package's train/bounded.py: one optimizer step as many short pieces.
   are written once in the compute dtype.
 
 The mesh / sequence-parallel composition of the JAX driver (the per-chunk
-KV ring) is not ported: ROADMAP.md Queue A item 5 (parallel layers).
+KV ring) is not ported: ROADMAP.md Queue A, the context-parallel ring.
 Dropout is refused, as the JAX driver refuses it.
 
 BOUNDED_SYNC_DEBUG=1: synchronize after every piece and print its tag (the
@@ -130,7 +130,7 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
         raise NotImplementedError(
             "bounded-program stepping over a device mesh (mesh= / "
             "seq_parallel= / force_ring=, the per-chunk KV ring) is not "
-            "ported: ROADMAP.md Queue A item 5 (parallel layers)")
+            "ported: ROADMAP.md Queue A, the context-parallel ring")
     pe_mod = pe_registry.get(cfg.pos_encoding)
     kind = pe_mod.KIND
     rope = kind == PE_KIND_QK_ROTATION

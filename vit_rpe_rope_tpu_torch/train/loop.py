@@ -1,5 +1,6 @@
-"""Host-side training loop on one device — the single-device branch of the
-JAX package's train/loop.py.
+"""Host-side training loop on one device, or on each rank of a process
+group (data parallelism, ZeRO-1) — the data-axis branch of the JAX
+package's train/loop.py.
 
 Observable behavior is the reference orchestrator's: a timestamped CSV
 {log_dir}/{dataset}_{pos_encoding}_{%Y%m%d_%H%M%S}.csv with header
@@ -38,6 +39,8 @@ import torch
 from vit_rpe_rope_tpu_torch.configs import TrainConfig, ViTConfig
 from vit_rpe_rope_tpu_torch.data import datasets
 from vit_rpe_rope_tpu_torch.models import vit
+from vit_rpe_rope_tpu_torch.parallel import distributed
+from vit_rpe_rope_tpu_torch.parallel.mesh import make_mesh
 from vit_rpe_rope_tpu_torch.train import train_step as ts
 from vit_rpe_rope_tpu_torch.train.bounded import make_bounded_step
 from vit_rpe_rope_tpu_torch.utils import checkpoint
@@ -49,20 +52,26 @@ POSTFIX_EVERY = 50  # progress refresh period in steps (forces a host sync)
 N_OPT_LEAVES = 4    # the JAX optimizer state's leaves on disk
 
 
-def _refuse_unported(tcfg: TrainConfig) -> None:
+def _refuse_unported(tcfg: TrainConfig, world: int) -> None:
     asked = {
-        "model_parallel > 1": tcfg.model_parallel > 1,
+        "model_parallel > 1": (tcfg.model_parallel > 1,
+                               "tensor parallelism"),
         # with q_chunk: the bounded driver's per-chunk KV ring
         ("sequence_parallel > 1 with q_chunk > 0" if tcfg.q_chunk > 0
-         else "sequence_parallel > 1"): tcfg.sequence_parallel > 1,
-        "pipeline_parallel > 1": tcfg.pipeline_parallel > 1,
-        "zero1": tcfg.zero1,
+         else "sequence_parallel > 1"): (tcfg.sequence_parallel > 1,
+                                         "the context-parallel ring"),
+        "pipeline_parallel > 1": (tcfg.pipeline_parallel > 1,
+                                  "GPipe pipeline parallelism"),
+        # the bounded driver's mesh paths (the JAX train/bounded.py:39-64)
+        f"q_chunk > 0 over {world} data ranks": (
+            tcfg.q_chunk > 0 and world > 1, "the context-parallel ring"),
     }
-    fields = [name for name, on in asked.items() if on]
+    fields = [(name, item) for name, (on, item) in asked.items() if on]
     if fields:
         raise NotImplementedError(
-            f"TrainConfig {', '.join(fields)}: not ported to the PyTorch "
-            f"package yet")
+            f"TrainConfig {', '.join(name for name, _ in fields)}: not "
+            f"ported to the PyTorch package yet; see ROADMAP Queue A, "
+            f"{', '.join(dict.fromkeys(item for _, item in fields))}")
 
 
 def moment_flattener(params: dict, cfg: ViTConfig) -> Flattener:
@@ -97,6 +106,40 @@ def opt_from_disk(leaves, flattener: Flattener, cfg: ViTConfig, device):
         return {k: v.to(device).clone() for k, v in out.items()}
 
     return tree(leaves[1]), tree(leaves[2]), int(np.asarray(leaves[0]))
+
+
+def zero1_opt_to_disk(opt_state, flattener: Flattener, mesh) -> list:
+    """ZeRO-1's (mu slice, nu slice, count) -> opt_to_disk's leaves. Every
+    rank takes part (the slices are gathered over the ranks); the padding
+    past the flat vector is cut off, which leaves the canonical vectors."""
+    mu, nu, count = opt_state
+    rank, world = ts._world(mesh)
+
+    def full(vec):
+        if world > 1:
+            vec = distributed.all_gather_slices(vec, rank, world)
+        return vec[:flattener.total].cpu()
+
+    count = np.asarray(count, np.int32)
+    return [count, full(mu), full(nu), count]
+
+
+def zero1_opt_from_disk(leaves, flattener: Flattener, mesh, device):
+    """Inverse of zero1_opt_to_disk: each rank keeps its own slice of the
+    stored vectors, zero-padded to shard · world."""
+    rank, world = ts._world(mesh)
+    shard = ts.zero1_shard_size(flattener.total, world)
+
+    def sliced(vec):
+        vec = torch.as_tensor(np.asarray(vec, np.float32))
+        if vec.shape != (flattener.total,):
+            raise ValueError(f"stored moment vector has shape "
+                             f"{tuple(vec.shape)}, expected "
+                             f"({flattener.total},)")
+        vec = torch.nn.functional.pad(vec, (0, shard * world - vec.numel()))
+        return vec[rank * shard:(rank + 1) * shard].to(device).clone()
+
+    return sliced(leaves[1]), sliced(leaves[2]), int(np.asarray(leaves[0]))
 
 
 def _progress(desc, done, total, stacked):
@@ -202,8 +245,20 @@ def fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool = True,
     (best_acc, log_file, ckpt_path, history, num_params, num_devices,
     capture_seconds: the k-step driver's CUDA-graph capture, else None).
     With tcfg.debug_nans the whole run is under the NaN sanitizer, which is
-    off again when fit returns or raises."""
-    _refuse_unported(tcfg)
+    off again when fit returns or raises.
+
+    Under a process group (parallel.distributed.initialize) every rank calls
+    fit, and the group is the data axis (parallel.mesh.make_mesh; the world
+    size must divide batch_size): each step splits its batch over the ranks
+    and sums its gradients over them (train_step.make_train_step(mesh=)),
+    rank 0's params are broadcast at the start and after a resume, and only
+    rank 0 prints and writes the CSV and the checkpoints (log_file and
+    ckpt_path are None on the other ranks). device None is the rank's
+    device. tcfg.zero1 shards the AdamW moments over the ranks
+    (train_step.make_zero1_adamw); `_last.npz` keeps the canonical flat
+    moments either way, so a run resumes with --zero1 on or off and at
+    another world size."""
+    _refuse_unported(tcfg, distributed.world_size())
     sanitizer = nan_check.debug_nans() if tcfg.debug_nans \
         else contextlib.nullcontext()
     with sanitizer:
@@ -211,7 +266,13 @@ def fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool = True,
 
 
 def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
+    mesh = (make_mesh(batch_size=tcfg.batch_size)
+            if distributed.is_initialized() else None)
+    if device is None and mesh is not None:
+        device = distributed.device()
     device = resolve_device(device)
+    lead = distributed.rank() == 0  # writes the files, prints the lines
+    verbose = verbose and lead
     if cfg.attn_drop_rate > 0 and cfg.seq_len > 2048:
         warnings.warn(
             "attn_drop_rate > 0 materializes the attention probabilities "
@@ -219,21 +280,23 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
             "the streaming attention is bypassed and each block allocates "
             "O(B*H*N^2) memory", stacklevel=2)
 
-    os.makedirs(tcfg.log_dir, exist_ok=True)
-    os.makedirs(tcfg.ckpt_dir, exist_ok=True)
     timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
-    log_file = f"{tcfg.log_dir}/{tcfg.dataset}_{cfg.pos_encoding}_{timestamp}.csv"
-    with open(log_file, "w", newline="") as f:
-        csv.writer(f).writerow(
-            ["epoch", "train_loss", "train_acc", "test_loss", "test_acc",
-             "best_acc"])
+    log_file = None
+    if lead:
+        os.makedirs(tcfg.log_dir, exist_ok=True)
+        os.makedirs(tcfg.ckpt_dir, exist_ok=True)
+        log_file = (f"{tcfg.log_dir}/{tcfg.dataset}_{cfg.pos_encoding}_"
+                    f"{timestamp}.csv")
+        with open(log_file, "w", newline="") as f:
+            csv.writer(f).writerow(
+                ["epoch", "train_loss", "train_acc", "test_loss", "test_acc",
+                 "best_acc"])
 
     bundle = datasets.get_dataset(
         tcfg.dataset, tcfg.data_dir, tcfg.synthetic_data, tcfg.seed)
-    train_x = torch.from_numpy(bundle.train_x).to(device)
-    train_y = torch.from_numpy(bundle.train_y).to(device)
-    test_x = torch.from_numpy(bundle.test_x).to(device)
-    test_y = torch.from_numpy(bundle.test_y).to(device)
+    train_x, train_y, test_x, test_y = (
+        distributed.stage_per_host(a, device) for a in
+        (bundle.train_x, bundle.train_y, bundle.test_x, bundle.test_y))
 
     # Index ROWS per epoch (one row = one batch of batch_size examples);
     # grad_accum > 1 folds `accum` consecutive rows into one optimizer step.
@@ -246,7 +309,8 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
 
     params = vit.init_params(torch.Generator().manual_seed(tcfg.seed), cfg,
                              device=device)
-    opt_init, opt_update = ts.make_optimizer(tcfg, steps_per_epoch, params)
+    opt_init, opt_update = ts.make_optimizer(tcfg, steps_per_epoch, params,
+                                             cfg=cfg, mesh=mesh)
     opt_state = opt_init(params)
     flattener = moment_flattener(params, cfg)
 
@@ -261,10 +325,14 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
                 f" that differ from this model's")
         params = {k: loaded[k].to(device=device, dtype=torch.float32)
                   for k in params}
-        opt_state = opt_from_disk(leaves, flattener, cfg, device)
+        opt_state = (
+            zero1_opt_from_disk(leaves, flattener, mesh, device)
+            if tcfg.zero1 else opt_from_disk(leaves, flattener, cfg, device))
         if verbose:
             print(f"Resumed from {last_path} at epoch {start_epoch} "
                   f"(best {best_acc:.2f}%)")
+    if mesh is not None:  # every rank starts from rank 0's params
+        distributed.broadcast_params(params)
     for v in params.values():
         v.requires_grad_(True)
 
@@ -279,11 +347,12 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
         if k > 1:
             train_fn = ts.make_train_multi_step(
                 cfg, opt_update, preprocess, k, accum=accum, seed=tcfg.seed,
-                feed="ordered")
+                feed="ordered", mesh=mesh)
         else:
             train_fn = ts.make_train_step(cfg, opt_update, preprocess,
-                                          accum=accum, seed=tcfg.seed)
-        eval_fn = ts.make_eval_step(cfg, preprocess)
+                                          accum=accum, seed=tcfg.seed,
+                                          mesh=mesh)
+        eval_fn = ts.make_eval_step(cfg, preprocess, mesh=mesh)
     eval_idx = ts.epoch_indices(len(bundle.test_y), tcfg.batch_size,
                                 False).to(device)
 
@@ -310,22 +379,30 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
                 eval_fn, (params, None), test_x, test_y, eval_idx,
                 "Testing", False, verbose=verbose)
 
-            host_params = {k: v.detach().cpu() for k, v in params.items()}
-            if test_acc > best_acc:
+            host_params = ({k: v.detach().cpu() for k, v in params.items()}
+                           if lead else None)
+            if test_acc > best_acc:  # the same on every rank
                 best_acc = test_acc
-                ckpt_path = checkpoint.save(
-                    f"{tcfg.ckpt_dir}/{tcfg.dataset}_{cfg.pos_encoding}"
-                    f"_best.npz", host_params, vit.buffers(cfg),
-                    aliases=vit.reference_alias_keys(cfg))
+                if lead:
+                    ckpt_path = checkpoint.save(
+                        f"{tcfg.ckpt_dir}/{tcfg.dataset}_{cfg.pos_encoding}"
+                        f"_best.npz", host_params, vit.buffers(cfg),
+                        aliases=vit.reference_alias_keys(cfg))
             if tcfg.save_last:
-                checkpoint.save_train_state(
-                    last_path, host_params,
-                    opt_to_disk(opt_state, flattener, cfg), epoch, best_acc)
+                if tcfg.zero1:  # every rank sends its slices
+                    opt_leaves = zero1_opt_to_disk(opt_state, flattener,
+                                                   mesh)
+                elif lead:
+                    opt_leaves = opt_to_disk(opt_state, flattener, cfg)
+                if lead:
+                    checkpoint.save_train_state(last_path, host_params,
+                                                opt_leaves, epoch, best_acc)
 
-            with open(log_file, "a", newline="") as f:
-                csv.writer(f).writerow(
-                    [epoch + 1, train_loss, train_acc, test_loss, test_acc,
-                     best_acc])
+            if lead:
+                with open(log_file, "a", newline="") as f:
+                    csv.writer(f).writerow(
+                        [epoch + 1, train_loss, train_acc, test_loss,
+                         test_acc, best_acc])
             history.append(
                 dict(epoch=epoch + 1, train_loss=train_loss,
                      train_acc=train_acc, test_loss=test_loss,
@@ -340,5 +417,6 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
 
     return dict(best_acc=best_acc, log_file=log_file, ckpt_path=ckpt_path,
                 history=history, num_params=vit.num_params(params),
-                num_devices=1, capture_seconds=getattr(
+                num_devices=mesh.size if mesh is not None else 1,
+                capture_seconds=getattr(
                     train_fn, "capture_seconds", None))

@@ -51,14 +51,110 @@ from vit_rpe_rope_tpu_torch.configs import TrainConfig, ViTConfig, cosine_lr_by_
 from vit_rpe_rope_tpu_torch.models import vit
 from vit_rpe_rope_tpu_torch.ops import launches
 from vit_rpe_rope_tpu_torch.ops.fused_adamw import hyper_rows, make_fused_adamw
+from vit_rpe_rope_tpu_torch.parallel import distributed
 from vit_rpe_rope_tpu_torch.utils import nan_check
+from vit_rpe_rope_tpu_torch.utils.flatten import Flattener
 
 
-def make_optimizer(tcfg: TrainConfig, steps_per_epoch: int, template: dict):
-    """(init, update) of the fused AdamW over the params dict `template`."""
+def make_optimizer(tcfg: TrainConfig, steps_per_epoch: int, template: dict,
+                   cfg: ViTConfig | None = None, mesh=None):
+    """(init, update) of the fused AdamW over the params dict `template`;
+    with tcfg.zero1, its ZeRO-1 form over `mesh`'s ranks (make_zero1_adamw;
+    cfg fixes the flat layout)."""
     schedule = cosine_lr_by_epoch(tcfg.lr, tcfg.epochs, steps_per_epoch)
-    return make_fused_adamw(template, schedule, b1=0.9, b2=0.999, eps=1e-8,
-                            weight_decay=tcfg.weight_decay)
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=tcfg.weight_decay)
+    if tcfg.zero1:
+        return make_zero1_adamw(template, cfg, schedule, mesh=mesh, **hyper)
+    return make_fused_adamw(template, schedule, **hyper)
+
+
+def zero1_shard_size(total: int, n_data: int) -> int:
+    """Per-rank length of the padded flat vector under ZeRO-1."""
+    return -(-total // n_data)
+
+
+def _world(mesh) -> tuple:
+    """(rank, world) of a process group's mesh; (0, 1) otherwise."""
+    if mesh is None or not mesh.distributed:
+        return 0, 1
+    return mesh.rank, mesh.size
+
+
+def init_zero1_opt_state(flattener: Flattener, mesh, device):
+    """ZeRO-1's optimizer state on this rank: (mu, nu, count) with mu and nu
+    zeros for this rank's slice [r·shard, (r+1)·shard) of the flat vector
+    (flattener's layout, zero-padded to shard·world), count 0."""
+    shard = zero1_shard_size(flattener.total, _world(mesh)[1])
+    return (torch.zeros(shard, device=device),
+            torch.zeros(shard, device=device), 0)
+
+
+def make_zero1_adamw(template: dict, cfg: ViTConfig, schedule, mesh=None,
+                     b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01):
+    """ZeRO stage 1 over a process group's ranks (the JAX
+    make_flat_train_multi_step(zero1=True)): make_fused_adamw's contract
+    (init, update, update.hyper, update.from_table) with the moments sharded.
+
+    Each rank holds mu and nu for its slice of the flat vector of
+    flat_layout(template, cfg), zero-padded to shard·world
+    (init_zero1_opt_state). An update takes the step's (summed) gradients,
+    slices its gradient and parameter slice, runs the AdamW kernel (row 11,
+    ops/fused_adamw) over that slice as a one-leaf template, gathers the
+    updated slices back into the full parameter vector
+    (parallel.distributed.all_gather_slices, an exact all_reduce) and
+    copies it into the params. The count and the schedule stay replicated.
+    The update is elementwise, so the params are those of the replicated
+    optimizer on the same gradients. Without a process group (mesh None) it
+    is the one-device run: one slice, no collective."""
+    layout = flat_layout(template, cfg)
+    _, inner = make_fused_adamw({"flat": None}, schedule, b1=b1, b2=b2,
+                                eps=eps, weight_decay=weight_decay)
+    slices = {}  # this rank's parameter slice per device, kept for the
+    #              AdamW kernel's device table (one set of storages)
+
+    def init(params):
+        device = next(iter(params.values())).device
+        return init_zero1_opt_state(layout, mesh, device)
+
+    def sliced(grads, state, params):
+        rank, world = _world(mesh)
+        shard = zero1_shard_size(layout.total, world)
+        pad = shard * world - layout.total
+        lo = rank * shard
+        g = F.pad(layout.flatten(grads), (0, pad))[lo:lo + shard]
+        p_full = F.pad(layout.flatten(params), (0, pad))
+        if p_full.device not in slices:
+            slices[p_full.device] = torch.empty(shard, device=p_full.device)
+        p = slices[p_full.device]
+        p.copy_(p_full[lo:lo + shard])
+        mu, nu, count = state
+        return {"flat": g}, ({"flat": mu}, {"flat": nu}, count), {"flat": p}
+
+    def gather(p, params, world):
+        full = p if world == 1 else distributed.all_gather_slices(
+            p, mesh.rank, world)
+        views = layout.unflatten(full[:layout.total])
+        keys = list(params)
+        torch._foreach_copy_([params[k].detach() for k in keys],
+                             [views[k] for k in keys])
+
+    def update(grads, state, params):
+        with torch.no_grad():
+            g, inner_state, p = sliced(grads, state, params)
+            _, (mu, nu, count) = inner(g, inner_state, p)
+            gather(p["flat"], params, _world(mesh)[1])
+        return params, (mu["flat"], nu["flat"], count)
+
+    def from_table(grads, state, params, row):
+        with torch.no_grad():
+            g, inner_state, p = sliced(grads, state, params)
+            inner.from_table(g, inner_state, p, row)
+            gather(p["flat"], params, _world(mesh)[1])
+        return params, state
+
+    update.hyper = inner.hyper
+    update.from_table = from_table
+    return init, update
 
 
 def make_preprocess(cfg: ViTConfig, mean, std, native_size: int,
@@ -66,33 +162,29 @@ def make_preprocess(cfg: ViTConfig, mean, std, native_size: int,
     """uint8 [B, h, w, C] -> normalized float32 [B, img, img, C], for images
     at the dataset's native size or already at the model's size.
 
-    Upsampling is bilinear with half-pixel centers (align_corners=False),
-    which is what jax.image.resize(..., "bilinear") computes when it
-    enlarges. Shrinking is refused: jax.image.resize antialiases when it
-    shrinks, and that filter is not ported.
+    The resize is what jax.image.resize(..., "bilinear") computes: bilinear
+    with half-pixel centers (align_corners=False), its triangle filter
+    widened by the scale when it shrinks (antialias=True). When it enlarges
+    the filter is plain bilinear interpolation, which the call without
+    antialiasing computes in fewer roundings (antialias=True differs there
+    by up to ~1e-6, enough to flip bf16 roundings in the kernels).
 
     augment=True adds a random horizontal flip and a 4px pad-and-crop after
     the resize, drawn from the generator that preprocess(images, generator)
     is given (train steps; without one, as in evaluation, nothing is
     drawn). Off by default: the reference trains without augmentation."""
-    def refuse_downsampling(size):
-        if cfg.img_size < size:
-            raise NotImplementedError(
-                f"img_size {cfg.img_size} < image size {size}: "
-                f"antialiased downsampling is not ported")
-
-    refuse_downsampling(native_size)
+    del native_size  # the resize follows each batch's own size
     mean = torch.as_tensor(mean, dtype=torch.float32)
     std = torch.as_tensor(std, dtype=torch.float32)
     on_device = {}  # (mean, std) per device: no host copy inside a step
 
     def preprocess(images_u8, generator=None):
-        refuse_downsampling(images_u8.shape[1])
         x = images_u8.float() / 255.0
         if images_u8.shape[1] != cfg.img_size:
             x = F.interpolate(x.permute(0, 3, 1, 2),
                               size=(cfg.img_size, cfg.img_size),
-                              mode="bilinear", align_corners=False)
+                              mode="bilinear", align_corners=False,
+                              antialias=images_u8.shape[1] > cfg.img_size)
             x = x.permute(0, 2, 3, 1)
         if augment and generator is not None:
             x = augment_apply(x, *augment_draws(generator, x.shape[0]))
@@ -135,14 +227,52 @@ def augment_apply(x, flip, oy, ox, pad: int = AUGMENT_PAD):
     return xp[batch, rows[:, :, None], cols[:, None, :]]
 
 
-def step_generators(seed: int, epoch: int, row: int, device):
+def step_generators(seed: int, epoch: int, row: int, device, rank: int = 0):
     """(augmentation generator, dropout generator) of one train row on
     `device`, seeded from (seed, epoch, row): the same row of the same
-    epoch draws the same, other rows and epochs draw otherwise."""
-    seeds = np.random.SeedSequence([seed, epoch, row]).generate_state(
-        2, dtype=np.uint64)
+    epoch draws the same, other rows and epochs draw otherwise. A data rank
+    r > 0 folds r into the seed (the JAX step folds its axis_index), so
+    each rank draws for its own columns; rank 0 draws as one device does."""
+    entropy = [seed, epoch, row] + ([rank] if rank else [])
+    seeds = np.random.SeedSequence(entropy).generate_state(2, dtype=np.uint64)
     return tuple(torch.Generator(device=device).manual_seed(
         int(s) & ((1 << 63) - 1)) for s in seeds)
+
+
+def _columns(mesh, batch: int):
+    """This data rank's columns of a batch of `batch`: [r·b, (r+1)·b) with
+    b = batch / world (the JAX P(None, DATA_AXIS)); all of them without a
+    process group."""
+    if mesh is None or not mesh.distributed:
+        return slice(None)
+    b = batch // mesh.size
+    return slice(mesh.rank * b, (mesh.rank + 1) * b)
+
+
+def _real_count(rows):
+    """The real examples (index >= 0) of whole index rows, as float32: the
+    global count, which every rank can read from the rows it holds (the
+    JAX step psums its shards' masks)."""
+    return (rows >= 0).sum().float()
+
+
+_LAYOUTS: dict = {}
+
+
+def flat_layout(params: dict, cfg: ViTConfig) -> Flattener:
+    """A Flattener over the reference-keyed params whose flat vector is the
+    one of the optimizer moments on disk (train/loop.moment_flattener, the
+    JAX package's flat vector of its depth-stacked params): the non-block
+    keys sorted (JAX rebuilds dicts with sorted keys), then each block
+    parameter over the depth. The gradient all-reduce and ZeRO-1's slices
+    use it; cached per key set and shapes."""
+    key = (cfg.depth, *((k, tuple(v.shape)) for k, v in params.items()))
+    if key not in _LAYOUTS:
+        order = sorted(k for k in params if not k.startswith("blocks."))
+        order += [f"blocks.{i}.{name}" for name in vit.BLOCK_PARAM_NAMES
+                  for i in range(cfg.depth)]
+        _LAYOUTS[key] = Flattener({k: params[k] for k in order})
+    return _LAYOUTS[key]
 
 
 def _gather_batch(data_x, data_y, idx):
@@ -211,55 +341,96 @@ def _loss_and_metrics(params, imgs, labels, mask, cfg, preprocess,
     return loss_sum, correct
 
 
-def _grads_and_metrics(params, cfg, preprocess, batches):
+def _grads_and_metrics(params, cfg, preprocess, batches, count=None,
+                       reduce: bool = False):
     """One optimizer step's gradients over its rows. batches: one (imgs,
     labels, mask, generators) per row (generators: the row's pair of
-    step_generators, or None where the step draws nothing). One row: the
-    gradient of the batch-mean loss; more: raw gradients of the per-row
-    loss sums, summed and divided by the total real-example count, which
-    equals one step on the concatenated batch. Returns (grads dict,
-    metrics [loss, correct, count])."""
+    step_generators, or None where the step draws nothing); count: the
+    real-example count of the step's whole rows (None: the masks' sum). One
+    row: the gradient of the loss sum divided by the count (the batch-mean
+    loss); more: raw gradients of the per-row loss sums, summed and divided
+    by the count, which equals one step on the concatenated batch.
+
+    reduce: one data rank of a process group (the JAX _dp_step): batches
+    hold this rank's columns and count is the global count. The gradients,
+    the loss (share or sum) and the correct count go into ONE flat vector
+    (flat_layout's order, then the two metrics), summed over the ranks by
+    one all_reduce before the division: the full batch's step. Returns
+    (grads dict, metrics [loss, correct, count])."""
     keys = list(params.values())
+    if count is None:
+        count = sum(mask.sum() for _, _, mask, _ in batches)
+    safe_count = count.clamp(min=1.0)
     if len(batches) == 1:
         imgs, labels, mask, gens = batches[0]
         loss_sum, correct = _loss_and_metrics(params, imgs, labels, mask, cfg,
                                               preprocess, generators=gens)
-        count = mask.sum()
-        loss = loss_sum / count.clamp(min=1.0)
-        grads = torch.autograd.grad(loss, keys)
+        loss = loss_sum / safe_count
+        grads = list(torch.autograd.grad(loss, keys))
+        loss = loss.detach()
     else:
-        grads, loss_sum, correct, count = None, 0.0, 0.0, 0.0
+        grads, loss, correct = None, 0.0, 0.0
         for imgs, labels, mask, gens in batches:
             ls, cor = _loss_and_metrics(params, imgs, labels, mask, cfg,
                                         preprocess, generators=gens)
             g = torch.autograd.grad(ls, keys)
             grads = g if grads is None else [x + y for x, y in zip(grads, g)]
-            loss_sum = loss_sum + ls.detach()
+            loss = loss + ls.detach()
             correct = correct + cor
-            count = count + mask.sum()
-        safe_count = count.clamp(min=1.0)
+    if reduce:
+        layout = flat_layout(params, cfg)
+        by_key = dict(zip(params, grads))
+        flat = torch.cat([by_key[k].reshape(-1) for k in layout.keys]
+                         + [torch.stack([loss, correct])])
+        distributed.all_reduce_sum(flat)
+        loss, correct = flat[layout.total], flat[layout.total + 1]
+        if len(batches) > 1:
+            flat[:layout.total].div_(safe_count)
+        views = layout.unflatten(flat[:layout.total])
+        grads = [views[k] for k in params]
+    elif len(batches) > 1:
         grads = [g / safe_count for g in grads]
-        loss = loss_sum / safe_count
+    if len(batches) > 1:
+        loss = loss / safe_count
     return (dict(zip(params, grads)),
-            torch.stack([loss.detach(), correct, count]))
+            torch.stack([loss, correct, count]))
+
+
+def _step_batches(data_x, data_y, epoch_idx, rows, mesh, generators):
+    """The (imgs, labels, mask, generators) of each index row in `rows`,
+    this rank's columns only (_columns), gathered by index."""
+    cols = _columns(mesh, epoch_idx.shape[1])
+    return [(*_gather_batch(data_x, data_y, epoch_idx[r][cols]),
+             generators(r)) for r in rows]
 
 
 def make_train_step(cfg: ViTConfig, update, preprocess, accum: int = 1,
-                    seed: int = 0):
+                    seed: int = 0, mesh=None):
     """Returns train_step(params, opt_state, row, data_x, data_y, epoch_idx,
     epoch=0) -> (params, opt_state, metrics [loss, correct, count]) for the
     optimizer `update` of make_optimizer. Row `row` of the [steps, batch]
     index matrix is the batch; accum > 1 consumes rows row..row+accum-1 as
     one optimizer step (_grads_and_metrics). Each row draws its augmentation
     and dropout from step_generators(seed, epoch, row). Params are leaf
-    tensors that require grad; update changes them in place."""
+    tensors that require grad; update changes them in place.
+
+    mesh: a process group's mesh (parallel.mesh.make_mesh): each rank takes
+    its columns of the rows, and the step's gradients and metrics are summed
+    over the ranks by one all_reduce (_grads_and_metrics(reduce=True));
+    every rank then applies the same update. None: one device, no
+    collective."""
+    dp = mesh is not None and mesh.distributed
 
     def train_step(params, opt_state, row, data_x, data_y, epoch_idx,
                    epoch=0):
-        batches = [(*_gather_batch(data_x, data_y, epoch_idx[row + a]),
-                    step_generators(seed, epoch, row + a, data_x.device))
-                   for a in range(accum)]
-        grads, metrics = _grads_and_metrics(params, cfg, preprocess, batches)
+        rank = mesh.rank if dp else 0
+        rows = range(row, row + accum)
+        batches = _step_batches(
+            data_x, data_y, epoch_idx, rows, mesh,
+            lambda r: step_generators(seed, epoch, r, data_x.device, rank))
+        count = _real_count(epoch_idx[row:row + accum]) if dp else None
+        grads, metrics = _grads_and_metrics(params, cfg, preprocess, batches,
+                                            count, reduce=dp)
         params, opt_state = update(grads, opt_state, params)
         return params, opt_state, metrics
 
@@ -268,7 +439,7 @@ def make_train_step(cfg: ViTConfig, update, preprocess, accum: int = 1,
 
 def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
                           accum: int = 1, seed: int = 0,
-                          feed: str = "ordered"):
+                          feed: str = "ordered", mesh=None):
     """k optimizer steps per call: fn(params, opt_state, row, data_x,
     data_y, epoch_idx, epoch=0) -> (params, opt_state, metrics [k, 3]),
     each step taking `accum` index rows (rows row .. row + k·accum - 1;
@@ -296,8 +467,15 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
     (dropout, drop-path, augmentation: the per-row generators of
     step_generators cannot be captured) or the NaN sanitizer is on (it
     reads values on the host); the first eager call on CUDA says so on
-    stdout."""
+    stdout.
+
+    mesh: a process group's mesh, as make_train_step's: each step takes this
+    rank's columns of its rows and sums its gradients over the ranks. Then
+    the k steps run eagerly on every device (gloo's collectives cannot be
+    captured in a CUDA graph, and a multi-rank NCCL capture has not been
+    verified), which the first call says on stdout."""
     fetch = _make_fetch(feed)
+    dp = mesh is not None and mesh.distributed
     stride = k * accum
     draws = cfg.has_dropout or getattr(preprocess, "augment", False)
     live_rows = {"idx": None, "rows": None}  # host copy, once per epoch
@@ -324,13 +502,18 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
     def steps(params, opt_state, x, y, idx, step_update, gens=None, n=k):
         """n steps on staged rows; step_update(j, grads, state, params)."""
         metrics = []
+        cols = _columns(mesh, idx.shape[1])
         for j in range(n):
             batches = []
             for a in range(accum):
                 r = j * accum + a
-                batches.append((*_fetch_batch_ordered(x, y, idx[r], r),
+                imgs, labels, mask = _fetch_batch_ordered(x, y, idx[r], r)
+                batches.append((imgs[cols], labels[cols], mask[cols],
                                 gens(r) if gens else None))
-            grads, m = _grads_and_metrics(params, cfg, preprocess, batches)
+            count = (_real_count(idx[j * accum:(j + 1) * accum]) if dp
+                     else None)
+            grads, m = _grads_and_metrics(params, cfg, preprocess, batches,
+                                          count, reduce=dp)
             params, opt_state = step_update(j, grads, opt_state, params)
             metrics.append(m)
         return params, opt_state, torch.stack(metrics)
@@ -340,8 +523,10 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
         is_live = live(epoch_idx, row)
         gens = None
         if draws:
+            rank = mesh.rank if dp else 0
+
             def gens(r):
-                return step_generators(seed, epoch, row + r, x.device)
+                return step_generators(seed, epoch, row + r, x.device, rank)
 
         def step_update(j, grads, state, p):
             return update(grads, state, p) if is_live[j] else (p, state)
@@ -407,10 +592,12 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
         if data_x.device.type == "cpu":
             return eager(params, opt_state, row, data_x, data_y, epoch_idx,
                          epoch)
-        if draws or nan_check.ACTIVE:
+        if dp or draws or nan_check.ACTIVE:
             if not told:
                 told.append(True)
-                why = ("the train steps draw random numbers (dropout, "
+                why = ("the steps sum their gradients over a process group "
+                       "(data parallelism)" if dp else
+                       "the train steps draw random numbers (dropout, "
                        "drop-path or augmentation)" if draws else
                        "the NaN sanitizer reads values on the host")
                 print(f"steps_per_dispatch {k}: {why}, so the {k} steps of "
@@ -423,17 +610,28 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
     return fn
 
 
-def make_eval_step(cfg: ViTConfig, preprocess):
+def make_eval_step(cfg: ViTConfig, preprocess, mesh=None):
     """Returns eval_step(params, row, data_x, data_y, epoch_idx) -> metrics
     [loss, correct, count] of that index row (a fully padded row reports
-    count 0 and loss 0)."""
+    count 0 and loss 0). mesh: a process group's mesh: each rank evaluates
+    its columns and the loss and correct sums are summed over the ranks
+    (one all_reduce; the count is the whole row's), as the JAX eval step
+    psums them."""
+    dp = mesh is not None and mesh.distributed
 
     def eval_step(params, row, data_x, data_y, epoch_idx):
         with torch.no_grad():
-            imgs, labels, mask = _gather_batch(data_x, data_y, epoch_idx[row])
+            cols = _columns(mesh, epoch_idx.shape[1])
+            imgs, labels, mask = _gather_batch(data_x, data_y,
+                                               epoch_idx[row][cols])
             loss_sum, correct = _loss_and_metrics(params, imgs, labels, mask,
                                                   cfg, preprocess)
-            count = mask.sum()
+            if dp:
+                count = _real_count(epoch_idx[row])
+                loss_sum, correct = distributed.all_reduce_sum(
+                    torch.stack([loss_sum, correct]))
+            else:
+                count = mask.sum()
             return torch.stack([loss_sum / count.clamp(min=1.0), correct,
                                 count])
 
