@@ -84,11 +84,11 @@ exits nonzero without a card, or when any phase fails. Phases:
    dk/dv launched); direct calls of the separate-pass backward with a
    generated bias (the dcoeff and dtable kernels) against the one-pass
    kernel's parameter gradients; then through the train CLI for one epoch
-   of synthetic CIFAR-10 the long-sequence model in rope-mixed, in relative
-   and in rope-axial (the last two through the one-pass backward;
-   rope-axial must learn, relative stays at chance on this task on either
-   path) and ViT-S/16@384 (at depth 3), counting every kernel's launches,
-   the best checkpoint served by the Predictor;
+   of synthetic CIFAR-10 the long-sequence model at depth 1 in rope-mixed,
+   in relative and in rope-axial (the last two through the one-pass
+   backward; rope-axial must learn, relative stays at chance on this task
+   on either path) and ViT-S/16@384 (at depth 1), counting every kernel's
+   launches, the best checkpoint served by the Predictor;
 14. times: each streaming kernel (the forward's wrapper by CUDA events,
    its kernel and prologue and the backward kernels by the profiler's
    device time), its twin, its bound and SDPA as the yardstick (its
@@ -204,15 +204,36 @@ exits nonzero without a card, or when any phase fails. Phases:
    the same epoch on two ranks that share the card over gloo
    (--dist_backend gloo), each a process of its own, plain and with
    --zero1: the ranks' final params bit-equal, ZeRO-1's equal to plain
-   data parallelism's, rank 0's CSV row within DP_ROW_TOL / DP_ACC_TOL of
-   the one-rank row, one CSV, each rank's launches of rows 1, 2 and 11 (the
-   attention at the half batch of 64, AdamW once a step); (c) the epoch
+   data parallelism's, rank 0's first DP_EARLY_STEPS step losses within
+   DP_STEP_TOL of the one-rank run's and its row past the learning bar,
+   one CSV, each rank's launches of rows 1, 2 and 11 (the attention at the
+   half batch of 64, AdamW once a step); (c) the epoch
    with --img_size 16 on the 32 px images (the antialiased resize), exact
    launches, the learning bar, the best checkpoint served to its CSV
    accuracy, make_preprocess on the card against the CPU; (d) the
    Predictor over make_mesh(num_devices=1) bit-equal to the one-device
    Predictor, and --export_data_parallel 2 through the predict CLI exiting
    with "only 1 devices visible" on a one-card machine.
+21. tensor parallelism: (a) the same epoch on two gloo ranks that share
+   the card with --model_parallel 2 (each rank 3 of the 6 heads and half
+   of the MLP rows; Megatron's f and g all-reduced over gloo): the
+   replicated params bit-equal on both ranks, rank 0's first
+   DP_EARLY_STEPS step losses within DP_STEP_TOL of the one-rank run's
+   (phase 20a), its row past the learning bar, one CSV, each rank's
+   launches of rows 1, 2 and 11 (the attention at 3 heads in training, at
+   6 in evaluation on the params gathered back), each rank's step time
+   beside one rank's; (b) the relative epoch on TP_B_TRAIN examples on
+   four gloo ranks, data 2 x model 2, with --zero1 (the bias sliced to a
+   rank's heads; ZeRO-1 over each model shard's flat vector): the
+   replicated params bit-equal on all four, each shard equal on its two
+   data ranks, the early step losses against a one-rank epoch of the same
+   data in this process, the launches at batch 64; (c) the long-sequence
+   model (N = 4,097, 4 heads, batch 4) in rope-mixed and relative on the
+   same four ranks in the same launch, TP_STREAM_TRAIN examples: the
+   streaming route at 2 heads a rank (model rank 1's per-head rope tables
+   and relative table at a non-zero offset) through rows 3, 5, 6 and 7
+   and their prologues, evaluation at 4 heads on the gathered params, held
+   as (b) to a one-rank epoch of the same data.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -223,6 +244,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import glob
 import importlib.util
 import io
 import json
@@ -4291,24 +4313,28 @@ DOWNSAMPLE_TOL = 1e-6    # make_preprocess 32 -> 16 px, card vs CPU
 DP_WORKER_TIMEOUT = 300  # seconds for one two-rank launch
 CSV_FIELDS = ("train_loss", "train_acc", "test_loss", "test_acc")
 
-# One rank of phase 20b, in a process of its own: the train CLI under
-# torchrun's environment (set by the caller) once per run of the JSON
-# payload {label: [port, argv]}, each in {out}/{label} with the launch
-# counts reset before it; each run's final params, launch counts, per-step
-# losses and the batch sizes the attention wrappers saw go to
-# {out}/{label}/rank{RANK}.npz / .json.
+# One rank of phases 20b and 21, in a process of its own: the train CLI
+# under torchrun's environment (set by the caller) once per run of the JSON
+# payload {label: [port, argv, n_train]}, each in {out}/{label} with the
+# launch counts reset before it (n_train: the synthetic set cut to n_train
+# / n_train // 5 examples, or null for the whole set); each run's final
+# params (the rank's shard under tensor parallelism), launch counts,
+# per-step losses and the batch sizes and head counts the attention
+# wrappers saw (the dense ones, and the streaming ones where they ran) go
+# to {out}/{label}/rank{RANK}.npz / .json.
 DP_RANK = r"""
 import json, os, sys, time
 import numpy as np
 import torch
 from vit_rpe_rope_tpu_torch.cli import train as train_cli
+from vit_rpe_rope_tpu_torch.data import datasets
 from vit_rpe_rope_tpu_torch.ops import flash_attention as fa, fused_adamw
 from vit_rpe_rope_tpu_torch.train import train_step as ts
 
 out, runs = sys.argv[1], json.loads(sys.argv[2])
 rank = os.environ["RANK"]
-final, batches, losses = {}, {}, []
-make = ts.make_train_step
+final, batches, heads, losses = {}, {}, {}, []
+make, real_dataset = ts.make_train_step, datasets.get_dataset
 
 def make_train_step(*args, **kw):
     step = make(*args, **kw)
@@ -4321,20 +4347,37 @@ def make_train_step(*args, **kw):
 
     return recorded
 
+STREAM = {"attn_stream_fwd": "STREAM_FWD",
+          "attn_stream_fwd_prologue": "STREAM_FWD_PROLOGUE",
+          "attn_stream_bwd_prologue": "STREAM_PROLOGUE",
+          "attn_stream_bwd_dq": "STREAM_DQ",
+          "attn_stream_bwd_dkv": "STREAM_DKV",
+          "attn_stream_bwd_dbias": "STREAM_DBIAS",
+          "attn_stream_bwd_fused": "STREAM_FUSED",
+          "attn_stream_bwd_fused_prologue": "STREAM_FUSED_PROLOGUE"}
 ts.make_train_step = make_train_step
-for name in ("fwd", "bwd"):
+for name in ("fwd", "bwd", "stream_fwd", "stream_bwd", "stream_bwd_fused"):
     def wrapped(q, *a, _fn=getattr(fa, "attention_" + name), _n=name, **k):
         batches["attn_" + _n].add(int(q.shape[0]))
+        heads["attn_" + _n].add(int(q.shape[1]))
         return _fn(q, *a, **k)
     setattr(fa, "attention_" + name, wrapped)
-for label, (port, argv) in runs.items():
+for label, (port, argv, n_train) in runs.items():
+    datasets.get_dataset = real_dataset if n_train is None else (
+        lambda dataset, data_dir, use_synthetic, seed, _n=n_train:
+        datasets.synthetic(dataset, n_train=_n, n_test=_n // 5, seed=seed))
     os.environ["MASTER_PORT"] = str(port)
     run_dir = os.path.join(out, label)
     os.makedirs(run_dir, exist_ok=True)
     os.chdir(run_dir)
     fa.LAUNCHES = fa.LAUNCHES_BWD = 0
     fused_adamw.LAUNCHES_ADAMW = fused_adamw.LAUNCHES_ADAMW_TABLE = 0
-    batches.update(attn_fwd=set(), attn_bwd=set())
+    for name in STREAM.values():
+        setattr(fa, "LAUNCHES_" + name, 0)
+    for record in (batches, heads):
+        record.clear()
+        record.update({"attn_" + n: set() for n in (
+            "fwd", "bwd", "stream_fwd", "stream_bwd", "stream_bwd_fused")})
     losses.clear()
     t0 = time.perf_counter()
     summary = train_cli.main(argv)
@@ -4350,8 +4393,13 @@ for label, (port, argv) in runs.items():
                                  "attn_bwd": fa.LAUNCHES_BWD,
                                  "adamw": fused_adamw.LAUNCHES_ADAMW,
                                  "adamw_table":
-                                     fused_adamw.LAUNCHES_ADAMW_TABLE},
-                       batches={k: sorted(v) for k, v in batches.items()},
+                                     fused_adamw.LAUNCHES_ADAMW_TABLE,
+                                 **{k: getattr(fa, "LAUNCHES_" + n)
+                                    for k, n in STREAM.items()
+                                    if getattr(fa, "LAUNCHES_" + n)}},
+                       batches={k: sorted(v) for k, v in batches.items()
+                                if v},
+                       heads={k: sorted(v) for k, v in heads.items() if v},
                        step_losses=[float(x) for x in losses]), f)
 """
 
@@ -4415,9 +4463,9 @@ def cli_epoch(train_modules, argv, world_env=None, keep_dir=None):
             routes = check_resident(fa, f"train CLI {argv}")
             with open(summary["log_file"]) as f:
                 row = list(f)[1].strip()
-            with np.load(os.path.join(
-                    tmp, "checkpoints",
-                    "cifar10_rope-mixed_last.npz")) as z:
+            last_path, = glob.glob(os.path.join(tmp, "checkpoints",
+                                                "cifar10_*_last.npz"))
+            with np.load(last_path) as z:
                 last = {k: z[k] for k in z.files}
             ckpt = None
             if keep_dir:
@@ -4508,20 +4556,25 @@ def check_world_one(train_modules):
     return out, runs
 
 
-def two_ranks(runs):
-    """Phase 20b: the train CLI (TINY_ARGV + argv, for each label: argv of
-    `runs`) on two ranks sharing the card over gloo, each rank a process of
-    its own (DP_RANK) that trains every run in turn, in one scratch
-    directory; a rank that fails, or a launch that outlasts
-    DP_WORKER_TIMEOUT, fails the phase. Returns, per label, each rank's
-    record with its final params, rank 0's CSV row and the CSVs written;
-    and the launch's seconds."""
+def gloo_ranks(runs, world=2, n_train=None):
+    """Phases 20b and 21: the train CLI (TINY_ARGV + argv, for each label:
+    argv of `runs`) on `world` ranks sharing the card over gloo, each rank
+    a process of its own (DP_RANK) that trains every run in turn, in one
+    scratch directory, on the synthetic set cut to n_train examples when
+    given (one size for every run, or {label: size}); a rank that fails,
+    or a launch that outlasts DP_WORKER_TIMEOUT,
+    fails the phase. Returns, per label, each rank's record with its final
+    params, rank 0's CSV row and the CSVs written; and the launch's
+    seconds."""
     root = os.path.dirname(os.path.abspath(__file__))
+    sizes = n_train if isinstance(n_train, dict) else dict.fromkeys(
+        runs, n_train)
     payload = json.dumps({label: [free_port(), TINY_ARGV + argv
-                                  + ["--dist_backend", "gloo"]]
+                                  + ["--dist_backend", "gloo"], sizes[label]]
                           for label, argv in runs.items()})
     with tempfile.TemporaryDirectory() as tmp:
-        env = dict(os.environ, MASTER_ADDR="127.0.0.1", WORLD_SIZE="2",
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                   WORLD_SIZE=str(world),
                    PYTHONPATH=root + os.pathsep
                    + os.environ.get("PYTHONPATH", ""))
         t0 = time.perf_counter()
@@ -4529,7 +4582,7 @@ def two_ranks(runs):
             [sys.executable, "-c", DP_RANK, tmp, payload], cwd=tmp,
             env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(2)]
+            for r in range(world)]
         try:
             logs = [p.communicate(timeout=DP_WORKER_TIMEOUT)[0]
                     for p in procs]
@@ -4546,7 +4599,7 @@ def two_ranks(runs):
         for label in runs:
             run_dir = os.path.join(tmp, label)
             ranks = []
-            for r in range(2):
+            for r in range(world):
                 with open(os.path.join(run_dir, f"rank{r}.json")) as f:
                     record = json.load(f)
                 with np.load(os.path.join(run_dir, f"rank{r}.npz")) as z:
@@ -4573,7 +4626,7 @@ def check_two_ranks(world_one):
     out = {}
     # plain data parallelism again after --zero1: the step times in turns
     # (a process's first epoch also loads the kernels)
-    runs, seconds = two_ranks({"dp": [], "zero1": ["--zero1"],
+    runs, seconds = gloo_ranks({"dp": [], "zero1": ["--zero1"],
                                "dp_again": []})
     log(f"  two gloo ranks: {seconds:.1f} s for the launch (both runs)")
     for label, run in runs.items():
@@ -4734,6 +4787,182 @@ def check_dp_serving(modules, ckpt, images):
     return dict(bit_equal=same, launches=launches, refused=refused)
 
 
+# Phase 21: tensor parallelism (Megatron heads / MLP sharding, ZeRO-1 x TP).
+TP_B_TRAIN = 2560        # run (b)'s synthetic examples: 20 steps of 128, and
+#   512 test images (4 evaluation rows); run (a) trains on the whole set.
+TP_STREAM_TRAIN = 20     # run (c)'s: 5 steps of 4 at N = 4,097, and 4 test
+#   images (one evaluation row)
+
+
+def tp_replicated(params: dict) -> list:
+    """The keys of a rank's TP params that every model rank holds whole."""
+    from vit_rpe_rope_tpu_torch.parallel import tensor_parallel
+
+    return [k for k, d in tensor_parallel.tp_shard_dims(params).items()
+            if d is None]
+
+
+def check_tp_run(label, run, expected, batch, one_losses, one_step_ms,
+                 twin_of, bar=None, heads=None, step_batch=128):
+    """Phase 21's checks of one gloo launch of the train CLI under
+    --model_parallel 2: every rank's replicated params bit-equal, the
+    sharded ones equal across the data ranks of one model rank and not
+    across model ranks, the launches exact, the attention wrappers at
+    `heads` ({wrapper: head counts}; default the dense kernels, training
+    at 3 heads, evaluation at 6 on the gathered params) and at `batch`,
+    rank 0 alone writing a CSV, the first DP_EARLY_STEPS step losses
+    within DP_STEP_TOL of the one-rank run's, the row past `bar` (when
+    given); each rank's step time (of step_batch examples) beside the one
+    rank's. twin_of[r]: the first rank with rank r's model position."""
+    heads = heads or {"attn_fwd": [3, 6], "attn_bwd": [3]}
+    ranks = run["ranks"]
+    p0 = ranks[0]["params"]
+    keys = tp_replicated(p0)
+    replicated_same = all(np.array_equal(r["params"][k], p0[k])
+                          for r in ranks for k in keys)
+    shard_same = all(np.array_equal(r["params"][k],
+                                    ranks[twin_of[i]]["params"][k])
+                     for i, r in enumerate(ranks) for k in p0)
+    shards_differ = not np.array_equal(
+        ranks[0]["params"]["blocks.0.mlp.fc1.weight"],
+        ranks[1]["params"]["blocks.0.mlp.fc1.weight"])
+    step_rel = (np.abs(np.asarray(ranks[0]["step_losses"]) - one_losses)
+                / np.abs(one_losses))
+    fields = csv_fields(run["row"])
+    step_ms = [1000.0 * step_batch / r["history"][0]["images_per_sec"]
+               for r in ranks]
+    early = [float(f"{x:.3g}") for x in step_rel[:DP_EARLY_STEPS]]
+    log(f"  {label}: CSV row {run['row']}; CSVs written {run['csvs']}; "
+        f"replicated params bit-equal on all {len(ranks)} ranks "
+        f"{replicated_same} ({len(keys)} of {len(p0)} keys), shards equal "
+        f"across data ranks {shard_same}, differ across model ranks "
+        f"{shards_differ}; first {DP_EARLY_STEPS} step losses against one "
+        f"rank, relative: {early}")
+    for r, rec in enumerate(ranks):
+        log(f"    rank {r}: launches {rec['launches']} (expected "
+            f"{expected}), attention batch sizes {rec['batches']}, heads "
+            f"{rec['heads']}, {step_ms[r]:.3f} ms a step (one rank in this "
+            f"run: {one_step_ms:.3f}), {rec['seconds']:.1f} s, devices "
+            f"{rec['num_devices']}")
+        if rec["launches"] != expected:
+            raise AssertionError(f"{label} rank {r}: launches "
+                                 f"{rec['launches']}, expected {expected}")
+        if rec["heads"] != heads or \
+                rec["batches"] != {k: [batch] for k in heads}:
+            raise AssertionError(f"{label} rank {r}: attention at heads "
+                                 f"{rec['heads']}, batches {rec['batches']}")
+        if rec["num_devices"] != len(ranks) or (r and rec["log_file"]):
+            raise AssertionError(f"{label} rank {r}: {rec['num_devices']} "
+                                 f"devices, log file {rec['log_file']}")
+    if len(run["csvs"]) != 1:
+        raise AssertionError(f"{label}: CSVs {run['csvs']}")
+    if not (replicated_same and shard_same and shards_differ):
+        raise AssertionError(f"{label}: the ranks' params are not as the "
+                             f"sharding says")
+    if not all(math.isfinite(fields[k]) for k in fields):
+        raise AssertionError(f"{label}: the CSV row is not finite")
+    if step_rel[:DP_EARLY_STEPS].max() > DP_STEP_TOL:
+        raise AssertionError(f"{label}: the first step losses differ from "
+                             f"one rank's: {step_rel[:DP_EARLY_STEPS]}")
+    for key, limit in (bar or {}).items():
+        if not (fields[key] > limit if key == "test_acc"
+                else fields[key] < limit):
+            raise AssertionError(f"{label} did not learn: {run['row']}")
+    return dict(row=run["row"], step_relative=step_rel.tolist(),
+                launches=[r["launches"] for r in ranks], step_ms=step_ms,
+                one_rank_step_ms=one_step_ms,
+                seconds=[r["seconds"] for r in ranks])
+
+
+def check_tensor_parallel(world_one, train_modules, datasets):
+    """Phase 21. (a) The ViT-tiny/4 train CLI at its defaults (rope-mixed,
+    batch 128) on two gloo ranks sharing the card with --model_parallel 2:
+    each rank trains 3 of the 6 heads and half of the MLP rows, evaluates
+    the gathered params at 6 heads; held to phase 20a's one-rank run. (b)
+    The relative-PE epoch at full width on four gloo ranks (data 2 x model
+    2) with --zero1 on TP_B_TRAIN examples (the bias sliced to each rank's
+    heads through rows 1 and 2, ZeRO-1 x TP through row 11), held to a
+    one-rank epoch of the same data in this process. (c) The long-sequence
+    model (N = 4,097, 4 heads, batch 4) in rope-mixed and relative on the
+    same four ranks, in the same launch, on TP_STREAM_TRAIN examples: the
+    streaming route at 2 heads a rank (the rope-mixed per-head tables and
+    the relative table sliced, model rank 1's at a non-zero offset)
+    through rows 3, 5, 6 and 7 and their prologues, held to one-rank
+    epochs of the same data in this process."""
+    one = world_one["plain"]
+    runs, seconds_a = gloo_ranks({"tp": ["--model_parallel", "2"]})
+    log(f"  two gloo ranks, --model_parallel 2: {seconds_a:.1f} s for the "
+        f"launch")
+    out = {"tp": check_tp_run(
+        "--model_parallel 2 (data 1 x model 2)", runs["tp"],
+        {"attn_fwd": 6 * 120, "attn_bwd": 6 * 100, "adamw": 100,
+         "adamw_table": 0}, 128, np.asarray(one["step_losses"]),
+        one["step_ms"][0], twin_of=[0, 1], bar=LEARN_BAR["rope-mixed"])}
+    out["tp"]["launch_seconds"] = seconds_a
+
+    # (b) and (c): one-rank epochs of the same data first, then one launch
+    # of four ranks for the three runs (a process's start-up paid once).
+    model = []
+    for key, value in LONGSEQ.items():
+        model += [f"--{key}", str(value)]
+    stream_argv = {pe: model + ["--pos_encoding", pe, "--batch_size", "4"]
+                   for pe in ("rope-mixed", "relative")}
+    with small_dataset(datasets, n_train=TP_B_TRAIN,
+                       n_test=TP_B_TRAIN // 5):
+        one_b = cli_epoch(train_modules, ["--pos_encoding", "relative"])
+    log(f"  one rank, relative, {TP_B_TRAIN} examples: CSV row "
+        f"{one_b['row']}, launches {one_b['launches']}, "
+        f"{one_b['step_ms']:.3f} ms a step")
+    one_c = {}
+    with small_dataset(datasets, n_train=TP_STREAM_TRAIN,
+                       n_test=TP_STREAM_TRAIN // 5):
+        for pe, args in stream_argv.items():
+            one_c[pe] = cli_epoch(train_modules, args)
+            log(f"  one rank, long-sequence {pe}, {TP_STREAM_TRAIN} "
+                f"examples: CSV row {one_c[pe]['row']}, launches "
+                f"{one_c[pe]['launches']}")
+    tp_argv = ["--model_parallel", "2", "--zero1"]
+    runs, seconds_b = gloo_ranks(
+        {"tp_dp_zero1": tp_argv + ["--pos_encoding", "relative"],
+         **{f"tp_stream_{pe}": args + tp_argv
+            for pe, args in stream_argv.items()}},
+        world=4, n_train={"tp_dp_zero1": TP_B_TRAIN,
+                          "tp_stream_rope-mixed": TP_STREAM_TRAIN,
+                          "tp_stream_relative": TP_STREAM_TRAIN})
+    log(f"  four gloo ranks, --model_parallel 2 --zero1: {seconds_b:.1f} s "
+        f"for the launch (three runs)")
+    steps, evals = TP_B_TRAIN // 128, TP_B_TRAIN // 5 // 128
+    out["tp_dp_zero1"] = check_tp_run(
+        "--model_parallel 2 --zero1 relative (data 2 x model 2)",
+        runs["tp_dp_zero1"],
+        {"attn_fwd": 6 * (steps + evals), "attn_bwd": 6 * steps,
+         "adamw": steps, "adamw_table": 0}, 64,
+        np.asarray(one_b["step_losses"]), one_b["step_ms"],
+        twin_of=[0, 1, 0, 1])
+    out["tp_dp_zero1"].update(launch_seconds=seconds_b, one_rank=dict(
+        row=one_b["row"], launches=one_b["launches"]))
+    depth, steps = LONGSEQ["depth"], TP_STREAM_TRAIN // 4
+    for pe in stream_argv:
+        expected = {"attn_fwd": 0, "attn_bwd": 0, "adamw": steps,
+                    "adamw_table": 0, "attn_stream_fwd": depth * (steps + 1)}
+        if pe == "rope-mixed":  # separate passes, the freqs' gradient
+            expected.update({name: depth * steps for name in STREAM_PASSES})
+            bwd = "attn_stream_bwd"
+        else:  # the one-pass backward with the table's gradient
+            expected["attn_stream_bwd_fused"] = depth * steps
+            bwd = "attn_stream_bwd_fused"
+        one = one_c[pe]
+        out[f"tp_stream_{pe}"] = check_tp_run(
+            f"long-sequence {pe} --model_parallel 2 --zero1 (data 2 x "
+            f"model 2)", runs[f"tp_stream_{pe}"], with_prologues(expected),
+            2, np.asarray(one["step_losses"]),
+            1000.0 * 4 / one["images_per_s"], twin_of=[0, 1, 0, 1],
+            heads={"attn_stream_fwd": [2, 4], bwd: [2]}, step_batch=4)
+        out[f"tp_stream_{pe}"].update(launch_seconds=seconds_b, one_rank=dict(
+            row=one["row"], launches=one["launches"]))
+    return out
+
+
 def kernel_line(name, source, replaces, launches, max_abs_err, times):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4745,7 +4974,7 @@ def kernel_line(name, source, replaces, launches, max_abs_err, times):
                                            "routes", "device_ms",
                                            "int8_launches",
                                            "export_launches",
-                                           "dp_launches")
+                                           "dp_launches", "tp_launches")
                if key in times}}
 
 
@@ -4921,18 +5150,20 @@ def main() -> int:
                                                    longseq.depth)
         torch.cuda.empty_cache()
         # The same routes through the train CLI (fit, eval, CSV, best
-        # checkpoint, the Predictor on it): the long-sequence model as it
-        # is, ViT-S/16@384 with its depth cut from 12 to 3.
+        # checkpoint, the Predictor on it): the long-sequence model with its
+        # depth cut from 2 to 1, ViT-S/16@384 with its depth cut from 12 to
+        # 1.
+        longseq_1 = dict(LONGSEQ, depth=1)
         stream_training = {
             "longseq": train_through_cli(
-                "rope-mixed", train_modules, model=LONGSEQ, batch=4),
+                "rope-mixed", train_modules, model=longseq_1, batch=4),
             "longseq_relative": train_through_cli(
-                "relative", train_modules, model=LONGSEQ, batch=4),
+                "relative", train_modules, model=longseq_1, batch=4),
             "longseq_rope_axial": train_through_cli(
-                "rope-axial", train_modules, model=LONGSEQ, batch=4,
+                "rope-axial", train_modules, model=longseq_1, batch=4,
                 bar=LEARN_BAR["rope-axial"]),
             "vit_s_384": train_through_cli(
-                "relative", train_modules, model=dict(VIT_S_384, depth=3),
+                "relative", train_modules, model=dict(VIT_S_384, depth=1),
                 batch=16)}
 
     with phase("[14] streaming times on the card", seconds):
@@ -5094,6 +5325,12 @@ def main() -> int:
                              serving=dp_serving,
                              seconds=time.perf_counter() - t0)
 
+    with phase("[21] tensor parallelism (two gloo ranks sharing the card "
+               "with --model_parallel 2; four with --model_parallel 2 "
+               "--zero1)", seconds):
+        tensor_parallel = check_tensor_parallel(world_one, train_modules,
+                                                datasets)
+
     summary = {"card": card, "attention": attn, "serving": serve_times,
                "serving_profile": serve_trace, "training": training,
                "kernel_vs_plain_losses": paths, "train_step": step_times,
@@ -5128,7 +5365,8 @@ def main() -> int:
                "remat": remat, "debug_nans": debug_nans,
                "profile_dir": profile_dir, "decoders": decoders,
                "int8_serving": int8_serving,
-               "data_parallel": data_parallel, "phase_seconds": seconds}
+               "data_parallel": data_parallel,
+               "tensor_parallel": tensor_parallel, "phase_seconds": seconds}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
@@ -5155,6 +5393,20 @@ def main() -> int:
     # Phase 20b's launches on each of two gloo ranks: plain data
     # parallelism, and --zero1 (AdamW over the rank's slice).
     dp_launches = {label: two[label]["launches"] for label in ("dp", "zero1")}
+    # Phase 21's launches on each rank: --model_parallel 2 on two gloo
+    # ranks, and with --zero1 on four (data 2 x model 2, relative), of the
+    # dense kernels; the long-sequence model's on two ranks, of the
+    # streaming ones.
+    tp_launches = {label: run["launches"]
+                   for label, run in tensor_parallel.items()
+                   if not label.startswith("tp_stream")}
+    tp_stream_launches = {label: run["launches"]
+                          for label, run in tensor_parallel.items()
+                          if label.startswith("tp_stream")}
+
+    def tp_stream(name):
+        return {k: [r.get(name, 0) for r in v]
+                for k, v in tp_stream_launches.items()}
     stream_launches = stream_training["longseq"]["launches"]
     dbias_launches = stream_training["vit_s_384"]["launches"][
         "attn_stream_bwd_dbias"]
@@ -5176,18 +5428,24 @@ def main() -> int:
                          export_launches=artifacts["f32"]["launches"][64][
                              "attn_fwd"],
                          dp_launches={k: [r["attn_fwd"] for r in v]
-                                      for k, v in dp_launches.items()})),
+                                      for k, v in dp_launches.items()},
+                         tp_launches={k: [r["attn_fwd"] for r in v]
+                                      for k, v in tp_launches.items()})),
         kernel_line("attn_bwd", "vit_rpe_rope_tpu_torch/ops/csrc/attn_bwd.cu",
                     "vit_rpe_rope_tpu/ops/flash_attention.py:130",
                     launches["attn_bwd"], bwd_err,
                     dict(bwd["rope-mixed f32"], routes=routes,
                          dp_launches={k: [r["attn_bwd"] for r in v]
-                                      for k, v in dp_launches.items()})),
+                                      for k, v in dp_launches.items()},
+                         tp_launches={k: [r["attn_bwd"] for r in v]
+                                      for k, v in tp_launches.items()})),
         kernel_line("adamw", "vit_rpe_rope_tpu_torch/ops/csrc/adamw.cu",
                     "vit_rpe_rope_tpu/ops/fused_adamw.py:51",
                     launches["adamw"], adamw_err,
                     dict(adamw, dp_launches={k: [r["adamw"] for r in v]
-                                             for k, v in dp_launches.items()})),
+                                             for k, v in dp_launches.items()},
+                         tp_launches={k: [r["adamw"] for r in v]
+                                      for k, v in tp_launches.items()})),
         kernel_line("adamw_table", "vit_rpe_rope_tpu_torch/ops/csrc/adamw.cu",
                     "vit_rpe_rope_tpu/ops/fused_adamw.py:51",
                     graph_epochs["runs"][1]["launches"]["adamw_table"],
@@ -5196,6 +5454,7 @@ def main() -> int:
                     jax_fa + ":873", stream_launches["attn_stream_fwd"],
                     stream_err["fwd"],
                     dict(t_long["fwd_kernel"],
+                         tp_launches=tp_stream("attn_stream_fwd"),
                          int8_launches=int8_stream["launches"][
                              "attn_stream_fwd"],
                          export_launches=int8_stream["export_launches"][
@@ -5206,10 +5465,14 @@ def main() -> int:
                     stream_err["fwd_prologue"], t_long["fwd_prologue"]),
         kernel_line("attn_stream_bwd_dq", csrc + "attn_stream_bwd.cu",
                     jax_fa + ":1275", stream_launches["attn_stream_bwd_dq"],
-                    stream_err["dq"], t_long["dq"]),
+                    stream_err["dq"],
+                    dict(t_long["dq"],
+                         tp_launches=tp_stream("attn_stream_bwd_dq"))),
         kernel_line("attn_stream_bwd_dkv", csrc + "attn_stream_bwd.cu",
                     jax_fa + ":1353", stream_launches["attn_stream_bwd_dkv"],
-                    stream_err["dkv"], t_long["dkv"]),
+                    stream_err["dkv"],
+                    dict(t_long["dkv"],
+                         tp_launches=tp_stream("attn_stream_bwd_dkv"))),
         kernel_line("attn_stream_bwd_prologue", csrc + "attn_stream_bwd.cu",
                     jax_fa + ":1302",
                     stream_launches["attn_stream_bwd_prologue"],
@@ -5219,7 +5482,9 @@ def main() -> int:
                     t_384["dbias"]),
         kernel_line("attn_stream_bwd_fused", csrc + "attn_stream_bwd_fused.cu",
                     jax_fa + ":1649", fused_launches["attn_stream_bwd_fused"],
-                    fused_err["fused"], fused_rel),
+                    fused_err["fused"],
+                    dict(fused_rel,
+                         tp_launches=tp_stream("attn_stream_bwd_fused"))),
         kernel_line("attn_stream_bwd_fused_prologue",
                     csrc + "attn_stream_bwd_fused.cu", jax_fa + ":1736",
                     fused_launches["attn_stream_bwd_fused_prologue"],

@@ -7,6 +7,7 @@ the CLIs: tests/test_torch_export.py.)"""
 
 import io
 import json
+import pathlib
 import threading
 import urllib.error
 import urllib.request
@@ -32,6 +33,8 @@ from vit_rpe_rope_tpu_torch.models import vit
 from vit_rpe_rope_tpu_torch.ops import block_vjp
 from vit_rpe_rope_tpu_torch.ops import flash_attention as tfa
 from vit_rpe_rope_tpu_torch.utils import checkpoint
+
+from torch_tp_worker import launch
 
 KW = dict(img_size=32, patch_size=8, embed_dim=64, depth=2, num_heads=4,
           pos_encoding="relative")
@@ -245,7 +248,28 @@ def test_train_cli_refuses_unported_flags(flag, capsys, tmp_path,
     item. Dropout, drop-path and --augment are ported
     (tests/test_torch_regularize.py); the bounded driver (--q_chunk)
     refuses them, as the JAX package's does. --zero1 is ported
-    (tests/test_torch_data_parallel.py): it trains through the CLI."""
+    (tests/test_torch_data_parallel.py): it trains through the CLI.
+    --model_parallel is ported (tests/test_torch_tensor_parallel.py): it
+    trains through the CLI on two gloo ranks (tests/torch_tp_worker.py),
+    rank 0 alone writing the CSV and the checkpoints."""
+    if flag == ["--model_parallel", "2"]:
+        launch("cli", tmp_path, 2, "--synthetic", *flag, "--epochs", "1",
+               "--batch_size", "16", "--depth", "1", "--embed_dim", "32",
+               "--num_heads", "2", "--device", "cpu")
+        ranks = [json.loads((tmp_path / f"cli_rank{r}.json").read_text())
+                 for r in (0, 1)]
+        assert [r["num_devices"] for r in ranks] == [2, 2]
+        assert ranks[1]["log_file"] is None
+        for r in ranks:  # the host clock's throughput differs
+            del r["history"][0]["images_per_sec"]
+        assert ranks[0]["history"] == ranks[1]["history"]
+        assert [p.name for p in (tmp_path / "logs").glob("*.csv")] == [
+            pathlib.Path(ranks[0]["log_file"]).name]
+        with np.load(tmp_path / "checkpoints" / "mnist_absolute_last.npz") \
+                as z:
+            assert z["blocks.0.attn.qkv.weight"].shape == (96, 32)
+            assert int(z["__opt.0"]) == 2
+        return
     if flag == ["--zero1"]:
         monkeypatch.setattr(
             datasets, "get_dataset",

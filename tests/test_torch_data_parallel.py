@@ -461,12 +461,32 @@ def test_make_mesh_needs_the_world_size_to_divide_the_batch(monkeypatch,
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(model_parallel=2), "tensor parallelism"),
     (dict(seq_parallel=2), "the context-parallel ring"),
     (dict(pipe_parallel=2), "GPipe pipeline parallelism")])
 def test_make_mesh_refuses_the_other_axes_by_name(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         tmesh.make_mesh(**kw)
+
+
+def test_make_mesh_takes_the_model_axis(monkeypatch):
+    """model_parallel is ported (tests/test_torch_tensor_parallel.py): on
+    a process group of 6 ranks with model_parallel 2, rank 5 is data rank
+    2 of 3 (the data axis the data-parallel code reads as mesh.rank and
+    mesh.size) and model rank 1, takes the last third of each batch, and
+    the data width (not the world size) must divide the batch."""
+    monkeypatch.setattr(distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(distributed, "world_size", lambda: 6)
+    monkeypatch.setattr(distributed, "rank", lambda: 5)
+    monkeypatch.setattr(distributed, "device", lambda: torch.device("cpu"))
+    monkeypatch.setattr(distributed, "new_group", lambda ranks: tuple(ranks))
+    mesh = tmesh.make_mesh(batch_size=12, model_parallel=2)
+    assert mesh.shape == {tmesh.DATA_AXIS: 3, tmesh.MODEL_AXIS: 2}
+    assert (mesh.rank, mesh.size, mesh.model_rank) == (2, 3, 1)
+    assert ts._columns(mesh, 12) == slice(8, 12)
+    assert ts._world(mesh) == (2, 3)
+    assert (mesh.data_group, mesh.model_group) == ((1, 3, 5), (4, 5))
+    with pytest.raises(ValueError, match="multiple of the data width 3"):
+        tmesh.make_mesh(batch_size=8, model_parallel=2)
 
 
 def test_local_mesh_takes_the_devices_that_divide_the_batch():

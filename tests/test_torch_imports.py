@@ -36,7 +36,8 @@ def test_port_modules_import_without_jax():
                  "viz.similarity", "viz.rope_freq",
                  "cli.pe_similarity_visualizer", "cli.rope_visualizer",
                  "utils.native", "utils.nan_check", "ops.launches",
-                 "quant", "serving", "utils.convert"):
+                 "quant", "serving", "utils.convert", "parallel.mesh",
+                 "parallel.distributed", "parallel.tensor_parallel"):
         assert f"vit_rpe_rope_tpu_torch.{name}" in modules
     code = (
         "import importlib, re, sys\n"
@@ -52,7 +53,8 @@ def test_port_modules_import_without_jax():
 
 
 def test_port_sources_name_no_jax():
-    sources = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    sources = (list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+               + sorted((ROOT / "tests").glob("torch_*_worker.py")))
     for path in sources:
         for name in IMPORTS.findall(path.read_text()):
             assert name.split(".")[0] != "jax", (path, name)

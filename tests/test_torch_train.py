@@ -16,6 +16,7 @@ Gradients are compared relative to each tensor's largest entry.
 
 import csv
 import glob
+import json
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +38,8 @@ from vit_rpe_rope_tpu_torch.models import vit
 from vit_rpe_rope_tpu_torch.ops import flash_attention as tfa
 from vit_rpe_rope_tpu_torch.train import loop
 from vit_rpe_rope_tpu_torch.train import train_step as ts
+
+from torch_tp_worker import launch
 
 TOL = {"reference": 1e-5, "flash": 2e-3}
 
@@ -388,6 +391,26 @@ def test_fit_refuses_unported_fields(field, value, tmp_path, monkeypatch):
         # refuses it, as in the JAX package.
         with pytest.raises(ValueError, match="augment"):
             TrainConfig(dataset="mnist", q_chunk=16, augment=value)
+        return
+    if field == "model_parallel":
+        # Ported (tests/test_torch_tensor_parallel.py): fit on two gloo
+        # ranks (tests/torch_tp_worker.py), the heads and MLP rows sharded;
+        # in one process (world size 1) T = 2 raises the JAX ValueError.
+        launch("fit_one", tmp_path, 2)
+        ranks = [json.loads((tmp_path / f"fit_one_rank{r}.json").read_text())
+                 for r in (0, 1)]
+        assert [r["num_devices"] for r in ranks] == [2, 2]
+        for r in ranks:  # the host clock's throughput differs
+            del r["history"][0]["images_per_sec"]
+        assert ranks[0]["history"] == ranks[1]["history"]
+        assert ranks[0]["log_file"] and ranks[1]["log_file"] is None
+        with np.load(tmp_path / "ckpts" / "mnist_rope-mixed_last.npz") as z:
+            assert z["blocks.0.attn.qkv.weight"].shape == (96, 32)
+        with pytest.raises(ValueError, match="device count 1 not divisible "
+                           "by model_parallel=2"):
+            loop.fit(ViTConfig(**cfg_kw()),
+                     TrainConfig(dataset="mnist", model_parallel=value),
+                     device="cpu")
         return
     if field == "zero1":
         # Ported (tests/test_torch_data_parallel.py): in one process its one

@@ -97,9 +97,8 @@ def run_steps(out: pathlib.Path, rank: int):
         saved["metrics"] = np.stack(metrics)
         if opt != "sgd":
             flat = loop.moment_flattener(params, cfg)
-            leaves = (loop.zero1_opt_to_disk(state, flat, mesh)
-                      if opt == "zero1" else
-                      loop.opt_to_disk(state, flat, cfg))
+            leaves = loop.mesh_opt_to_disk(state, flat, cfg, mesh, params,
+                                           opt == "zero1")
             saved.update(count=leaves[0], mu=leaves[1].numpy(),
                          nu=leaves[2].numpy())
         np.savez(out / f"{name}_rank{rank}.npz", **saved)

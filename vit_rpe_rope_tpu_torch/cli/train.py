@@ -16,8 +16,8 @@ softmax); --steps_per_dispatch k > 1 runs k steps per dispatch, one CUDA
 graph replay on the card (eagerly where the steps draw random numbers or
 under --debug_nans); --profile_dir writes a torch.profiler Chrome trace;
 --debug_nans raises FloatingPointError at the first NaN. The extensions
-this package does not port yet (tensor, context and pipeline parallelism)
-are refused when set to a non-default value.
+this package does not port yet (context and pipeline parallelism) are
+refused when set to a non-default value.
 
 Data parallelism: launch one rank per device with torchrun, and each rank
 takes its share of every batch (the world size must divide --batch_size);
@@ -30,6 +30,15 @@ takes its share of every batch (the world size must divide --batch_size);
 The ranks talk over NCCL on CUDA (one rank per card) and over gloo with
 --device cpu; --dist_backend gloo lets several ranks share one card. Only
 rank 0 prints and writes the CSV and the checkpoints.
+
+Tensor parallelism: --model_parallel T shards the heads and the MLP rows
+over T ranks (T must divide the world size and --num_heads); the world is
+a data x model grid of D = world / T data ranks, and --zero1 shards each
+model shard's AdamW moments over its D data ranks:
+
+  python -m torch.distributed.run --nproc_per_node 4 \\
+      -m vit_rpe_rope_tpu_torch.cli.train --dataset cifar10 --synthetic \\
+      --epochs 1 --model_parallel 2 --zero1 --device cpu
 """
 
 from __future__ import annotations
@@ -212,7 +221,6 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     reject_unported(parser, {
-        "--model_parallel": (args.model_parallel > 1, "tensor parallelism"),
         "--sequence_parallel": (args.sequence_parallel > 1,
                                 "the context-parallel ring"),
         "--pipeline_parallel": (args.pipeline_parallel > 1,
@@ -269,6 +277,7 @@ def main(argv=None):
         q_chunk=args.q_chunk,
         kv_chunk=args.kv_chunk,
         zero1=args.zero1,
+        model_parallel=args.model_parallel,
         steps_per_dispatch=args.steps_per_dispatch,
         profile_dir=args.profile_dir,
         debug_nans=args.debug_nans,

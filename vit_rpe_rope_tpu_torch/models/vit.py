@@ -22,7 +22,10 @@ explicit torch.Generator (the JAX package's `rng`): with one, the config's
 dropout, attention-prob dropout and drop-path rates apply, their masks drawn
 from it in the forward's order; without one the forward is deterministic.
 With cfg.remat each block is recomputed in the backward
-(`remat_block_fn`), under one of the JAX package's three policies.
+(`remat_block_fn`), under one of the JAX package's three policies. With a
+tensor-parallel mesh the same forward runs on one rank's shard of the heads
+and MLP rows (parallel/tensor_parallel.py), with Megatron's f and g around
+each block half.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from vit_rpe_rope_tpu_torch.ops import block_vjp
 from vit_rpe_rope_tpu_torch.ops import flash_attention, layers
 from vit_rpe_rope_tpu_torch.ops import reference_attention
 from vit_rpe_rope_tpu_torch.ops.layers import layer_norm, linear
+from vit_rpe_rope_tpu_torch.parallel import distributed
 from vit_rpe_rope_tpu_torch.utils.device import resolve_device
 from vit_rpe_rope_tpu_torch.utils.initializers import kaiming_normal_fan_out, trunc_normal
 
@@ -201,16 +205,38 @@ def _logits_bias(pe_mod, params, cfg: ViTConfig, generator=None):
     return pe_mod.attn_bias(params, cfg)
 
 
+def _row_parallel(x, weight, bias, group):
+    """A linear whose input columns a tensor-parallel rank holds a share
+    of: the partial products summed over `group` (Megatron's g), then the
+    bias once. Without a group, one linear with the bias in the product."""
+    if group is None:
+        return linear(x, weight, bias)
+    out = distributed.psum_identity_bwd(linear(x, weight), group)
+    return out + bias.to(out.dtype)
+
+
 def _block_body(block_params: dict, x, cfg, bias, freqs_cis, impl,
-                generator=None):
+                group=None, generator=None):
     """One pre-LN block on un-prefixed block params.
 
     With a generator and nonzero rates, dropout lands where the reference
     modules place it, its masks drawn in this order: the attention
     probabilities, after the attention projection (then drop-path on that
     branch), after each MLP linear (then drop-path on that branch). Without
-    a generator the block is deterministic."""
+    a generator the block is deterministic.
+
+    group: a tensor-parallel rank's model group (None: one device). The
+    block params are then the rank's shard (qkv [3, H/T, Dh, E], proj and
+    fc2 input columns, fc1 rows; parallel/tensor_parallel.py) and bias /
+    freqs_cis its heads' (_local_pe); Megatron's f stands where each half
+    takes the replicated activation, g where its partial sums leave it.
+    generator may then be a pair (shared, local): the masks on the rank's
+    own heads and fc1 rows come from `local`, those on replicated tensors
+    from `shared`, which every model rank of a data rank draws alike. One
+    generator is both."""
     drop = generator is not None and cfg.has_dropout
+    shared, local = (generator if isinstance(generator, tuple)
+                     else (generator, generator))
     if impl == "flash_block":
         if bias is None and not drop:  # none, absolute, rope-axial/-mixed
             return block_vjp.block_apply(cfg, block_params, x, freqs_cis)
@@ -218,12 +244,15 @@ def _block_body(block_params: dict, x, cfg, bias, freqs_cis, impl,
     eps = cfg.layer_norm_eps
     h = layer_norm(x, block_params["norm1.weight"],
                     block_params["norm1.bias"], eps)
+    h = distributed.identity_fwd_psum_bwd(h, group)
     bsz, n, e = h.shape
-    nh, dh = cfg.num_heads, cfg.head_dim
+    dh = cfg.head_dim
+    qkv_w = block_params["attn.qkv.weight"]
+    nh = qkv_w.numel() // (3 * dh * e)  # H, or a tensor-parallel rank's H/T
     # Weight rows are torch-ordered f = part·E + head·Dh + d, so the
     # [B, N, 3E] product viewed as [3, B, H, N, Dh] needs no copy: q, k, v
     # are strided views the attention kernel reads in place.
-    qkv = linear(h, block_params["attn.qkv.weight"])
+    qkv = linear(h, qkv_w.reshape(-1, e))
     q, k, v = qkv.view(bsz, n, 3, nh, dh).permute(2, 0, 3, 1, 4).unbind(0)
     scale = dh ** -0.5
     attn_dropping = drop and cfg.attn_drop_rate > 0
@@ -242,26 +271,28 @@ def _block_body(block_params: dict, x, cfg, bias, freqs_cis, impl,
         attn_out = reference_attention.attention(
             q, k, v, scale, bias=bias, freqs_cis=freqs_cis,
             dropout_rate=cfg.attn_drop_rate if attn_dropping else 0.0,
-            generator=generator if attn_dropping else None)
-    attn_out = attn_out.transpose(1, 2).reshape(bsz, n, e)
-    attn_out = linear(attn_out, block_params["attn.proj.weight"],
-                       block_params["attn.proj.bias"])
+            generator=local if attn_dropping else None)
+    attn_out = attn_out.transpose(1, 2).reshape(bsz, n, nh * dh)
+    attn_out = _row_parallel(attn_out, block_params["attn.proj.weight"],
+                             block_params["attn.proj.bias"], group)
     if drop and cfg.drop_rate > 0:
-        attn_out = _dropout(attn_out, cfg.drop_rate, generator)
+        attn_out = _dropout(attn_out, cfg.drop_rate, shared)
     if drop and cfg.drop_path_rate > 0:
-        attn_out = _drop_path(attn_out, cfg.drop_path_rate, generator)
+        attn_out = _drop_path(attn_out, cfg.drop_path_rate, shared)
     x = x + attn_out
     h = layer_norm(x, block_params["norm2.weight"],
                     block_params["norm2.bias"], eps)
+    h = distributed.identity_fwd_psum_bwd(h, group)
     h = linear(h, block_params["mlp.fc1.weight"], block_params["mlp.fc1.bias"])
     h = F.gelu(h, approximate="none")  # torch nn.GELU default = exact erf
     if drop and cfg.drop_rate > 0:
-        h = _dropout(h, cfg.drop_rate, generator)
-    h = linear(h, block_params["mlp.fc2.weight"], block_params["mlp.fc2.bias"])
+        h = _dropout(h, cfg.drop_rate, local)
+    h = _row_parallel(h, block_params["mlp.fc2.weight"],
+                      block_params["mlp.fc2.bias"], group)
     if drop and cfg.drop_rate > 0:
-        h = _dropout(h, cfg.drop_rate, generator)
+        h = _dropout(h, cfg.drop_rate, shared)
     if drop and cfg.drop_path_rate > 0:
-        h = _drop_path(h, cfg.drop_path_rate, generator)
+        h = _drop_path(h, cfg.drop_path_rate, shared)
     return x + h
 
 
@@ -297,22 +328,26 @@ def _replaying_draws(fn, generator):
     generator's state at the first call is set again for every later call
     (the recompute), and the state that call found is put back after it.
     (checkpoint's preserve_rng_state covers the global generators only,
-    never an explicit one.)"""
+    never an explicit one.) generator may be a tuple of generators (the
+    tensor-parallel block's shared and local streams): each is replayed."""
     if generator is None:
         return fn
-    state = generator.get_state()
+    gens = generator if isinstance(generator, tuple) else (generator,)
+    states = [g.get_state() for g in gens]
     calls = [0]
 
     def run(*args):
         calls[0] += 1
         if calls[0] == 1:
             return fn(*args)
-        after = generator.get_state()
-        generator.set_state(state)
+        after = [g.get_state() for g in gens]
+        for g, state in zip(gens, states):
+            g.set_state(state)
         try:
             return fn(*args)
         finally:
-            generator.set_state(after)
+            for g, state in zip(gens, after):
+                g.set_state(state)
 
     return run
 
@@ -349,12 +384,39 @@ def remat_block_fn(cfg: ViTConfig, fn):
     return checkpointed
 
 
-def forward_features(params, images, cfg: ViTConfig, generator=None):
+def _local_pe(bias, freqs_cis, model_rank: int, local_h: int):
+    """The blocks' PE arguments for model rank `model_rank`'s heads
+    [model_rank·local_h, (model_rank+1)·local_h): a materialized bias
+    [H, L, L] or a generated-bias marker's per-head coefficients / table
+    sliced on dim 0 (contiguous slices of contiguous tensors); rope-mixed's
+    per-head tables ([H, S, D/2]) likewise, rope-axial's shared ones as
+    they are."""
+    heads = slice(model_rank * local_h, (model_rank + 1) * local_h)
+    if isinstance(bias, tuple):
+        bias = (bias[0][heads],)
+    elif bias is not None:
+        bias = bias[heads]
+    if freqs_cis is not None and freqs_cis[0].dim() == 3:
+        freqs_cis = tuple(t[heads] for t in freqs_cis)
+    return bias, freqs_cis
+
+
+def forward_features(params, images, cfg: ViTConfig, generator=None,
+                     mesh=None):
     """[B, H, W, C] images -> [B, L, E] token features after all blocks.
 
     generator: a torch.Generator on the images' device for train-mode
     dropout / drop-path (one stream for all blocks, drawn in order); None is
-    the deterministic (eval) forward."""
+    the deterministic (eval) forward.
+
+    mesh: a tensor-parallel mesh (parallel.mesh.Mesh, model axis T > 1):
+    params are this rank's shard (parallel.tensor_parallel.shard_params),
+    the PE arguments are cut to its heads (_local_pe), each block runs with
+    f and g over the mesh's model group (_block_body), on the per-call
+    kernel route under "flash_block" (the one-block boundary cannot hold
+    collectives), and generator is a pair (shared, local) (_block_body).
+    Every rank of a data row gets the same features. None, or a mesh
+    without a model axis: the one-device forward."""
     pe_mod = pe_registry.get(cfg.pos_encoding)
     dtype = _DTYPES[cfg.compute_dtype]
     x = patch_embed(params, images.to(dtype), cfg)  # [B, S, E]
@@ -372,20 +434,27 @@ def forward_features(params, images, cfg: ViTConfig, generator=None):
         freqs_cis = pe_mod.freqs_cis(params, cfg, device=x.device)
 
     impl = _attention_impl(cfg)
+    group = None
+    if mesh is not None and mesh.model_parallel > 1:
+        bias, freqs_cis = _local_pe(bias, freqs_cis, mesh.model_rank,
+                                    cfg.num_heads // mesh.model_parallel)
+        group = mesh.model_group
+        if impl == "flash_block":
+            impl = "flash"
     block_fn = remat_block_fn(cfg, _block_body)
     for i in range(cfg.depth):
         block_params = {name: params[f"blocks.{i}.{name}"]
                         for name in BLOCK_PARAM_NAMES}
-        x = block_fn(block_params, x, cfg, bias, freqs_cis, impl,
+        x = block_fn(block_params, x, cfg, bias, freqs_cis, impl, group,
                      generator=generator)
     return x
 
 
-def apply(params, images, cfg: ViTConfig, generator=None):
+def apply(params, images, cfg: ViTConfig, generator=None, mesh=None):
     """Full forward: [B, H, W, C] images -> [B, num_classes] float32 logits
     (classification from the cls token). generator enables train-mode
-    dropout (see forward_features)."""
-    x = forward_features(params, images, cfg, generator)
+    dropout, mesh the tensor-parallel forward (see forward_features)."""
+    x = forward_features(params, images, cfg, generator, mesh)
     x = layer_norm(x, params["norm.weight"], params["norm.bias"],
                     cfg.layer_norm_eps)
     logits = linear(x[:, 0], params["head.weight"], params["head.bias"])

@@ -17,7 +17,12 @@ axis — the counterpart of the JAX package's parallel/distributed.py.
   and all_reduce, so the same code runs under NCCL, under gloo on the CPU
   and under gloo on the card (gloo has no all_gather or reduce_scatter on
   CUDA tensors): `broadcast_params`, `all_reduce_sum` and
-  `all_gather_slices`, a gather written as an exact all_reduce.
+  `all_gather_slices`, a gather written as an exact all_reduce. The last
+  two take a subgroup (`new_group`: a data row or a model column of a
+  tensor-parallel mesh); over a subgroup of one rank they make no call.
+* Megatron's f and g over a subgroup, as autograd Functions
+  (`identity_fwd_psum_bwd`, `psum_identity_bwd`; the JAX parallel/mesh.py
+  names): the identity without one.
 """
 
 from __future__ import annotations
@@ -118,9 +123,20 @@ def stage_per_host(local_data, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(local_data)).to(device)
 
 
-def all_reduce_sum(tensor: torch.Tensor) -> torch.Tensor:
-    """In-place sum over the group's ranks (the JAX psum); returned."""
-    dist.all_reduce(tensor, op=dist.ReduceOp.SUM)
+def new_group(ranks) -> object:
+    """A subgroup of the process group over `ranks`. Every rank of the
+    group must call it for every subgroup, in the same order (the call is
+    collective), members or not."""
+    return dist.new_group(ranks=list(ranks))
+
+
+def all_reduce_sum(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """In-place sum over the ranks of `group` (None: the whole process
+    group; the JAX psum over an axis); returned. A subgroup of one rank
+    leaves tensor as it is, with no call."""
+    if group is not None and dist.get_world_size(group) == 1:
+        return tensor
+    dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=group)
     return tensor
 
 
@@ -137,10 +153,12 @@ def broadcast_params(params: dict, src: int = 0) -> None:
             offset += v.numel()
 
 
-def all_gather_slices(local: torch.Tensor, rank_: int,
-                      world: int) -> torch.Tensor:
-    """The [world · n] vector whose r-th slice of n is rank r's `local`
-    [n]: the tiled all_gather of the JAX package, written as an all_reduce
+def all_gather_slices(local: torch.Tensor, rank_: int, world: int,
+                      group=None) -> torch.Tensor:
+    """The [world · n] vector whose r-th slice of n is the `local` [n] of
+    the rank at position r of `group` (rank_: this rank's position, world:
+    the group's size; None: the whole process group): the tiled all_gather
+    of the JAX package, written as an all_reduce
     (SUM) of a vector that holds `local` at its own slice and -0.0
     everywhere else. x + (-0.0) == x for every float32 x (+0.0 and -0.0
     included), so each element of the sum is its owner's value, bit for
@@ -151,4 +169,42 @@ def all_gather_slices(local: torch.Tensor, rank_: int,
     full = torch.full((world * n,), -0.0, dtype=local.dtype,
                       device=local.device)
     full[rank_ * n:(rank_ + 1) * n] = local
-    return all_reduce_sum(full)
+    return all_reduce_sum(full, group)
+
+
+class _IdentityFwdSumBwd(torch.autograd.Function):
+    """f: identity forward, all-reduce of the cotangent over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.clone(), ctx.group), None
+
+
+class _SumFwdIdentityBwd(torch.autograd.Function):
+    """g: all-reduce forward, identity backward (the summed output is used
+    replicated, so its cotangent is every partial's)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def identity_fwd_psum_bwd(x, group):
+    """Megatron's f over `group` (the JAX identity_fwd_psum_bwd); the
+    identity without one."""
+    return x if group is None else _IdentityFwdSumBwd.apply(x, group)
+
+
+def psum_identity_bwd(x, group):
+    """Megatron's g over `group` (the JAX psum_identity_bwd); the identity
+    without one."""
+    return x if group is None else _SumFwdIdentityBwd.apply(x, group)

@@ -1,6 +1,6 @@
 """Host-side training loop on one device, or on each rank of a process
-group (data parallelism, ZeRO-1) — the data-axis branch of the JAX
-package's train/loop.py.
+group (data and tensor parallelism, ZeRO-1) — the data- and model-axis
+branches of the JAX package's train/loop.py.
 
 Observable behavior is the reference orchestrator's: a timestamped CSV
 {log_dir}/{dataset}_{pos_encoding}_{%Y%m%d_%H%M%S}.csv with header
@@ -39,7 +39,7 @@ import torch
 from vit_rpe_rope_tpu_torch.configs import TrainConfig, ViTConfig
 from vit_rpe_rope_tpu_torch.data import datasets
 from vit_rpe_rope_tpu_torch.models import vit
-from vit_rpe_rope_tpu_torch.parallel import distributed
+from vit_rpe_rope_tpu_torch.parallel import distributed, tensor_parallel
 from vit_rpe_rope_tpu_torch.parallel.mesh import make_mesh
 from vit_rpe_rope_tpu_torch.train import train_step as ts
 from vit_rpe_rope_tpu_torch.train.bounded import make_bounded_step
@@ -54,8 +54,6 @@ N_OPT_LEAVES = 4    # the JAX optimizer state's leaves on disk
 
 def _refuse_unported(tcfg: TrainConfig, world: int) -> None:
     asked = {
-        "model_parallel > 1": (tcfg.model_parallel > 1,
-                               "tensor parallelism"),
         # with q_chunk: the bounded driver's per-chunk KV ring
         ("sequence_parallel > 1 with q_chunk > 0" if tcfg.q_chunk > 0
          else "sequence_parallel > 1"): (tcfg.sequence_parallel > 1,
@@ -108,38 +106,56 @@ def opt_from_disk(leaves, flattener: Flattener, cfg: ViTConfig, device):
     return tree(leaves[1]), tree(leaves[2]), int(np.asarray(leaves[0]))
 
 
-def zero1_opt_to_disk(opt_state, flattener: Flattener, mesh) -> list:
-    """ZeRO-1's (mu slice, nu slice, count) -> opt_to_disk's leaves. Every
-    rank takes part (the slices are gathered over the ranks); the padding
-    past the flat vector is cut off, which leaves the canonical vectors."""
+def _zero1_full(vec, total: int, mesh):
+    """A ZeRO-1 moment slice -> the whole flat vector [total] on its device
+    (gathered over the rank's model column; the padding cut off)."""
+    rank, world = ts._world(mesh)
+    if world > 1:
+        vec = distributed.all_gather_slices(vec, rank, world,
+                                            mesh.data_group)
+    return vec[:total]
+
+
+def _zero1_slice(vec, mesh):
+    """Inverse of _zero1_full: this data rank's slice of a flat vector,
+    zero-padded to shard · world."""
+    rank, world = ts._world(mesh)
+    shard = ts.zero1_shard_size(vec.numel(), world)
+    vec = torch.nn.functional.pad(vec, (0, shard * world - vec.numel()))
+    return vec[rank * shard:(rank + 1) * shard].clone()
+
+
+def mesh_opt_to_disk(opt_state, flattener: Flattener, cfg: ViTConfig,
+                     mesh, local: dict, zero1: bool) -> list:
+    """A train run's optimizer state over `mesh` (None: one device) ->
+    opt_to_disk's leaves (the JAX loop's opt_to_disk): the moment dicts of
+    the params `local` (a tensor-parallel rank's shard, or the reference
+    params without a model axis), or under ZeRO-1 this data rank's slices
+    of their flat vector (flat_layout of `local`), gathered into the
+    reference layout and flattened canonically; the ZeRO-1 padding is cut
+    off. Every rank takes part where the state is sharded."""
     mu, nu, count = opt_state
-    rank, world = ts._world(mesh)
-
-    def full(vec):
-        if world > 1:
-            vec = distributed.all_gather_slices(vec, rank, world)
-        return vec[:flattener.total].cpu()
-
-    count = np.asarray(count, np.int32)
-    return [count, full(mu), full(nu), count]
+    if zero1:
+        layout = ts.flat_layout(local, cfg)
+        mu, nu = (layout.unflatten(_zero1_full(vec, layout.total, mesh))
+                  for vec in (mu, nu))
+    mu, nu = (tensor_parallel.gather_reference(m, cfg, mesh)
+              for m in (mu, nu))
+    return opt_to_disk((mu, nu, count), flattener, cfg)
 
 
-def zero1_opt_from_disk(leaves, flattener: Flattener, mesh, device):
-    """Inverse of zero1_opt_to_disk: each rank keeps its own slice of the
-    stored vectors, zero-padded to shard · world."""
-    rank, world = ts._world(mesh)
-    shard = ts.zero1_shard_size(flattener.total, world)
-
-    def sliced(vec):
-        vec = torch.as_tensor(np.asarray(vec, np.float32))
-        if vec.shape != (flattener.total,):
-            raise ValueError(f"stored moment vector has shape "
-                             f"{tuple(vec.shape)}, expected "
-                             f"({flattener.total},)")
-        vec = torch.nn.functional.pad(vec, (0, shard * world - vec.numel()))
-        return vec[rank * shard:(rank + 1) * shard].to(device).clone()
-
-    return sliced(leaves[1]), sliced(leaves[2]), int(np.asarray(leaves[0]))
+def mesh_opt_from_disk(leaves, flattener: Flattener, cfg: ViTConfig, mesh,
+                       local: dict, zero1: bool, device):
+    """Inverse of mesh_opt_to_disk: each rank keeps its model shard of the
+    stored moments, and under ZeRO-1 its data rank's slice of that shard's
+    flat vector, zero-padded to shard · world."""
+    mu, nu, count = opt_from_disk(leaves, flattener, cfg, device)
+    mu, nu = (tensor_parallel.shard_reference(m, cfg, mesh)
+              for m in (mu, nu))
+    if zero1:
+        layout = ts.flat_layout(local, cfg)
+        mu, nu = (_zero1_slice(layout.flatten(m), mesh) for m in (mu, nu))
+    return mu, nu, count
 
 
 def _progress(desc, done, total, stacked):
@@ -257,7 +273,17 @@ def fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool = True,
     device. tcfg.zero1 shards the AdamW moments over the ranks
     (train_step.make_zero1_adamw); `_last.npz` keeps the canonical flat
     moments either way, so a run resumes with --zero1 on or off and at
-    another world size."""
+    another world size.
+
+    tcfg.model_parallel T > 1 (the JAX fit's TP branch) needs a process
+    group of D·T ranks (T dividing the world size and num_heads, with the
+    JAX fit's ValueError otherwise): the ranks form a D x T mesh, each
+    trains on its shard of the heads and MLP rows
+    (parallel.tensor_parallel), evaluation and the checkpoints see the
+    params gathered over the model axis in the reference layout, and the
+    moments go to disk as the canonical flat vectors (also under --zero1,
+    sharded over the data axis per model shard), so a run resumes under
+    another T, world size or --zero1."""
     _refuse_unported(tcfg, distributed.world_size())
     sanitizer = nan_check.debug_nans() if tcfg.debug_nans \
         else contextlib.nullcontext()
@@ -266,8 +292,12 @@ def fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool = True,
 
 
 def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
-    mesh = (make_mesh(batch_size=tcfg.batch_size)
-            if distributed.is_initialized() else None)
+    t_par = tcfg.model_parallel
+    mesh = (make_mesh(batch_size=tcfg.batch_size, model_parallel=t_par)
+            if distributed.is_initialized() or t_par > 1 else None)
+    if t_par > 1 and cfg.num_heads % t_par:
+        raise ValueError(f"model_parallel={t_par} must divide "
+                         f"num_heads={cfg.num_heads}")
     if device is None and mesh is not None:
         device = distributed.device()
     device = resolve_device(device)
@@ -309,13 +339,10 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
 
     params = vit.init_params(torch.Generator().manual_seed(tcfg.seed), cfg,
                              device=device)
-    opt_init, opt_update = ts.make_optimizer(tcfg, steps_per_epoch, params,
-                                             cfg=cfg, mesh=mesh)
-    opt_state = opt_init(params)
     flattener = moment_flattener(params, cfg)
 
     last_path = f"{tcfg.ckpt_dir}/{tcfg.dataset}_{cfg.pos_encoding}_last.npz"
-    start_epoch, best_acc = 0, 0.0
+    start_epoch, best_acc, leaves = 0, 0.0, None
     if tcfg.resume and os.path.exists(last_path):
         loaded, leaves, start_epoch, best_acc = checkpoint.load_train_state(
             last_path, N_OPT_LEAVES)
@@ -325,16 +352,22 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
                 f" that differ from this model's")
         params = {k: loaded[k].to(device=device, dtype=torch.float32)
                   for k in params}
-        opt_state = (
-            zero1_opt_from_disk(leaves, flattener, mesh, device)
-            if tcfg.zero1 else opt_from_disk(leaves, flattener, cfg, device))
         if verbose:
             print(f"Resumed from {last_path} at epoch {start_epoch} "
                   f"(best {best_acc:.2f}%)")
     if mesh is not None:  # every rank starts from rank 0's params
         distributed.broadcast_params(params)
-    for v in params.values():
+    # Under TP the train state is the rank's shard; evaluation and the
+    # checkpoints see the params gathered back (gather_reference below).
+    train_params = tensor_parallel.shard_reference(params, cfg, mesh)
+    for v in train_params.values():
         v.requires_grad_(True)
+    opt_init, opt_update = ts.make_optimizer(
+        tcfg, steps_per_epoch, train_params, cfg=cfg, mesh=mesh)
+    opt_state = opt_init(train_params)
+    if leaves is not None:
+        opt_state = mesh_opt_from_disk(leaves, flattener, cfg, mesh,
+                                       train_params, tcfg.zero1, device)
 
     # Optimizer steps per dispatch: auto (0) stays 1 on every device; the
     # bounded driver is host-scheduled, one step per dispatch.
@@ -370,11 +403,13 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
             ep_x, ep_y = train_x, train_y
             if k > 1:  # one gather per epoch; each dispatch takes a slice
                 ep_x, ep_y = ts.epoch_order_data(train_x, train_y, epoch_idx)
-            (params, opt_state), train_loss, train_acc, train_ips = \
-                _run_epoch(train_fn, (params, opt_state), ep_x, ep_y,
+            (train_params, opt_state), train_loss, train_acc, train_ips = \
+                _run_epoch(train_fn, (train_params, opt_state), ep_x, ep_y,
                            epoch_idx, "Training", True, k=stride,
                            verbose=verbose, epoch=epoch)
             del ep_x, ep_y
+            params = tensor_parallel.gather_reference(train_params, cfg,
+                                                      mesh)
             _, test_loss, test_acc, _ = _run_epoch(
                 eval_fn, (params, None), test_x, test_y, eval_idx,
                 "Testing", False, verbose=verbose)
@@ -389,11 +424,8 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
                         f"_best.npz", host_params, vit.buffers(cfg),
                         aliases=vit.reference_alias_keys(cfg))
             if tcfg.save_last:
-                if tcfg.zero1:  # every rank sends its slices
-                    opt_leaves = zero1_opt_to_disk(opt_state, flattener,
-                                                   mesh)
-                elif lead:
-                    opt_leaves = opt_to_disk(opt_state, flattener, cfg)
+                opt_leaves = mesh_opt_to_disk(opt_state, flattener, cfg,
+                                              mesh, train_params, tcfg.zero1)
                 if lead:
                     checkpoint.save_train_state(last_path, host_params,
                                                 opt_leaves, epoch, best_acc)
@@ -417,6 +449,7 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
 
     return dict(best_acc=best_acc, log_file=log_file, ckpt_path=ckpt_path,
                 history=history, num_params=vit.num_params(params),
-                num_devices=mesh.size if mesh is not None else 1,
+                num_devices=(mesh.size * mesh.model_parallel
+                             if mesh is not None else 1),
                 capture_seconds=getattr(
                     train_fn, "capture_seconds", None))

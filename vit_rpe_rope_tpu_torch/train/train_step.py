@@ -51,7 +51,7 @@ from vit_rpe_rope_tpu_torch.configs import TrainConfig, ViTConfig, cosine_lr_by_
 from vit_rpe_rope_tpu_torch.models import vit
 from vit_rpe_rope_tpu_torch.ops import launches
 from vit_rpe_rope_tpu_torch.ops.fused_adamw import hyper_rows, make_fused_adamw
-from vit_rpe_rope_tpu_torch.parallel import distributed
+from vit_rpe_rope_tpu_torch.parallel import distributed, tensor_parallel
 from vit_rpe_rope_tpu_torch.utils import nan_check
 from vit_rpe_rope_tpu_torch.utils.flatten import Flattener
 
@@ -105,7 +105,10 @@ def make_zero1_adamw(template: dict, cfg: ViTConfig, schedule, mesh=None,
     copies it into the params. The count and the schedule stay replicated.
     The update is elementwise, so the params are those of the replicated
     optimizer on the same gradients. Without a process group (mesh None) it
-    is the one-device run: one slice, no collective."""
+    is the one-device run: one slice, no collective. Under tensor
+    parallelism (the JAX ZeRO-1 x TP update) template is the rank's local
+    shard: each rank holds 1/D of its model shard's flat vector, and the
+    slices are gathered over its model column (Mesh.data_group) only."""
     layout = flat_layout(template, cfg)
     _, inner = make_fused_adamw({"flat": None}, schedule, b1=b1, b2=b2,
                                 eps=eps, weight_decay=weight_decay)
@@ -132,7 +135,7 @@ def make_zero1_adamw(template: dict, cfg: ViTConfig, schedule, mesh=None,
 
     def gather(p, params, world):
         full = p if world == 1 else distributed.all_gather_slices(
-            p, mesh.rank, world)
+            p, mesh.rank, world, mesh.data_group)
         views = layout.unflatten(full[:layout.total])
         keys = list(params)
         torch._foreach_copy_([params[k].detach() for k in keys],
@@ -227,16 +230,30 @@ def augment_apply(x, flip, oy, ox, pad: int = AUGMENT_PAD):
     return xp[batch, rows[:, :, None], cols[:, None, :]]
 
 
-def step_generators(seed: int, epoch: int, row: int, device, rank: int = 0):
+def step_generators(seed: int, epoch: int, row: int, device, rank: int = 0,
+                    model_rank: int | None = None):
     """(augmentation generator, dropout generator) of one train row on
     `device`, seeded from (seed, epoch, row): the same row of the same
     epoch draws the same, other rows and epochs draw otherwise. A data rank
     r > 0 folds r into the seed (the JAX step folds its axis_index), so
-    each rank draws for its own columns; rank 0 draws as one device does."""
+    each rank draws for its own columns; rank 0 draws as one device does.
+
+    model_rank (tensor parallelism): the dropout generator is a pair
+    (shared, local) for parallel.tensor_parallel.apply_tp. The
+    augmentation and `shared` are the data rank's, the same on every model
+    rank; `local` is spawned from them with the model rank folded in (the
+    JAX fold_in of the model index), for the masks on a rank's own heads
+    and MLP rows."""
     entropy = [seed, epoch, row] + ([rank] if rank else [])
-    seeds = np.random.SeedSequence(entropy).generate_state(2, dtype=np.uint64)
-    return tuple(torch.Generator(device=device).manual_seed(
+    seeds = list(np.random.SeedSequence(entropy).generate_state(
+        2, dtype=np.uint64))
+    if model_rank is not None:
+        seeds += list(np.random.SeedSequence(
+            entropy, spawn_key=(model_rank,)).generate_state(
+                1, dtype=np.uint64))
+    gens = tuple(torch.Generator(device=device).manual_seed(
         int(s) & ((1 << 63) - 1)) for s in seeds)
+    return gens if model_rank is None else (gens[0], gens[1:])
 
 
 def _columns(mesh, batch: int):
@@ -342,7 +359,7 @@ def _loss_and_metrics(params, imgs, labels, mask, cfg, preprocess,
 
 
 def _grads_and_metrics(params, cfg, preprocess, batches, count=None,
-                       reduce: bool = False):
+                       mesh=None, apply_fn=None):
     """One optimizer step's gradients over its rows. batches: one (imgs,
     labels, mask, generators) per row (generators: the row's pair of
     step_generators, or None where the step draws nothing); count: the
@@ -351,11 +368,11 @@ def _grads_and_metrics(params, cfg, preprocess, batches, count=None,
     loss); more: raw gradients of the per-row loss sums, summed and divided
     by the count, which equals one step on the concatenated batch.
 
-    reduce: one data rank of a process group (the JAX _dp_step): batches
-    hold this rank's columns and count is the global count. The gradients,
-    the loss (share or sum) and the correct count go into ONE flat vector
-    (flat_layout's order, then the two metrics), summed over the ranks by
-    one all_reduce before the division: the full batch's step. Returns
+    mesh: a process group's mesh (the JAX _dp_step; None: one device, no
+    collective): batches hold this rank's columns and count is the global
+    count; _reduce_over_mesh sums the gradients and metrics before the
+    division: the full batch's step. apply_fn: the forward (default
+    models.vit.apply; tensor_parallel.apply_tp on a model axis). Returns
     (grads dict, metrics [loss, correct, count])."""
     keys = list(params.values())
     if count is None:
@@ -364,7 +381,7 @@ def _grads_and_metrics(params, cfg, preprocess, batches, count=None,
     if len(batches) == 1:
         imgs, labels, mask, gens = batches[0]
         loss_sum, correct = _loss_and_metrics(params, imgs, labels, mask, cfg,
-                                              preprocess, generators=gens)
+                                              preprocess, apply_fn, gens)
         loss = loss_sum / safe_count
         grads = list(torch.autograd.grad(loss, keys))
         loss = loss.detach()
@@ -372,28 +389,73 @@ def _grads_and_metrics(params, cfg, preprocess, batches, count=None,
         grads, loss, correct = None, 0.0, 0.0
         for imgs, labels, mask, gens in batches:
             ls, cor = _loss_and_metrics(params, imgs, labels, mask, cfg,
-                                        preprocess, generators=gens)
+                                        preprocess, apply_fn, gens)
             g = torch.autograd.grad(ls, keys)
             grads = g if grads is None else [x + y for x, y in zip(grads, g)]
             loss = loss + ls.detach()
             correct = correct + cor
-    if reduce:
-        layout = flat_layout(params, cfg)
-        by_key = dict(zip(params, grads))
-        flat = torch.cat([by_key[k].reshape(-1) for k in layout.keys]
-                         + [torch.stack([loss, correct])])
-        distributed.all_reduce_sum(flat)
-        loss, correct = flat[layout.total], flat[layout.total + 1]
-        if len(batches) > 1:
-            flat[:layout.total].div_(safe_count)
-        views = layout.unflatten(flat[:layout.total])
-        grads = [views[k] for k in params]
-    elif len(batches) > 1:
-        grads = [g / safe_count for g in grads]
-    if len(batches) > 1:
-        loss = loss / safe_count
+    divisor = safe_count if len(batches) > 1 else None
+    if mesh is not None and mesh.distributed:
+        grads, loss, correct = _reduce_over_mesh(params, cfg, mesh, grads,
+                                                 loss, correct, divisor)
+    elif divisor is not None:
+        grads = [g / divisor for g in grads]
+    if divisor is not None:
+        loss = loss / divisor
     return (dict(zip(params, grads)),
             torch.stack([loss, correct, count]))
+
+
+def _reduce_over_mesh(params, cfg, mesh, grads, loss, correct, divisor):
+    """The gradient sums of one step over a process group's mesh, then the
+    division by `divisor` (None: none): the JAX reduce_grads.
+
+    Over the data axis (skipped for a model axis of one data row): the
+    gradients, the loss and the correct count go into ONE flat vector
+    (flat_layout's order of the rank's params, then the two metrics),
+    summed over the rank's model column by one all_reduce. Over the model
+    axis: the per-head PE params' gradients
+    (tensor_parallel.model_sync_keys) are summed over the rank's data row
+    by one small all_reduce; the sharded params' gradients are local, the
+    replicated ones' identical on every model rank. Returns (grads list in
+    params' order, loss, correct)."""
+    by_key = dict(zip(params, grads))
+    flat = layout = None
+    if mesh.model_parallel == 1 or mesh.size > 1:
+        layout = flat_layout(params, cfg)
+        flat = torch.cat([by_key[k].reshape(-1) for k in layout.keys]
+                         + [torch.stack([loss, correct])])
+        mesh.sum_over_data(flat)
+        loss, correct = flat[layout.total], flat[layout.total + 1]
+        by_key = layout.unflatten(flat[:layout.total])
+    sync = (tensor_parallel.model_sync_keys(params, cfg)
+            if mesh.model_parallel > 1 else [])
+    if sync:
+        pe = torch.cat([by_key[k].reshape(-1) for k in sync])
+        distributed.all_reduce_sum(pe, mesh.model_group)
+        pieces = pe.split([by_key[k].numel() for k in sync])
+        torch._foreach_copy_([by_key[k] for k in sync],
+                             [p.view_as(by_key[k])
+                              for k, p in zip(sync, pieces)])
+    if divisor is None:
+        return [by_key[k] for k in params], loss, correct
+    if flat is not None:
+        flat[:layout.total].div_(divisor)
+        return [by_key[k] for k in params], loss, correct
+    return [by_key[k] / divisor for k in params], loss, correct
+
+
+def _model_axis(mesh):
+    """(apply_fn, model_rank) of a step over `mesh`: the TP forward over its
+    model axis and this rank's model position, or (None, None) without a
+    model axis (models.vit.apply, two generators a row)."""
+    if mesh is None or mesh.model_parallel == 1:
+        return None, None
+
+    def apply_fn(params, images, cfg, generator=None):
+        return tensor_parallel.apply_tp(params, images, cfg, mesh, generator)
+
+    return apply_fn, mesh.model_rank
 
 
 def _step_batches(data_x, data_y, epoch_idx, rows, mesh, generators):
@@ -414,12 +476,16 @@ def make_train_step(cfg: ViTConfig, update, preprocess, accum: int = 1,
     and dropout from step_generators(seed, epoch, row). Params are leaf
     tensors that require grad; update changes them in place.
 
-    mesh: a process group's mesh (parallel.mesh.make_mesh): each rank takes
-    its columns of the rows, and the step's gradients and metrics are summed
-    over the ranks by one all_reduce (_grads_and_metrics(reduce=True));
-    every rank then applies the same update. None: one device, no
-    collective."""
+    mesh: a process group's mesh (parallel.mesh.make_mesh): each data rank
+    takes its columns of the rows, and the step's gradients and metrics are
+    summed over the data ranks by one all_reduce (_reduce_over_mesh); every
+    rank then applies the same update. With a model axis (the JAX
+    make_tp_train_step) params are the rank's local shard
+    (parallel.tensor_parallel.shard_params), the forward is
+    tensor_parallel.apply_tp, and the per-head PE params' gradients are
+    also summed over the model axis. None: one device, no collective."""
     dp = mesh is not None and mesh.distributed
+    apply_fn, model_rank = _model_axis(mesh)
 
     def train_step(params, opt_state, row, data_x, data_y, epoch_idx,
                    epoch=0):
@@ -427,10 +493,12 @@ def make_train_step(cfg: ViTConfig, update, preprocess, accum: int = 1,
         rows = range(row, row + accum)
         batches = _step_batches(
             data_x, data_y, epoch_idx, rows, mesh,
-            lambda r: step_generators(seed, epoch, r, data_x.device, rank))
+            lambda r: step_generators(seed, epoch, r, data_x.device, rank,
+                                      model_rank))
         count = _real_count(epoch_idx[row:row + accum]) if dp else None
         grads, metrics = _grads_and_metrics(params, cfg, preprocess, batches,
-                                            count, reduce=dp)
+                                            count, mesh if dp else None,
+                                            apply_fn)
         params, opt_state = update(grads, opt_state, params)
         return params, opt_state, metrics
 
@@ -470,12 +538,14 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
     stdout.
 
     mesh: a process group's mesh, as make_train_step's: each step takes this
-    rank's columns of its rows and sums its gradients over the ranks. Then
-    the k steps run eagerly on every device (gloo's collectives cannot be
-    captured in a CUDA graph, and a multi-rank NCCL capture has not been
-    verified), which the first call says on stdout."""
+    rank's columns of its rows and sums its gradients over the ranks (and
+    runs the TP forward on a model axis). Then the k steps run eagerly on
+    every device (gloo's collectives cannot be captured in a CUDA graph,
+    and a multi-rank NCCL capture has not been verified), which the first
+    call says on stdout."""
     fetch = _make_fetch(feed)
     dp = mesh is not None and mesh.distributed
+    apply_fn, model_rank = _model_axis(mesh)
     stride = k * accum
     draws = cfg.has_dropout or getattr(preprocess, "augment", False)
     live_rows = {"idx": None, "rows": None}  # host copy, once per epoch
@@ -513,7 +583,8 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
             count = (_real_count(idx[j * accum:(j + 1) * accum]) if dp
                      else None)
             grads, m = _grads_and_metrics(params, cfg, preprocess, batches,
-                                          count, reduce=dp)
+                                          count, mesh if dp else None,
+                                          apply_fn)
             params, opt_state = step_update(j, grads, opt_state, params)
             metrics.append(m)
         return params, opt_state, torch.stack(metrics)
@@ -526,7 +597,8 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
             rank = mesh.rank if dp else 0
 
             def gens(r):
-                return step_generators(seed, epoch, row + r, x.device, rank)
+                return step_generators(seed, epoch, row + r, x.device, rank,
+                                       model_rank)
 
         def step_update(j, grads, state, p):
             return update(grads, state, p) if is_live[j] else (p, state)
@@ -595,8 +667,10 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
         if dp or draws or nan_check.ACTIVE:
             if not told:
                 told.append(True)
-                why = ("the steps sum their gradients over a process group "
-                       "(data parallelism)" if dp else
+                axes = ("data and tensor" if model_rank is not None
+                        else "data")
+                why = (f"the steps sum their gradients over a process group "
+                       f"({axes} parallelism)" if dp else
                        "the train steps draw random numbers (dropout, "
                        "drop-path or augmentation)" if draws else
                        "the NaN sanitizer reads values on the host")
@@ -613,10 +687,11 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
 def make_eval_step(cfg: ViTConfig, preprocess, mesh=None):
     """Returns eval_step(params, row, data_x, data_y, epoch_idx) -> metrics
     [loss, correct, count] of that index row (a fully padded row reports
-    count 0 and loss 0). mesh: a process group's mesh: each rank evaluates
-    its columns and the loss and correct sums are summed over the ranks
-    (one all_reduce; the count is the whole row's), as the JAX eval step
-    psums them."""
+    count 0 and loss 0). mesh: a process group's mesh: each data rank
+    evaluates its columns and the loss and correct sums are summed over the
+    data ranks (one all_reduce; the count is the whole row's), as the JAX
+    eval step psums them. Under tensor parallelism it takes the whole
+    (gathered) params, which every model rank evaluates alike."""
     dp = mesh is not None and mesh.distributed
 
     def eval_step(params, row, data_x, data_y, epoch_idx):
@@ -628,7 +703,7 @@ def make_eval_step(cfg: ViTConfig, preprocess, mesh=None):
                                                   cfg, preprocess)
             if dp:
                 count = _real_count(epoch_idx[row])
-                loss_sum, correct = distributed.all_reduce_sum(
+                loss_sum, correct = mesh.sum_over_data(
                     torch.stack([loss_sum, correct]))
             else:
                 count = mask.sum()
