@@ -113,8 +113,9 @@ exits nonzero without a card, or when any phase fails. Phases:
    long-sequence model at 1024 px, batch 1) in rope-axial, polynomial and
    relative, with exact launch counts; key segments of 32,768 against none;
    grad_accum 2 against one batch of 4 at N=4,097; one epoch of the
-   long-sequence model through the train CLI with --q_chunk 2048 in
-   rope-axial, exact launch counts, the best checkpoint served; times: the
+   long-sequence model (its depth cut from 2 to 1) through the train CLI
+   with --q_chunk 2048 in rope-axial, exact launch counts, the best
+   checkpoint served; times: the
    chunk wrapper, its kernel and its prologue (device time), its twin, its
    bound and SDPA at (1, 4, 16,384 rows, 66,048 keys, 32) and at the
    --q_chunk 2048 epoch's (4, 4, 2,048 rows, 4,608 keys, 32), the bounded
@@ -234,6 +235,28 @@ exits nonzero without a card, or when any phase fails. Phases:
    and relative table at a non-zero offset) through rows 3, 5, 6 and 7
    and their prologues, evaluation at 4 heads on the gathered params, held
    as (b) to a one-rank epoch of the same data.
+22. context parallelism: (a) whether gloo's send / recv move CUDA tensors
+   (the ring hop stages them through the host under gloo either way); the
+   kernel ring at R = 2 on two gloo ranks sharing the card at (4, 4, 4,097,
+   32) in none, relative, polynomial and rope-mixed (q and k rotated
+   before the ring), and on 4,096 tokens of which 1,948 are valid (the
+   second shard padding only: a hop over a key chunk masked whole):
+   out, lse, dq, dk, dv and the bias parameters' gradient summed over the
+   ranks against the one-device kernels (the chunk entries at (0, 0) over
+   every key) within CP_RING_TOL and against the plain float32 ring within
+   CP_PLAIN_TOL, every value finite, a second pass bit-equal to the first
+   (and timed: the ring's forward and backward beside the one-device
+   kernels'), two chunk forwards and two one-pass backwards a rank and
+   call; (b) the long-sequence model at depth 1
+   (N = 4,097, batch 4) through the train CLI on two gloo ranks with
+   --sequence_parallel 2 in rope-mixed and relative, on CP_TRAIN examples:
+   the params bit-equal on both ranks, the launches of rows 4, 5 and 11
+   exact, one CSV, each of the six step losses within CP_STEP_TOL of a
+   one-rank epoch of the same data; (c) rope-mixed with --zero1, bit-equal
+   to (b); (d) rope-axial with --q_chunk 2048 (the bounded driver's ring:
+   q-chunks of 2,048 and 512 rows a rank, two hops each), held as (b);
+   (e) the bounded step with force_ring on a process group of one rank
+   over NCCL against the plain bounded step, bit for bit.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -4313,13 +4336,14 @@ DOWNSAMPLE_TOL = 1e-6    # make_preprocess 32 -> 16 px, card vs CPU
 DP_WORKER_TIMEOUT = 300  # seconds for one two-rank launch
 CSV_FIELDS = ("train_loss", "train_acc", "test_loss", "test_acc")
 
-# One rank of phases 20b and 21, in a process of its own: the train CLI
-# under torchrun's environment (set by the caller) once per run of the JSON
-# payload {label: [port, argv, n_train]}, each in {out}/{label} with the
-# launch counts reset before it (n_train: the synthetic set cut to n_train
-# / n_train // 5 examples, or null for the whole set); each run's final
-# params (the rank's shard under tensor parallelism), launch counts,
-# per-step losses and the batch sizes and head counts the attention
+# One rank of phases 20b, 21 and 22b-d, in a process of its own: the train
+# CLI under torchrun's environment (set by the caller) once per run of the
+# JSON payload {label: [port, argv, n_train]}, each in {out}/{label} with
+# the launch counts reset before it (n_train: the synthetic set cut to
+# n_train / n_train // 5 examples, or null for the whole set); each run's
+# final params (the rank's shard under tensor parallelism), launch counts,
+# per-step losses (of the train step, or of the bounded step with
+# --q_chunk) and the batch sizes and head counts the attention
 # wrappers saw (the dense ones, and the streaming ones where they ran) go
 # to {out}/{label}/rank{RANK}.npz / .json.
 DP_RANK = r"""
@@ -4329,15 +4353,17 @@ import torch
 from vit_rpe_rope_tpu_torch.cli import train as train_cli
 from vit_rpe_rope_tpu_torch.data import datasets
 from vit_rpe_rope_tpu_torch.ops import flash_attention as fa, fused_adamw
+from vit_rpe_rope_tpu_torch.train import loop
 from vit_rpe_rope_tpu_torch.train import train_step as ts
 
 out, runs = sys.argv[1], json.loads(sys.argv[2])
 rank = os.environ["RANK"]
 final, batches, heads, losses = {}, {}, {}, []
 make, real_dataset = ts.make_train_step, datasets.get_dataset
+make_bounded = loop.make_bounded_step
 
-def make_train_step(*args, **kw):
-    step = make(*args, **kw)
+def make_train_step(*args, _make=make, **kw):
+    step = _make(*args, **kw)
 
     def recorded(*a, **k):
         result = step(*a, **k)
@@ -4345,6 +4371,7 @@ def make_train_step(*args, **kw):
         losses.append(result[2][0])
         return result
 
+    recorded.evaluate = getattr(step, "evaluate", None)
     return recorded
 
 STREAM = {"attn_stream_fwd": "STREAM_FWD",
@@ -4354,8 +4381,11 @@ STREAM = {"attn_stream_fwd": "STREAM_FWD",
           "attn_stream_bwd_dkv": "STREAM_DKV",
           "attn_stream_bwd_dbias": "STREAM_DBIAS",
           "attn_stream_bwd_fused": "STREAM_FUSED",
-          "attn_stream_bwd_fused_prologue": "STREAM_FUSED_PROLOGUE"}
+          "attn_stream_bwd_fused_prologue": "STREAM_FUSED_PROLOGUE",
+          "attn_stream_chunk_fwd": "STREAM_CHUNK_FWD"}
 ts.make_train_step = make_train_step
+loop.make_bounded_step = lambda *a, **k: make_train_step(
+    *a, _make=make_bounded, **k)
 for name in ("fwd", "bwd", "stream_fwd", "stream_bwd", "stream_bwd_fused"):
     def wrapped(q, *a, _fn=getattr(fa, "attention_" + name), _n=name, **k):
         batches["attn_" + _n].add(int(q.shape[0]))
@@ -4434,25 +4464,30 @@ def cli_epoch(train_modules, argv, world_env=None, keep_dir=None):
     torchrun_env to run it under (a process group of one, this process).
     Returns the CSV row, every array of `_last.npz`, the launches and the
     times; the best checkpoint is copied into keep_dir when one is given."""
+    from vit_rpe_rope_tpu_torch.train import loop
     from vit_rpe_rope_tpu_torch.train import train_step as ts
 
     fa, fused_adamw, train_cli, _, _ = train_modules
     losses, make = [], ts.make_train_step
+    make_bounded = loop.make_bounded_step
 
-    def make_train_step(*args, **kw):  # records each step's loss
-        step = make(*args, **kw)
+    def make_train_step(*args, _make=make, **kw):  # records each step's loss
+        step = _make(*args, **kw)
 
         def recorded(*a, **k):
             result = step(*a, **k)
             losses.append(result[2][0])
             return result
 
+        recorded.evaluate = getattr(step, "evaluate", None)
         return recorded
 
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         ts.make_train_step = make_train_step
+        loop.make_bounded_step = lambda *a, **k: make_train_step(
+            *a, _make=make_bounded, **k)
         try:
             with (world_env or contextlib.nullcontext()):
                 reset_counts(fa, fused_adamw)
@@ -4473,6 +4508,7 @@ def cli_epoch(train_modules, argv, world_env=None, keep_dir=None):
                                    keep_dir)
         finally:
             ts.make_train_step = make
+            loop.make_bounded_step = make_bounded
             os.chdir(cwd)
     ips = summary["history"][0]["images_per_sec"]
     return dict(row=row, last=last, launches=counts, routes=routes,
@@ -4556,6 +4592,36 @@ def check_world_one(train_modules):
     return out, runs
 
 
+def rank_processes(script, args, world, timeout):
+    """`script` (python -c) on `world` ranks of torchrun's environment on
+    this host, each a process of its own; returns [(returncode, output)]
+    per rank. A launch that outlasts `timeout` is killed (returncode
+    None)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()), WORLD_SIZE=str(world),
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script, *args],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    out = []
+    try:
+        for p in procs:
+            try:
+                out.append((p.communicate(timeout=timeout)[0], p))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out.append((p.communicate()[0], None))
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    return [(None if p is None else p.returncode, text) for text, p in out]
+
+
 def gloo_ranks(runs, world=2, n_train=None):
     """Phases 20b and 21: the train CLI (TINY_ARGV + argv, for each label:
     argv of `runs`) on `world` ranks sharing the card over gloo, each rank
@@ -4566,35 +4632,20 @@ def gloo_ranks(runs, world=2, n_train=None):
     fails the phase. Returns, per label, each rank's record with its final
     params, rank 0's CSV row and the CSVs written; and the launch's
     seconds."""
-    root = os.path.dirname(os.path.abspath(__file__))
     sizes = n_train if isinstance(n_train, dict) else dict.fromkeys(
         runs, n_train)
     payload = json.dumps({label: [free_port(), TINY_ARGV + argv
                                   + ["--dist_backend", "gloo"], sizes[label]]
                           for label, argv in runs.items()})
     with tempfile.TemporaryDirectory() as tmp:
-        env = dict(os.environ, MASTER_ADDR="127.0.0.1",
-                   WORLD_SIZE=str(world),
-                   PYTHONPATH=root + os.pathsep
-                   + os.environ.get("PYTHONPATH", ""))
         t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, "-c", DP_RANK, tmp, payload], cwd=tmp,
-            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(world)]
-        try:
-            logs = [p.communicate(timeout=DP_WORKER_TIMEOUT)[0]
-                    for p in procs]
-        finally:
-            for p in procs:
-                p.kill()
-                p.wait()
+        results = rank_processes(DP_RANK, [tmp, payload], world,
+                                 DP_WORKER_TIMEOUT)
         seconds = time.perf_counter() - t0
-        for r, (p, text) in enumerate(zip(procs, logs)):
-            if p.returncode != 0:
+        for r, (rc, text) in enumerate(results):
+            if rc != 0:
                 raise AssertionError(f"rank {r} of {list(runs)} failed "
-                                     f"({p.returncode}):\n{text[-4000:]}")
+                                     f"({rc}):\n{text[-4000:]}")
         out = {}
         for label in runs:
             run_dir = os.path.join(tmp, label)
@@ -4963,6 +5014,462 @@ def check_tensor_parallel(world_one, train_modules, datasets):
     return out
 
 
+# Phase 22: context parallelism.
+# The kernel ring against the one-device kernels (the chunk entries at
+# offsets (0, 0) over every key: the whole-sequence kernels, bit for bit,
+# phase 15) on the same inputs, as a share of each output's largest entry
+# (lse absolute). Same rounding points, but p is rounded against a chunk's
+# running max instead of the whole row's, and two chunks are merged with
+# logaddexp in float32. The polynomial coefficients' gradient sums ds times
+# dist^m (up to 126^3) over every pair, terms that nearly cancel: 4.68e-3
+# of its largest entry was seen on an H100 (out 9.5e-4, lse 1.9e-6, dq /
+# dk / dv 3.5e-3), so it takes the gradients' limit.
+CP_RING_TOL = {"out": 4e-3, "lse": 1e-4, "grad": 1.6e-2, "param": 1.6e-2}
+# The kernel ring (bf16 products) against the plain ring (float32), as for
+# the kernels against the unfused float32 oracle (LOGITS_TOL, AUTOGRAD_TOL).
+CP_PLAIN_TOL = {"out": LOGITS_TOL, "lse": 1e-2, "grad": AUTOGRAD_TOL,
+                "param": AUTOGRAD_TOL}
+# Two gloo ranks (the kernel ring over the token shards) against one rank
+# (the whole-sequence kernels) on the same data: each of the epoch's step
+# losses, relative (bf16 products on both sides, merged over other tiles;
+# the gradients summed over the ring in another order). An H100 showed
+# 2.7e-5 at most over the six steps (relative), 4.9e-7 (rope-mixed) and
+# 7.4e-7 (--q_chunk); the losses move by 1e-1 from step to step, so a wrong
+# ring backward shows from the second step on.
+CP_STEP_TOL = 1e-4
+CP_TRAIN = 24            # examples of the CP runs: 6 steps of 4, 1 eval row
+CP_WORKER_TIMEOUT = 300  # seconds for one launch of the CP runs
+
+# One rank of phase 22a, in a process of its own under torchrun's
+# environment (set by the caller): the ring cases of the JSON payload, each
+# through the kernel ring (context_parallel.ring_flash_attention, its
+# forward and backward under autograd), the one-device kernels (the chunk
+# entries at offsets (0, 0) over every key, on the whole padded sequence)
+# and the plain ring (context_parallel.ring_attention, float32, autograd);
+# writes {out}/ring_rank{RANK}.json with each case's errors (over the
+# rank's valid rows), finiteness, launches and times.
+CP_RING = r"""
+import json, os, sys, time
+import torch
+from vit_rpe_rope_tpu_torch.ops import flash_attention as fa
+from vit_rpe_rope_tpu_torch.parallel import context_parallel as cp
+from vit_rpe_rope_tpu_torch.parallel import distributed
+from vit_rpe_rope_tpu_torch.parallel.mesh import make_mesh
+
+out, cases = sys.argv[1], json.loads(sys.argv[2])
+distributed.initialize("gloo")
+rank, world = distributed.rank(), distributed.world_size()
+ring = make_mesh(seq_parallel=world).seq_ring
+device = distributed.device()
+B, H, D = 4, 4, 32
+scale = D ** -0.5
+record = {}
+
+def share(got, want):
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, 1000.0 * (time.perf_counter() - t0)
+
+def counts():
+    return {"attn_stream_chunk_fwd": fa.LAUNCHES_STREAM_CHUNK_FWD,
+            "attn_stream_bwd_fused": fa.LAUNCHES_STREAM_FUSED,
+            "attn_stream_fwd": fa.LAUNCHES_STREAM_FWD}
+
+for case in cases:
+    n, nl, n_valid, kind = case["n"], case["nl"], case["n_valid"], case["bias"]
+    gen = torch.Generator().manual_seed(case["seed"])
+    q, k, v, g = (torch.randn(B, H, n, D, generator=gen) for _ in range(4))
+    arg, grid = None, case["grid"]
+    if kind == "rel":
+        arg = torch.randn(H, 2 * n - 1, generator=gen)
+    elif kind == "poly":  # term m of size ~1 at distance ~ grid
+        arg = torch.randn(H, 4, generator=gen) / torch.tensor(
+            [float(grid) ** m for m in range(4)])
+    elif kind == "rope-mixed":  # per-head tables, q and k rotated before
+        angles = 3.0 * torch.randn(H, n - 1, D // 2, generator=gen)
+        cos, sin = fa._prep_freqs((angles.cos(), angles.sin()), H, n,
+                                  torch.float32)
+        q, k = fa._rotate(q, cos[None], sin[None]), fa._rotate(
+            k, cos[None], sin[None])
+    g[:, :, n_valid:] = 0.0  # as in training: nothing reads padded rows
+    pad = lambda t: fa._pad_seq(t, nl * world, 2).to(device)
+    q, k, v, g = map(pad, (q, k, v, g))
+    arg = None if arg is None else arg.to(device)
+    bias_kind = kind if kind in ("rel", "poly") else None
+    kw = cp._generated(bias_kind, arg, grid)
+    rows = slice(rank * nl, (rank + 1) * nl)
+    valid = (rank * nl + torch.arange(nl, device=device)) < n_valid
+    mine = lambda t: t[:, :, rows]
+    leaves = lambda: [mine(t).clone().requires_grad_() for t in (q, k, v)] \
+        + ([arg.clone().requires_grad_()] if arg is not None else [])
+
+    # the kernel ring, under autograd: a first pass (its launches counted),
+    # then a second, timed, that must give the same bits
+    def kernel_ring():
+        lv = leaves()
+        o, fwd_ms = timed(lambda: cp.ring_flash_attention(
+            lv[0], lv[1], lv[2], scale, ring, n_valid, bias_kind,
+            lv[3] if arg is not None else None, grid))
+        grads, bwd_ms = timed(lambda: torch.autograd.grad(o, lv, mine(g)))
+        return o.detach(), grads, fwd_ms, bwd_ms
+
+    for name in ("LAUNCHES_STREAM_CHUNK_FWD", "LAUNCHES_STREAM_FWD",
+                 "LAUNCHES_STREAM_FUSED"):
+        setattr(fa, name, 0)
+    o, grads, first_fwd_ms, first_bwd_ms = kernel_ring()
+    launches = counts()
+    o2, grads2, fwd_ms, bwd_ms = kernel_ring()
+    relaunch = bool(torch.equal(o2, o)) and all(
+        torch.equal(a, b) for a, b in zip(grads, grads2))
+    with torch.no_grad():
+        _, lse = cp.ring_flash_fwd(mine(q), mine(k), mine(v), scale, ring,
+                                   n_valid, kw, torch.bfloat16)
+    dparam = None
+    if arg is not None:
+        dparam = distributed.all_reduce_sum(grads[3].clone())
+
+    # the one-device kernels on the whole padded sequence
+    (ref_o, ref_lse), ref_fwd_ms = timed(lambda: fa.streaming_chunk_fwd(
+        q, k, v, scale, 0, 0, n_valid, **kw))
+    delta = (g.float() * ref_o.float()).sum(-1)
+    ref, ref_bwd_ms = timed(lambda: fa.streaming_chunk_bwd(
+        q, k, v, g, ref_lse, delta, scale, 0, 0, n_valid, **kw))
+
+    # the plain ring, float32, under autograd
+    lp = leaves()
+    po = cp.ring_attention(lp[0], lp[1], lp[2], scale, ring, n_valid=n_valid,
+                           bias_kind=bias_kind,
+                           bias_arg=lp[3] if arg is not None else None,
+                           bias_grid=grid)
+    pgrads = torch.autograd.grad(po, lp, mine(g))
+    plse = None
+    pdparam = None if arg is None else distributed.all_reduce_sum(
+        pgrads[3].clone())
+
+    def errs(want_o, want_lse, want, want_dparam):
+        e = {"dk": share(grads[1], want[1]), "dv": share(grads[2], want[2])}
+        if valid.any():  # a shard of padding only has no row to compare
+            e["out"] = share(o[:, :, valid], want_o[:, :, valid])
+            e["dq"] = share(grads[0][:, :, valid], want[0][:, :, valid])
+            if want_lse is not None:
+                e["lse"] = float((lse - want_lse)[:, :, valid].abs().max())
+        if want_dparam is not None:
+            e["param"] = share(dparam, want_dparam)
+        return e
+
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 [o, lse, *grads[:3]] + ([dparam] if dparam is not None
+                                         else []))
+    record[case["name"]] = dict(
+        vs_kernels=errs(mine(ref_o), mine(ref_lse),
+                        [mine(ref[0]), mine(ref[1]), mine(ref[2])], ref[3]),
+        vs_plain=errs(po.detach(), None, pgrads, pdparam),
+        finite=finite, relaunch_bit_equal=relaunch, launches=launches,
+        ring_fwd_ms=fwd_ms, ring_bwd_ms=bwd_ms, first_fwd_ms=first_fwd_ms,
+        first_bwd_ms=first_bwd_ms, one_device_fwd_ms=ref_fwd_ms,
+        one_device_bwd_ms=ref_bwd_ms)
+    del o, o2, lse, grads, grads2, ref, po, pgrads, lp
+    torch.cuda.empty_cache()
+with open(os.path.join(out, f"ring_rank{rank}.json"), "w") as f:
+    json.dump(record, f)
+distributed.finalize()
+"""
+
+# Phase 22a's probe: whether gloo's send / recv take CUDA tensors (the
+# ring hop stages CUDA tensors through the host under gloo either way).
+GLOO_P2P = r"""
+import datetime, torch, torch.distributed as dist
+dist.init_process_group("gloo", init_method="env://",
+                        timeout=datetime.timedelta(seconds=20))
+rank = dist.get_rank()
+torch.cuda.set_device(0)
+want = torch.arange(1024, dtype=torch.float32)
+x = want.cuda() if rank == 0 else torch.zeros(1024, device="cuda")
+try:
+    if rank == 0:
+        dist.send(x, 1)
+    else:
+        dist.recv(x, 0)
+    torch.cuda.synchronize()
+    ok = rank == 0 or bool(torch.equal(x.cpu(), want))
+    print("RESULT", "delivered" if ok else "wrong values", flush=True)
+except Exception as e:
+    print("RESULT raised", type(e).__name__,
+          (str(e).splitlines() or [""])[0][:160], flush=True)
+"""
+
+
+def probe_gloo_p2p():
+    """Whether gloo's send and recv move CUDA tensors between two ranks
+    sharing the card: "delivered", "wrong values", "raised ...", or the
+    return codes of ranks that crashed or hung."""
+    results = rank_processes(GLOO_P2P, [], 2, 60)
+    lines = [next((line[7:] for line in text.splitlines()
+                   if line.startswith("RESULT ")), None)
+             for _, text in results]
+    if lines[1] == "delivered" and all(rc == 0 for rc, _ in results):
+        return "delivered"
+    return "; ".join(f"rank {r}: {line or 'no result'} (return code {rc})"
+                     for r, ((rc, _), line) in enumerate(zip(results, lines)))
+
+
+def check_ring(tmp):
+    """Phase 22a: the kernel ring at R = 2 on two gloo ranks sharing the
+    card (B 4, H 4, N 4,097, D 32) in none, relative, polynomial and
+    rope-mixed (q and k rotated before the ring), and a case whose second
+    shard holds padding only (N 4,096, 1,948 valid: every row's hop over it
+    is a key chunk masked whole): out, lse, dq, dk, dv and the bias
+    parameters' gradient against the one-device kernels within
+    CP_RING_TOL and against the plain float32 ring within CP_PLAIN_TOL,
+    every value finite, a second pass (forward and backward, timed)
+    bit-equal to the first, two chunk forwards and two one-pass backwards a
+    rank and call."""
+    cases = [dict(name=kind, bias=kind, n=4097, nl=2049, n_valid=4097,
+                  grid=64, seed=22 + i)
+             for i, kind in enumerate(("none", "rel", "poly", "rope-mixed"))]
+    cases.append(dict(name="masked_hop", bias="rel", n=4096, nl=2048,
+                      n_valid=1948, grid=64, seed=30))
+    t0 = time.perf_counter()
+    results = rank_processes(CP_RING, [tmp, json.dumps(cases)], 2,
+                             CP_WORKER_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    for r, (rc, text) in enumerate(results):
+        if rc != 0:
+            raise AssertionError(f"ring rank {r} failed ({rc}):\n"
+                                 f"{text[-4000:]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"ring_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    out = {}
+    for case in cases:
+        name = case["name"]
+        recs = [rk[name] for rk in ranks]
+        worst = {side: {key: max(rec[side].get(key, 0.0) for rec in recs)
+                        for key in recs[0][side]}
+                 for side in ("vs_kernels", "vs_plain")}
+        out[name] = dict(worst, ranks=recs)
+        short = {side: json.dumps({k: float(f"{v:.3g}")
+                                   for k, v in errs.items()})
+                 for side, errs in worst.items()}
+        log(f"  ring R=2 {name:10s} vs one-device kernels "
+            f"{short['vs_kernels']}; vs plain ring {short['vs_plain']}"
+            f"; finite {[rec['finite'] for rec in recs]}, relaunch "
+            f"bit-equal {[rec['relaunch_bit_equal'] for rec in recs]}, "
+            f"launches {recs[0]['launches']}, ring fwd "
+            f"{[round(rec['ring_fwd_ms'], 2) for rec in recs]} ms, bwd "
+            f"{[round(rec['ring_bwd_ms'], 2) for rec in recs]} ms (one "
+            f"device {recs[0]['one_device_fwd_ms']:.2f} / "
+            f"{recs[0]['one_device_bwd_ms']:.2f} ms)")
+        for rec in recs:
+            if not (rec["finite"] and rec["relaunch_bit_equal"]):
+                raise AssertionError(f"ring {name}: finite {rec['finite']}, "
+                                     f"relaunch {rec['relaunch_bit_equal']}")
+            if rec["launches"] != {"attn_stream_chunk_fwd": 2,
+                                   "attn_stream_bwd_fused": 2,
+                                   "attn_stream_fwd": 0}:
+                raise AssertionError(f"ring {name}: launches "
+                                     f"{rec['launches']}")
+        for side, tol in (("vs_kernels", CP_RING_TOL),
+                          ("vs_plain", CP_PLAIN_TOL)):
+            for key, err in worst[side].items():
+                limit = tol[key if key in tol else "grad"]
+                if not err <= limit:
+                    raise AssertionError(f"ring {name} {side} {key}: {err} "
+                                         f"(tol {limit})")
+    out["seconds"] = seconds
+    return out
+
+
+def check_cp_run(label, run, expected, one, world=2):
+    """Phase 22b-d's checks of one gloo launch of the train CLI under
+    --sequence_parallel 2: every rank's params bit-equal (replicated), the
+    launches exact, rank 0 alone writing a CSV, each step's loss within
+    CP_STEP_TOL of the one-rank run's, a finite row; each rank's step time
+    beside the one rank's."""
+    ranks = run["ranks"]
+    p0 = ranks[0]["params"]
+    same = all(np.array_equal(r["params"][k], p0[k]) for r in ranks
+               for k in p0)
+    want = np.asarray(one["step_losses"])
+    got = np.asarray(ranks[0]["step_losses"])
+    step_rel = (np.abs(got - want) / np.abs(want) if got.shape == want.shape
+                else np.full(max(len(want), 1), np.inf))
+    step_ms = [1000.0 * 4 / r["history"][0]["images_per_sec"] for r in ranks]
+    one_ms = 1000.0 * 4 / one["images_per_s"]
+    fields = csv_fields(run["row"])
+    log(f"  {label}: CSV row {run['row']} (one rank {one['row']}); params "
+        f"bit-equal on both ranks {same}; step losses "
+        f"{[round(float(x), 6) for x in got]} against one rank's "
+        f"{[round(float(x), 6) for x in want]} (relative "
+        f"{[float(f'{x:.3g}') for x in step_rel]}, tol {CP_STEP_TOL}); "
+        f"CSVs {run['csvs']}")
+    for r, rec in enumerate(ranks):
+        log(f"    rank {r}: launches {rec['launches']} (expected {expected}),"
+            f" {step_ms[r]:.3f} ms a step (one rank: {one_ms:.3f}), "
+            f"{rec['seconds']:.1f} s, devices {rec['num_devices']}")
+        if rec["launches"] != expected:
+            raise AssertionError(f"{label} rank {r}: launches "
+                                 f"{rec['launches']}, expected {expected}")
+        if rec["num_devices"] != world or (r and rec["log_file"]):
+            raise AssertionError(f"{label} rank {r}: {rec['num_devices']} "
+                                 f"devices, log file {rec['log_file']}")
+    if len(run["csvs"]) != 1 or not same:
+        raise AssertionError(f"{label}: CSVs {run['csvs']}, params bit-equal "
+                             f"{same}")
+    if not all(math.isfinite(v) for v in fields.values()):
+        raise AssertionError(f"{label}: the CSV row is not finite")
+    if not step_rel.max() <= CP_STEP_TOL:
+        raise AssertionError(f"{label}: step losses {step_rel.tolist()} "
+                             f"from one rank's (relative)")
+    return dict(row=run["row"], step_loss_relative=step_rel.tolist(),
+                launches=[r["launches"] for r in ranks], step_ms=step_ms,
+                one_rank_step_ms=one_ms, one_rank_row=one["row"],
+                step_losses=ranks[0]["step_losses"],
+                one_rank_step_losses=one["step_losses"],
+                seconds=[r["seconds"] for r in ranks])
+
+
+def check_force_ring(modules, vit, datasets, ViTConfig, device):
+    """Phase 22e: the bounded step of the long-sequence model (relative,
+    N = 4,097, batch 4, --q_chunk 2048) on a process group of one rank over
+    NCCL with force_ring (the ring of one rank: a hop that is no call, the
+    logaddexp merge, the all_reduce of one) against the plain bounded step,
+    one step each from the same params and batch: metrics, params and the
+    AdamW moments bit for bit."""
+    from vit_rpe_rope_tpu_torch.parallel import distributed
+    from vit_rpe_rope_tpu_torch.parallel.mesh import make_mesh
+
+    fa, fused_adamw, ts, make_bounded_step, TrainConfig = modules
+    cfg = ViTConfig(**LONGSEQ, pos_encoding="relative")
+    tcfg = TrainConfig(dataset="cifar10", batch_size=4, q_chunk=2048)
+    mean, std = datasets.NORMALIZATION["cifar10"]
+    pre = ts.make_preprocess(cfg, mean, std, 32)
+    data = datasets.synthetic("cifar10", n_train=4, n_test=4, seed=22)
+    images = torch.from_numpy(data.train_x).to(device)
+    labels = torch.from_numpy(data.train_y).to(device)
+    init = vit.init_params(torch.Generator().manual_seed(22), cfg,
+                           device=device)
+    out = {}
+    with torchrun_env(1):
+        distributed.initialize()
+        try:
+            mesh = make_mesh()
+            for label, kw in (("plain", {}),
+                              ("force_ring", dict(mesh=mesh,
+                                                  force_ring=True))):
+                params = {k: v.clone().requires_grad_()
+                          for k, v in init.items()}
+                opt_init, update = ts.make_optimizer(tcfg, 1, params)
+                step = make_bounded_step(cfg, tcfg, update, pre,
+                                         q_chunk=2048, **kw)
+                state = opt_init(params)
+                reset_counts(fa, fused_adamw)
+                params, state, metrics = step(params, state, 0, images,
+                                              labels)
+                out[label] = dict(
+                    launches=read_counts(fa, fused_adamw),
+                    metrics=metrics.cpu().numpy(),
+                    params={k: v.detach().cpu().numpy()
+                            for k, v in params.items()},
+                    mu=[m.cpu().numpy() for m in state[0].values()])
+            backend = torch.distributed.get_backend()
+        finally:
+            distributed.finalize()
+    a, b = out["force_ring"], out["plain"]
+    same = (np.array_equal(a["metrics"], b["metrics"])
+            and all(np.array_equal(a["params"][k], b["params"][k])
+                    for k in b["params"])
+            and all(np.array_equal(x, y) for x, y in zip(a["mu"], b["mu"])))
+    log(f"  force_ring on one rank ({backend}) vs the plain bounded step, "
+        f"relative N=4097: metrics {a['metrics'].tolist()} / "
+        f"{b['metrics'].tolist()}, params and moments bit-equal {same}; "
+        f"launches {a['launches']} / {b['launches']}")
+    if not same or a["launches"] != b["launches"] or backend != "nccl":
+        raise AssertionError(f"force_ring differs from the plain step "
+                             f"({backend}): bit-equal {same}, launches "
+                             f"{a['launches']} / {b['launches']}")
+    return dict(bit_equal=same, backend=backend, launches=a["launches"],
+                metrics=a["metrics"].tolist())
+
+
+def check_context_parallel(train_modules, modules, vit, datasets, ViTConfig,
+                           device):
+    """Phase 22. (a) The kernel ring against the one-device kernels and the
+    plain ring (check_ring), and whether gloo moves CUDA tensors. (b) The
+    long-sequence model (LONGSEQ at depth 1, N = 4,097, batch 4) through the
+    train CLI on two gloo ranks sharing the card with --sequence_parallel
+    2, in rope-mixed and relative, on CP_TRAIN examples; (c) rope-mixed
+    with --zero1, bit-equal to (b)'s; (d) rope-axial with --q_chunk 2048
+    (the bounded driver's ring: two q-chunks of 2,048 and 512 rows a rank)
+    -- all four in one launch, each held to a one-rank epoch of the same
+    data in this process; (e) force_ring at world size 1 over NCCL
+    (check_force_ring)."""
+    fa = train_modules[0]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["gloo_p2p_cuda"] = probe_gloo_p2p()
+        log(f"  gloo send / recv of a CUDA tensor between two ranks on the "
+            f"card: {out['gloo_p2p_cuda']}")
+        out["ring"] = check_ring(tmp)
+    model = []
+    for key, value in dict(LONGSEQ, depth=1).items():
+        model += [f"--{key}", str(value)]
+    base = model + ["--batch_size", "4"]
+    argv = {"cp_rope-mixed": base + ["--pos_encoding", "rope-mixed"],
+            "cp_relative": base + ["--pos_encoding", "relative"],
+            "cp_q_chunk": base + ["--pos_encoding", "rope-axial",
+                                  "--q_chunk", "2048"]}
+    one = {}
+    with small_dataset(datasets, n_train=CP_TRAIN, n_test=CP_TRAIN // 5):
+        for label, args in argv.items():
+            one[label] = cli_epoch(train_modules, args)
+            log(f"  one rank, {label[3:]}, {CP_TRAIN} examples: CSV row "
+                f"{one[label]['row']}, launches {one[label]['launches']}")
+    cp_argv = ["--sequence_parallel", "2"]
+    runs, seconds = gloo_ranks(
+        {**{label: args + cp_argv for label, args in argv.items()},
+         "cp_zero1": argv["cp_rope-mixed"] + cp_argv + ["--zero1"]},
+        n_train=CP_TRAIN)
+    log(f"  two gloo ranks, --sequence_parallel 2: {seconds:.1f} s for the "
+        f"launch (four runs)")
+    steps, evals = CP_TRAIN // 4, -(-(CP_TRAIN // 5) // 4)
+    ring = {"attn_fwd": 0, "attn_bwd": 0, "adamw": steps, "adamw_table": 0,
+            "attn_stream_chunk_fwd": 2 * (steps + evals),
+            "attn_stream_bwd_fused": 2 * steps}
+    bounded = dict(ring, attn_stream_chunk_fwd=2 * 2 * (steps + evals),
+                   attn_stream_bwd_fused=2 * 2 * steps)
+    for label, expected in (("cp_rope-mixed", ring), ("cp_relative", ring),
+                            ("cp_q_chunk", bounded)):
+        out[label] = check_cp_run(f"long-sequence {label[3:]} "
+                                  f"--sequence_parallel 2", runs[label],
+                                  with_prologues(expected), one[label])
+    z, plain = runs["cp_zero1"], runs["cp_rope-mixed"]
+    zero1_same = z["row"] == plain["row"] and all(
+        np.array_equal(z["ranks"][r]["params"][k],
+                       plain["ranks"][r]["params"][k])
+        for r in range(2) for k in plain["ranks"][r]["params"])
+    log(f"  --sequence_parallel 2 --zero1: CSV row {z['row']}; params and "
+        f"row bit-equal to plain CP {zero1_same}; launches "
+        f"{[r['launches'] for r in z['ranks']]}")
+    if not zero1_same or any(r["launches"] != with_prologues(ring)
+                             for r in z["ranks"]):
+        raise AssertionError("ZeRO-1 x CP differs from plain CP")
+    out["cp_zero1"] = dict(bit_equal=zero1_same, row=z["row"],
+                           launches=[r["launches"] for r in z["ranks"]])
+    out["launch_seconds"] = seconds
+    torch.cuda.empty_cache()
+    out["force_ring"] = check_force_ring(modules, vit, datasets, ViTConfig,
+                                         device)
+    return out
+
+
 def kernel_line(name, source, replaces, launches, max_abs_err, times):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4974,7 +5481,8 @@ def kernel_line(name, source, replaces, launches, max_abs_err, times):
                                            "routes", "device_ms",
                                            "int8_launches",
                                            "export_launches",
-                                           "dp_launches", "tp_launches")
+                                           "dp_launches", "tp_launches",
+                                           "cp_launches")
                if key in times}}
 
 
@@ -5202,8 +5710,9 @@ def main() -> int:
         # The slice's main path: one epoch of the long-sequence model
         # through the train CLI with --q_chunk 2048 (three q-chunks).
         bounded_training = train_through_cli(
-            "rope-axial", train_modules, model=LONGSEQ, batch=4,
-            bar=LEARN_BAR["rope-axial"], q_chunk=2048, lr=BOUNDED_EPOCH_LR)
+            "rope-axial", train_modules, model=dict(LONGSEQ, depth=1),
+            batch=4, bar=LEARN_BAR["rope-axial"], q_chunk=2048,
+            lr=BOUNDED_EPOCH_LR)
         chunk_times = time_chunk_kernel(fa, device)
         bounded_steps, bounded_trace = time_bounded_steps(
             bounded_modules, vit, datasets, ViTConfig, device)
@@ -5331,6 +5840,14 @@ def main() -> int:
         tensor_parallel = check_tensor_parallel(world_one, train_modules,
                                                 datasets)
 
+    with phase("[22] context parallelism (the KV ring at R = 2 against the "
+               "one-device kernels and the plain ring; the train CLI with "
+               "--sequence_parallel 2 on two gloo ranks sharing the card, "
+               "with --zero1 and with --q_chunk; force_ring over NCCL)",
+               seconds):
+        context_parallel = check_context_parallel(
+            train_modules, bounded_modules, vit, datasets, ViTConfig, device)
+
     summary = {"card": card, "attention": attn, "serving": serve_times,
                "serving_profile": serve_trace, "training": training,
                "kernel_vs_plain_losses": paths, "train_step": step_times,
@@ -5366,7 +5883,9 @@ def main() -> int:
                "profile_dir": profile_dir, "decoders": decoders,
                "int8_serving": int8_serving,
                "data_parallel": data_parallel,
-               "tensor_parallel": tensor_parallel, "phase_seconds": seconds}
+               "tensor_parallel": tensor_parallel,
+               "context_parallel": context_parallel,
+               "phase_seconds": seconds}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
@@ -5407,6 +5926,14 @@ def main() -> int:
     def tp_stream(name):
         return {k: [r.get(name, 0) for r in v]
                 for k, v in tp_stream_launches.items()}
+
+    # Phase 22's launches on each of two gloo ranks with --sequence_parallel
+    # 2: the long-sequence model's kernel ring (rope-mixed, relative, with
+    # --zero1) and the bounded driver's ring (--q_chunk 2048).
+    def cp(name):
+        runs = {k: v["launches"] for k, v in context_parallel.items()
+                if k.startswith("cp_")}
+        return {k: [r.get(name, 0) for r in v] for k, v in runs.items()}
     stream_launches = stream_training["longseq"]["launches"]
     dbias_launches = stream_training["vit_s_384"]["launches"][
         "attn_stream_bwd_dbias"]
@@ -5445,7 +5972,8 @@ def main() -> int:
                     dict(adamw, dp_launches={k: [r["adamw"] for r in v]
                                              for k, v in dp_launches.items()},
                          tp_launches={k: [r["adamw"] for r in v]
-                                      for k, v in tp_launches.items()})),
+                                      for k, v in tp_launches.items()},
+                         cp_launches=cp("adamw"))),
         kernel_line("adamw_table", "vit_rpe_rope_tpu_torch/ops/csrc/adamw.cu",
                     "vit_rpe_rope_tpu/ops/fused_adamw.py:51",
                     graph_epochs["runs"][1]["launches"]["adamw_table"],
@@ -5484,7 +6012,8 @@ def main() -> int:
                     jax_fa + ":1649", fused_launches["attn_stream_bwd_fused"],
                     fused_err["fused"],
                     dict(fused_rel,
-                         tp_launches=tp_stream("attn_stream_bwd_fused"))),
+                         tp_launches=tp_stream("attn_stream_bwd_fused"),
+                         cp_launches=cp("attn_stream_bwd_fused"))),
         kernel_line("attn_stream_bwd_fused_prologue",
                     csrc + "attn_stream_bwd_fused.cu", jax_fa + ":1736",
                     fused_launches["attn_stream_bwd_fused_prologue"],
@@ -5506,7 +6035,8 @@ def main() -> int:
         kernel_line("attn_stream_chunk_fwd", csrc + "attn_stream_fwd.cu",
                     jax_fa + ":1218",
                     bounded_training["launches"]["attn_stream_chunk_fwd"],
-                    chunk_err, chunk_times["none"]),
+                    chunk_err, dict(chunk_times["none"],
+                                    cp_launches=cp("attn_stream_chunk_fwd"))),
         kernel_line("block_fused", csrc + "block_fused.cu",
                     "vit_rpe_rope_tpu/ops/block_fused.py:74",
                     block_times["ViT-tiny/4 none"]["launches"], block_err,

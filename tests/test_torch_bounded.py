@@ -43,6 +43,7 @@ from vit_rpe_rope_tpu_torch.cli import train as train_cli
 from vit_rpe_rope_tpu_torch.configs import TrainConfig, ViTConfig
 from vit_rpe_rope_tpu_torch.data import datasets
 from vit_rpe_rope_tpu_torch.models import vit
+from vit_rpe_rope_tpu_torch.parallel.mesh import make_mesh
 from vit_rpe_rope_tpu_torch.train import bounded, loop
 from vit_rpe_rope_tpu_torch.train import train_step as ts
 from vit_rpe_rope_tpu_torch.utils import convert
@@ -356,13 +357,19 @@ def test_train_cli_q_chunk_runs_the_bounded_driver(tmp_path, monkeypatch,
 
 
 def test_bounded_step_refuses_what_is_not_ported():
+    """The ring paths are ported (tests/test_torch_context_parallel.py: the
+    per-q-chunk KV ring over a process group's mesh, data parallelism as
+    the ring of one rank, force_ring). What they cannot take is refused:
+    a mesh of local devices, seq_parallel or force_ring without a mesh;
+    and dropout, grad_accum 0, and (in one process) sequence_parallel 2
+    with q_chunk, whose mesh needs two ranks."""
     _, cfg, _, pre, _, params, _, _ = setup("rope-axial")
     make = functools.partial(bounded.make_bounded_step, cfg,
                              TrainConfig(dataset="cifar10"), None, pre)
-    for kw in (dict(mesh=object()), dict(seq_parallel=2),
-               dict(force_ring=True)):
-        with pytest.raises(NotImplementedError,
-                           match="the context-parallel ring"):
+    with pytest.raises(ValueError, match="process group"):
+        make(mesh=make_mesh(devices=["cpu"]))
+    for kw in (dict(seq_parallel=2), dict(force_ring=True)):
+        with pytest.raises(ValueError, match="require a mesh"):
             make(**kw)
     with pytest.raises(ValueError, match="does not support dropout"):
         bounded.make_bounded_step(
@@ -370,7 +377,7 @@ def test_bounded_step_refuses_what_is_not_ported():
             TrainConfig(dataset="cifar10"), None, pre)
     with pytest.raises(ValueError, match="grad_accum must be >= 1"):
         make(grad_accum=0)
-    with pytest.raises(NotImplementedError,
-                       match="sequence_parallel > 1 with q_chunk"):
+    with pytest.raises(ValueError, match="device count 1 not divisible by "
+                       "model_parallel=1 × seq_parallel=2"):
         loop.fit(cfg, TrainConfig(dataset="mnist", q_chunk=512,
                                   sequence_parallel=2), device="cpu")

@@ -464,6 +464,18 @@ def test_make_mesh_needs_the_world_size_to_divide_the_batch(monkeypatch,
     (dict(seq_parallel=2), "the context-parallel ring"),
     (dict(pipe_parallel=2), "GPipe pipeline parallelism")])
 def test_make_mesh_refuses_the_other_axes_by_name(kw, match):
+    """pipe_parallel is refused by its ROADMAP Queue A item's name. The
+    sequence axis is ported (tests/test_torch_context_parallel.py): in one
+    process seq_parallel 2 does not divide the world (the JAX make_mesh's
+    ValueError), and its composition with a model axis is refused, naming
+    Queue A's compositions."""
+    if "seq_parallel" in kw:
+        with pytest.raises(ValueError, match="device count 1 not divisible "
+                           "by model_parallel=1 × seq_parallel=2"):
+            tmesh.make_mesh(**kw)
+        with pytest.raises(NotImplementedError, match="the compositions"):
+            tmesh.make_mesh(model_parallel=2, **kw)
+        return
     with pytest.raises(NotImplementedError, match=match):
         tmesh.make_mesh(**kw)
 

@@ -37,7 +37,8 @@ def test_port_modules_import_without_jax():
                  "cli.pe_similarity_visualizer", "cli.rope_visualizer",
                  "utils.native", "utils.nan_check", "ops.launches",
                  "quant", "serving", "utils.convert", "parallel.mesh",
-                 "parallel.distributed", "parallel.tensor_parallel"):
+                 "parallel.distributed", "parallel.tensor_parallel",
+                 "parallel.context_parallel"):
         assert f"vit_rpe_rope_tpu_torch.{name}" in modules
     code = (
         "import importlib, re, sys\n"

@@ -39,6 +39,7 @@ from vit_rpe_rope_tpu_torch.ops import flash_attention as tfa
 from vit_rpe_rope_tpu_torch.train import loop
 from vit_rpe_rope_tpu_torch.train import train_step as ts
 
+import torch_cp_worker
 from torch_tp_worker import launch
 
 TOL = {"reference": 1e-5, "flash": 2e-3}
@@ -412,6 +413,34 @@ def test_fit_refuses_unported_fields(field, value, tmp_path, monkeypatch):
                      TrainConfig(dataset="mnist", model_parallel=value),
                      device="cpu")
         return
+    if field == "sequence_parallel":
+        # Ported (tests/test_torch_context_parallel.py): fit on two gloo
+        # ranks (tests/torch_cp_worker.py), each block's attention a KV ring
+        # over the two token shards; in one process (world size 1) R = 2
+        # raises the JAX ValueError, and with model_parallel (the
+        # compositions) the port refuses it by name.
+        torch_cp_worker.launch("cli", tmp_path, 2, "--synthetic",
+                               "--sequence_parallel", "2", "--epochs", "1",
+                               "--batch_size", "16", "--depth", "1",
+                               "--embed_dim", "32", "--num_heads", "2",
+                               "--device", "cpu")
+        ranks = [json.loads((tmp_path / f"cli_rank{r}.json").read_text())
+                 for r in (0, 1)]
+        assert [r["num_devices"] for r in ranks] == [2, 2]
+        for r in ranks:  # the host clock's throughput differs
+            del r["history"][0]["images_per_sec"]
+        assert ranks[0]["history"] == ranks[1]["history"]
+        assert ranks[0]["log_file"] and ranks[1]["log_file"] is None
+        with pytest.raises(ValueError, match="device count 1 not divisible "
+                           "by model_parallel=1 × seq_parallel=2"):
+            loop.fit(ViTConfig(**cfg_kw()),
+                     TrainConfig(dataset="mnist", sequence_parallel=value),
+                     device="cpu")
+        with pytest.raises(NotImplementedError, match="the compositions"):
+            loop.fit(ViTConfig(**cfg_kw()),
+                     TrainConfig(dataset="mnist", sequence_parallel=value,
+                                 model_parallel=2), device="cpu")
+        return
     if field == "zero1":
         # Ported (tests/test_torch_data_parallel.py): in one process its one
         # slice is the whole flat vector, and the run is the replicated
@@ -439,11 +468,25 @@ def test_fit_refuses_unported_fields(field, value, tmp_path, monkeypatch):
                  device="cpu")
 
 
-def test_fit_refuses_bounded_stepping():
-    """Bounded stepping trains on one device (tests/test_torch_bounded.py);
-    over a sequence-parallel mesh (the JAX driver's per-chunk KV ring) it
-    is not ported."""
-    with pytest.raises(NotImplementedError, match="q_chunk"):
+def test_fit_refuses_bounded_stepping(tmp_path):
+    """Bounded stepping trains on one device (tests/test_torch_bounded.py)
+    and, ported since, over a sequence-parallel mesh (the JAX driver's
+    per-chunk KV ring; tests/test_torch_context_parallel.py): fit with
+    q_chunk and sequence_parallel 2 on two gloo ranks (through the train
+    CLI, tests/torch_cp_worker.py) trains an epoch, the ranks reporting the
+    same row; in one process R = 2 raises the JAX ValueError."""
+    torch_cp_worker.launch("cli", tmp_path, 2, "--synthetic", "--q_chunk",
+                           "16", "--sequence_parallel", "2", "--epochs",
+                           "1", "--batch_size", "16", "--depth", "1",
+                           "--embed_dim", "32", "--num_heads", "2",
+                           "--pos_encoding", "relative", "--device", "cpu")
+    ranks = [json.loads((tmp_path / f"cli_rank{r}.json").read_text())
+             for r in (0, 1)]
+    for r in ranks:
+        del r["history"][0]["images_per_sec"]
+    assert ranks[0]["history"] == ranks[1]["history"]
+    assert np.isfinite(ranks[0]["history"][0]["train_loss"])
+    with pytest.raises(ValueError, match="seq_parallel=2"):
         loop.fit(ViTConfig(**cfg_kw()),
                  TrainConfig(dataset="mnist", q_chunk=16,
                              sequence_parallel=2), device="cpu")

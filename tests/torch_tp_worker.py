@@ -36,6 +36,8 @@ run (train.main(ARGS)), on 32 synthetic MNIST images under DIR; writes
 DIR/<mode>_rank<r>.json with the summary.
 
 The tests start the ranks with `launch` (import this module from tests/).
+tests/torch_cp_worker.py runs its own modes through the same `launch` and
+`main` (script= and run_rank=).
 """
 
 import contextlib
@@ -77,16 +79,18 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(mode: str, out: pathlib.Path, world: int, *args) -> str:
-    """Run `world` ranks of this worker (torchrun's environment on a free
-    localhost port, one intra-op thread each) in `out`; raise with their
-    output if one fails or the launch outlasts LAUNCH_TIMEOUT. Returns the
-    ranks' output."""
+def launch(mode: str, out: pathlib.Path, world: int, *args,
+           script: str = __file__) -> str:
+    """Run `world` ranks of this worker (or of `script`, a worker that
+    calls this module's main) (torchrun's environment on a free localhost
+    port, one intra-op thread each) in `out`; raise with their output if
+    one fails or the launch outlasts LAUNCH_TIMEOUT. Returns the ranks'
+    output."""
     env = dict(os.environ, MASTER_ADDR="127.0.0.1",
                MASTER_PORT=str(free_port()), WORLD_SIZE=str(world),
                OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
     proc = subprocess.Popen(
-        [sys.executable, __file__, mode, str(out), *args], cwd=out, env=env,
+        [sys.executable, script, mode, str(out), *args], cwd=out, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
         log = proc.communicate(timeout=LAUNCH_TIMEOUT)[0]
@@ -242,7 +246,9 @@ def run_rank(mode: str, out: pathlib.Path, rank: int):
         distributed.finalize()
 
 
-def main():
+def main(run_rank=run_rank):
+    """Fork the WORLD_SIZE ranks, each running run_rank(mode, out, rank),
+    and wait for them."""
     torch.set_num_threads(1)
     mode, out = sys.argv[1], pathlib.Path(sys.argv[2])
     if mode == "steps":  # the remat runs' first checkpoint call imports

@@ -16,8 +16,9 @@ softmax); --steps_per_dispatch k > 1 runs k steps per dispatch, one CUDA
 graph replay on the card (eagerly where the steps draw random numbers or
 under --debug_nans); --profile_dir writes a torch.profiler Chrome trace;
 --debug_nans raises FloatingPointError at the first NaN. The extensions
-this package does not port yet (context and pipeline parallelism) are
-refused when set to a non-default value.
+this package does not port yet (pipeline parallelism, and context
+parallelism combined with tensor parallelism) are refused when set to a
+non-default value.
 
 Data parallelism: launch one rank per device with torchrun, and each rank
 takes its share of every batch (the world size must divide --batch_size);
@@ -39,6 +40,17 @@ model shard's AdamW moments over its D data ranks:
   python -m torch.distributed.run --nproc_per_node 4 \\
       -m vit_rpe_rope_tpu_torch.cli.train --dataset cifar10 --synthetic \\
       --epochs 1 --model_parallel 2 --zero1 --device cpu
+
+Context parallelism: --sequence_parallel R shards the tokens over R ranks
+and runs every block's attention as a KV ring over them (R must divide the
+world size); the world is a data x seq grid of D = world / R data ranks,
+and --zero1 shards the AdamW moments over every rank. With --q_chunk the
+bounded driver runs its per-q-chunk ring over the same grid. Ranks that
+share one card need --dist_backend gloo:
+
+  python -m torch.distributed.run --nproc_per_node 2 \\
+      -m vit_rpe_rope_tpu_torch.cli.train --dataset cifar10 --synthetic \\
+      --epochs 1 --sequence_parallel 2 --dist_backend gloo
 """
 
 from __future__ import annotations
@@ -221,8 +233,9 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     reject_unported(parser, {
-        "--sequence_parallel": (args.sequence_parallel > 1,
-                                "the context-parallel ring"),
+        "--sequence_parallel with --model_parallel": (
+            args.sequence_parallel > 1 and args.model_parallel > 1,
+            "the compositions"),
         "--pipeline_parallel": (args.pipeline_parallel > 1,
                                 "GPipe pipeline parallelism"),
     })
@@ -278,6 +291,7 @@ def main(argv=None):
         kv_chunk=args.kv_chunk,
         zero1=args.zero1,
         model_parallel=args.model_parallel,
+        sequence_parallel=args.sequence_parallel,
         steps_per_dispatch=args.steps_per_dispatch,
         profile_dir=args.profile_dir,
         debug_nans=args.debug_nans,

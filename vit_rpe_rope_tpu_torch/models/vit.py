@@ -313,9 +313,13 @@ def _softmax_policy(ctx, op, *args, **kwargs):
     """Everything is saved except the float32 attention probabilities of
     the unfused attention, which ops/reference_attention.py computes under
     the tag "attn_softmax" (JAX's checkpoint_name). The kernels materialize
-    no probabilities, so on their route everything is saved."""
-    del ctx, op, args, kwargs
-    recompute = reference_attention.current_tag() == "attn_softmax"
+    no probabilities, so on their route everything is saved. Collectives
+    (the c10d ops: a context-parallel ring's send and recv) run again in
+    the recompute on every rank, as under "dots": a cached send would leave
+    its peer's recv waiting."""
+    del ctx, args, kwargs
+    recompute = (reference_attention.current_tag() == "attn_softmax"
+                 or getattr(op, "namespace", None) == "c10d")
     return (torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE if recompute
             else torch_checkpoint.CheckpointPolicy.MUST_SAVE)
 

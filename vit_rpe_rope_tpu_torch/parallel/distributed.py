@@ -23,10 +23,22 @@ axis — the counterpart of the JAX package's parallel/distributed.py.
 * Megatron's f and g over a subgroup, as autograd Functions
   (`identity_fwd_psum_bwd`, `psum_identity_bwd`; the JAX parallel/mesh.py
   names): the identity without one.
+* The hop of a ring (`Ring`, `ring_shift`): the JAX `ppermute` by +1 over
+  the ranks of a subgroup (a data row of a context-parallel mesh), as
+  paired isend / irecv in one batch_isend_irecv, every request waited on
+  (a blocking send before its recv deadlocks two ranks that send to each
+  other). Each tensor of a hop has a tag of its own. NCCL sends device
+  tensors; gloo's send and recv take host memory only, so under gloo the
+  hop of CUDA tensors stages them through host tensors, explicitly (the
+  copy to the host waits for the current stream, the copy back is queued
+  on it). A hop that fails raises. `RingShift` is the hop as an autograd
+  Function (its backward shifts the cotangents by -1), for the plain ring.
+  Over a ring of one rank a hop makes no call and returns its tensors.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -208,3 +220,81 @@ def psum_identity_bwd(x, group):
     """Megatron's g over `group` (the JAX psum_identity_bwd); the identity
     without one."""
     return x if group is None else _SumFwdIdentityBwd.apply(x, group)
+
+
+@dataclasses.dataclass(frozen=True)
+class Ring:
+    """The ranks of a subgroup in ring order: `group` (its process group),
+    this rank's position `rank` of `size`, and the global ranks of the
+    next (`next`, where a hop sends) and previous (`prev`, where it
+    receives from) positions."""
+    group: object
+    rank: int
+    size: int
+    next: int
+    prev: int
+
+
+def ring_of(ranks, group) -> Ring:
+    """The Ring of this rank over `ranks` (global ranks in ring order,
+    this rank among them), whose process group is `group`."""
+    ranks = list(ranks)
+    me = ranks.index(rank())
+    return Ring(group=group, rank=me, size=len(ranks),
+                next=ranks[(me + 1) % len(ranks)],
+                prev=ranks[(me - 1) % len(ranks)])
+
+
+def ring_position(ring) -> tuple:
+    """(position, size) on `ring`; (0, 1) for None, the ring of one rank."""
+    return (0, 1) if ring is None else (ring.rank, ring.size)
+
+
+def ring_shift(ring, tensors, reverse: bool = False) -> list:
+    """One hop: each rank sends `tensors` to the next rank of the ring and
+    returns the previous rank's (reverse: to the previous, from the next).
+    The received tensors are new, contiguous, on the senders' device and of
+    their dtypes. Over None or a ring of one rank, `tensors` as they are,
+    with no call."""
+    tensors = list(tensors)
+    if ring is None or ring.size == 1:
+        return tensors
+    dst, src = (ring.prev, ring.next) if reverse else (ring.next, ring.prev)
+    device = tensors[0].device
+    staged = (device.type != "cpu"
+              and dist.get_backend(ring.group) == "gloo")
+    send = [t.detach().contiguous() for t in tensors]
+    if staged:  # gloo moves host memory only
+        send = [t.cpu() for t in send]
+    recv = [torch.empty_like(t) for t in send]
+    ops = []
+    for tag, (s, r) in enumerate(zip(send, recv)):
+        ops.append(dist.P2POp(dist.isend, s, dst, ring.group, tag))
+        ops.append(dist.P2POp(dist.irecv, r, src, ring.group, tag))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if staged:
+        recv = [t.to(device) for t in recv]
+    return recv
+
+
+class RingShift(torch.autograd.Function):
+    """ring_shift as an autograd Function: forward a hop by +1, backward a
+    hop of the cotangents by -1 (the JAX ppermute's transpose)."""
+
+    @staticmethod
+    def forward(ctx, ring, *tensors):
+        ctx.ring = ring
+        return tuple(ring_shift(ring, tensors))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *ring_shift(ctx.ring, grads, reverse=True))
+
+
+def ring_shift_grad(ring, *tensors) -> tuple:
+    """The differentiable hop of `tensors` (RingShift); as they are over a
+    ring of one rank."""
+    if ring is None or ring.size == 1:
+        return tensors
+    return RingShift.apply(ring, *tensors)

@@ -27,9 +27,26 @@ JAX package's train/bounded.py: one optimizer step as many short pieces.
   the compute dtype, the dk/dv accumulators stay float32, kv-segment dk/dv
   are written once in the compute dtype.
 
-The mesh / sequence-parallel composition of the JAX driver (the per-chunk
-KV ring) is not ported: ROADMAP.md Queue A, the context-parallel ring.
-Dropout is refused, as the JAX driver refuses it.
+Over a process group's mesh (mesh=, seq_parallel=: the JAX driver's
+parallel composition) the same host schedule runs on every rank:
+
+* data parallelism: each data rank takes its columns of the batch;
+* sequence parallelism (seq_parallel R > 1): tokens are sharded
+  shard-major over the mesh's sequence axis (n_pad = N rounded up to
+  512·R, Nl = n_pad / R tokens a rank; the embedding runs redundantly and
+  each rank slices its tokens), and each q-chunk's attention runs the KV
+  ring of parallel.context_parallel (ring_flash_fwd / ring_flash_bwd: one
+  streaming chunk kernel a hop at global offsets, the hops merged with
+  logaddexp; dk / dv riding the ring home), the time loop over q-chunks
+  staying on the host. Data parallelism is the ring of one rank, so the
+  mesh path is one code path; force_ring takes it on a mesh of one rank;
+* the head runs on each ring's first rank (it holds the cls row), its
+  loss the sum over the rank's columns divided by the whole batch's
+  count; every gradient (the generated bias' parameter partials
+  included) and the two metrics are summed over every rank by one
+  all_reduce, outside any autograd graph, before the update.
+kv_chunk does not compose with a mesh (the ring bounds the key residency
+by the shard). Dropout is refused, as the JAX driver refuses it.
 
 BOUNDED_SYNC_DEBUG=1: synchronize after every piece and print its tag (the
 tag stream names the piece that runs out of memory in a new N regime).
@@ -56,6 +73,10 @@ from vit_rpe_rope_tpu_torch.ops.flash_attention import (
     streaming_chunk_fwd)
 from vit_rpe_rope_tpu_torch.ops.layers import layer_norm, linear
 from vit_rpe_rope_tpu_torch.ops.rotary import rotate_half_split
+from vit_rpe_rope_tpu_torch.parallel.context_parallel import (
+    ring_flash_bwd, ring_flash_fwd)
+from vit_rpe_rope_tpu_torch.train.train_step import (
+    _reduce_over_mesh, _ring_metrics)
 
 _ALIGN = 512  # every chunk / pad boundary a multiple of the key tiles
 _SYNC_DEBUG = os.environ.get("BOUNDED_SYNC_DEBUG", "") == "1"
@@ -114,8 +135,13 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
     mm_dtype: the products' dtype; bfloat16 is the kernels' and the only one
     CUDA tensors take, float32 is for the plain twins' parity tests on the
     CPU. debug_grads: also return the gradient dict as a 4th element.
-    mesh / seq_parallel / force_ring: the JAX driver's ring paths, not
-    ported (raise).
+    mesh: a process group's mesh (parallel.mesh.make_mesh; the module
+    docstring): the step takes the whole batch, each data rank its
+    columns, and every rank returns the whole batch's metrics and updated
+    params. A mesh of one rank without force_ring is the one-device path.
+    seq_parallel: the width of the mesh's sequence axis (the KV ring).
+    force_ring: the ring's code path on a mesh of one rank (a ring of one
+    rank, numerically the one-device step).
 
     The returned step has attributes n_chunks, n_pad and evaluate(params,
     step_vec, images_u8, labels, mask=None) -> metrics, the forward-only
@@ -126,11 +152,27 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
                          "(the reference's effective regime is all rates 0)")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1; got {grad_accum}")
-    if mesh is not None or seq_parallel > 1 or force_ring:
-        raise NotImplementedError(
-            "bounded-program stepping over a device mesh (mesh= / "
-            "seq_parallel= / force_ring=, the per-chunk KV ring) is not "
-            "ported: ROADMAP.md Queue A, the context-parallel ring")
+    n_seq = max(1, seq_parallel)
+    if mesh is not None and not mesh.distributed:
+        raise ValueError("the bounded driver's mesh is a process group's "
+                         "(parallel.mesh.make_mesh under distributed."
+                         "initialize)")
+    if mesh is not None and len(mesh.ranks) == 1 and n_seq == 1 \
+            and not force_ring:
+        mesh = None  # one rank: keep the one-device path
+    if mesh is not None:
+        if mesh.seq_parallel != n_seq or mesh.model_parallel != 1:
+            raise ValueError(
+                f"seq_parallel={n_seq} needs a mesh whose 'seq' axis has "
+                f"that size; got {mesh.shape}")
+    elif n_seq > 1 or force_ring:
+        raise ValueError("seq_parallel > 1 / force_ring require a mesh")
+    if mesh is not None and kv_chunk:
+        raise ValueError("kv_chunk does not compose with a mesh: under "
+                         "seq_parallel the ring already bounds backward kv "
+                         "residency by the shard size N/R")
+    ring = mesh.seq_ring if mesh is not None else None
+    my = mesh.seq_rank if mesh is not None else 0
     pe_mod = pe_registry.get(cfg.pos_encoding)
     kind = pe_mod.KIND
     rope = kind == PE_KIND_QK_ROTATION
@@ -150,9 +192,11 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
     head_pad = HeadPad(dh, halves=False) if dh not in HEAD_DIMS else None
     dhp = head_pad.d_pad if head_pad is not None else dh
     q_chunk = _round_up(q_chunk, _ALIGN)
-    n_pad = _round_up(n, _ALIGN)
-    starts = list(range(0, n_pad, q_chunk))
-    sizes = [min(q_chunk, n_pad - s) for s in starts]
+    n_pad = _round_up(n, _ALIGN * n_seq)
+    nl = n_pad // n_seq  # this rank's tokens (all of them without a ring)
+    mine = slice(my * nl, (my + 1) * nl)
+    starts = list(range(0, nl, q_chunk))
+    sizes = [min(q_chunk, nl - s) for s in starts]
     kv_chunk = _round_up(kv_chunk, _ALIGN) if kv_chunk else 0
     kv_starts = list(range(0, n_pad, kv_chunk)) if kv_chunk else [0]
     kv_sizes = ([min(kv_chunk, n_pad - c) for c in kv_starts] if kv_chunk
@@ -168,21 +212,22 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
     # ---- pieces -----------------------------------------------------------
 
     def _embed(params, images_u8):
-        """uint8 images -> padded tokens [B, n_pad, E] + PE aux tensors:
-        (cos, sin) f32 [1|H, n_pad, D/2] for rotation PEs, ([H, deg+1]
-        coeffs,) / ([H, 2L-1] table,) for the generated biases, ()
-        otherwise."""
+        """uint8 images -> this rank's padded tokens [B, Nl, E] + PE aux
+        tensors: (cos, sin) f32 [1|H, Nl, D/2] (its rows) for rotation PEs,
+        ([H, deg+1] coeffs,) / ([H, 2L-1] table,) for the generated
+        biases, () otherwise."""
         x = preprocess(images_u8)
         x = patch_embed(params, x.to(dtype), cfg)
         cls = params["cls_token"].to(dtype).expand(x.shape[0], 1, e)
         x = torch.cat([cls, x], dim=1)
         if kind == PE_KIND_EMBED_ADDITIVE:
             x = pe_mod.add_embedding(params, x)
-        x = _pad_seq(x, n_pad, 1)
+        x = _pad_seq(x, n_pad, 1)[:, mine]
         if rope:
-            return x, _prep_freqs(pe_mod.freqs_cis(params, cfg,
-                                                   device=x.device),
-                                  nh, n_pad, torch.float32, broadcast=False)
+            cos, sin = _prep_freqs(pe_mod.freqs_cis(params, cfg,
+                                                    device=x.device),
+                                   nh, n_pad, torch.float32, broadcast=False)
+            return x, (cos[:, mine], sin[:, mine])
         if poly:
             return x, (pe_mod.coeff_per_head(params, cfg),)
         if rel:
@@ -190,10 +235,10 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
         return x, ()
 
     def _pre(bp, x, aux):
-        """x [B, n_pad, E] -> (rotated) q, k, v [B, H, n_pad, Dh]."""
+        """x [B, Nl, E] -> (rotated) q, k, v [B, H, Nl, Dh]."""
         h = layer_norm(x, bp["norm1.weight"], bp["norm1.bias"], eps)
         qkv = linear(h, bp["attn.qkv.weight"])
-        q, k, v = qkv.view(x.shape[0], n_pad, 3, nh, dh).permute(
+        q, k, v = qkv.view(x.shape[0], nl, 3, nh, dh).permute(
             2, 0, 3, 1, 4).unbind(0)
         if rope:
             cos, sin = aux
@@ -203,8 +248,8 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
 
     def _post(bp, x, o):
         """Residual + proj + MLP: (block input x, attention out o
-        [B, H, n_pad, Dh]) -> block output."""
-        a = o.transpose(1, 2).reshape(x.shape[0], n_pad, e)
+        [B, H, Nl, Dh]) -> block output."""
+        a = o.transpose(1, 2).reshape(x.shape[0], nl, e)
         x = x + linear(a, bp["attn.proj.weight"], bp["attn.proj.bias"])
         h = layer_norm(x, bp["norm2.weight"], bp["norm2.bias"], eps)
         h = linear(h, bp["mlp.fc1.weight"], bp["mlp.fc1.bias"])
@@ -212,14 +257,14 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
         h = linear(h, bp["mlp.fc2.weight"], bp["mlp.fc2.bias"])
         return x + h
 
-    def _head(hp, xcls, labels, mask):
-        """Final LN on the cls row only -> (batch-mean loss over the real
-        examples, correct, count); mask [B] zeroes the padding of a final
-        partial batch."""
+    def _head(hp, xcls, labels, mask, count):
+        """Final LN on the cls row only -> (the loss summed over the real
+        examples divided by `count`, the whole batch's real examples: the
+        batch-mean loss on one device; correct, count); mask [B] zeroes
+        the padding of a final partial batch."""
         xf = layer_norm(xcls, hp["norm.weight"], hp["norm.bias"], eps)
         logits = linear(xf[:, 0], hp["head.weight"], hp["head.bias"]).float()
         losses = F.cross_entropy(logits, labels.long(), reduction="none")
-        count = mask.sum()
         loss = (losses * mask).sum() / count.clamp(min=1.0)
         correct = ((logits.argmax(dim=-1) == labels).float() * mask).sum()
         return loss, correct, count
@@ -233,10 +278,10 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
 
     # ---- backward pieces: each the gradient of a recomputed piece ---------
 
-    def head_vg(hp, xcls, labels, mask):
+    def head_vg(hp, xcls, labels, mask, count):
         (loss, correct, count), grads = _vjp(
             lambda *t: _head(dict(zip(HEAD_NAMES, t[:-1])), t[-1], labels,
-                             mask),
+                             mask, count),
             [hp[nm] for nm in HEAD_NAMES] + [xcls],
             (torch.ones((), device=xcls.device), None, None))
         return loss, correct, count, dict(zip(HEAD_NAMES, grads[:-1])), \
@@ -275,7 +320,7 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
         kw = _chunk_kw(aux)
         if head_pad is not None:
             q, k, v, g, o = map(head_pad.pad, (q, k, v, g, o))
-        shape = (bsz, nh, n_pad, dhp)
+        shape = (bsz, nh, nl, dhp)
         unpad = head_pad.unpad if head_pad is not None else (lambda t: t)
         f32 = dict(dtype=torch.float32, device=q.device)
         dparam = None
@@ -313,10 +358,17 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
         dq = torch.empty(shape, dtype=dtype, device=q.device)
         dk = torch.zeros(shape, **f32)
         dv = torch.zeros(shape, **f32)
-        everything = slice(0, n_pad)
+        everything = slice(0, nl)
         for r0, sz in zip(starts, sizes):
             rows = slice(r0, r0 + sz)
-            dq_c, dk_c, dv_c, dp_c = chunk(rows, r0, everything, 0)
+            if mesh is None:
+                dq_c, dk_c, dv_c, dp_c = chunk(rows, r0, everything, 0)
+            else:  # the KV ring of this q-chunk, dk/dv home after R hops
+                delta = (g[:, :, rows].float()
+                         * o[:, :, rows].float()).sum(-1)
+                dq_c, dk_c, dv_c, dp_c = ring_flash_bwd(
+                    q[:, :, rows], k, v, g[:, :, rows], lse[:, :, rows],
+                    delta, scale, ring, n, kw, mm_dtype, row0=my * nl + r0)
             dq[:, :, rows] = dq_c
             dk += dk_c.to(dtype)
             dv += dv_c.to(dtype)
@@ -340,22 +392,28 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
                 q, k, v = _dbg(f"pre_f[{i}]", _pre(bp, x, aux))
                 if head_pad is not None:
                     q, k, v = map(head_pad.pad, (q, k, v))
-                # o is [B, H, n_pad, Dh] laid out as [B, n_pad, H, Dh], so
-                # _post's transpose back to [B, n_pad, E] is a view.
-                o = torch.empty((bsz, n_pad, nh, dhp), dtype=q.dtype,
+                # o is [B, H, Nl, Dh] laid out as [B, Nl, H, Dh], so
+                # _post's transpose back to [B, Nl, E] is a view.
+                o = torch.empty((bsz, nl, nh, dhp), dtype=q.dtype,
                                 device=q.device).transpose(1, 2)
-                lse = torch.empty((bsz, nh, n_pad), dtype=torch.float32,
+                lse = torch.empty((bsz, nh, nl), dtype=torch.float32,
                                   device=q.device)
                 for r0, sz in zip(starts, sizes):
                     rows = slice(r0, r0 + sz)
-                    streaming_chunk_fwd(q[:, :, rows], k, v, scale, r0, 0, n,
-                                        out=o[:, :, rows],
-                                        lse=lse[:, :, rows],
-                                        mm_dtype=mm_dtype, **_chunk_kw(aux))
+                    if mesh is None:
+                        streaming_chunk_fwd(q[:, :, rows], k, v, scale, r0,
+                                            0, n, out=o[:, :, rows],
+                                            lse=lse[:, :, rows],
+                                            mm_dtype=mm_dtype,
+                                            **_chunk_kw(aux))
+                    else:  # the KV ring of this q-chunk
+                        o[:, :, rows], lse[:, :, rows] = ring_flash_fwd(
+                            q[:, :, rows], k, v, scale, ring, n,
+                            _chunk_kw(aux), mm_dtype, row0=my * nl + r0)
                     _dbg(f"att_f[{i}]@{r0}", lse)
                 del q, k, v
                 if head_pad is not None:
-                    o = torch.empty((bsz, n_pad, nh, dh), dtype=o.dtype,
+                    o = torch.empty((bsz, nl, nh, dh), dtype=o.dtype,
                                     device=o.device).transpose(1, 2).copy_(
                                         head_pad.unpad(o))
                 x = _dbg(f"post_f[{i}]", _post(bp, x, o))
@@ -367,26 +425,66 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
                     xs[-1] = x
         return xs, os_, lses, aux
 
+    def _columns(images_u8, labels, mask):
+        """This data rank's columns of the batch axis (after the
+        accumulation axis of grad_accum > 1); as they are without a
+        mesh."""
+        if mesh is None:
+            return images_u8, labels, mask
+        b = labels.shape[-1] // mesh.size
+        cols = slice(mesh.rank * b, (mesh.rank + 1) * b)
+        return tuple(t[:, cols] if labels.dim() > 1 else t[cols]
+                     for t in (images_u8, labels, mask))
+
+    def _sum_over_mesh(params, grads, loss, correct):
+        """The gradient dict and the two metrics summed over every rank of
+        the mesh by the train step's one all_reduce
+        (train_step._reduce_over_mesh: the metrics counted on each ring's
+        first rank), outside any autograd graph (the JAX psum of the
+        in-kernel parameter partials over both axes, and GSPMD's batch
+        sums); as they are without a mesh."""
+        if mesh is None:
+            return grads, loss, correct
+        summed, loss, correct = _reduce_over_mesh(
+            params, cfg, mesh, [grads[key] for key in params], loss, correct,
+            None)
+        return dict(zip(params, summed)), loss, correct
+
     def evaluate(params, step_vec, images_u8, labels, mask=None):
         """Forward-only bounded evaluation: metrics [loss, correct, count]
-        (the eval counterpart fit() uses when q_chunk is set)."""
+        (the eval counterpart fit() uses when q_chunk is set); over a mesh,
+        the whole batch's, on every rank."""
         del step_vec
         if mask is None:
             mask = _ones_mask(labels)
+        count = mask.sum()
+        images_u8, labels, mask = _columns(images_u8, labels, mask)
         xs, _, _, _ = forward(params, images_u8, keep_residuals=False)
         with torch.no_grad():
             hp = {nm: params[nm] for nm in HEAD_NAMES}
-            return torch.stack(_head(hp, xs[-1][:, :1], labels, mask))
+            loss, correct, _ = _head(hp, xs[-1][:, :1], labels, mask, count)
+            metrics = torch.stack([loss, correct])
+            if mesh is not None:  # the cls row is each ring's first rank's
+                metrics = mesh.sum_over_data(_ring_metrics(mesh, metrics))
+            return torch.cat([metrics, count[None]])
 
-    def _grads_of(params, images_u8, labels, mask):
-        """One micro-batch's fwd+bwd: (grads, loss, correct, count); loss
-        is the micro-batch's mean and grads differentiate it."""
+    def _grads_of(params, images_u8, labels, mask, count):
+        """One micro-batch's fwd+bwd on this rank's columns and tokens:
+        (grads, loss, correct, count); loss is the sum over the columns
+        divided by `count`, the micro-batch's real examples, and grads
+        differentiate it. A ring's other ranks hold no cls row: their loss
+        and head gradients are zero, and their tokens' gradients come
+        through the attention's dk / dv (their metrics are dropped in
+        _sum_over_mesh)."""
         xs, os_, lses, aux = forward(params, images_u8)
         hp = {nm: params[nm] for nm in HEAD_NAMES}
         loss, correct, count, grads, dxcls = head_vg(hp, xs[-1][:, :1],
-                                                     labels, mask)
+                                                     labels, mask, count)
         dx = torch.zeros_like(xs[-1])
-        dx[:, :1] = dxcls
+        if my > 0:
+            grads = {key: torch.zeros_like(g) for key, g in grads.items()}
+        else:
+            dx[:, :1] = dxcls
         daux = [torch.zeros_like(a) for a in aux]
         for i in reversed(range(cfg.depth)):
             bp = _block(params, i)
@@ -416,11 +514,14 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
 
     def step(params, opt_state, step_vec, images_u8, labels, mask=None):
         del step_vec  # the LR schedule lives in the optimizer state
+        if mask is None:
+            mask = _ones_mask(labels)
+        counts = mask.sum(dim=-1)  # the whole batch's, per micro-batch
+        images_u8, labels, mask = _columns(images_u8, labels, mask)
         if grad_accum == 1:
-            if mask is None:
-                mask = _ones_mask(labels)
             grads, loss, correct, count = _grads_of(params, images_u8,
-                                                    labels, mask)
+                                                    labels, mask, counts)
+            grads, loss, correct = _sum_over_mesh(params, grads, loss, correct)
         else:
             # Sum over micro-batches of count_a * grads_a (each the gradient
             # of its micro-batch MEAN) is the raw gradient sum over every
@@ -433,9 +534,8 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
             grads = None
             loss = correct = count = 0.0
             for a in range(grad_accum):
-                m_a = _ones_mask(labels[a]) if mask is None else mask[a]
-                g, loss_a, cor_a, cnt_a = _grads_of(params, images_u8[a],
-                                                    labels[a], m_a)
+                g, loss_a, cor_a, cnt_a = _grads_of(
+                    params, images_u8[a], labels[a], mask[a], counts[a])
                 if grads is None:
                     grads = {key: cnt_a * t for key, t in g.items()}
                 else:
@@ -445,6 +545,7 @@ def make_bounded_step(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
                 correct = correct + cor_a
                 count = count + cnt_a
                 _dbg(f"accum[{a}]", count)
+            grads, loss, correct = _sum_over_mesh(params, grads, loss, correct)
             safe = count.clamp(min=1.0)
             grads = {key: t / safe for key, t in grads.items()}
             loss = loss / safe

@@ -1,6 +1,6 @@
 """Host-side training loop on one device, or on each rank of a process
-group (data and tensor parallelism, ZeRO-1) — the data- and model-axis
-branches of the JAX package's train/loop.py.
+group (data, tensor and context parallelism, ZeRO-1) — the data-, model-
+and sequence-axis branches of the JAX package's train/loop.py.
 
 Observable behavior is the reference orchestrator's: a timestamped CSV
 {log_dir}/{dataset}_{pos_encoding}_{%Y%m%d_%H%M%S}.csv with header
@@ -14,7 +14,8 @@ driver (train_step.make_train_multi_step: one CUDA-graph replay on the
 card) over the epoch-ordered feed; profile_dir, a torch.profiler trace of
 the run; debug_nans, the NaN sanitizer (utils/nan_check.py). With q_chunk
 > 0 the steps and the evaluation go through the bounded-program driver
-(train/bounded.py), one step per dispatch, as in the JAX package.
+(train/bounded.py), one step per dispatch, as in the JAX package, also
+over data and sequence ranks (its per-q-chunk KV ring).
 steps_per_dispatch 0 (auto) is one step per dispatch on every device.
 
 Metric semantics match the reference: epoch train/test loss is the MEAN OF
@@ -52,17 +53,13 @@ POSTFIX_EVERY = 50  # progress refresh period in steps (forces a host sync)
 N_OPT_LEAVES = 4    # the JAX optimizer state's leaves on disk
 
 
-def _refuse_unported(tcfg: TrainConfig, world: int) -> None:
+def _refuse_unported(tcfg: TrainConfig) -> None:
     asked = {
-        # with q_chunk: the bounded driver's per-chunk KV ring
-        ("sequence_parallel > 1 with q_chunk > 0" if tcfg.q_chunk > 0
-         else "sequence_parallel > 1"): (tcfg.sequence_parallel > 1,
-                                         "the context-parallel ring"),
         "pipeline_parallel > 1": (tcfg.pipeline_parallel > 1,
                                   "GPipe pipeline parallelism"),
-        # the bounded driver's mesh paths (the JAX train/bounded.py:39-64)
-        f"q_chunk > 0 over {world} data ranks": (
-            tcfg.q_chunk > 0 and world > 1, "the context-parallel ring"),
+        "sequence_parallel > 1 with model_parallel > 1": (
+            tcfg.sequence_parallel > 1 and tcfg.model_parallel > 1,
+            "the compositions"),
     }
     fields = [(name, item) for name, (on, item) in asked.items() if on]
     if fields:
@@ -203,15 +200,20 @@ def _run_epoch(step_fn, state, data_x, data_y, epoch_idx, desc, train: bool,
     return state, avg_loss, acc, float(total) / dt
 
 
-def _bounded_fns(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess):
+def _bounded_fns(cfg: ViTConfig, tcfg: TrainConfig, update, preprocess,
+                 mesh=None):
     """(train_fn, eval_fn) with the signatures of make_train_step /
     make_eval_step over the bounded-program step: each gathers its index
     rows (grad_accum rows behind a leading accumulation axis) and hands the
-    batch to the bounded driver."""
+    batch to the bounded driver, over `mesh` when it is a process group's
+    (each data rank's columns, the KV ring over its sequence axis)."""
     accum = tcfg.grad_accum
+    ring = ({} if mesh is None else
+            dict(mesh=mesh, seq_parallel=tcfg.sequence_parallel))
     bounded_step = make_bounded_step(cfg, tcfg, update, preprocess,
                                      q_chunk=tcfg.q_chunk,
-                                     kv_chunk=tcfg.kv_chunk, grad_accum=accum)
+                                     kv_chunk=tcfg.kv_chunk, grad_accum=accum,
+                                     **ring)
 
     def train_fn(params, opt_state, row, data_x, data_y, epoch_idx, epoch=0):
         del epoch  # the bounded driver draws nothing: no dropout, no augment
@@ -283,8 +285,17 @@ def fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool = True,
     params gathered over the model axis in the reference layout, and the
     moments go to disk as the canonical flat vectors (also under --zero1,
     sharded over the data axis per model shard), so a run resumes under
-    another T, world size or --zero1."""
-    _refuse_unported(tcfg, distributed.world_size())
+    another T, world size or --zero1.
+
+    tcfg.sequence_parallel R > 1 (the JAX fit's CP branch) needs a process
+    group of D·R ranks: the ranks form a D x R mesh, each data row a KV
+    ring over which every block's attention runs on the rank's token shard
+    (parallel.context_parallel.apply_cp, in training and evaluation);
+    params stay replicated, the gradients are summed over every rank, and
+    --zero1 shards the moments over every rank. Dropout is refused, with
+    the JAX fit's words. With q_chunk > 0 the bounded driver runs its
+    per-q-chunk ring over the same mesh."""
+    _refuse_unported(tcfg)
     sanitizer = nan_check.debug_nans() if tcfg.debug_nans \
         else contextlib.nullcontext()
     with sanitizer:
@@ -292,12 +303,17 @@ def fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool = True,
 
 
 def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
-    t_par = tcfg.model_parallel
-    mesh = (make_mesh(batch_size=tcfg.batch_size, model_parallel=t_par)
-            if distributed.is_initialized() or t_par > 1 else None)
+    t_par, r_seq = tcfg.model_parallel, tcfg.sequence_parallel
+    mesh = (make_mesh(batch_size=tcfg.batch_size, model_parallel=t_par,
+                      seq_parallel=r_seq)
+            if distributed.is_initialized() or t_par > 1 or r_seq > 1
+            else None)
     if t_par > 1 and cfg.num_heads % t_par:
         raise ValueError(f"model_parallel={t_par} must divide "
                          f"num_heads={cfg.num_heads}")
+    if r_seq > 1 and cfg.has_dropout:
+        raise ValueError("sequence_parallel/pipeline_parallel do not support "
+                         "dropout rates > 0")
     if device is None and mesh is not None:
         device = distributed.device()
     device = resolve_device(device)
@@ -375,7 +391,8 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
     k = min(k, steps_per_epoch)
     stride = k * accum  # index rows per dispatch
     if tcfg.q_chunk > 0:
-        train_fn, eval_fn = _bounded_fns(cfg, tcfg, opt_update, preprocess)
+        train_fn, eval_fn = _bounded_fns(cfg, tcfg, opt_update, preprocess,
+                                         mesh)
     else:
         if k > 1:
             train_fn = ts.make_train_multi_step(
@@ -449,7 +466,7 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
 
     return dict(best_acc=best_acc, log_file=log_file, ckpt_path=ckpt_path,
                 history=history, num_params=vit.num_params(params),
-                num_devices=(mesh.size * mesh.model_parallel
-                             if mesh is not None else 1),
+                num_devices=(len(mesh.ranks) if mesh is not None
+                             and mesh.distributed else 1),
                 capture_seconds=getattr(
                     train_fn, "capture_seconds", None))

@@ -51,7 +51,8 @@ from vit_rpe_rope_tpu_torch.configs import TrainConfig, ViTConfig, cosine_lr_by_
 from vit_rpe_rope_tpu_torch.models import vit
 from vit_rpe_rope_tpu_torch.ops import launches
 from vit_rpe_rope_tpu_torch.ops.fused_adamw import hyper_rows, make_fused_adamw
-from vit_rpe_rope_tpu_torch.parallel import distributed, tensor_parallel
+from vit_rpe_rope_tpu_torch.parallel import context_parallel, distributed
+from vit_rpe_rope_tpu_torch.parallel import tensor_parallel
 from vit_rpe_rope_tpu_torch.utils import nan_check
 from vit_rpe_rope_tpu_torch.utils.flatten import Flattener
 
@@ -74,9 +75,15 @@ def zero1_shard_size(total: int, n_data: int) -> int:
 
 
 def _world(mesh) -> tuple:
-    """(rank, world) of a process group's mesh; (0, 1) otherwise."""
+    """(rank, world) of ZeRO-1's shards over a process group's mesh: the
+    data axis (a model column under tensor parallelism), or under context
+    parallelism every rank, whose gradients the step sums over the whole
+    group (the JAX init_cp_zero1_opt_state's data x seq product); (0, 1)
+    otherwise."""
     if mesh is None or not mesh.distributed:
         return 0, 1
+    if mesh.seq_parallel > 1:
+        return distributed.rank(), distributed.world_size()
     return mesh.rank, mesh.size
 
 
@@ -108,7 +115,11 @@ def make_zero1_adamw(template: dict, cfg: ViTConfig, schedule, mesh=None,
     is the one-device run: one slice, no collective. Under tensor
     parallelism (the JAX ZeRO-1 x TP update) template is the rank's local
     shard: each rank holds 1/D of its model shard's flat vector, and the
-    slices are gathered over its model column (Mesh.data_group) only."""
+    slices are gathered over its model column (Mesh.data_group) only.
+    Under context parallelism (the JAX ZeRO-1 x CP update, whose
+    cp_zero1_flattener and init_cp_zero1_opt_state this covers) the params
+    are replicated and the slices of flat_layout's vector are over every
+    rank of the group (_world)."""
     layout = flat_layout(template, cfg)
     _, inner = make_fused_adamw({"flat": None}, schedule, b1=b1, b2=b2,
                                 eps=eps, weight_decay=weight_decay)
@@ -135,7 +146,7 @@ def make_zero1_adamw(template: dict, cfg: ViTConfig, schedule, mesh=None,
 
     def gather(p, params, world):
         full = p if world == 1 else distributed.all_gather_slices(
-            p, mesh.rank, world, mesh.data_group)
+            p, _world(mesh)[0], world, mesh.data_group)
         views = layout.unflatten(full[:layout.total])
         keys = list(params)
         torch._foreach_copy_([params[k].detach() for k in keys],
@@ -413,7 +424,10 @@ def _reduce_over_mesh(params, cfg, mesh, grads, loss, correct, divisor):
     Over the data axis (skipped for a model axis of one data row): the
     gradients, the loss and the correct count go into ONE flat vector
     (flat_layout's order of the rank's params, then the two metrics),
-    summed over the rank's model column by one all_reduce. Over the model
+    summed over the rank's model column by one all_reduce. Under context
+    parallelism that sum runs over the whole group (every rank's gradients
+    are partial over the ring), and the metrics, which every rank of a ring
+    holds alike, count on its first rank only (_ring_metrics). Over the model
     axis: the per-head PE params' gradients
     (tensor_parallel.model_sync_keys) are summed over the rank's data row
     by one small all_reduce; the sharded params' gradients are local, the
@@ -424,7 +438,8 @@ def _reduce_over_mesh(params, cfg, mesh, grads, loss, correct, divisor):
     if mesh.model_parallel == 1 or mesh.size > 1:
         layout = flat_layout(params, cfg)
         flat = torch.cat([by_key[k].reshape(-1) for k in layout.keys]
-                         + [torch.stack([loss, correct])])
+                         + [_ring_metrics(mesh, torch.stack([loss,
+                                                             correct]))])
         mesh.sum_over_data(flat)
         loss, correct = flat[layout.total], flat[layout.total + 1]
         by_key = layout.unflatten(flat[:layout.total])
@@ -445,10 +460,34 @@ def _reduce_over_mesh(params, cfg, mesh, grads, loss, correct, divisor):
     return [by_key[k] / divisor for k in params], loss, correct
 
 
-def _model_axis(mesh):
-    """(apply_fn, model_rank) of a step over `mesh`: the TP forward over its
-    model axis and this rank's model position, or (None, None) without a
-    model axis (models.vit.apply, two generators a row)."""
+def _ring_metrics(mesh, metrics):
+    """metrics as they go into a sum over a context-parallel mesh's whole
+    group: the ring's first rank's, zeros on the others (every rank of a
+    ring holds the same logits, so the sum counts each data rank once,
+    exactly); as they are on any other mesh."""
+    if mesh.seq_parallel > 1 and mesh.seq_rank > 0:
+        return torch.zeros_like(metrics)
+    return metrics
+
+
+def _cp_forward(mesh):
+    """The forward over `mesh`'s sequence axis: this rank's token shard
+    through parallel.context_parallel.apply_cp (no dropout under context
+    parallelism)."""
+    def apply_cp(params, images, cfg, generator=None):
+        del generator
+        return context_parallel.apply_cp(params, images, cfg, mesh)
+
+    return apply_cp
+
+
+def _mesh_forward(mesh):
+    """(apply_fn, model_rank) of a train step over `mesh`: the CP forward
+    (_cp_forward) and None over a sequence axis; the TP forward and this
+    rank's model position over a model axis; or (None, None) without
+    either (models.vit.apply, two generators a row)."""
+    if mesh is not None and mesh.seq_parallel > 1:
+        return _cp_forward(mesh), None
     if mesh is None or mesh.model_parallel == 1:
         return None, None
 
@@ -483,9 +522,13 @@ def make_train_step(cfg: ViTConfig, update, preprocess, accum: int = 1,
     make_tp_train_step) params are the rank's local shard
     (parallel.tensor_parallel.shard_params), the forward is
     tensor_parallel.apply_tp, and the per-head PE params' gradients are
-    also summed over the model axis. None: one device, no collective."""
+    also summed over the model axis. With a sequence axis (the JAX
+    make_cp_train_step) params are replicated, the forward is
+    context_parallel.apply_cp on this rank's token shard, and the
+    gradients are summed over every rank. None: one device, no
+    collective."""
     dp = mesh is not None and mesh.distributed
-    apply_fn, model_rank = _model_axis(mesh)
+    apply_fn, model_rank = _mesh_forward(mesh)
 
     def train_step(params, opt_state, row, data_x, data_y, epoch_idx,
                    epoch=0):
@@ -545,7 +588,7 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
     call says on stdout."""
     fetch = _make_fetch(feed)
     dp = mesh is not None and mesh.distributed
-    apply_fn, model_rank = _model_axis(mesh)
+    apply_fn, model_rank = _mesh_forward(mesh)
     stride = k * accum
     draws = cfg.has_dropout or getattr(preprocess, "augment", False)
     live_rows = {"idx": None, "rows": None}  # host copy, once per epoch
@@ -668,6 +711,7 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
             if not told:
                 told.append(True)
                 axes = ("data and tensor" if model_rank is not None
+                        else "data and context" if mesh.seq_parallel > 1
                         else "data")
                 why = (f"the steps sum their gradients over a process group "
                        f"({axes} parallelism)" if dp else
@@ -691,8 +735,12 @@ def make_eval_step(cfg: ViTConfig, preprocess, mesh=None):
     evaluates its columns and the loss and correct sums are summed over the
     data ranks (one all_reduce; the count is the whole row's), as the JAX
     eval step psums them. Under tensor parallelism it takes the whole
-    (gathered) params, which every model rank evaluates alike."""
+    (gathered) params, which every model rank evaluates alike. Under
+    context parallelism every rank of a ring evaluates its token shard
+    (context_parallel.apply_cp, the JAX eval step's apply_fn) and the sums
+    run over the whole group, each ring's metrics counted once."""
     dp = mesh is not None and mesh.distributed
+    apply_fn = _cp_forward(mesh) if dp and mesh.seq_parallel > 1 else None
 
     def eval_step(params, row, data_x, data_y, epoch_idx):
         with torch.no_grad():
@@ -700,11 +748,11 @@ def make_eval_step(cfg: ViTConfig, preprocess, mesh=None):
             imgs, labels, mask = _gather_batch(data_x, data_y,
                                                epoch_idx[row][cols])
             loss_sum, correct = _loss_and_metrics(params, imgs, labels, mask,
-                                                  cfg, preprocess)
+                                                  cfg, preprocess, apply_fn)
             if dp:
                 count = _real_count(epoch_idx[row])
-                loss_sum, correct = mesh.sum_over_data(
-                    torch.stack([loss_sum, correct]))
+                loss_sum, correct = mesh.sum_over_data(_ring_metrics(
+                    mesh, torch.stack([loss_sum, correct])))
             else:
                 count = mask.sum()
             return torch.stack([loss_sum / count.clamp(min=1.0), correct,
