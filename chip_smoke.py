@@ -84,10 +84,11 @@ exits nonzero without a card, or when any phase fails. Phases:
    dk/dv launched); direct calls of the separate-pass backward with a
    generated bias (the dcoeff and dtable kernels) against the one-pass
    kernel's parameter gradients; then through the train CLI for one epoch
-   of synthetic CIFAR-10 the long-sequence model at depth 1 in rope-mixed,
-   in relative and in rope-axial (the last two through the one-pass
-   backward; rope-axial must learn, relative stays at chance on this task
-   on either path) and ViT-S/16@384 (at depth 1), counting every kernel's
+   of synthetic CIFAR-10 the long-sequence model at depth 1 in rope-mixed
+   and in relative (on STREAM_EPOCH_TRAIN examples) and in rope-axial (the
+   last two through the one-pass backward; rope-axial must learn, relative
+   stays at chance on this task on either path) and ViT-S/16@384 (at depth
+   1), counting every kernel's
    launches, the best checkpoint served by the Predictor;
 14. times: each streaming kernel (the forward's wrapper by CUDA events,
    its kernel and prologue and the backward kernels by the profiler's
@@ -159,7 +160,7 @@ exits nonzero without a card, or when any phase fails. Phases:
    through the Predictor against its .npz.
 18. the k-step driver, remat, --debug_nans, --profile_dir and the C++
    decoders: (a) the ViT-tiny/4 train CLI at its defaults (rope-mixed, 100
-   steps of 128) with --steps_per_dispatch 1 and 4 in turns (1, 4, 4, 1):
+   steps of 128) with --steps_per_dispatch 1 and 4:
    each epoch's img/s, the CUDA graph's capture time, exact launches (one
    replay a dispatch of 4 captured steps after one warm-up step, AdamW
    through its device-table entry) and the CSV rows compared; the AdamW
@@ -257,6 +258,24 @@ exits nonzero without a card, or when any phase fails. Phases:
    q-chunks of 2,048 and 512 rows a rank, two hops each), held as (b);
    (e) the bounded step with force_ring on a process group of one rank
    over NCCL against the plain bounded step, bit for bit.
+23. pipeline parallelism (GPipe stages, the hop staged through the host
+   under gloo): (a) the ViT-tiny/4 train CLI at its defaults on
+   PP_TRAIN examples on two gloo ranks sharing the card with
+   --pipeline_parallel 2 --pp_microbatches PP_MICRO (3 blocks a stage,
+   the attention at the microbatch of 32 in training and at 128 in
+   evaluation on the params gathered back): each rank's launches of rows
+   1, 2 and 11 exact (bubble ticks launch nothing), its stage's blocks
+   alone, the replicated params bit-equal on both ranks, rank 0's first
+   DP_EARLY_STEPS step losses within DP_STEP_TOL of a one-rank epoch of
+   the same data in this process, one CSV, each rank's step time beside
+   one rank's; rank 0's `_last.npz` in the reference layout resumed at
+   world size 1; (c) the long-sequence model at depth 2 (N = 4,097, batch
+   4, 2 microbatches) in relative in the same launch on PP_STREAM_TRAIN
+   examples: rows 3 and 5 (the generated bias) and their prologues,
+   held as (a); (b) the relative epoch of (a)'s data on four gloo ranks
+   with --pipeline_parallel 2 --model_parallel 2 (3 heads a rank, the
+   bias sliced; block shards distinct on all four ranks, the relative
+   table bit-equal), held as (a).
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -340,6 +359,9 @@ VIT_S_384 = dict(VIT_S, img_size=384)  # N=577: the dense tiles do not fit
 # The JAX package's long-sequence model (scripts/bench_longseq.py): N=4097
 # at 256 px (batch 4), N=16385 at 512 px (batch 2).
 LONGSEQ = dict(img_size=256, patch_size=4, embed_dim=128, depth=2, num_heads=4)
+STREAM_EPOCH_TRAIN = 2560  # phase 13's rope-mixed and relative epochs of the
+#   long-sequence model: 640 steps of 4 (the CLI's whole set, 12,800, for
+#   rope-axial, which must learn)
 # "bias": a materialized [H, N, N] tensor; "poly" / "rel": generated in the
 # kernel from the coefficients / the table.
 STREAM_REGIMES = ("none", "bias", "poly", "rel", "rope-axial", "rope-mixed")
@@ -1073,7 +1095,8 @@ def bounded_launches(fa, batch, heads, head_dim, n, q_chunk, kv_chunk=0):
 
 
 def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
-                      q_chunk=None, lr=None, flags=None, keep=None):
+                      q_chunk=None, lr=None, flags=None, keep=None,
+                      n_train=12800):
     """Phases 8, 13, 15, 17 and 18 for one PE mode: the train CLI on synthetic
     CIFAR-10 for one epoch (run in a scratch directory, so the default logs/
     and checkpoints/ land there), with every count reset just before and
@@ -1089,7 +1112,8 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
     as in the JAX package, and only evaluation launches the forward kernel;
     with --steps_per_dispatch k > 1 each dispatch replays a CUDA graph of k
     steps, after one warm-up step). keep: a path the best checkpoint is
-    copied to."""
+    copied to. n_train: the synthetic set's training examples (n_train // 5
+    test images; the CLI's set is 12,800 and 2,560)."""
     fa, fused_adamw, train_cli, serving, datasets = modules
     argv = ["--dataset", "cifar10", "--synthetic", "--epochs", "1",
             "--pos_encoding", pe_name, "--batch_size", str(batch)]
@@ -1103,13 +1127,15 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
     grid = model["img_size"] // model["patch_size"] if model else None
     heads = (model or flags or {}).get("num_heads", 6)
     serve_bs = 128 if model is None else 64
+    n_test = n_train // 5
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
             reset_counts(fa, fused_adamw)
             t0 = time.perf_counter()
-            summary = train_cli.main(argv)
+            with small_dataset(datasets, n_train=n_train, n_test=n_test):
+                summary = train_cli.main(argv)
             counts = read_counts(fa, fused_adamw)
             seconds = time.perf_counter() - t0
             routes = (check_resident(fa, f"train CLI {pe_name} {flags or ''}")
@@ -1124,7 +1150,8 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
             predictor = serving.Predictor.from_params(params, cfg, mean, std,
                                                       native)
             # The CLI's synthetic data follow --seed.
-            test = datasets.synthetic("cifar10",
+            test = datasets.synthetic("cifar10", n_train=n_train,
+                                      n_test=n_test,
                                       seed=int((flags or {}).get("seed", 0)))
             reset_counts(fa, fused_adamw)
             preds = np.concatenate(
@@ -1139,7 +1166,7 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
               "best_acc"]
     row = dict(zip(header, rows[1])) if len(rows) > 1 else {}
     served_acc = 100.0 * float((preds == test.test_y).mean())
-    steps, evals = 12800 // batch, 2560 // batch
+    steps, evals = n_train // batch, n_test // batch
     fwd = "attn_fwd" if model is None else "attn_stream_fwd"
     expected = {"attn_fwd": 0, "attn_bwd": 0, "adamw": steps,
                 fwd: depth * (steps + evals)}
@@ -1179,7 +1206,7 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
         else:
             expected["attn_stream_bwd_fused"] = depth * steps
     serve_expected = {"attn_fwd": 0, "attn_bwd": 0, "adamw": 0,
-                      fwd: depth * (2560 // serve_bs)}
+                      fwd: depth * (n_test // serve_bs)}
     expected = with_prologues(expected)
     serve_expected = with_prologues(serve_expected)
     log(f"  train CLI {pe_name} {model or 'defaults'} {flags or ''}: "
@@ -3478,14 +3505,14 @@ GRAPH_K = 4
 
 def check_graph_epochs(train_modules):
     """Phase 18a: the ViT-tiny/4 train CLI at its defaults (rope-mixed, 100
-    steps of 128) with --steps_per_dispatch 1 and GRAPH_K in turns (1, k,
-    k, 1), each with exact launch counts (train_through_cli: the graph
+    steps of 128) with --steps_per_dispatch 1 and GRAPH_K, each with exact
+    launch counts (train_through_cli: the graph
     epochs launch the attention kernels and AdamW's table entry once per
     captured step and replay, after one warm-up step). Prints each epoch's
     img/s, the graph's capture time and the CSV rows; the rows of the two
     drivers are compared and any difference printed."""
     runs = []
-    for k in (1, GRAPH_K, GRAPH_K, 1):
+    for k in (1, GRAPH_K):
         run = train_through_cli("rope-mixed", train_modules,
                                 flags={"steps_per_dispatch": k})
         runs.append((k, run))
@@ -3503,7 +3530,7 @@ def check_graph_epochs(train_modules):
     same = all(tuple(r["csv"][f] for f in fields) == rows[1]
                for _, r in runs)
     log(f"  CSV rows {fields}: k=1 {rows[1]}, k={GRAPH_K} {rows[GRAPH_K]}; "
-        f"bit-equal across all four epochs: {same}; largest differences "
+        f"bit-equal across both epochs: {same}; largest differences "
         f"between the drivers {diffs}")
     for k, run in runs:
         log(f"    k={k} launches {run['launches']}")
@@ -4343,9 +4370,10 @@ CSV_FIELDS = ("train_loss", "train_acc", "test_loss", "test_acc")
 # n_train / n_train // 5 examples, or null for the whole set); each run's
 # final params (the rank's shard under tensor parallelism), launch counts,
 # per-step losses (of the train step, or of the bounded step with
-# --q_chunk) and the batch sizes and head counts the attention
-# wrappers saw (the dense ones, and the streaming ones where they ran) go
-# to {out}/{label}/rank{RANK}.npz / .json.
+# --q_chunk), the seconds between the ends of consecutive steps (each
+# step's end synchronized) and the batch sizes and head counts the
+# attention wrappers saw (the dense ones, and the streaming ones where they
+# ran) go to {out}/{label}/rank{RANK}.npz / .json.
 DP_RANK = r"""
 import json, os, sys, time
 import numpy as np
@@ -4358,7 +4386,7 @@ from vit_rpe_rope_tpu_torch.train import train_step as ts
 
 out, runs = sys.argv[1], json.loads(sys.argv[2])
 rank = os.environ["RANK"]
-final, batches, heads, losses = {}, {}, {}, []
+final, batches, heads, losses, stamps = {}, {}, {}, [], []
 make, real_dataset = ts.make_train_step, datasets.get_dataset
 make_bounded = loop.make_bounded_step
 
@@ -4367,6 +4395,8 @@ def make_train_step(*args, _make=make, **kw):
 
     def recorded(*a, **k):
         result = step(*a, **k)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
         final["params"] = result[0]
         losses.append(result[2][0])
         return result
@@ -4409,6 +4439,7 @@ for label, (port, argv, n_train) in runs.items():
         record.update({"attn_" + n: set() for n in (
             "fwd", "bwd", "stream_fwd", "stream_bwd", "stream_bwd_fused")})
     losses.clear()
+    stamps.clear()
     t0 = time.perf_counter()
     summary = train_cli.main(argv)
     torch.cuda.synchronize()
@@ -4430,7 +4461,8 @@ for label, (port, argv, n_train) in runs.items():
                        batches={k: sorted(v) for k, v in batches.items()
                                 if v},
                        heads={k: sorted(v) for k, v in heads.items() if v},
-                       step_losses=[float(x) for x in losses]), f)
+                       step_losses=[float(x) for x in losses],
+                       step_seconds=np.diff(stamps).tolist()), f)
 """
 
 
@@ -4458,17 +4490,20 @@ def torchrun_env(world: int, rank: int = 0):
                 os.environ[k] = v
 
 
-def cli_epoch(train_modules, argv, world_env=None, keep_dir=None):
+def cli_epoch(train_modules, argv, world_env=None, keep_dir=None,
+              resume_from=None):
     """One epoch of the train CLI (TINY_ARGV + argv) in a scratch directory
     with the counts reset just before and read just after; world_env: a
     torchrun_env to run it under (a process group of one, this process).
     Returns the CSV row, every array of `_last.npz`, the launches and the
-    times; the best checkpoint is copied into keep_dir when one is given."""
+    times; the best checkpoint is copied into keep_dir when one is given.
+    resume_from: a `_last.npz` put into the scratch directory's
+    checkpoints first (for argv with --resume)."""
     from vit_rpe_rope_tpu_torch.train import loop
     from vit_rpe_rope_tpu_torch.train import train_step as ts
 
     fa, fused_adamw, train_cli, _, _ = train_modules
-    losses, make = [], ts.make_train_step
+    losses, stamps, make = [], [], ts.make_train_step
     make_bounded = loop.make_bounded_step
 
     def make_train_step(*args, _make=make, **kw):  # records each step's loss
@@ -4476,6 +4511,8 @@ def cli_epoch(train_modules, argv, world_env=None, keep_dir=None):
 
         def recorded(*a, **k):
             result = step(*a, **k)
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
             losses.append(result[2][0])
             return result
 
@@ -4484,6 +4521,9 @@ def cli_epoch(train_modules, argv, world_env=None, keep_dir=None):
 
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
+        if resume_from:
+            os.makedirs(os.path.join(tmp, "checkpoints"))
+            shutil.copy(resume_from, os.path.join(tmp, "checkpoints"))
         os.chdir(tmp)
         ts.make_train_step = make_train_step
         loop.make_bounded_step = lambda *a, **k: make_train_step(
@@ -4514,7 +4554,15 @@ def cli_epoch(train_modules, argv, world_env=None, keep_dir=None):
     return dict(row=row, last=last, launches=counts, routes=routes,
                 seconds=seconds, images_per_s=ips,
                 step_ms=1000.0 * 128 / ips, num_devices=summary["num_devices"],
-                ckpt=ckpt, step_losses=[float(x) for x in losses])
+                ckpt=ckpt, step_losses=[float(x) for x in losses],
+                step_seconds=np.diff(stamps).tolist())
+
+
+def steady_ms(record: dict) -> float:
+    """The median ms between the ends of consecutive train steps of a run
+    (cli_epoch's or a gloo rank's record): its steps after the first, so a
+    process's first-call costs are left out."""
+    return 1000.0 * statistics.median(record["step_seconds"])
 
 
 def state_differences(a: dict, b: dict) -> dict:
@@ -4540,9 +4588,9 @@ def check_world_one(train_modules):
     plainly, then under torchrun's variables at world size 1 (an NCCL
     group of this process) without and with --zero1, then with --zero1 and
     --steps_per_dispatch GRAPH_K without a group (ZeRO-1's one slice
-    through AdamW's device-table entry in the CUDA graph), then plainly
-    again (the step times in turns): each CSV row and `_last.npz` against
-    the plain run's, bit for bit, the launches and the step times."""
+    through AdamW's device-table entry in the CUDA graph): each CSV row and
+    `_last.npz` against the plain run's, bit for bit (the world-size-1 run
+    repeats the plain one), the launches and the step times."""
     graphed = -(-100 // GRAPH_K) * GRAPH_K + 1  # captured steps + warm-up
     cases = (("nccl", [], True, None),
              ("nccl_zero1", ["--zero1"], True, None),
@@ -4557,10 +4605,7 @@ def check_world_one(train_modules):
         if runs[label]["num_devices"] != 1:
             raise AssertionError(f"{label}: {runs[label]['num_devices']} "
                                  f"devices")
-    runs["plain_again"] = cli_epoch(train_modules, [])
     plain = runs["plain"]
-    if runs["plain_again"]["row"] != plain["row"]:
-        raise AssertionError("two plain epochs of one seed differ")
     out = {}
     for label, _, _, expected in cases:
         run = runs[label]
@@ -4575,9 +4620,7 @@ def check_world_one(train_modules):
             f"run: {same}{'' if same else f' (differences {diffs})'}; "
             f"launches {run['launches']} (expected {expected}); "
             f"{run['step_ms']:.3f} ms a step (plain "
-            f"{plain['step_ms']:.3f} before, "
-            f"{runs['plain_again']['step_ms']:.3f} after), "
-            f"{run['images_per_s']:.1f} img/s")
+            f"{plain['step_ms']:.3f}), {run['images_per_s']:.1f} img/s")
         if not same:
             raise AssertionError(f"{label} at world size 1 differs from the "
                                  f"plain run: {diffs}")
@@ -4586,8 +4629,8 @@ def check_world_one(train_modules):
                                  f"expected {expected}")
     out["plain"] = dict(row=plain["row"], launches=plain["launches"],
                         step_losses=plain["step_losses"],
-                        step_ms=[plain["step_ms"],
-                                 runs["plain_again"]["step_ms"]],
+                        step_seconds=plain["step_seconds"],
+                        step_ms=[plain["step_ms"]],
                         images_per_s=plain["images_per_s"])
     return out, runs
 
@@ -4622,15 +4665,16 @@ def rank_processes(script, args, world, timeout):
     return [(None if p is None else p.returncode, text) for text, p in out]
 
 
-def gloo_ranks(runs, world=2, n_train=None):
-    """Phases 20b and 21: the train CLI (TINY_ARGV + argv, for each label:
-    argv of `runs`) on `world` ranks sharing the card over gloo, each rank
-    a process of its own (DP_RANK) that trains every run in turn, in one
-    scratch directory, on the synthetic set cut to n_train examples when
-    given (one size for every run, or {label: size}); a rank that fails,
-    or a launch that outlasts DP_WORKER_TIMEOUT,
+def gloo_ranks(runs, world=2, n_train=None, keep_dir=None):
+    """Phases 20b, 21, 22 and 23: the train CLI (TINY_ARGV + argv, for each
+    label: argv of `runs`) on `world` ranks sharing the card over gloo,
+    each rank a process of its own (DP_RANK) that trains every run in turn,
+    in one scratch directory, on the synthetic set cut to n_train examples
+    when given (one size for every run, or {label: size}); a rank that
+    fails, or a launch that outlasts DP_WORKER_TIMEOUT,
     fails the phase. Returns, per label, each rank's record with its final
-    params, rank 0's CSV row and the CSVs written; and the launch's
+    params, rank 0's CSV row and the CSVs written (and with keep_dir, the
+    path of its `_last.npz`, copied to keep_dir/label/); and the launch's
     seconds."""
     sizes = n_train if isinstance(n_train, dict) else dict.fromkeys(
         runs, n_train)
@@ -4660,6 +4704,12 @@ def gloo_ranks(runs, world=2, n_train=None):
                 row = list(f)[1].strip()
             out[label] = dict(ranks=ranks, row=row, csvs=os.listdir(
                 os.path.join(run_dir, "logs")))
+            if keep_dir:
+                last, = glob.glob(os.path.join(run_dir, "checkpoints",
+                                               "*_last.npz"))
+                os.makedirs(os.path.join(keep_dir, label))
+                out[label]["last"] = shutil.copy(
+                    last, os.path.join(keep_dir, label))
     return out, seconds
 
 
@@ -4675,10 +4725,7 @@ def check_two_ranks(world_one):
     expected = {"attn_fwd": 6 * 120, "attn_bwd": 6 * 100, "adamw": 100,
                 "adamw_table": 0}
     out = {}
-    # plain data parallelism again after --zero1: the step times in turns
-    # (a process's first epoch also loads the kernels)
-    runs, seconds = gloo_ranks({"dp": [], "zero1": ["--zero1"],
-                               "dp_again": []})
+    runs, seconds = gloo_ranks({"dp": [], "zero1": ["--zero1"]})
     log(f"  two gloo ranks: {seconds:.1f} s for the launch (both runs)")
     for label, run in runs.items():
         r0, r1 = run["ranks"]
@@ -4705,8 +4752,10 @@ def check_two_ranks(world_one):
             ips = rec["history"][0]["images_per_sec"]
             log(f"    rank {r}: launches {rec['launches']} (expected "
                 f"{expected}), attention batch sizes {rec['batches']}, "
-                f"{1000.0 * 128 / ips:.3f} ms a step ({ips:.1f} img/s), "
-                f"devices {rec['num_devices']}")
+                f"{1000.0 * 128 / ips:.3f} ms a step ({ips:.1f} img/s; "
+                f"steps after the first {steady_ms(rec):.3f}, one rank "
+                f"{steady_ms(world_one['plain']):.3f}), devices "
+                f"{rec['num_devices']}")
             if rec["launches"] != expected:
                 raise AssertionError(f"{label} rank {r}: launches "
                                      f"{rec['launches']}, expected "
@@ -4736,15 +4785,16 @@ def check_two_ranks(world_one):
                           step_ms=[1000.0 * 128
                                    / r["history"][0]["images_per_sec"]
                                    for r in run["ranks"]],
+                          steady_step_ms=[steady_ms(r) for r in run["ranks"]],
                           params=r0["params"])
     zero1_same = all(np.array_equal(out["zero1"]["params"][k],
                                     out["dp"]["params"][k])
                      for k in out["dp"]["params"])
     log(f"  two ranks: --zero1 params bit-equal to plain data parallelism's: "
         f"{zero1_same}; rows {out['zero1']['row']} / {out['dp']['row']}")
-    if not zero1_same or out["dp_again"]["row"] != out["dp"]["row"]:
+    if not zero1_same:
         raise AssertionError("two ranks: ZeRO-1's params differ from plain "
-                             "data parallelism's, or two plain runs differ")
+                             "data parallelism's")
     for label in out:
         del out[label]["params"]
     out["zero1_bit_equal_to_dp"] = zero1_same
@@ -5470,6 +5520,215 @@ def check_context_parallel(train_modules, modules, vit, datasets, ViTConfig,
     return out
 
 
+# Phase 23: pipeline parallelism (GPipe stages over gloo ranks, PP x TP).
+PP_TRAIN = 1280          # runs (a) and (b): 10 steps of 128, and 256 test
+#   images (2 evaluation rows of 128 on the gathered params)
+PP_STREAM_TRAIN = 20     # run (c): 5 steps of 4 at N = 4,097, and 4 test
+#   images (one evaluation row)
+PP_MICRO = 4             # run (a)'s --pp_microbatches (b, c: the auto 2)
+
+
+def pp_launches(blocks_a_stage, micro, steps, depth, evals, stream=False):
+    """A rank's launches of one epoch under the GPipe schedule: each step
+    runs the stage's blocks once per microbatch forward and backward (the
+    bubble ticks launch nothing), AdamW once; each evaluation row runs
+    every block on the gathered params."""
+    fwd, bwd = blocks_a_stage * micro * steps, blocks_a_stage * micro * steps
+    if stream:  # the long-sequence model in relative: rows 3 and 5
+        return with_prologues({"attn_fwd": 0, "attn_bwd": 0, "adamw": steps,
+                               "adamw_table": 0,
+                               "attn_stream_fwd": fwd + depth * evals,
+                               "attn_stream_bwd_fused": bwd})
+    return {"attn_fwd": fwd + depth * evals, "attn_bwd": bwd,
+            "adamw": steps, "adamw_table": 0}
+
+
+def check_pp_run(label, run, expected, one, blocks_a_stage, heads, batches,
+                 step_batch=128):
+    """Phase 23's checks of one gloo launch of the train CLI under
+    --pipeline_parallel: each rank's launches exact, the attention
+    wrappers at `heads` and `batches` ({wrapper: sorted sizes}: the
+    microbatch in training, the whole rank's batch in evaluation), each
+    rank holding blocks_a_stage blocks (its stage's) and block shards of
+    its own, the replicated params bit-equal on every rank, rank 0 alone
+    writing a CSV, the first DP_EARLY_STEPS step losses within DP_STEP_TOL
+    of one rank's on the same data (`one`: cli_epoch's record), the row
+    finite; each rank's step time (of step_batch examples) beside the one
+    rank's."""
+    ranks = run["ranks"]
+    p0 = ranks[0]["params"]
+    replicated = [k for k in p0 if not k.startswith("blocks.")]
+    replicated_same = all(np.array_equal(r["params"][k], p0[k])
+                          for r in ranks for k in replicated)
+    stage_blocks = {r["params"]["blocks.norm1.weight"].shape[0]
+                    for r in ranks}
+    fc1 = [r["params"]["blocks.mlp.fc1.weight"] for r in ranks]
+    shards_distinct = all(not np.array_equal(fc1[i], fc1[j])
+                          for i in range(len(fc1)) for j in range(i))
+    one_losses = np.asarray(one["step_losses"])
+    step_rel = (np.abs(np.asarray(ranks[0]["step_losses"]) - one_losses)
+                / np.abs(one_losses))
+    fields = csv_fields(run["row"])
+    step_ms = [1000.0 * step_batch / r["history"][0]["images_per_sec"]
+               for r in ranks]
+    one_ms = 1000.0 * step_batch / one["images_per_s"]
+    steady = [steady_ms(r) for r in ranks]
+    early = [float(f"{x:.3g}") for x in step_rel[:DP_EARLY_STEPS]]
+    log(f"  {label}: CSV row {run['row']} (one rank: {one['row']}); CSVs "
+        f"written {run['csvs']}; blocks a rank {sorted(stage_blocks)}; "
+        f"block shards distinct on all {len(ranks)} ranks "
+        f"{shards_distinct}; replicated params bit-equal on all ranks "
+        f"{replicated_same} ({len(replicated)} of {len(p0)} keys); first "
+        f"{DP_EARLY_STEPS} step losses against one rank, relative: {early}")
+    for r, rec in enumerate(ranks):
+        log(f"    rank {r}: launches {rec['launches']} (expected "
+            f"{expected}), attention batch sizes {rec['batches']}, heads "
+            f"{rec['heads']}, {step_ms[r]:.3f} ms a step (one rank in this "
+            f"run: {one_ms:.3f}; steps after the first {steady[r]:.3f}, one "
+            f"rank {steady_ms(one):.3f}), {rec['seconds']:.1f} s, devices "
+            f"{rec['num_devices']}")
+        if rec["launches"] != expected:
+            raise AssertionError(f"{label} rank {r}: launches "
+                                 f"{rec['launches']}, expected {expected}")
+        if rec["heads"] != heads or rec["batches"] != batches:
+            raise AssertionError(f"{label} rank {r}: attention at heads "
+                                 f"{rec['heads']}, batches {rec['batches']}")
+        if rec["num_devices"] != len(ranks) or (r and rec["log_file"]):
+            raise AssertionError(f"{label} rank {r}: {rec['num_devices']} "
+                                 f"devices, log file {rec['log_file']}")
+    if len(run["csvs"]) != 1:
+        raise AssertionError(f"{label}: CSVs {run['csvs']}")
+    if stage_blocks != {blocks_a_stage} or not shards_distinct \
+            or not replicated_same:
+        raise AssertionError(f"{label}: the ranks' params are not as the "
+                             f"stages say")
+    if not all(math.isfinite(fields[k]) for k in fields):
+        raise AssertionError(f"{label}: the CSV row is not finite")
+    if step_rel[:DP_EARLY_STEPS].max() > DP_STEP_TOL:
+        raise AssertionError(f"{label}: the first step losses differ from "
+                             f"one rank's: {step_rel[:DP_EARLY_STEPS]}")
+    return dict(row=run["row"], one_rank_row=one["row"],
+                step_relative=step_rel.tolist(),
+                launches=[r["launches"] for r in ranks], step_ms=step_ms,
+                one_rank_step_ms=one_ms, steady_step_ms=steady,
+                one_rank_steady_step_ms=steady_ms(one),
+                seconds=[r["seconds"] for r in ranks])
+
+
+def check_pp_resume(train_modules, datasets, vit, ViTConfig, last, one):
+    """Phase 23a's `_last.npz` (rank 0's, written under --pipeline_parallel
+    2) in the reference layout: every param at the one-device shape, the
+    moments as the canonical flat vectors; resumed at world size 1 in this
+    process for a second epoch of the same data."""
+    from vit_rpe_rope_tpu_torch.train import loop
+
+    cfg = ViTConfig(img_size=32, patch_size=4, in_chans=3, num_classes=10,
+                    embed_dim=192, depth=6, num_heads=6,
+                    pos_encoding="rope-mixed")
+    ref = vit.init_params(torch.Generator(), cfg, device="cpu")
+    total = loop.moment_flattener(ref, cfg).total
+    with np.load(last) as z:
+        shapes_ok = (all(z[k].shape == tuple(v.shape)
+                         for k, v in ref.items())
+                     and z["__opt.1"].shape == z["__opt.2"].shape
+                     == (total,))
+        count = int(z["__opt.0"])
+    with small_dataset(datasets, n_train=PP_TRAIN, n_test=PP_TRAIN // 5):
+        resumed = cli_epoch(train_modules, ["--epochs", "2", "--resume"],
+                            resume_from=last)
+    fields = csv_fields(resumed["row"])
+    log(f"  --pipeline_parallel 2 _last.npz: reference shapes {shapes_ok}, "
+        f"AdamW count {count}; resumed at world size 1: CSV row "
+        f"{resumed['row']} (the first epoch's one-rank row {one['row']}), "
+        f"launches {resumed['launches']}")
+    if not shapes_ok or count != PP_TRAIN // 128 or fields["epoch"] != 2 \
+            or not all(math.isfinite(v) for v in fields.values()):
+        raise AssertionError(f"the pipeline-parallel _last.npz does not "
+                             f"resume at world size 1: {resumed['row']}")
+    return dict(reference_shapes=shapes_ok, count=count,
+                resumed_row=resumed["row"], launches=resumed["launches"])
+
+
+def check_pipeline_parallel(train_modules, datasets, vit, ViTConfig):
+    """Phase 23. (a) The ViT-tiny/4 train CLI at its defaults (rope-mixed,
+    embed 192, depth 6, 6 heads, batch 128) on two gloo ranks sharing the
+    card with --pipeline_parallel 2 --pp_microbatches PP_MICRO, on
+    PP_TRAIN examples: 3 blocks a stage, rows 1 and 2 at the microbatch of
+    32 in training and at 128 in evaluation on the gathered params, row 11
+    once a step; its `_last.npz` in the reference layout resumed at world
+    size 1. (c) The long-sequence model (N = 4,097, batch 4) at depth 2 in
+    relative with --pipeline_parallel 2 (one block a stage, 2
+    microbatches) in the same launch, on PP_STREAM_TRAIN examples: rows 3
+    and 5 (the generated bias) and their prologues. (b) The relative
+    epoch of (a)'s data on four gloo ranks with --pipeline_parallel 2
+    --model_parallel 2 (3 heads a rank, the bias sliced; 2 microbatches of
+    64). Each held to a one-rank epoch of the same data in this process."""
+    model = []
+    for key, value in dict(LONGSEQ, depth=2).items():
+        model += [f"--{key}", str(value)]
+    stream_argv = model + ["--pos_encoding", "relative", "--batch_size", "4"]
+    one = {}
+    with small_dataset(datasets, n_train=PP_TRAIN, n_test=PP_TRAIN // 5):
+        for label, argv in (("pp", []),
+                            ("pp_tp", ["--pos_encoding", "relative"])):
+            one[label] = cli_epoch(train_modules, argv)
+    with small_dataset(datasets, n_train=PP_STREAM_TRAIN,
+                       n_test=PP_STREAM_TRAIN // 5):
+        one["pp_stream"] = cli_epoch(train_modules, stream_argv)
+    for label, rec in one.items():
+        log(f"  one rank, {label}: CSV row {rec['row']}, launches "
+            f"{rec['launches']}, {rec['step_ms']:.3f} ms a step")
+    pp_argv = ["--pipeline_parallel", "2"]
+    out = {}
+    with tempfile.TemporaryDirectory() as keep:
+        runs, seconds_a = gloo_ranks(
+            {"pp": pp_argv + ["--pp_microbatches", str(PP_MICRO)],
+             "pp_stream": stream_argv + pp_argv},
+            n_train={"pp": PP_TRAIN, "pp_stream": PP_STREAM_TRAIN},
+            keep_dir=keep)
+        log(f"  two gloo ranks, --pipeline_parallel 2: {seconds_a:.1f} s "
+            f"for the launch (two runs)")
+        steps, evals = PP_TRAIN // 128, PP_TRAIN // 5 // 128
+        out["pp"] = check_pp_run(
+            f"--pipeline_parallel 2 --pp_microbatches {PP_MICRO} (data 1 x "
+            f"pipe 2)", runs["pp"],
+            pp_launches(3, PP_MICRO, steps, 6, evals), one["pp"], 3,
+            {"attn_fwd": [6], "attn_bwd": [6]},
+            {"attn_fwd": [128 // PP_MICRO, 128],
+             "attn_bwd": [128 // PP_MICRO]})
+        out["pp"]["resume"] = check_pp_resume(
+            train_modules, datasets, vit, ViTConfig, runs["pp"]["last"],
+            one["pp"])
+    out["pp"]["launch_seconds"] = seconds_a
+    s_steps = PP_STREAM_TRAIN // 4
+    out["pp_stream"] = check_pp_run(
+        "long-sequence relative --pipeline_parallel 2 (data 1 x pipe 2)",
+        runs["pp_stream"],
+        pp_launches(1, 2, s_steps, 2, 1, stream=True), one["pp_stream"], 1,
+        {"attn_stream_fwd": [4], "attn_stream_bwd_fused": [4]},
+        {"attn_stream_fwd": [2, 4], "attn_stream_bwd_fused": [2]},
+        step_batch=4)
+    runs, seconds_b = gloo_ranks(
+        {"pp_tp": pp_argv + ["--model_parallel", "2", "--pos_encoding",
+                             "relative"]}, world=4, n_train=PP_TRAIN)
+    log(f"  four gloo ranks, --pipeline_parallel 2 --model_parallel 2: "
+        f"{seconds_b:.1f} s for the launch")
+    out["pp_tp"] = check_pp_run(
+        "--pipeline_parallel 2 --model_parallel 2 relative (data 1 x pipe 2 "
+        "x model 2)", runs["pp_tp"], pp_launches(3, 2, steps, 6, evals),
+        one["pp_tp"], 3, {"attn_fwd": [3, 6], "attn_bwd": [3]},
+        {"attn_fwd": [64, 128], "attn_bwd": [64]})
+    table = "pos_embed.relative_position_bias_table"
+    tables = [r["params"][table] for r in runs["pp_tp"]["ranks"]]
+    same = all(np.array_equal(t, tables[0]) for t in tables)
+    log(f"  --pipeline_parallel 2 --model_parallel 2: the relative table "
+        f"bit-equal on all four ranks {same}")
+    if not same:
+        raise AssertionError("the relative table differs across ranks")
+    out["pp_tp"].update(launch_seconds=seconds_b, table_bit_equal=same)
+    return out
+
+
 def kernel_line(name, source, replaces, launches, max_abs_err, times):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -5482,7 +5741,7 @@ def kernel_line(name, source, replaces, launches, max_abs_err, times):
                                            "int8_launches",
                                            "export_launches",
                                            "dp_launches", "tp_launches",
-                                           "cp_launches")
+                                           "cp_launches", "pp_launches")
                if key in times}}
 
 
@@ -5660,13 +5919,16 @@ def main() -> int:
         # The same routes through the train CLI (fit, eval, CSV, best
         # checkpoint, the Predictor on it): the long-sequence model with its
         # depth cut from 2 to 1, ViT-S/16@384 with its depth cut from 12 to
-        # 1.
+        # 1; the two long-sequence epochs held to no learning bar on
+        # STREAM_EPOCH_TRAIN examples.
         longseq_1 = dict(LONGSEQ, depth=1)
         stream_training = {
             "longseq": train_through_cli(
-                "rope-mixed", train_modules, model=longseq_1, batch=4),
+                "rope-mixed", train_modules, model=longseq_1, batch=4,
+                n_train=STREAM_EPOCH_TRAIN),
             "longseq_relative": train_through_cli(
-                "relative", train_modules, model=longseq_1, batch=4),
+                "relative", train_modules, model=longseq_1, batch=4,
+                n_train=STREAM_EPOCH_TRAIN),
             "longseq_rope_axial": train_through_cli(
                 "rope-axial", train_modules, model=longseq_1, batch=4,
                 bar=LEARN_BAR["rope-axial"]),
@@ -5848,6 +6110,13 @@ def main() -> int:
         context_parallel = check_context_parallel(
             train_modules, bounded_modules, vit, datasets, ViTConfig, device)
 
+    with phase("[23] pipeline parallelism (the train CLI with "
+               "--pipeline_parallel 2 on two gloo ranks sharing the card, "
+               "ViT-tiny/4 and the long-sequence model; with "
+               "--model_parallel 2 on four)", seconds):
+        pipeline_parallel = check_pipeline_parallel(train_modules, datasets,
+                                                    vit, ViTConfig)
+
     summary = {"card": card, "attention": attn, "serving": serve_times,
                "serving_profile": serve_trace, "training": training,
                "kernel_vs_plain_losses": paths, "train_step": step_times,
@@ -5885,6 +6154,7 @@ def main() -> int:
                "data_parallel": data_parallel,
                "tensor_parallel": tensor_parallel,
                "context_parallel": context_parallel,
+               "pipeline_parallel": pipeline_parallel,
                "phase_seconds": seconds}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -5934,6 +6204,13 @@ def main() -> int:
         runs = {k: v["launches"] for k, v in context_parallel.items()
                 if k.startswith("cp_")}
         return {k: [r.get(name, 0) for r in v] for k, v in runs.items()}
+
+    # Phase 23's launches on each rank: --pipeline_parallel 2 on two gloo
+    # ranks (ViT-tiny/4, 4 microbatches; the long-sequence model in
+    # relative, rows 3 and 5), and with --model_parallel 2 on four.
+    def pp(name):
+        return {k: [r.get(name, 0) for r in v["launches"]]
+                for k, v in pipeline_parallel.items()}
     stream_launches = stream_training["longseq"]["launches"]
     dbias_launches = stream_training["vit_s_384"]["launches"][
         "attn_stream_bwd_dbias"]
@@ -5957,7 +6234,8 @@ def main() -> int:
                          dp_launches={k: [r["attn_fwd"] for r in v]
                                       for k, v in dp_launches.items()},
                          tp_launches={k: [r["attn_fwd"] for r in v]
-                                      for k, v in tp_launches.items()})),
+                                      for k, v in tp_launches.items()},
+                         pp_launches=pp("attn_fwd"))),
         kernel_line("attn_bwd", "vit_rpe_rope_tpu_torch/ops/csrc/attn_bwd.cu",
                     "vit_rpe_rope_tpu/ops/flash_attention.py:130",
                     launches["attn_bwd"], bwd_err,
@@ -5965,7 +6243,8 @@ def main() -> int:
                          dp_launches={k: [r["attn_bwd"] for r in v]
                                       for k, v in dp_launches.items()},
                          tp_launches={k: [r["attn_bwd"] for r in v]
-                                      for k, v in tp_launches.items()})),
+                                      for k, v in tp_launches.items()},
+                         pp_launches=pp("attn_bwd"))),
         kernel_line("adamw", "vit_rpe_rope_tpu_torch/ops/csrc/adamw.cu",
                     "vit_rpe_rope_tpu/ops/fused_adamw.py:51",
                     launches["adamw"], adamw_err,
@@ -5973,7 +6252,7 @@ def main() -> int:
                                              for k, v in dp_launches.items()},
                          tp_launches={k: [r["adamw"] for r in v]
                                       for k, v in tp_launches.items()},
-                         cp_launches=cp("adamw"))),
+                         cp_launches=cp("adamw"), pp_launches=pp("adamw"))),
         kernel_line("adamw_table", "vit_rpe_rope_tpu_torch/ops/csrc/adamw.cu",
                     "vit_rpe_rope_tpu/ops/fused_adamw.py:51",
                     graph_epochs["runs"][1]["launches"]["adamw_table"],
@@ -5983,6 +6262,7 @@ def main() -> int:
                     stream_err["fwd"],
                     dict(t_long["fwd_kernel"],
                          tp_launches=tp_stream("attn_stream_fwd"),
+                         pp_launches=pp("attn_stream_fwd"),
                          int8_launches=int8_stream["launches"][
                              "attn_stream_fwd"],
                          export_launches=int8_stream["export_launches"][
@@ -6013,7 +6293,8 @@ def main() -> int:
                     fused_err["fused"],
                     dict(fused_rel,
                          tp_launches=tp_stream("attn_stream_bwd_fused"),
-                         cp_launches=cp("attn_stream_bwd_fused"))),
+                         cp_launches=cp("attn_stream_bwd_fused"),
+                         pp_launches=pp("attn_stream_bwd_fused"))),
         kernel_line("attn_stream_bwd_fused_prologue",
                     csrc + "attn_stream_bwd_fused.cu", jax_fa + ":1736",
                     fused_launches["attn_stream_bwd_fused_prologue"],

@@ -35,6 +35,7 @@ from vit_rpe_rope_tpu_torch.ops import flash_attention as tfa
 from vit_rpe_rope_tpu_torch.utils import checkpoint
 
 import torch_cp_worker
+import torch_pp_worker
 from torch_tp_worker import launch
 
 KW = dict(img_size=32, patch_size=8, embed_dim=64, depth=2, num_heads=4,
@@ -243,12 +244,13 @@ def test_train_parser_matches_jax_parser():
                                                  "--augment"],
     ["--q_chunk", "64", "--attn_drop_rate", "0.1"],
     ["--q_chunk", "64", "--drop_path_rate", "0.1"],
-    ["--sequence_parallel", "2", "--model_parallel", "2"]])
+    ["--sequence_parallel", "2", "--model_parallel", "2"],
+    ["--pipeline_parallel", "2", "--sequence_parallel", "2"]])
 def test_train_cli_refuses_unported_flags(flag, capsys, tmp_path,
                                           monkeypatch):
     """Unported features are refused as such, naming their ROADMAP Queue A
-    item: --pipeline_parallel, and --sequence_parallel with
-    --model_parallel (the compositions). Dropout, drop-path and --augment
+    item: --sequence_parallel with --model_parallel or with
+    --pipeline_parallel (the compositions). Dropout, drop-path and --augment
     are ported (tests/test_torch_regularize.py); the bounded driver
     (--q_chunk) refuses them, as the JAX package's does. --zero1 is ported
     (tests/test_torch_data_parallel.py): it trains through the CLI.
@@ -257,8 +259,33 @@ def test_train_cli_refuses_unported_flags(flag, capsys, tmp_path,
     rank 0 alone writing the CSV and the checkpoints. --sequence_parallel
     is ported (tests/test_torch_context_parallel.py): alone and with
     --q_chunk (the bounded driver's ring) it trains through the CLI on two
-    gloo ranks (tests/torch_cp_worker.py)."""
-    if "--sequence_parallel" in flag and "--model_parallel" not in flag:
+    gloo ranks (tests/torch_cp_worker.py). --pipeline_parallel is ported
+    (tests/test_torch_pipeline_parallel.py): it trains through the CLI on
+    two gloo ranks (tests/torch_pp_worker.py), each holding one of the two
+    blocks, rank 0 alone writing the CSV and the checkpoints in the
+    reference layout."""
+    if flag == ["--pipeline_parallel", "2"]:
+        torch_pp_worker.launch(
+            "cli", tmp_path, 2, "--synthetic", *flag, "--pp_microbatches",
+            "4", "--epochs", "1", "--batch_size", "16", "--depth", "2",
+            "--embed_dim", "32", "--num_heads", "2", "--device", "cpu")
+        ranks = [json.loads((tmp_path / f"cli_rank{r}.json").read_text())
+                 for r in (0, 1)]
+        assert [r["num_devices"] for r in ranks] == [2, 2]
+        assert ranks[1]["log_file"] is None
+        for r in ranks:  # the host clock's throughput differs
+            del r["history"][0]["images_per_sec"]
+        assert ranks[0]["history"] == ranks[1]["history"]
+        assert np.isfinite(ranks[0]["history"][0]["train_loss"])
+        assert [p.name for p in (tmp_path / "logs").glob("*.csv")] == [
+            pathlib.Path(ranks[0]["log_file"]).name]
+        with np.load(tmp_path / "checkpoints" / "mnist_absolute_last.npz") \
+                as z:
+            assert z["blocks.1.attn.qkv.weight"].shape == (96, 32)
+            assert int(z["__opt.0"]) == 2
+        return
+    if "--sequence_parallel" in flag and not {
+            "--model_parallel", "--pipeline_parallel"} & set(flag):
         torch_cp_worker.launch(
             "cli", tmp_path, 2, "--synthetic", *flag, "--epochs", "1",
             "--batch_size", "16", "--depth", "1", "--embed_dim", "32",
@@ -320,8 +347,7 @@ def test_train_cli_refuses_unported_flags(flag, capsys, tmp_path,
     assert ("does not support" if bounded_refusal else "not ported") in err
     if not bounded_refusal:
         assert "ROADMAP Queue A" in err
-        assert ("the compositions" if "--sequence_parallel" in flag
-                else "GPipe pipeline parallelism") in err
+        assert "the compositions" in err
 
 
 def test_train_cli_runs_flash_block_on_the_cpu(tmp_path, monkeypatch,

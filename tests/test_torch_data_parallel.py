@@ -464,20 +464,22 @@ def test_make_mesh_needs_the_world_size_to_divide_the_batch(monkeypatch,
     (dict(seq_parallel=2), "the context-parallel ring"),
     (dict(pipe_parallel=2), "GPipe pipeline parallelism")])
 def test_make_mesh_refuses_the_other_axes_by_name(kw, match):
-    """pipe_parallel is refused by its ROADMAP Queue A item's name. The
-    sequence axis is ported (tests/test_torch_context_parallel.py): in one
-    process seq_parallel 2 does not divide the world (the JAX make_mesh's
-    ValueError), and its composition with a model axis is refused, naming
-    Queue A's compositions."""
-    if "seq_parallel" in kw:
-        with pytest.raises(ValueError, match="device count 1 not divisible "
-                           "by model_parallel=1 × seq_parallel=2"):
-            tmesh.make_mesh(**kw)
-        with pytest.raises(NotImplementedError, match="the compositions"):
-            tmesh.make_mesh(model_parallel=2, **kw)
-        return
-    with pytest.raises(NotImplementedError, match=match):
+    """The sequence and pipe axes are ported
+    (tests/test_torch_context_parallel.py,
+    tests/test_torch_pipeline_parallel.py): in one process seq_parallel 2
+    or pipe_parallel 2 does not divide the world (the JAX make_mesh's
+    ValueError), and the compositions with a sequence axis (with a model
+    axis, or with a pipe axis) are refused, naming Queue A's
+    compositions. (`match` names the Queue A item that ported the axis.)"""
+    del match
+    seq, pipe = kw.get("seq_parallel", 1), kw.get("pipe_parallel", 1)
+    with pytest.raises(ValueError, match=f"device count 1 not divisible "
+                       f"by model_parallel=1 × seq_parallel={seq} × "
+                       f"pipe_parallel={pipe}"):
         tmesh.make_mesh(**kw)
+    other = dict(model_parallel=2) if seq > 1 else dict(seq_parallel=2)
+    with pytest.raises(NotImplementedError, match="the compositions"):
+        tmesh.make_mesh(**other, **kw)
 
 
 def test_make_mesh_takes_the_model_axis(monkeypatch):

@@ -38,7 +38,8 @@ def test_port_modules_import_without_jax():
                  "utils.native", "utils.nan_check", "ops.launches",
                  "quant", "serving", "utils.convert", "parallel.mesh",
                  "parallel.distributed", "parallel.tensor_parallel",
-                 "parallel.context_parallel"):
+                 "parallel.context_parallel", "parallel.pipeline_parallel",
+                 "parallel.pp_tp"):
         assert f"vit_rpe_rope_tpu_torch.{name}" in modules
     code = (
         "import importlib, re, sys\n"

@@ -40,6 +40,7 @@ from vit_rpe_rope_tpu_torch.train import loop
 from vit_rpe_rope_tpu_torch.train import train_step as ts
 
 import torch_cp_worker
+import torch_pp_worker
 from torch_tp_worker import launch
 
 TOL = {"reference": 1e-5, "flash": 2e-3}
@@ -412,6 +413,34 @@ def test_fit_refuses_unported_fields(field, value, tmp_path, monkeypatch):
             loop.fit(ViTConfig(**cfg_kw()),
                      TrainConfig(dataset="mnist", model_parallel=value),
                      device="cpu")
+        return
+    if field == "pipeline_parallel":
+        # Ported (tests/test_torch_pipeline_parallel.py): fit on two gloo
+        # ranks (tests/torch_pp_worker.py), one block a stage, four
+        # microbatches a step; in one process (world size 1) P = 2 raises
+        # the JAX ValueError, and with sequence_parallel (the compositions)
+        # the port refuses it by name.
+        torch_pp_worker.launch("fit_one", tmp_path, 2)
+        ranks = [json.loads((tmp_path / f"fit_one_rank{r}.json").read_text())
+                 for r in (0, 1)]
+        assert [r["num_devices"] for r in ranks] == [2, 2]
+        for r in ranks:  # the host clock's throughput differs
+            del r["history"][0]["images_per_sec"]
+        assert ranks[0]["history"] == ranks[1]["history"]
+        assert ranks[0]["log_file"] and ranks[1]["log_file"] is None
+        with np.load(tmp_path / "ckpts" / "mnist_rope-mixed_last.npz") as z:
+            assert z["blocks.1.attn.qkv.weight"].shape == (96, 32)
+            assert int(z["__opt.0"]) == 2
+        with pytest.raises(ValueError, match="device count 1 not divisible "
+                           "by model_parallel=1 × seq_parallel=1 × "
+                           "pipe_parallel=2"):
+            loop.fit(ViTConfig(**cfg_kw()),
+                     TrainConfig(dataset="mnist", pipeline_parallel=value),
+                     device="cpu")
+        with pytest.raises(NotImplementedError, match="the compositions"):
+            loop.fit(ViTConfig(**cfg_kw()),
+                     TrainConfig(dataset="mnist", pipeline_parallel=value,
+                                 sequence_parallel=2), device="cpu")
         return
     if field == "sequence_parallel":
         # Ported (tests/test_torch_context_parallel.py): fit on two gloo

@@ -16,9 +16,8 @@ softmax); --steps_per_dispatch k > 1 runs k steps per dispatch, one CUDA
 graph replay on the card (eagerly where the steps draw random numbers or
 under --debug_nans); --profile_dir writes a torch.profiler Chrome trace;
 --debug_nans raises FloatingPointError at the first NaN. The extensions
-this package does not port yet (pipeline parallelism, and context
-parallelism combined with tensor parallelism) are refused when set to a
-non-default value.
+this package does not port yet (context parallelism combined with tensor
+or pipeline parallelism: the compositions) are refused when set.
 
 Data parallelism: launch one rank per device with torchrun, and each rank
 takes its share of every batch (the world size must divide --batch_size);
@@ -51,6 +50,23 @@ share one card need --dist_backend gloo:
   python -m torch.distributed.run --nproc_per_node 2 \\
       -m vit_rpe_rope_tpu_torch.cli.train --dataset cifar10 --synthetic \\
       --epochs 1 --sequence_parallel 2 --dist_backend gloo
+
+Pipeline parallelism: --pipeline_parallel P stages the blocks over P ranks
+(P must divide the world size and --depth) and runs each batch through
+them as a GPipe schedule of --pp_microbatches M microbatches (0: P; M
+must divide a data rank's share of the batch); the world is a data x pipe
+grid of D = world / P data ranks. With --model_parallel T each stage also
+shards its heads and MLP rows over T ranks (a data x pipe x model grid of
+D = world / (P·T) data ranks). --zero1, --grad_accum and dropout are
+refused with it, as in the JAX package:
+
+  python -m torch.distributed.run --nproc_per_node 2 \\
+      -m vit_rpe_rope_tpu_torch.cli.train --dataset cifar10 --synthetic \\
+      --epochs 1 --pipeline_parallel 2 --pp_microbatches 4 --device cpu
+
+  python -m torch.distributed.run --nproc_per_node 4 \\
+      -m vit_rpe_rope_tpu_torch.cli.train --dataset cifar10 --synthetic \\
+      --epochs 1 --pipeline_parallel 2 --model_parallel 2 --dist_backend gloo
 """
 
 from __future__ import annotations
@@ -224,20 +240,21 @@ def reject_unported(parser: argparse.ArgumentParser, asked: dict) -> None:
     never silently ignored."""
     flags = [(flag, item) for flag, (on, item) in asked.items() if on]
     if flags:
+        items = ", ".join(dict.fromkeys(item for _, item in flags))
         parser.error(f"{', '.join(flag for flag, _ in flags)}: not ported "
                      f"to the PyTorch package yet; see ROADMAP Queue A, "
-                     f"{', '.join(item for _, item in flags)}")
+                     f"{items}")
 
 
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
+    seq = args.sequence_parallel > 1
     reject_unported(parser, {
         "--sequence_parallel with --model_parallel": (
-            args.sequence_parallel > 1 and args.model_parallel > 1,
-            "the compositions"),
-        "--pipeline_parallel": (args.pipeline_parallel > 1,
-                                "GPipe pipeline parallelism"),
+            seq and args.model_parallel > 1, "the compositions"),
+        "--pipeline_parallel with --sequence_parallel": (
+            seq and args.pipeline_parallel > 1, "the compositions"),
     })
     regularised = [flag for flag, on in {
         "--drop_rate": args.drop_rate > 0,
@@ -292,6 +309,7 @@ def main(argv=None):
         zero1=args.zero1,
         model_parallel=args.model_parallel,
         sequence_parallel=args.sequence_parallel,
+        pipeline_parallel=args.pipeline_parallel,
         steps_per_dispatch=args.steps_per_dispatch,
         profile_dir=args.profile_dir,
         debug_nans=args.debug_nans,

@@ -405,6 +405,42 @@ def _local_pe(bias, freqs_cis, model_rank: int, local_h: int):
     return bias, freqs_cis
 
 
+def embed(params, images, cfg: ViTConfig):
+    """[B, H, W, C] images -> [B, L, E] tokens entering the first block:
+    the patch embedding behind the cls token, the absolute PE added."""
+    dtype = _DTYPES[cfg.compute_dtype]
+    x = patch_embed(params, images.to(dtype), cfg)  # [B, S, E]
+    bsz = x.shape[0]
+    cls = params["cls_token"].to(dtype).expand(bsz, 1, cfg.embed_dim)
+    x = torch.cat([cls, x], dim=1)  # [B, L, E]
+    pe_mod = pe_registry.get(cfg.pos_encoding)
+    if pe_mod.KIND == PE_KIND_EMBED_ADDITIVE:
+        x = pe_mod.add_embedding(params, x)
+    return x
+
+
+def block_pe(params, cfg: ViTConfig, device, generator=None):
+    """(bias, freqs_cis), the PE arguments every block takes, generated
+    once per forward: the bias (or the generated-bias marker) of
+    _logits_bias, or the rope tables on `device`; None where the mode has
+    none."""
+    pe_mod = pe_registry.get(cfg.pos_encoding)
+    if pe_mod.KIND == PE_KIND_LOGITS_BIAS:
+        return _logits_bias(pe_mod, params, cfg, generator), None
+    if pe_mod.KIND == PE_KIND_QK_ROTATION:
+        return None, pe_mod.freqs_cis(params, cfg, device=device)
+    return None, None
+
+
+def head(params, x, cfg: ViTConfig):
+    """[B, L, E] features -> [B, num_classes] float32 logits: the final
+    norm, then the classifier on the cls token."""
+    x = layer_norm(x, params["norm.weight"], params["norm.bias"],
+                   cfg.layer_norm_eps)
+    logits = linear(x[:, 0], params["head.weight"], params["head.bias"])
+    return logits.float()
+
+
 def forward_features(params, images, cfg: ViTConfig, generator=None,
                      mesh=None):
     """[B, H, W, C] images -> [B, L, E] token features after all blocks.
@@ -421,22 +457,8 @@ def forward_features(params, images, cfg: ViTConfig, generator=None,
     collectives), and generator is a pair (shared, local) (_block_body).
     Every rank of a data row gets the same features. None, or a mesh
     without a model axis: the one-device forward."""
-    pe_mod = pe_registry.get(cfg.pos_encoding)
-    dtype = _DTYPES[cfg.compute_dtype]
-    x = patch_embed(params, images.to(dtype), cfg)  # [B, S, E]
-    bsz = x.shape[0]
-    cls = params["cls_token"].to(dtype).expand(bsz, 1, cfg.embed_dim)
-    x = torch.cat([cls, x], dim=1)  # [B, L, E]
-
-    bias = None
-    freqs_cis = None
-    if pe_mod.KIND == PE_KIND_EMBED_ADDITIVE:
-        x = pe_mod.add_embedding(params, x)
-    elif pe_mod.KIND == PE_KIND_LOGITS_BIAS:
-        bias = _logits_bias(pe_mod, params, cfg, generator)  # once
-    elif pe_mod.KIND == PE_KIND_QK_ROTATION:
-        freqs_cis = pe_mod.freqs_cis(params, cfg, device=x.device)
-
+    x = embed(params, images, cfg)
+    bias, freqs_cis = block_pe(params, cfg, x.device, generator)  # once
     impl = _attention_impl(cfg)
     group = None
     if mesh is not None and mesh.model_parallel > 1:
@@ -458,11 +480,8 @@ def apply(params, images, cfg: ViTConfig, generator=None, mesh=None):
     """Full forward: [B, H, W, C] images -> [B, num_classes] float32 logits
     (classification from the cls token). generator enables train-mode
     dropout, mesh the tensor-parallel forward (see forward_features)."""
-    x = forward_features(params, images, cfg, generator, mesh)
-    x = layer_norm(x, params["norm.weight"], params["norm.bias"],
-                    cfg.layer_norm_eps)
-    logits = linear(x[:, 0], params["head.weight"], params["head.bias"])
-    return logits.float()
+    return head(params, forward_features(params, images, cfg, generator,
+                                         mesh), cfg)
 
 
 # ---------------------------------------------------------------------------

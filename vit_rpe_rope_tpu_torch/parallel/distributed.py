@@ -17,7 +17,8 @@ axis — the counterpart of the JAX package's parallel/distributed.py.
   and all_reduce, so the same code runs under NCCL, under gloo on the CPU
   and under gloo on the card (gloo has no all_gather or reduce_scatter on
   CUDA tensors): `broadcast_params`, `all_reduce_sum` and
-  `all_gather_slices`, a gather written as an exact all_reduce. The last
+  `all_gather_slices`, a gather written as an exact all_reduce
+  (`gather_shards` joins a dict's shards with one). The last
   two take a subgroup (`new_group`: a data row or a model column of a
   tensor-parallel mesh); over a subgroup of one rank they make no call.
 * Megatron's f and g over a subgroup, as autograd Functions
@@ -34,6 +35,14 @@ axis — the counterpart of the JAX package's parallel/distributed.py.
   on it). A hop that fails raises. `RingShift` is the hop as an autograd
   Function (its backward shifts the cotangents by -1), for the plain ring.
   Over a ring of one rank a hop makes no call and returns its tensors.
+* The hop of a pipeline (`Chain`, `stage_hop`): the JAX non-cyclic
+  `ppermute` over the stages of a subgroup (the stage chain of a pipeline-
+  parallel mesh): stage s sends to s + 1 and receives from s - 1 (reverse:
+  to s - 1, from s + 1, the hop's transpose, which carries the cotangents
+  back). The first stage receives nothing and the last sends nothing, so
+  each side says whether it sends and what it expects; a rank whose
+  partner is idle makes no call for it. CUDA tensors go through host
+  copies under gloo, as in ring_shift.
 """
 
 from __future__ import annotations
@@ -184,6 +193,29 @@ def all_gather_slices(local: torch.Tensor, rank_: int, world: int,
     return all_reduce_sum(full, group)
 
 
+def gather_shards(local: dict, dims: dict, rank_: int, world: int,
+                  group=None) -> dict:
+    """`local` with each tensor of `dims` ({key: dim}) joined along its dim
+    over `group` (this rank at position rank_ of world; every rank holds
+    an equal shard of each), exact: one all_gather_slices of their
+    concatenation. With nothing to join, local as it is."""
+    if world == 1 or not dims:
+        return dict(local)
+    keys = list(dims)
+    flat = torch.cat([local[k].detach().reshape(-1) for k in keys])
+    full = all_gather_slices(flat, rank_, world, group)
+    pieces = full.view(world, flat.numel())
+    out = dict(local)
+    offset = 0
+    for key in keys:
+        v = local[key]
+        n = v.numel()
+        out[key] = torch.cat([pieces[r, offset:offset + n].view_as(v)
+                              for r in range(world)], dim=dims[key])
+        offset += n
+    return out
+
+
 class _IdentityFwdSumBwd(torch.autograd.Function):
     """f: identity forward, all-reduce of the cotangent over the group."""
 
@@ -298,3 +330,64 @@ def ring_shift_grad(ring, *tensors) -> tuple:
     if ring is None or ring.size == 1:
         return tensors
     return RingShift.apply(ring, *tensors)
+
+
+@dataclasses.dataclass(frozen=True)
+class Chain:
+    """The stages of a pipeline in order: `group` (their process group),
+    this rank's stage `rank` of `size`, and the global ranks of the stages
+    before (`prev`) and after (`next`) it (None at either end)."""
+    group: object
+    rank: int
+    size: int
+    prev: int | None
+    next: int | None
+
+
+def chain_of(ranks, group) -> Chain:
+    """The Chain of this rank over `ranks` (global ranks in stage order,
+    this rank among them), whose process group is `group`."""
+    ranks = list(ranks)
+    me = ranks.index(rank())
+    return Chain(group=group, rank=me, size=len(ranks),
+                 prev=ranks[me - 1] if me > 0 else None,
+                 next=ranks[me + 1] if me + 1 < len(ranks) else None)
+
+
+def chain_position(chain) -> tuple:
+    """(stage, stages) on `chain`; (0, 1) for None, one stage."""
+    return (0, 1) if chain is None else (chain.rank, chain.size)
+
+
+def stage_hop(chain, send=None, recv_like=None, reverse: bool = False):
+    """One hop along the stage chain: `send` (or None) goes to the next
+    stage, and a tensor shaped and typed as `recv_like` (or nothing, for
+    None) comes from the previous one (reverse: to the previous stage,
+    from the next). Returns the received tensor (new, contiguous, on
+    recv_like's device) or None. The two sides of a hop must agree: a
+    rank sends exactly when its partner expects. No call when there is
+    nothing to move."""
+    if chain is None or (send is None and recv_like is None):
+        return None
+    dst, src = (chain.prev, chain.next) if reverse else (chain.next,
+                                                         chain.prev)
+    like = send if send is not None else recv_like
+    device = like.device
+    staged = (device.type != "cpu"
+              and dist.get_backend(chain.group) == "gloo")
+    ops = []
+    if send is not None:
+        out = send.detach().contiguous()
+        if staged:  # gloo moves host memory only
+            out = out.cpu()
+        ops.append(dist.P2POp(dist.isend, out, dst, chain.group))
+    recv = None
+    if recv_like is not None:
+        recv = torch.empty(recv_like.shape, dtype=recv_like.dtype,
+                           device="cpu" if staged else device)
+        ops.append(dist.P2POp(dist.irecv, recv, src, chain.group))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if recv is not None and staged:
+        recv = recv.to(device)
+    return recv

@@ -113,26 +113,13 @@ def shard_params(params: dict, mesh) -> dict:
 
 def gather_params(local: dict, mesh) -> dict:
     """Inverse of shard_params over the rank's data row: the whole
-    TP-prepared tensors, exact (one all_gather_slices of the sharded
-    tensors' concatenation), on every rank of the row. Without a model
-    axis, local as it is."""
-    dims = tp_shard_dims(local)
-    sharded = [k for k, d in dims.items() if d is not None]
-    if not _has_model_axis(mesh) or not sharded:
+    TP-prepared tensors, exact (distributed.gather_shards), on every rank
+    of the row. Without a model axis, local as it is."""
+    if not _has_model_axis(mesh):
         return dict(local)
-    t, group = mesh.model_parallel, mesh.model_group
-    flat = torch.cat([local[k].detach().reshape(-1) for k in sharded])
-    full = distributed.all_gather_slices(flat, mesh.model_rank, t, group)
-    pieces = full.view(t, flat.numel())
-    out = dict(local)
-    offset = 0
-    for key in sharded:
-        v = local[key]
-        n = v.numel()
-        out[key] = torch.cat([pieces[r, offset:offset + n].view_as(v)
-                              for r in range(t)], dim=dims[key])
-        offset += n
-    return out
+    dims = {k: d for k, d in tp_shard_dims(local).items() if d is not None}
+    return distributed.gather_shards(local, dims, mesh.model_rank,
+                                     mesh.model_parallel, mesh.model_group)
 
 
 def shard_reference(params: dict, cfg: ViTConfig, mesh) -> dict:

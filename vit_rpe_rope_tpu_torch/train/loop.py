@@ -1,6 +1,7 @@
 """Host-side training loop on one device, or on each rank of a process
-group (data, tensor and context parallelism, ZeRO-1) — the data-, model-
-and sequence-axis branches of the JAX package's train/loop.py.
+group (data, tensor, context and pipeline parallelism, ZeRO-1) — the
+data-, model-, sequence- and pipe-axis branches of the JAX package's
+train/loop.py.
 
 Observable behavior is the reference orchestrator's: a timestamped CSV
 {log_dir}/{dataset}_{pos_encoding}_{%Y%m%d_%H%M%S}.csv with header
@@ -40,7 +41,8 @@ import torch
 from vit_rpe_rope_tpu_torch.configs import TrainConfig, ViTConfig
 from vit_rpe_rope_tpu_torch.data import datasets
 from vit_rpe_rope_tpu_torch.models import vit
-from vit_rpe_rope_tpu_torch.parallel import distributed, tensor_parallel
+from vit_rpe_rope_tpu_torch.parallel import distributed, pipeline_parallel
+from vit_rpe_rope_tpu_torch.parallel import tensor_parallel
 from vit_rpe_rope_tpu_torch.parallel.mesh import make_mesh
 from vit_rpe_rope_tpu_torch.train import train_step as ts
 from vit_rpe_rope_tpu_torch.train.bounded import make_bounded_step
@@ -54,12 +56,12 @@ N_OPT_LEAVES = 4    # the JAX optimizer state's leaves on disk
 
 
 def _refuse_unported(tcfg: TrainConfig) -> None:
+    seq = tcfg.sequence_parallel > 1
     asked = {
-        "pipeline_parallel > 1": (tcfg.pipeline_parallel > 1,
-                                  "GPipe pipeline parallelism"),
         "sequence_parallel > 1 with model_parallel > 1": (
-            tcfg.sequence_parallel > 1 and tcfg.model_parallel > 1,
-            "the compositions"),
+            seq and tcfg.model_parallel > 1, "the compositions"),
+        "sequence_parallel > 1 with pipeline_parallel > 1": (
+            seq and tcfg.pipeline_parallel > 1, "the compositions"),
     }
     fields = [(name, item) for name, (on, item) in asked.items() if on]
     if fields:
@@ -67,6 +69,15 @@ def _refuse_unported(tcfg: TrainConfig) -> None:
             f"TrainConfig {', '.join(name for name, _ in fields)}: not "
             f"ported to the PyTorch package yet; see ROADMAP Queue A, "
             f"{', '.join(dict.fromkeys(item for _, item in fields))}")
+
+
+def _layout(mesh):
+    """The module whose shard_reference / gather_reference turn the
+    reference layout into a rank's train state and back: the pipeline's
+    over a pipe axis, else the tensor-parallel one (the reference layout
+    itself without a model axis)."""
+    return (pipeline_parallel if pipeline_parallel.has_pipe_axis(mesh)
+            else tensor_parallel)
 
 
 def moment_flattener(params: dict, cfg: ViTConfig) -> Flattener:
@@ -136,18 +147,18 @@ def mesh_opt_to_disk(opt_state, flattener: Flattener, cfg: ViTConfig,
         layout = ts.flat_layout(local, cfg)
         mu, nu = (layout.unflatten(_zero1_full(vec, layout.total, mesh))
                   for vec in (mu, nu))
-    mu, nu = (tensor_parallel.gather_reference(m, cfg, mesh)
+    mu, nu = (_layout(mesh).gather_reference(m, cfg, mesh)
               for m in (mu, nu))
     return opt_to_disk((mu, nu, count), flattener, cfg)
 
 
 def mesh_opt_from_disk(leaves, flattener: Flattener, cfg: ViTConfig, mesh,
                        local: dict, zero1: bool, device):
-    """Inverse of mesh_opt_to_disk: each rank keeps its model shard of the
-    stored moments, and under ZeRO-1 its data rank's slice of that shard's
-    flat vector, zero-padded to shard · world."""
+    """Inverse of mesh_opt_to_disk: each rank keeps its model (or stage)
+    shard of the stored moments, and under ZeRO-1 its data rank's slice of
+    that shard's flat vector, zero-padded to shard · world."""
     mu, nu, count = opt_from_disk(leaves, flattener, cfg, device)
-    mu, nu = (tensor_parallel.shard_reference(m, cfg, mesh)
+    mu, nu = (_layout(mesh).shard_reference(m, cfg, mesh)
               for m in (mu, nu))
     if zero1:
         layout = ts.flat_layout(local, cfg)
@@ -294,7 +305,19 @@ def fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool = True,
     params stay replicated, the gradients are summed over every rank, and
     --zero1 shards the moments over every rank. Dropout is refused, with
     the JAX fit's words. With q_chunk > 0 the bounded driver runs its
-    per-q-chunk ring over the same mesh."""
+    per-q-chunk ring over the same mesh.
+
+    tcfg.pipeline_parallel P > 1 (the JAX fit's PP branch, and with
+    model_parallel T > 1 its PP x TP branch) needs a process group of D·P
+    (D·P·T) ranks: the ranks form a D x P (D x P x T) mesh, each holds its
+    stage's depth / P blocks (of its heads and MLP rows under T) and runs
+    its part of the GPipe schedule over tcfg.pp_microbatches microbatches
+    of its batch (0: P) (parallel/pipeline_parallel.py, pp_tp.py); the
+    replicated params stay replicated. The JAX fit's ValueErrors, in its
+    words: P dividing depth, M dividing the per-rank batch, dropout,
+    grad_accum > 1; configs.TrainConfig refuses --zero1. Evaluation, the
+    checkpoints and `_last.npz` see the params and moments gathered into
+    the reference layout, as under tensor parallelism."""
     _refuse_unported(tcfg)
     sanitizer = nan_check.debug_nans() if tcfg.debug_nans \
         else contextlib.nullcontext()
@@ -304,16 +327,30 @@ def fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool = True,
 
 def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
     t_par, r_seq = tcfg.model_parallel, tcfg.sequence_parallel
+    p_pipe = tcfg.pipeline_parallel
     mesh = (make_mesh(batch_size=tcfg.batch_size, model_parallel=t_par,
-                      seq_parallel=r_seq)
+                      seq_parallel=r_seq, pipe_parallel=p_pipe)
             if distributed.is_initialized() or t_par > 1 or r_seq > 1
-            else None)
+            or p_pipe > 1 else None)
+    if (r_seq > 1 or p_pipe > 1) and cfg.has_dropout:
+        raise ValueError("sequence_parallel/pipeline_parallel do not support "
+                         "dropout rates > 0")
+    n_micro = tcfg.pp_microbatches or p_pipe
+    if p_pipe > 1:
+        if cfg.depth % p_pipe:
+            raise ValueError(f"pipeline_parallel={p_pipe} must divide "
+                             f"depth={cfg.depth}")
+        local_bs = tcfg.batch_size // mesh.size
+        if local_bs % n_micro:
+            raise ValueError(f"per-device batch {local_bs} not divisible by "
+                             f"pp_microbatches={n_micro}")
     if t_par > 1 and cfg.num_heads % t_par:
         raise ValueError(f"model_parallel={t_par} must divide "
                          f"num_heads={cfg.num_heads}")
-    if r_seq > 1 and cfg.has_dropout:
-        raise ValueError("sequence_parallel/pipeline_parallel do not support "
-                         "dropout rates > 0")
+    if p_pipe > 1 and tcfg.grad_accum > 1:
+        raise ValueError("grad_accum > 1 is not supported with pipeline "
+                         "parallelism (use --pp_microbatches — PP already "
+                         "microbatches within the step)")
     if device is None and mesh is not None:
         device = distributed.device()
     device = resolve_device(device)
@@ -373,9 +410,10 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
                   f"(best {best_acc:.2f}%)")
     if mesh is not None:  # every rank starts from rank 0's params
         distributed.broadcast_params(params)
-    # Under TP the train state is the rank's shard; evaluation and the
-    # checkpoints see the params gathered back (gather_reference below).
-    train_params = tensor_parallel.shard_reference(params, cfg, mesh)
+    # Under TP or PP the train state is the rank's shard; evaluation and
+    # the checkpoints see the params gathered back (gather_reference below).
+    layout = _layout(mesh)
+    train_params = layout.shard_reference(params, cfg, mesh)
     for v in train_params.values():
         v.requires_grad_(True)
     opt_init, opt_update = ts.make_optimizer(
@@ -397,11 +435,11 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
         if k > 1:
             train_fn = ts.make_train_multi_step(
                 cfg, opt_update, preprocess, k, accum=accum, seed=tcfg.seed,
-                feed="ordered", mesh=mesh)
+                feed="ordered", mesh=mesh, n_micro=n_micro)
         else:
             train_fn = ts.make_train_step(cfg, opt_update, preprocess,
                                           accum=accum, seed=tcfg.seed,
-                                          mesh=mesh)
+                                          mesh=mesh, n_micro=n_micro)
         eval_fn = ts.make_eval_step(cfg, preprocess, mesh=mesh)
     eval_idx = ts.epoch_indices(len(bundle.test_y), tcfg.batch_size,
                                 False).to(device)
@@ -425,8 +463,7 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
                            epoch_idx, "Training", True, k=stride,
                            verbose=verbose, epoch=epoch)
             del ep_x, ep_y
-            params = tensor_parallel.gather_reference(train_params, cfg,
-                                                      mesh)
+            params = layout.gather_reference(train_params, cfg, mesh)
             _, test_loss, test_acc, _ = _run_epoch(
                 eval_fn, (params, None), test_x, test_y, eval_idx,
                 "Testing", False, verbose=verbose)

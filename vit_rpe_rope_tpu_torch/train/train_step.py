@@ -52,6 +52,7 @@ from vit_rpe_rope_tpu_torch.models import vit
 from vit_rpe_rope_tpu_torch.ops import launches
 from vit_rpe_rope_tpu_torch.ops.fused_adamw import hyper_rows, make_fused_adamw
 from vit_rpe_rope_tpu_torch.parallel import context_parallel, distributed
+from vit_rpe_rope_tpu_torch.parallel import pipeline_parallel, pp_tp
 from vit_rpe_rope_tpu_torch.parallel import tensor_parallel
 from vit_rpe_rope_tpu_torch.utils import nan_check
 from vit_rpe_rope_tpu_torch.utils.flatten import Flattener
@@ -433,6 +434,9 @@ def _reduce_over_mesh(params, cfg, mesh, grads, loss, correct, divisor):
     by one small all_reduce; the sharded params' gradients are local, the
     replicated ones' identical on every model rank. Returns (grads list in
     params' order, loss, correct)."""
+    if pipeline_parallel.has_pipe_axis(mesh):
+        return _reduce_over_pipe(params, cfg, mesh, grads, loss, correct,
+                                 divisor)
     by_key = dict(zip(params, grads))
     flat = layout = None
     if mesh.model_parallel == 1 or mesh.size > 1:
@@ -460,6 +464,45 @@ def _reduce_over_mesh(params, cfg, mesh, grads, loss, correct, divisor):
     return [by_key[k] / divisor for k in params], loss, correct
 
 
+def _reduce_over_pipe(params, cfg, mesh, grads, loss, correct, divisor):
+    """_reduce_over_mesh on a mesh with a pipe axis (the JAX
+    make_pp_train_step's and make_pp_tp_train_step's reduce_grads), in
+    three all_reduces, each of one flat vector in params' order: the block
+    params' gradients (local to the rank's stage and model shard) with the
+    loss and the correct count over the data axis (Mesh.data_group: every
+    stage holds the same logits, so the data ranks of one stage count each
+    example once); the replicated params' (partial per stage) over the
+    stages and the data axis (Mesh.replica_group); under a model axis the
+    per-head PE params' (tensor_parallel.model_sync_keys, partial over the
+    stages and the model axis too) over every rank. Every rank of a
+    group ends with the same sums."""
+    by_key = dict(zip(params, grads))
+    sync = (tensor_parallel.model_sync_keys(params, cfg)
+            if mesh.model_parallel > 1 else [])
+    blocks = [k for k in params if k.startswith(pipeline_parallel.BLOCKS)]
+    rest = [k for k in params
+            if not k.startswith(pipeline_parallel.BLOCKS) and k not in sync]
+    metrics = torch.stack([loss, correct])
+    for keys, group, extra in ((blocks, mesh.data_group, metrics),
+                               (rest, mesh.replica_group, None),
+                               (sync, None, None)):
+        parts = [by_key[k].reshape(-1) for k in keys]
+        if extra is not None:
+            parts.append(extra)
+        if not parts:
+            continue
+        flat = distributed.all_reduce_sum(torch.cat(parts), group)
+        if extra is not None:
+            loss, correct = flat[-2], flat[-1]
+        if divisor is not None:
+            flat = flat / divisor
+        pieces = flat.split([by_key[k].numel() for k in keys]
+                            + ([2] if extra is not None else []))
+        by_key.update({k: piece.view_as(by_key[k])
+                       for k, piece in zip(keys, pieces)})
+    return [by_key[k] for k in params], loss, correct
+
+
 def _ring_metrics(mesh, metrics):
     """metrics as they go into a sum over a context-parallel mesh's whole
     group: the ring's first rank's, zeros on the others (every rank of a
@@ -481,11 +524,30 @@ def _cp_forward(mesh):
     return apply_cp
 
 
-def _mesh_forward(mesh):
-    """(apply_fn, model_rank) of a train step over `mesh`: the CP forward
-    (_cp_forward) and None over a sequence axis; the TP forward and this
-    rank's model position over a model axis; or (None, None) without
-    either (models.vit.apply, two generators a row)."""
+def _pp_forward(mesh, n_micro: int):
+    """The forward over `mesh`'s pipe axis: this rank's stage of the GPipe
+    schedule at n_micro microbatches (0: the stage count), with the heads
+    of its model shard under a model axis (no dropout under pipeline
+    parallelism)."""
+    fwd = (pp_tp.apply_pp_tp if mesh.model_parallel > 1
+           else pipeline_parallel.apply_pp)
+    n_micro = n_micro or mesh.pipe_parallel
+
+    def apply_pp(params, images, cfg, generator=None):
+        del generator
+        return fwd(params, images, cfg, mesh, n_micro)
+
+    return apply_pp
+
+
+def _mesh_forward(mesh, n_micro: int = 0):
+    """(apply_fn, model_rank) of a train step over `mesh`: the PP forward
+    (_pp_forward) and None over a pipe axis; the CP forward (_cp_forward)
+    and None over a sequence axis; the TP forward and this rank's model
+    position over a model axis; or (None, None) without any (models.vit.
+    apply, two generators a row)."""
+    if pipeline_parallel.has_pipe_axis(mesh):
+        return _pp_forward(mesh, n_micro), None
     if mesh is not None and mesh.seq_parallel > 1:
         return _cp_forward(mesh), None
     if mesh is None or mesh.model_parallel == 1:
@@ -506,7 +568,7 @@ def _step_batches(data_x, data_y, epoch_idx, rows, mesh, generators):
 
 
 def make_train_step(cfg: ViTConfig, update, preprocess, accum: int = 1,
-                    seed: int = 0, mesh=None):
+                    seed: int = 0, mesh=None, n_micro: int = 0):
     """Returns train_step(params, opt_state, row, data_x, data_y, epoch_idx,
     epoch=0) -> (params, opt_state, metrics [loss, correct, count]) for the
     optimizer `update` of make_optimizer. Row `row` of the [steps, batch]
@@ -525,10 +587,15 @@ def make_train_step(cfg: ViTConfig, update, preprocess, accum: int = 1,
     also summed over the model axis. With a sequence axis (the JAX
     make_cp_train_step) params are replicated, the forward is
     context_parallel.apply_cp on this rank's token shard, and the
-    gradients are summed over every rank. None: one device, no
-    collective."""
+    gradients are summed over every rank. With a pipe axis (the JAX
+    make_pp_train_step, and make_pp_tp_train_step with a model axis too)
+    params are the rank's stage (and model shard) of the depth-stacked
+    layout (parallel.pipeline_parallel.shard_reference), the forward is
+    its GPipe schedule at n_micro microbatches (0: the stage count), and
+    the gradients are summed as _reduce_over_pipe says. None: one device,
+    no collective."""
     dp = mesh is not None and mesh.distributed
-    apply_fn, model_rank = _mesh_forward(mesh)
+    apply_fn, model_rank = _mesh_forward(mesh, n_micro)
 
     def train_step(params, opt_state, row, data_x, data_y, epoch_idx,
                    epoch=0):
@@ -550,7 +617,8 @@ def make_train_step(cfg: ViTConfig, update, preprocess, accum: int = 1,
 
 def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
                           accum: int = 1, seed: int = 0,
-                          feed: str = "ordered", mesh=None):
+                          feed: str = "ordered", mesh=None,
+                          n_micro: int = 0):
     """k optimizer steps per call: fn(params, opt_state, row, data_x,
     data_y, epoch_idx, epoch=0) -> (params, opt_state, metrics [k, 3]),
     each step taking `accum` index rows (rows row .. row + k·accum - 1;
@@ -582,13 +650,14 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
 
     mesh: a process group's mesh, as make_train_step's: each step takes this
     rank's columns of its rows and sums its gradients over the ranks (and
-    runs the TP forward on a model axis). Then the k steps run eagerly on
+    runs the TP, CP or PP forward on a model, sequence or pipe axis; the
+    PP one at n_micro microbatches). Then the k steps run eagerly on
     every device (gloo's collectives cannot be captured in a CUDA graph,
     and a multi-rank NCCL capture has not been verified), which the first
     call says on stdout."""
     fetch = _make_fetch(feed)
     dp = mesh is not None and mesh.distributed
-    apply_fn, model_rank = _mesh_forward(mesh)
+    apply_fn, model_rank = _mesh_forward(mesh, n_micro)
     stride = k * accum
     draws = cfg.has_dropout or getattr(preprocess, "augment", False)
     live_rows = {"idx": None, "rows": None}  # host copy, once per epoch
@@ -710,9 +779,7 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
         if dp or draws or nan_check.ACTIVE:
             if not told:
                 told.append(True)
-                axes = ("data and tensor" if model_rank is not None
-                        else "data and context" if mesh.seq_parallel > 1
-                        else "data")
+                axes = _axes(mesh)
                 why = (f"the steps sum their gradients over a process group "
                        f"({axes} parallelism)" if dp else
                        "the train steps draw random numbers (dropout, "
@@ -728,6 +795,15 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
     return fn
 
 
+def _axes(mesh) -> str:
+    """The parallelism a process group's mesh runs, in words."""
+    names = ["data"] + [name for name, width in (
+        ("pipeline", mesh.pipe_parallel), ("context", mesh.seq_parallel),
+        ("tensor", mesh.model_parallel)) if width > 1]
+    return (names[0] if len(names) == 1
+            else ", ".join(names[:-1]) + " and " + names[-1])
+
+
 def make_eval_step(cfg: ViTConfig, preprocess, mesh=None):
     """Returns eval_step(params, row, data_x, data_y, epoch_idx) -> metrics
     [loss, correct, count] of that index row (a fully padded row reports
@@ -735,10 +811,12 @@ def make_eval_step(cfg: ViTConfig, preprocess, mesh=None):
     evaluates its columns and the loss and correct sums are summed over the
     data ranks (one all_reduce; the count is the whole row's), as the JAX
     eval step psums them. Under tensor parallelism it takes the whole
-    (gathered) params, which every model rank evaluates alike. Under
-    context parallelism every rank of a ring evaluates its token shard
-    (context_parallel.apply_cp, the JAX eval step's apply_fn) and the sums
-    run over the whole group, each ring's metrics counted once."""
+    (gathered) params, which every model rank evaluates alike, and so under
+    pipeline parallelism does every stage (the sums over Mesh.data_group
+    count each data rank once). Under context parallelism every rank of a
+    ring evaluates its token shard (context_parallel.apply_cp, the JAX
+    eval step's apply_fn) and the sums run over the whole group, each
+    ring's metrics counted once."""
     dp = mesh is not None and mesh.distributed
     apply_fn = _cp_forward(mesh) if dp and mesh.seq_parallel > 1 else None
 
