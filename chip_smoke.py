@@ -235,7 +235,11 @@ exits nonzero without a card, or when any phase fails. Phases:
    streaming route at 2 heads a rank (model rank 1's per-head rope tables
    and relative table at a non-zero offset) through rows 3, 5, 6 and 7
    and their prologues, evaluation at 4 heads on the gathered params, held
-   as (b) to a one-rank epoch of the same data.
+   as (b) to a one-rank epoch of the same data. (b), (c), 23 (b) and 24
+   (a), (b) are the runs of one four-rank launch, made here, and 20 (b),
+   21 (a), 22 (b)-(d) and 23 (a), (c) the runs of one two-rank launch,
+   made in phase 20 (shared_launch: a process's start-up and first calls
+   paid once a world size).
 22. context parallelism: (a) whether gloo's send / recv move CUDA tensors
    (the ring hop stages them through the host under gloo either way); the
    kernel ring at R = 2 on two gloo ranks sharing the card at (4, 4, 4,097,
@@ -276,6 +280,23 @@ exits nonzero without a card, or when any phase fails. Phases:
    with --pipeline_parallel 2 --model_parallel 2 (3 heads a rank, the
    bias sliced; block shards distinct on all four ranks, the relative
    table bit-equal), held as (a).
+24. the compositions with the sequence axis, on four gloo ranks sharing the
+   card (runs of phase 21's four-rank launch): (a) the long-sequence model
+   at depth 1 (N = 4,097, 4 heads, batch 4) through the train CLI with
+   --sequence_parallel 2 --model_parallel 2 (TP x CP: 2 heads and 2,049
+   query rows a rank) in rope-mixed and relative, and (b) at depth 2 in
+   relative with --pipeline_parallel 2 --sequence_parallel 2 (PP x CP: one
+   block a stage, 2 microbatches of 2), each on COMP_TRAIN examples: each
+   rank's launches of rows 4, 5 and 11 exact (the evaluation runs the
+   composed forward; bubble ticks launch nothing), the chunk kernels at the
+   rank's heads, images and rows, the replicated params bit-equal on all
+   four ranks and the block shards equal exactly within a ring, rank 0's
+   first DP_EARLY_STEPS step losses within CP_STEP_TOL of a one-rank epoch
+   of the same data in this process, one CSV, each rank's step time beside
+   one rank's; (c) the trajectory-parity harness's port side
+   (utils/trajectory_parity.train_port at its defaults) for COMP_TRAJ_STEPS
+   steps on the card against the same steps on the CPU: each loss within
+   COMP_TRAJ_TOL (relative), AdamW (row 11) once a step.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -4386,7 +4407,7 @@ from vit_rpe_rope_tpu_torch.train import train_step as ts
 
 out, runs = sys.argv[1], json.loads(sys.argv[2])
 rank = os.environ["RANK"]
-final, batches, heads, losses, stamps = {}, {}, {}, [], []
+final, batches, heads, rows, losses, stamps = {}, {}, {}, {}, [], []
 make, real_dataset = ts.make_train_step, datasets.get_dataset
 make_bounded = loop.make_bounded_step
 
@@ -4422,6 +4443,15 @@ for name in ("fwd", "bwd", "stream_fwd", "stream_bwd", "stream_bwd_fused"):
         heads["attn_" + _n].add(int(q.shape[1]))
         return _fn(q, *a, **k)
     setattr(fa, "attention_" + name, wrapped)
+for name in ("streaming_chunk_fwd", "streaming_chunk_bwd"):
+    def chunk(q, *a, _fn=getattr(fa, name), _n=name, **k):
+        key = "attn_stream_chunk_" + _n[-3:]
+        batches[key].add(int(q.shape[0]))
+        heads[key].add(int(q.shape[1]))
+        rows[key].add(int(q.shape[2]))
+        return _fn(q, *a, **k)
+    setattr(fa, name, chunk)
+CHUNKS = ("stream_chunk_fwd", "stream_chunk_bwd")
 for label, (port, argv, n_train) in runs.items():
     datasets.get_dataset = real_dataset if n_train is None else (
         lambda dataset, data_dir, use_synthetic, seed, _n=n_train:
@@ -4434,10 +4464,11 @@ for label, (port, argv, n_train) in runs.items():
     fused_adamw.LAUNCHES_ADAMW = fused_adamw.LAUNCHES_ADAMW_TABLE = 0
     for name in STREAM.values():
         setattr(fa, "LAUNCHES_" + name, 0)
-    for record in (batches, heads):
+    for record in (batches, heads, rows):
         record.clear()
         record.update({"attn_" + n: set() for n in (
-            "fwd", "bwd", "stream_fwd", "stream_bwd", "stream_bwd_fused")})
+            "fwd", "bwd", "stream_fwd", "stream_bwd", "stream_bwd_fused")
+            + CHUNKS})
     losses.clear()
     stamps.clear()
     t0 = time.perf_counter()
@@ -4461,6 +4492,7 @@ for label, (port, argv, n_train) in runs.items():
                        batches={k: sorted(v) for k, v in batches.items()
                                 if v},
                        heads={k: sorted(v) for k, v in heads.items() if v},
+                       rows={k: sorted(v) for k, v in rows.items() if v},
                        step_losses=[float(x) for x in losses],
                        step_seconds=np.diff(stamps).tolist()), f)
 """
@@ -4665,13 +4697,14 @@ def rank_processes(script, args, world, timeout):
     return [(None if p is None else p.returncode, text) for text, p in out]
 
 
-def gloo_ranks(runs, world=2, n_train=None, keep_dir=None):
-    """Phases 20b, 21, 22 and 23: the train CLI (TINY_ARGV + argv, for each
+def gloo_ranks(runs, world=2, n_train=None, keep_dir=None,
+               timeout=DP_WORKER_TIMEOUT):
+    """Phases 20b to 24: the train CLI (TINY_ARGV + argv, for each
     label: argv of `runs`) on `world` ranks sharing the card over gloo,
     each rank a process of its own (DP_RANK) that trains every run in turn,
     in one scratch directory, on the synthetic set cut to n_train examples
     when given (one size for every run, or {label: size}); a rank that
-    fails, or a launch that outlasts DP_WORKER_TIMEOUT,
+    fails, or a launch that outlasts `timeout` seconds,
     fails the phase. Returns, per label, each rank's record with its final
     params, rank 0's CSV row and the CSVs written (and with keep_dir, the
     path of its `_last.npz`, copied to keep_dir/label/); and the launch's
@@ -4684,7 +4717,7 @@ def gloo_ranks(runs, world=2, n_train=None, keep_dir=None):
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         results = rank_processes(DP_RANK, [tmp, payload], world,
-                                 DP_WORKER_TIMEOUT)
+                                 timeout)
         seconds = time.perf_counter() - t0
         for r, (rc, text) in enumerate(results):
             if rc != 0:
@@ -4725,9 +4758,9 @@ def check_two_ranks(world_one):
     expected = {"attn_fwd": 6 * 120, "attn_bwd": 6 * 100, "adamw": 100,
                 "adamw_table": 0}
     out = {}
-    runs, seconds = gloo_ranks({"dp": [], "zero1": ["--zero1"]})
-    log(f"  two gloo ranks: {seconds:.1f} s for the launch (both runs)")
-    for label, run in runs.items():
+    runs, seconds = shared_launch(2)  # the two-rank runs of phases 20-23
+    for label in ("dp", "zero1"):
+        run = runs[label]
         r0, r1 = run["ranks"]
         same = all(np.array_equal(r0["params"][k], r1["params"][k])
                    for k in r0["params"])
@@ -4975,6 +5008,86 @@ def check_tp_run(label, run, expected, batch, one_losses, one_step_ms,
                 seconds=[r["seconds"] for r in ranks])
 
 
+def cp_argv():
+    """Phase 22's train CLI runs by label, without --sequence_parallel:
+    the long-sequence model at depth 1 in rope-mixed, relative and
+    rope-axial with --q_chunk 2048."""
+    return {"cp_rope-mixed": longseq_argv(1, "rope-mixed"),
+            "cp_relative": longseq_argv(1, "relative"),
+            "cp_q_chunk": longseq_argv(1, "rope-axial") + ["--q_chunk",
+                                                           "2048"]}
+
+
+def longseq_argv(depth, pe):
+    """The train CLI's flags of the long-sequence model (LONGSEQ at
+    `depth`, batch 4) in PE mode `pe`."""
+    argv = []
+    for key, value in dict(LONGSEQ, depth=depth).items():
+        argv += [f"--{key}", str(value)]
+    return argv + ["--pos_encoding", pe, "--batch_size", "4"]
+
+
+# The train CLI runs of phases 20b to 24 on gloo ranks that share the card
+# go in ONE launch per world size (a process's start-up and ~14 s of first
+# calls paid once, not once a phase): the two-rank runs of phases 20b,
+# 21a, 22b-d and 23a and the four-rank runs of phases 21b-c, 23b and
+# 24a-b. Each launch is made where a phase first needs it; the later
+# phases check their runs of it. Each run's counts are reset just before
+# it and read just after, in the rank (DP_RANK).
+SHARED_TIMEOUT = 600     # seconds for one shared launch
+_SHARED = {}
+
+
+def shared_runs(world: int) -> dict:
+    """{label: (argv after TINY_ARGV, synthetic examples or None for the
+    whole set)} of the shared launch of `world` ranks."""
+    if world == 2:
+        runs = {"dp": ([], None), "zero1": (["--zero1"], None),
+                "tp": (["--model_parallel", "2"], None)}
+        cp = ["--sequence_parallel", "2"]
+        runs.update({label: (args + cp, CP_TRAIN)
+                     for label, args in cp_argv().items()})
+        runs["cp_zero1"] = (cp_argv()["cp_rope-mixed"] + cp + ["--zero1"],
+                            CP_TRAIN)
+        pp = ["--pipeline_parallel", "2"]
+        runs["pp"] = (pp + ["--pp_microbatches", str(PP_MICRO)], PP_TRAIN)
+        runs["pp_stream"] = (longseq_argv(2, "relative") + pp,
+                             PP_STREAM_TRAIN)
+        return runs
+    tp = ["--model_parallel", "2", "--zero1"]
+    runs = {"tp_dp_zero1": (tp + ["--pos_encoding", "relative"],
+                            TP_B_TRAIN)}
+    for pe in ("rope-mixed", "relative"):
+        runs[f"tp_stream_{pe}"] = (longseq_argv(LONGSEQ["depth"], pe) + tp,
+                                   TP_STREAM_TRAIN)
+    runs["pp_tp"] = (["--pipeline_parallel", "2", "--model_parallel", "2",
+                      "--pos_encoding", "relative"], PP_TRAIN)
+    runs.update({label: (args, COMP_TRAIN)
+                 for label, args in comp_argv().items()})
+    return runs
+
+
+def shared_launch(world: int):
+    """(runs, seconds) of the shared launch of `world` ranks (gloo_ranks;
+    the two-rank one keeps every run's `_last.npz` under a directory that
+    phase 23 removes), made at the first call and returned as made at the
+    later ones."""
+    if world not in _SHARED:
+        runs = shared_runs(world)
+        keep = (tempfile.mkdtemp(prefix="chip_smoke_last_") if world == 2
+                else None)
+        out, seconds = gloo_ranks(
+            {k: v[0] for k, v in runs.items()}, world=world,
+            n_train={k: v[1] for k, v in runs.items()}, keep_dir=keep,
+            timeout=SHARED_TIMEOUT)
+        each = {k: round(max(r["seconds"] for r in v["ranks"]), 1)
+                for k, v in out.items()}
+        log(f"  the shared launch of {world} gloo ranks: {seconds:.1f} s "
+            f"(seconds a run: {each})")
+        _SHARED[world] = (out, seconds, keep)
+    return _SHARED[world][:2]
+
+
 def check_tensor_parallel(world_one, train_modules, datasets):
     """Phase 21. (a) The ViT-tiny/4 train CLI at its defaults (rope-mixed,
     batch 128) on two gloo ranks sharing the card with --model_parallel 2:
@@ -4985,15 +5098,14 @@ def check_tensor_parallel(world_one, train_modules, datasets):
     heads through rows 1 and 2, ZeRO-1 x TP through row 11), held to a
     one-rank epoch of the same data in this process. (c) The long-sequence
     model (N = 4,097, 4 heads, batch 4) in rope-mixed and relative on the
-    same four ranks, in the same launch, on TP_STREAM_TRAIN examples: the
+    same four ranks, in the same launch (shared_launch(4), which also
+    runs phase 23b's and 24's runs), on TP_STREAM_TRAIN examples: the
     streaming route at 2 heads a rank (the rope-mixed per-head tables and
     the relative table sliced, model rank 1's at a non-zero offset)
     through rows 3, 5, 6 and 7 and their prologues, held to one-rank
     epochs of the same data in this process."""
     one = world_one["plain"]
-    runs, seconds_a = gloo_ranks({"tp": ["--model_parallel", "2"]})
-    log(f"  two gloo ranks, --model_parallel 2: {seconds_a:.1f} s for the "
-        f"launch")
+    runs, seconds_a = shared_launch(2)  # (a): a run of phase 20's launch
     out = {"tp": check_tp_run(
         "--model_parallel 2 (data 1 x model 2)", runs["tp"],
         {"attn_fwd": 6 * 120, "attn_bwd": 6 * 100, "adamw": 100,
@@ -5001,12 +5113,9 @@ def check_tensor_parallel(world_one, train_modules, datasets):
         one["step_ms"][0], twin_of=[0, 1], bar=LEARN_BAR["rope-mixed"])}
     out["tp"]["launch_seconds"] = seconds_a
 
-    # (b) and (c): one-rank epochs of the same data first, then one launch
-    # of four ranks for the three runs (a process's start-up paid once).
-    model = []
-    for key, value in LONGSEQ.items():
-        model += [f"--{key}", str(value)]
-    stream_argv = {pe: model + ["--pos_encoding", pe, "--batch_size", "4"]
+    # (b) and (c): one-rank epochs of the same data first, then the one
+    # launch of four ranks (shared_launch) for the three runs.
+    stream_argv = {pe: longseq_argv(LONGSEQ["depth"], pe)
                    for pe in ("rope-mixed", "relative")}
     with small_dataset(datasets, n_train=TP_B_TRAIN,
                        n_test=TP_B_TRAIN // 5):
@@ -5022,16 +5131,7 @@ def check_tensor_parallel(world_one, train_modules, datasets):
             log(f"  one rank, long-sequence {pe}, {TP_STREAM_TRAIN} "
                 f"examples: CSV row {one_c[pe]['row']}, launches "
                 f"{one_c[pe]['launches']}")
-    tp_argv = ["--model_parallel", "2", "--zero1"]
-    runs, seconds_b = gloo_ranks(
-        {"tp_dp_zero1": tp_argv + ["--pos_encoding", "relative"],
-         **{f"tp_stream_{pe}": args + tp_argv
-            for pe, args in stream_argv.items()}},
-        world=4, n_train={"tp_dp_zero1": TP_B_TRAIN,
-                          "tp_stream_rope-mixed": TP_STREAM_TRAIN,
-                          "tp_stream_relative": TP_STREAM_TRAIN})
-    log(f"  four gloo ranks, --model_parallel 2 --zero1: {seconds_b:.1f} s "
-        f"for the launch (three runs)")
+    runs, seconds_b = shared_launch(4)
     steps, evals = TP_B_TRAIN // 128, TP_B_TRAIN // 5 // 128
     out["tp_dp_zero1"] = check_tp_run(
         "--model_parallel 2 --zero1 relative (data 2 x model 2)",
@@ -5458,9 +5558,9 @@ def check_context_parallel(train_modules, modules, vit, datasets, ViTConfig,
     2, in rope-mixed and relative, on CP_TRAIN examples; (c) rope-mixed
     with --zero1, bit-equal to (b)'s; (d) rope-axial with --q_chunk 2048
     (the bounded driver's ring: two q-chunks of 2,048 and 512 rows a rank)
-    -- all four in one launch, each held to a one-rank epoch of the same
-    data in this process; (e) force_ring at world size 1 over NCCL
-    (check_force_ring)."""
+    -- all four runs of shared_launch(2), each held to a one-rank epoch of
+    the same data in this process; (e) force_ring at world size 1 over
+    NCCL (check_force_ring)."""
     fa = train_modules[0]
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -5468,27 +5568,13 @@ def check_context_parallel(train_modules, modules, vit, datasets, ViTConfig,
         log(f"  gloo send / recv of a CUDA tensor between two ranks on the "
             f"card: {out['gloo_p2p_cuda']}")
         out["ring"] = check_ring(tmp)
-    model = []
-    for key, value in dict(LONGSEQ, depth=1).items():
-        model += [f"--{key}", str(value)]
-    base = model + ["--batch_size", "4"]
-    argv = {"cp_rope-mixed": base + ["--pos_encoding", "rope-mixed"],
-            "cp_relative": base + ["--pos_encoding", "relative"],
-            "cp_q_chunk": base + ["--pos_encoding", "rope-axial",
-                                  "--q_chunk", "2048"]}
     one = {}
     with small_dataset(datasets, n_train=CP_TRAIN, n_test=CP_TRAIN // 5):
-        for label, args in argv.items():
+        for label, args in cp_argv().items():
             one[label] = cli_epoch(train_modules, args)
             log(f"  one rank, {label[3:]}, {CP_TRAIN} examples: CSV row "
                 f"{one[label]['row']}, launches {one[label]['launches']}")
-    cp_argv = ["--sequence_parallel", "2"]
-    runs, seconds = gloo_ranks(
-        {**{label: args + cp_argv for label, args in argv.items()},
-         "cp_zero1": argv["cp_rope-mixed"] + cp_argv + ["--zero1"]},
-        n_train=CP_TRAIN)
-    log(f"  two gloo ranks, --sequence_parallel 2: {seconds:.1f} s for the "
-        f"launch (four runs)")
+    runs, seconds = shared_launch(2)  # (b)-(d): runs of phase 20's launch
     steps, evals = CP_TRAIN // 4, -(-(CP_TRAIN // 5) // 4)
     ring = {"attn_fwd": 0, "attn_bwd": 0, "adamw": steps, "adamw_table": 0,
             "attn_stream_chunk_fwd": 2 * (steps + evals),
@@ -5662,11 +5748,10 @@ def check_pipeline_parallel(train_modules, datasets, vit, ViTConfig):
     and 5 (the generated bias) and their prologues. (b) The relative
     epoch of (a)'s data on four gloo ranks with --pipeline_parallel 2
     --model_parallel 2 (3 heads a rank, the bias sliced; 2 microbatches of
-    64). Each held to a one-rank epoch of the same data in this process."""
-    model = []
-    for key, value in dict(LONGSEQ, depth=2).items():
-        model += [f"--{key}", str(value)]
-    stream_argv = model + ["--pos_encoding", "relative", "--batch_size", "4"]
+    64), a run of shared_launch(4). (a) and (c) are runs of
+    shared_launch(2). Each held to a one-rank epoch of the same data in
+    this process."""
+    stream_argv = longseq_argv(2, "relative")
     one = {}
     with small_dataset(datasets, n_train=PP_TRAIN, n_test=PP_TRAIN // 5):
         for label, argv in (("pp", []),
@@ -5678,27 +5763,20 @@ def check_pipeline_parallel(train_modules, datasets, vit, ViTConfig):
     for label, rec in one.items():
         log(f"  one rank, {label}: CSV row {rec['row']}, launches "
             f"{rec['launches']}, {rec['step_ms']:.3f} ms a step")
-    pp_argv = ["--pipeline_parallel", "2"]
     out = {}
-    with tempfile.TemporaryDirectory() as keep:
-        runs, seconds_a = gloo_ranks(
-            {"pp": pp_argv + ["--pp_microbatches", str(PP_MICRO)],
-             "pp_stream": stream_argv + pp_argv},
-            n_train={"pp": PP_TRAIN, "pp_stream": PP_STREAM_TRAIN},
-            keep_dir=keep)
-        log(f"  two gloo ranks, --pipeline_parallel 2: {seconds_a:.1f} s "
-            f"for the launch (two runs)")
-        steps, evals = PP_TRAIN // 128, PP_TRAIN // 5 // 128
-        out["pp"] = check_pp_run(
-            f"--pipeline_parallel 2 --pp_microbatches {PP_MICRO} (data 1 x "
-            f"pipe 2)", runs["pp"],
-            pp_launches(3, PP_MICRO, steps, 6, evals), one["pp"], 3,
-            {"attn_fwd": [6], "attn_bwd": [6]},
-            {"attn_fwd": [128 // PP_MICRO, 128],
-             "attn_bwd": [128 // PP_MICRO]})
-        out["pp"]["resume"] = check_pp_resume(
-            train_modules, datasets, vit, ViTConfig, runs["pp"]["last"],
-            one["pp"])
+    runs, seconds_a = shared_launch(2)  # (a), (c): runs of phase 20's launch
+    steps, evals = PP_TRAIN // 128, PP_TRAIN // 5 // 128
+    out["pp"] = check_pp_run(
+        f"--pipeline_parallel 2 --pp_microbatches {PP_MICRO} (data 1 x "
+        f"pipe 2)", runs["pp"],
+        pp_launches(3, PP_MICRO, steps, 6, evals), one["pp"], 3,
+        {"attn_fwd": [6], "attn_bwd": [6]},
+        {"attn_fwd": [128 // PP_MICRO, 128],
+         "attn_bwd": [128 // PP_MICRO]})
+    out["pp"]["resume"] = check_pp_resume(
+        train_modules, datasets, vit, ViTConfig, runs["pp"]["last"],
+        one["pp"])
+    shutil.rmtree(_SHARED[2][2])  # the two-rank runs' kept `_last.npz`
     out["pp"]["launch_seconds"] = seconds_a
     s_steps = PP_STREAM_TRAIN // 4
     out["pp_stream"] = check_pp_run(
@@ -5708,11 +5786,7 @@ def check_pipeline_parallel(train_modules, datasets, vit, ViTConfig):
         {"attn_stream_fwd": [4], "attn_stream_bwd_fused": [4]},
         {"attn_stream_fwd": [2, 4], "attn_stream_bwd_fused": [2]},
         step_batch=4)
-    runs, seconds_b = gloo_ranks(
-        {"pp_tp": pp_argv + ["--model_parallel", "2", "--pos_encoding",
-                             "relative"]}, world=4, n_train=PP_TRAIN)
-    log(f"  four gloo ranks, --pipeline_parallel 2 --model_parallel 2: "
-        f"{seconds_b:.1f} s for the launch")
+    runs, seconds_b = shared_launch(4)  # (b): a run of phase 21's launch
     out["pp_tp"] = check_pp_run(
         "--pipeline_parallel 2 --model_parallel 2 relative (data 1 x pipe 2 "
         "x model 2)", runs["pp_tp"], pp_launches(3, 2, steps, 6, evals),
@@ -5729,6 +5803,218 @@ def check_pipeline_parallel(train_modules, datasets, vit, ViTConfig):
     return out
 
 
+# Phase 24: the compositions with the sequence axis (TP x CP, PP x CP) on
+# four gloo ranks sharing the card, and the trajectory-parity harness.
+COMP_TRAIN = 24          # runs (a) and (b): 6 steps of 4, one eval row of 4
+COMP_TRAJ_STEPS = 20     # (c): the harness's port side, card against CPU
+COMP_TRAJ_TOL = 1e-4     # (c): each step's loss, card against CPU, relative
+#   (float32 on both, no attention kernel: the unfused attention the
+#   harness asks for; cuBLAS and the CPU's BLAS sum in other orders)
+
+
+def comp_launches(stage_blocks, micro, steps, evals):
+    """A rank's launches of one epoch of the long-sequence model under a
+    composition with the sequence axis at R = 2: every block of the rank's
+    stage runs the ring (two chunk forwards, one a hop) on each
+    microbatch of each step and evaluation row (the evaluation runs the
+    composed forward), and its backward (two one-pass chunk backwards) on
+    each microbatch of each step; AdamW once a step."""
+    hops = 2 * stage_blocks * micro
+    return with_prologues({"attn_fwd": 0, "attn_bwd": 0, "adamw": steps,
+                           "adamw_table": 0,
+                           "attn_stream_chunk_fwd": hops * (steps + evals),
+                           "attn_stream_bwd_fused": hops * steps})
+
+
+def check_comp_run(label, run, expected, one, heads, batches, rows,
+                   position):
+    """Phase 24's checks of one launch of the train CLI on four gloo
+    ranks: each rank's launches exact, the chunk kernels at `heads` heads,
+    `batches` images and `rows` query rows a call (the rank's share), the
+    replicated params bit-equal on every rank and the block shards as the
+    grid says (equal on the ranks of one `position(rank)`, distinct
+    across positions), rank 0 alone writing a CSV, the first
+    DP_EARLY_STEPS step losses within CP_STEP_TOL of one rank's on the same
+    data, the row finite; each rank's step time beside one rank's."""
+    ranks = run["ranks"]
+    p0 = ranks[0]["params"]
+    replicated = [k for k in p0 if not k.startswith("blocks.")]
+    same = all(np.array_equal(r["params"][k], p0[k]) for r in ranks
+               for k in replicated)
+    fc1 = next(k for k in p0 if k.endswith("mlp.fc1.weight"))
+    shards = all(np.array_equal(ranks[i]["params"][fc1],
+                                ranks[j]["params"][fc1])
+                 == (position(i) == position(j))
+                 for i in range(len(ranks)) for j in range(i))
+    want = np.asarray(one["step_losses"])
+    got = np.asarray(ranks[0]["step_losses"])
+    step_rel = (np.abs(got - want) / np.abs(want) if got.shape == want.shape
+                else np.full(max(len(want), 1), np.inf))
+    early = step_rel[:DP_EARLY_STEPS]
+    step_ms = [1000.0 * 4 / r["history"][0]["images_per_sec"] for r in ranks]
+    one_ms = 1000.0 * 4 / one["images_per_s"]
+    steady = [steady_ms(r) for r in ranks]
+    fields = csv_fields(run["row"])
+    log(f"  {label}: CSV row {run['row']} (one rank {one['row']}); "
+        f"replicated params bit-equal on all {len(ranks)} ranks {same} "
+        f"({len(replicated)} of {len(p0)} keys); block shards equal "
+        f"within a position and distinct across {shards}; step losses "
+        f"{[round(float(x), 6) for x in got]} against one rank's "
+        f"{[round(float(x), 6) for x in want]} (relative "
+        f"{[float(f'{x:.3g}') for x in step_rel]}, the first "
+        f"{DP_EARLY_STEPS} held to {CP_STEP_TOL}); CSVs {run['csvs']}")
+    for r, rec in enumerate(ranks):
+        log(f"    rank {r}: launches {rec['launches']} (expected "
+            f"{expected}), chunk kernels at heads {rec['heads']}, batches "
+            f"{rec['batches']}, rows {rec['rows']}; {step_ms[r]:.3f} ms a "
+            f"step (one rank: {one_ms:.3f}; steps after the first "
+            f"{steady[r]:.3f}, one rank {steady_ms(one):.3f}), "
+            f"{rec['seconds']:.1f} s, devices {rec['num_devices']}")
+        if rec["launches"] != expected:
+            raise AssertionError(f"{label} rank {r}: launches "
+                                 f"{rec['launches']}, expected {expected}")
+        chunk = {k: v for k, v in rec["heads"].items() if "chunk" in k}
+        if (chunk != heads
+                or {k: v for k, v in rec["batches"].items()
+                    if "chunk" in k} != batches or rec["rows"] != rows):
+            raise AssertionError(f"{label} rank {r}: chunk kernels at heads "
+                                 f"{rec['heads']}, batches "
+                                 f"{rec['batches']}, rows {rec['rows']}")
+        if rec["num_devices"] != len(ranks) or (r and rec["log_file"]):
+            raise AssertionError(f"{label} rank {r}: {rec['num_devices']} "
+                                 f"devices, log file {rec['log_file']}")
+    if len(run["csvs"]) != 1 or not same or not shards:
+        raise AssertionError(f"{label}: CSVs {run['csvs']}, replicated "
+                             f"params bit-equal {same}, block shards as "
+                             f"the grid says {shards}")
+    if not all(math.isfinite(v) for v in fields.values()):
+        raise AssertionError(f"{label}: the CSV row is not finite")
+    if not early.max() <= CP_STEP_TOL:
+        raise AssertionError(f"{label}: step losses {step_rel.tolist()} "
+                             f"from one rank's (relative)")
+    return dict(row=run["row"], one_rank_row=one["row"],
+                step_relative=step_rel.tolist(),
+                launches=[r["launches"] for r in ranks], step_ms=step_ms,
+                one_rank_step_ms=one_ms, steady_step_ms=steady,
+                one_rank_steady_step_ms=steady_ms(one),
+                step_losses=ranks[0]["step_losses"],
+                one_rank_step_losses=one["step_losses"],
+                seconds=[r["seconds"] for r in ranks])
+
+
+def check_trajectory_parity(fa, fused_adamw, vit):
+    """Phase 24c: the trajectory-parity harness's port side
+    (utils/trajectory_parity.train_port at the JAX module's defaults:
+    rope-axial, MNIST at 28 px, batch 64, the unfused attention) for
+    COMP_TRAJ_STEPS steps on the card, AdamW's kernel (row 11) once a
+    step, against the same steps on the CPU (the kernel's twin)."""
+    from vit_rpe_rope_tpu_torch.utils import trajectory_parity as traj
+
+    cfg = traj.trajectory_config()
+    bundle, per_epoch = traj.synthetic_task(steps=COMP_TRAJ_STEPS)
+    params = {k: v.numpy() for k, v in vit.init_params(
+        torch.Generator().manual_seed(0), cfg, device="cpu").items()}
+    plans = traj.port_plans(per_epoch * 64, 64, 2)
+    reset_counts(fa, fused_adamw)
+    card, card_s = timed_s(lambda: traj.train_port(  # default: the card
+        params, cfg, bundle, plans, COMP_TRAJ_STEPS))
+    launches = read_counts(fa, fused_adamw)
+    cpu, cpu_s = timed_s(lambda: traj.train_port(
+        params, cfg, bundle, plans, COMP_TRAJ_STEPS, device="cpu"))
+    result = traj.compare(card["losses"], cpu["losses"], card["acc"],
+                          cpu["acc"], cfg.pos_encoding, "mnist", 64)
+    rel = np.abs(np.subtract(card["losses"], cpu["losses"])) / np.abs(
+        cpu["losses"])
+    log(f"  trajectory parity, port side, {COMP_TRAJ_STEPS} steps: card "
+        f"losses {[round(x, 6) for x in card['losses']]}, relative to the "
+        f"CPU's {[float(f'{x:.3g}') for x in rel]} (tol {COMP_TRAJ_TOL}); "
+        f"early max |diff| {result['early_max_absdiff']:.3g}, smoothed max "
+        f"rel {result['smoothed_max_reldiff']:.3g}; test accuracy card "
+        f"{card['acc']:.2f}% CPU {cpu['acc']:.2f}%; launches {launches}; "
+        f"{card_s:.1f} s on the card, {cpu_s:.1f} s on the CPU")
+    expected = {"attn_fwd": 0, "attn_bwd": 0, "adamw": COMP_TRAJ_STEPS}
+    if launches != expected:
+        raise AssertionError(f"trajectory parity: launches {launches}, "
+                             f"expected {expected}")
+    if not rel.max() <= COMP_TRAJ_TOL or len(rel) != COMP_TRAJ_STEPS:
+        raise AssertionError(f"trajectory parity: the card's losses differ "
+                             f"from the CPU's by {rel.tolist()} (relative)")
+    return dict(relative=rel.tolist(), launches=launches,
+                card_losses=card["losses"], cpu_losses=cpu["losses"],
+                card_acc=card["acc"], cpu_acc=cpu["acc"],
+                early_max_absdiff=result["early_max_absdiff"],
+                smoothed_max_reldiff=result["smoothed_max_reldiff"],
+                card_seconds=card_s, cpu_seconds=cpu_s)
+
+
+def timed_s(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def comp_argv(flags=True):
+    """Phase 24's train CLI runs by label: the long-sequence model at depth
+    1 in rope-mixed and relative with --sequence_parallel 2
+    --model_parallel 2, at depth 2 in relative with --pipeline_parallel 2
+    --sequence_parallel 2 (without flags: the one-rank epochs)."""
+    tpcp = ["--sequence_parallel", "2", "--model_parallel", "2"]
+    ppcp = ["--pipeline_parallel", "2", "--sequence_parallel", "2"]
+    return {"tpcp_rope-mixed": longseq_argv(1, "rope-mixed")
+            + (tpcp if flags else []),
+            "tpcp_relative": longseq_argv(1, "relative")
+            + (tpcp if flags else []),
+            "ppcp_relative": longseq_argv(2, "relative")
+            + (ppcp if flags else [])}
+
+
+def check_compositions(train_modules, datasets, vit):
+    """Phase 24. Four gloo ranks sharing the card, in the launch of
+    shared_launch(4): (a) the
+    long-sequence model (N = 4,097, 4 heads) at depth 1 through the train
+    CLI with --sequence_parallel 2 --model_parallel 2 (data 1 x seq 2 x
+    model 2: 2 heads and 2,049 query rows a rank) in rope-mixed and in
+    relative, and (b) at depth 2 in relative with --pipeline_parallel 2
+    --sequence_parallel 2 (data 1 x pipe 2 x seq 2: one block a stage, 2
+    microbatches of 2, 4 heads), each on COMP_TRAIN examples and held to a
+    one-rank epoch of the same data in this process; (c) the trajectory-
+    parity harness's port side on the card against the CPU."""
+    fa, fused_adamw = train_modules[0], train_modules[1]
+    one = {}
+    with small_dataset(datasets, n_train=COMP_TRAIN,
+                       n_test=COMP_TRAIN // 5):
+        for label, args in comp_argv(flags=False).items():
+            one[label] = cli_epoch(train_modules, args)
+            log(f"  one rank, {label}, {COMP_TRAIN} examples: CSV row "
+                f"{one[label]['row']}, launches {one[label]['launches']}")
+    runs, seconds = shared_launch(4)  # (a), (b): runs of phase 21's launch
+    labels = ("tpcp_rope-mixed", "tpcp_relative", "ppcp_relative")
+    run_seconds = [max(r["seconds"] for r in runs[k]["ranks"])
+                   for k in labels]
+    log(f"  four gloo ranks, the compositions: {sum(run_seconds):.1f} s of "
+        f"the shared launch's {seconds:.1f} ({run_seconds})")
+    steps, evals = COMP_TRAIN // 4, -(-(COMP_TRAIN // 5) // 4)
+    out = {"launch_seconds": seconds, "run_seconds": run_seconds}
+    chunk = ("attn_stream_chunk_fwd", "attn_stream_chunk_bwd")
+    for label in ("tpcp_rope-mixed", "tpcp_relative"):
+        out[label] = check_comp_run(
+            f"long-sequence {label[5:]} --sequence_parallel 2 "
+            f"--model_parallel 2 (data 1 x seq 2 x model 2)", runs[label],
+            comp_launches(1, 1, steps, evals), one[label],
+            dict.fromkeys(chunk, [2]), dict.fromkeys(chunk, [4]),
+            dict.fromkeys(chunk, [2049]), lambda r: r % 2)
+    out["ppcp_relative"] = check_comp_run(
+        "long-sequence relative --pipeline_parallel 2 --sequence_parallel 2 "
+        "(data 1 x pipe 2 x seq 2)", runs["ppcp_relative"],
+        comp_launches(1, 2, steps, evals), one["ppcp_relative"],
+        dict.fromkeys(chunk, [4]), dict.fromkeys(chunk, [2]),
+        dict.fromkeys(chunk, [2049]), lambda r: r // 2)
+    torch.cuda.empty_cache()
+    out["trajectory_parity"] = check_trajectory_parity(fa, fused_adamw, vit)
+    return out
+
+
 def kernel_line(name, source, replaces, launches, max_abs_err, times):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -5741,7 +6027,8 @@ def kernel_line(name, source, replaces, launches, max_abs_err, times):
                                            "int8_launches",
                                            "export_launches",
                                            "dp_launches", "tp_launches",
-                                           "cp_launches", "pp_launches")
+                                           "cp_launches", "pp_launches",
+                                           "comp_launches")
                if key in times}}
 
 
@@ -6117,6 +6404,13 @@ def main() -> int:
         pipeline_parallel = check_pipeline_parallel(train_modules, datasets,
                                                     vit, ViTConfig)
 
+    with phase("[24] the compositions with the sequence axis (the train "
+               "CLI with --sequence_parallel 2 --model_parallel 2 and with "
+               "--pipeline_parallel 2 --sequence_parallel 2 on four gloo "
+               "ranks sharing the card) and the trajectory-parity "
+               "harness", seconds):
+        compositions = check_compositions(train_modules, datasets, vit)
+
     summary = {"card": card, "attention": attn, "serving": serve_times,
                "serving_profile": serve_trace, "training": training,
                "kernel_vs_plain_losses": paths, "train_step": step_times,
@@ -6155,6 +6449,7 @@ def main() -> int:
                "tensor_parallel": tensor_parallel,
                "context_parallel": context_parallel,
                "pipeline_parallel": pipeline_parallel,
+               "compositions": compositions,
                "phase_seconds": seconds}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -6211,6 +6506,21 @@ def main() -> int:
     def pp(name):
         return {k: [r.get(name, 0) for r in v["launches"]]
                 for k, v in pipeline_parallel.items()}
+
+    # Phase 24's launches on each of four gloo ranks: --sequence_parallel 2
+    # --model_parallel 2 (the long-sequence model in rope-mixed and
+    # relative) and --pipeline_parallel 2 --sequence_parallel 2 (relative),
+    # of the chunk kernels and AdamW; AdamW's also in the trajectory-parity
+    # harness's 20 steps on the card.
+    def comp(name):
+        out = {k: [r.get(name, 0) for r in v["launches"]]
+               for k, v in compositions.items()
+               if k.startswith(("tpcp_", "ppcp_"))}
+        if name == "adamw":
+            out["trajectory_parity"] = [
+                compositions["trajectory_parity"]["launches"]["adamw"]]
+        return out
+
     stream_launches = stream_training["longseq"]["launches"]
     dbias_launches = stream_training["vit_s_384"]["launches"][
         "attn_stream_bwd_dbias"]
@@ -6252,7 +6562,8 @@ def main() -> int:
                                              for k, v in dp_launches.items()},
                          tp_launches={k: [r["adamw"] for r in v]
                                       for k, v in tp_launches.items()},
-                         cp_launches=cp("adamw"), pp_launches=pp("adamw"))),
+                         cp_launches=cp("adamw"), pp_launches=pp("adamw"),
+                         comp_launches=comp("adamw"))),
         kernel_line("adamw_table", "vit_rpe_rope_tpu_torch/ops/csrc/adamw.cu",
                     "vit_rpe_rope_tpu/ops/fused_adamw.py:51",
                     graph_epochs["runs"][1]["launches"]["adamw_table"],
@@ -6294,7 +6605,8 @@ def main() -> int:
                     dict(fused_rel,
                          tp_launches=tp_stream("attn_stream_bwd_fused"),
                          cp_launches=cp("attn_stream_bwd_fused"),
-                         pp_launches=pp("attn_stream_bwd_fused"))),
+                         pp_launches=pp("attn_stream_bwd_fused"),
+                         comp_launches=comp("attn_stream_bwd_fused"))),
         kernel_line("attn_stream_bwd_fused_prologue",
                     csrc + "attn_stream_bwd_fused.cu", jax_fa + ":1736",
                     fused_launches["attn_stream_bwd_fused_prologue"],
@@ -6317,7 +6629,9 @@ def main() -> int:
                     jax_fa + ":1218",
                     bounded_training["launches"]["attn_stream_chunk_fwd"],
                     chunk_err, dict(chunk_times["none"],
-                                    cp_launches=cp("attn_stream_chunk_fwd"))),
+                                    cp_launches=cp("attn_stream_chunk_fwd"),
+                                    comp_launches=comp(
+                                        "attn_stream_chunk_fwd"))),
         kernel_line("block_fused", csrc + "block_fused.cu",
                     "vit_rpe_rope_tpu/ops/block_fused.py:74",
                     block_times["ViT-tiny/4 none"]["launches"], block_err,

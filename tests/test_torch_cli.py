@@ -248,9 +248,11 @@ def test_train_parser_matches_jax_parser():
     ["--pipeline_parallel", "2", "--sequence_parallel", "2"]])
 def test_train_cli_refuses_unported_flags(flag, capsys, tmp_path,
                                           monkeypatch):
-    """Unported features are refused as such, naming their ROADMAP Queue A
-    item: --sequence_parallel with --model_parallel or with
-    --pipeline_parallel (the compositions). Dropout, drop-path and --augment
+    """No feature is left unported. --sequence_parallel with
+    --model_parallel or with --pipeline_parallel (the compositions, ported:
+    tests/test_torch_tp_cp.py and tests/test_torch_pp_tp_cp.py train
+    through the CLI on gloo ranks) refuse --zero1, in the JAX
+    TrainConfig's words. Dropout, drop-path and --augment
     are ported (tests/test_torch_regularize.py); the bounded driver
     (--q_chunk) refuses them, as the JAX package's does. --zero1 is ported
     (tests/test_torch_data_parallel.py): it trains through the CLI.
@@ -339,15 +341,19 @@ def test_train_cli_refuses_unported_flags(flag, capsys, tmp_path,
         with np.load(tmp_path / "ckpts" / "mnist_absolute_last.npz") as z:
             assert int(z["__opt.0"]) == 2 and z["__opt.1"].ndim == 1
         return
+    if "--sequence_parallel" in flag and {"--model_parallel",
+                                          "--pipeline_parallel"} & set(flag):
+        with pytest.raises(ValueError, match=(
+                "zero1 is incompatible with pipeline parallelism > 1"
+                if "--pipeline_parallel" in flag else
+                "zero1 composes with sequence_parallel OR model_parallel, "
+                "not the 3-axis product")):
+            train.main(["--synthetic", *flag, "--zero1"])
+        return
     with pytest.raises(SystemExit) as exc:
         train.main(["--synthetic", *flag])
     assert exc.value.code == 2
-    bounded_refusal = "--q_chunk" in flag
-    err = capsys.readouterr().err
-    assert ("does not support" if bounded_refusal else "not ported") in err
-    if not bounded_refusal:
-        assert "ROADMAP Queue A" in err
-        assert "the compositions" in err
+    assert "does not support" in capsys.readouterr().err
 
 
 def test_train_cli_runs_flash_block_on_the_cpu(tmp_path, monkeypatch,

@@ -742,8 +742,10 @@ def test_make_mesh_seq_axis(monkeypatch):
     """On a process group of 6 ranks with seq_parallel 3, rank 5 is data
     rank 1 of 2 and seq rank 2 of 3, takes the second half of each batch,
     and its ring is its data row (ranks 3, 4, 5; next 3, previous 4); the
-    data width must divide the batch; seq_parallel must divide the world;
-    with model_parallel it raises, naming the compositions."""
+    data width must divide the batch; seq_parallel must divide the world.
+    With model_parallel 2 (TP x CP, tests/test_torch_tp_cp.py) rank 5 is
+    seq rank 2 and model rank 1 of the one data position, and its ring is
+    its model position's ranks 1, 3, 5 (next 1, previous 3)."""
     monkeypatch.setattr(distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(distributed, "world_size", lambda: 6)
     monkeypatch.setattr(distributed, "rank", lambda: 5)
@@ -765,8 +767,19 @@ def test_make_mesh_seq_axis(monkeypatch):
     with pytest.raises(ValueError, match="not divisible by model_parallel=1"
                        " × seq_parallel=4"):
         tmesh.make_mesh(seq_parallel=4)
-    with pytest.raises(NotImplementedError, match="the compositions"):
-        tmesh.make_mesh(seq_parallel=3, model_parallel=2)
+    made.clear()
+    mesh = tmesh.make_mesh(seq_parallel=3, model_parallel=2)
+    assert mesh.shape == {tmesh.DATA_AXIS: 1, tmesh.SEQ_AXIS: 3,
+                          tmesh.MODEL_AXIS: 2}
+    assert (mesh.rank, mesh.size, mesh.seq_rank, mesh.model_rank) == (
+        0, 1, 2, 1)
+    # data x seq per model position, the model rows, the rings
+    assert made == [[0, 2, 4], [1, 3, 5], [0, 1], [2, 3], [4, 5],
+                    [0, 2, 4], [1, 3, 5]]
+    ring = mesh.seq_ring
+    assert (ring.group, ring.rank, ring.size, ring.next, ring.prev) == (
+        7, 2, 3, 1, 3)
+    assert (mesh.data_group, mesh.model_group) == (2, 5)
 
 
 def test_ring_of_one_rank_makes_no_call(monkeypatch):

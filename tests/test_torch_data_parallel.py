@@ -468,9 +468,10 @@ def test_make_mesh_refuses_the_other_axes_by_name(kw, match):
     (tests/test_torch_context_parallel.py,
     tests/test_torch_pipeline_parallel.py): in one process seq_parallel 2
     or pipe_parallel 2 does not divide the world (the JAX make_mesh's
-    ValueError), and the compositions with a sequence axis (with a model
-    axis, or with a pipe axis) are refused, naming Queue A's
-    compositions. (`match` names the Queue A item that ported the axis.)"""
+    ValueError), and nor do the compositions with a sequence axis (with a
+    model axis, or with a pipe axis; ported: tests/test_torch_tp_cp.py,
+    tests/test_torch_pp_tp_cp.py). (`match` names the Queue A item that
+    ported the axis.)"""
     del match
     seq, pipe = kw.get("seq_parallel", 1), kw.get("pipe_parallel", 1)
     with pytest.raises(ValueError, match=f"device count 1 not divisible "
@@ -478,7 +479,10 @@ def test_make_mesh_refuses_the_other_axes_by_name(kw, match):
                        f"pipe_parallel={pipe}"):
         tmesh.make_mesh(**kw)
     other = dict(model_parallel=2) if seq > 1 else dict(seq_parallel=2)
-    with pytest.raises(NotImplementedError, match="the compositions"):
+    widths = {**dict(model_parallel=1, seq_parallel=1, pipe_parallel=1),
+              **other, **kw}
+    with pytest.raises(ValueError, match="device count 1 not divisible by "
+                       + " × ".join(f"{k}={v}" for k, v in widths.items())):
         tmesh.make_mesh(**other, **kw)
 
 

@@ -39,7 +39,8 @@ def test_port_modules_import_without_jax():
                  "quant", "serving", "utils.convert", "parallel.mesh",
                  "parallel.distributed", "parallel.tensor_parallel",
                  "parallel.context_parallel", "parallel.pipeline_parallel",
-                 "parallel.pp_tp"):
+                 "parallel.pp_tp", "parallel.tp_cp", "parallel.pp_tp_cp",
+                 "utils.trajectory_parity"):
         assert f"vit_rpe_rope_tpu_torch.{name}" in modules
     code = (
         "import importlib, re, sys\n"
@@ -56,7 +57,8 @@ def test_port_modules_import_without_jax():
 
 def test_port_sources_name_no_jax():
     sources = (list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-               + sorted((ROOT / "tests").glob("torch_*_worker.py")))
+               + sorted((ROOT / "tests").glob("torch_*_worker.py"))
+               + sorted((ROOT / "scripts").glob("torch_*.py")))
     for path in sources:
         for name in IMPORTS.findall(path.read_text()):
             assert name.split(".")[0] != "jax", (path, name)

@@ -626,8 +626,9 @@ def test_make_mesh_pipe_axis_follows_the_jax_layout(world, p, t):
 
 def test_make_mesh_pipe_axis_rules():
     """P x T must divide the world size (the JAX make_mesh's words), the
-    data width the batch; a pipe axis with a sequence axis is refused,
-    naming Queue A's compositions."""
+    data width the batch; so must P x R with a sequence axis (PP x CP,
+    ported: tests/test_torch_pp_tp_cp.py), which then takes the grid's
+    ranks: rank 1 of four is stage 0 and sequence rank 1."""
     with fake_group(4, 0):
         with pytest.raises(ValueError, match="device count 4 not divisible "
                            "by model_parallel=1 × seq_parallel=1 × "
@@ -635,8 +636,15 @@ def test_make_mesh_pipe_axis_rules():
             tmesh.make_mesh(pipe_parallel=3)
         with pytest.raises(ValueError, match="multiple of the data width 2"):
             tmesh.make_mesh(batch_size=3, pipe_parallel=2)
-    with pytest.raises(NotImplementedError, match="the compositions"):
-        tmesh.make_mesh(pipe_parallel=2, seq_parallel=2)
+    with fake_group(4, 0):
+        with pytest.raises(ValueError, match="device count 4 not divisible "
+                           "by model_parallel=1 × seq_parallel=3 × "
+                           "pipe_parallel=2"):
+            tmesh.make_mesh(pipe_parallel=2, seq_parallel=3)
+    with fake_group(4, 1):
+        mesh = tmesh.make_mesh(pipe_parallel=2, seq_parallel=2)
+        assert (mesh.pipe_rank, mesh.seq_rank) == (0, 1)
+    assert mesh.seq_ring.group == (0, 1) and mesh.pipe_chain.group == (1, 3)
 
 
 @pytest.mark.parametrize("pe", ["relative", "rope-mixed"])

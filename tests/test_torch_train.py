@@ -418,8 +418,8 @@ def test_fit_refuses_unported_fields(field, value, tmp_path, monkeypatch):
         # Ported (tests/test_torch_pipeline_parallel.py): fit on two gloo
         # ranks (tests/torch_pp_worker.py), one block a stage, four
         # microbatches a step; in one process (world size 1) P = 2 raises
-        # the JAX ValueError, and with sequence_parallel (the compositions)
-        # the port refuses it by name.
+        # the JAX ValueError, and so does P = 2 with sequence_parallel
+        # (PP x CP, ported: tests/test_torch_pp_tp_cp.py).
         torch_pp_worker.launch("fit_one", tmp_path, 2)
         ranks = [json.loads((tmp_path / f"fit_one_rank{r}.json").read_text())
                  for r in (0, 1)]
@@ -437,7 +437,9 @@ def test_fit_refuses_unported_fields(field, value, tmp_path, monkeypatch):
             loop.fit(ViTConfig(**cfg_kw()),
                      TrainConfig(dataset="mnist", pipeline_parallel=value),
                      device="cpu")
-        with pytest.raises(NotImplementedError, match="the compositions"):
+        with pytest.raises(ValueError, match="device count 1 not divisible "
+                           "by model_parallel=1 × seq_parallel=2 × "
+                           "pipe_parallel=2"):
             loop.fit(ViTConfig(**cfg_kw()),
                      TrainConfig(dataset="mnist", pipeline_parallel=value,
                                  sequence_parallel=2), device="cpu")
@@ -446,8 +448,8 @@ def test_fit_refuses_unported_fields(field, value, tmp_path, monkeypatch):
         # Ported (tests/test_torch_context_parallel.py): fit on two gloo
         # ranks (tests/torch_cp_worker.py), each block's attention a KV ring
         # over the two token shards; in one process (world size 1) R = 2
-        # raises the JAX ValueError, and with model_parallel (the
-        # compositions) the port refuses it by name.
+        # raises the JAX ValueError, and so does R = 2 with model_parallel
+        # (TP x CP, ported: tests/test_torch_tp_cp.py).
         torch_cp_worker.launch("cli", tmp_path, 2, "--synthetic",
                                "--sequence_parallel", "2", "--epochs", "1",
                                "--batch_size", "16", "--depth", "1",
@@ -465,7 +467,9 @@ def test_fit_refuses_unported_fields(field, value, tmp_path, monkeypatch):
             loop.fit(ViTConfig(**cfg_kw()),
                      TrainConfig(dataset="mnist", sequence_parallel=value),
                      device="cpu")
-        with pytest.raises(NotImplementedError, match="the compositions"):
+        with pytest.raises(ValueError, match="device count 1 not divisible "
+                           "by model_parallel=2 × seq_parallel=2 × "
+                           "pipe_parallel=1"):
             loop.fit(ViTConfig(**cfg_kw()),
                      TrainConfig(dataset="mnist", sequence_parallel=value,
                                  model_parallel=2), device="cpu")

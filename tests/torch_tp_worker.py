@@ -80,12 +80,13 @@ def free_port() -> int:
 
 
 def launch(mode: str, out: pathlib.Path, world: int, *args,
-           script: str = __file__) -> str:
+           script: str = __file__, during=None) -> str:
     """Run `world` ranks of this worker (or of `script`, a worker that
     calls this module's main) (torchrun's environment on a free localhost
     port, one intra-op thread each) in `out`; raise with their output if
     one fails or the launch outlasts LAUNCH_TIMEOUT. Returns the ranks'
-    output."""
+    output. during: None, or a callable this process runs while the ranks
+    run (work of the test's own that the ranks do not need)."""
     env = dict(os.environ, MASTER_ADDR="127.0.0.1",
                MASTER_PORT=str(free_port()), WORLD_SIZE=str(world),
                OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
@@ -93,6 +94,8 @@ def launch(mode: str, out: pathlib.Path, world: int, *args,
         [sys.executable, script, mode, str(out), *args], cwd=out, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
+        if during is not None:
+            during()
         log = proc.communicate(timeout=LAUNCH_TIMEOUT)[0]
     finally:
         proc.kill()

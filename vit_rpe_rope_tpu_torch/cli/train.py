@@ -15,9 +15,7 @@ recomputes each block in the backward (--remat_policy full, dots or
 softmax); --steps_per_dispatch k > 1 runs k steps per dispatch, one CUDA
 graph replay on the card (eagerly where the steps draw random numbers or
 under --debug_nans); --profile_dir writes a torch.profiler Chrome trace;
---debug_nans raises FloatingPointError at the first NaN. The extensions
-this package does not port yet (context parallelism combined with tensor
-or pipeline parallelism: the compositions) are refused when set.
+--debug_nans raises FloatingPointError at the first NaN.
 
 Data parallelism: launch one rank per device with torchrun, and each rank
 takes its share of every batch (the world size must divide --batch_size);
@@ -67,6 +65,23 @@ refused with it, as in the JAX package:
   python -m torch.distributed.run --nproc_per_node 4 \\
       -m vit_rpe_rope_tpu_torch.cli.train --dataset cifar10 --synthetic \\
       --epochs 1 --pipeline_parallel 2 --model_parallel 2 --dist_backend gloo
+
+The compositions with the sequence axis take no flag of their own:
+--sequence_parallel R with --model_parallel T runs TP x CP on a data x seq
+x model grid of D = world / (R·T) data ranks, with --pipeline_parallel P
+PP x CP (data x pipe x seq), and with both PP x TP x CP (data x pipe x seq
+x model). --zero1 is refused with TP x CP and with a pipe axis, dropout
+with any of them, --grad_accum with a pipe axis, as in the JAX package:
+
+  python -m torch.distributed.run --nproc_per_node 4 \\
+      -m vit_rpe_rope_tpu_torch.cli.train --dataset cifar10 --synthetic \\
+      --epochs 1 --sequence_parallel 2 --model_parallel 2 \\
+      --dist_backend gloo --device cpu
+
+  python -m torch.distributed.run --nproc_per_node 8 \\
+      -m vit_rpe_rope_tpu_torch.cli.train --dataset cifar10 --synthetic \\
+      --epochs 1 --pipeline_parallel 2 --sequence_parallel 2 \\
+      --model_parallel 2 --dist_backend gloo --device cpu
 """
 
 from __future__ import annotations
@@ -114,8 +129,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--depth", type=int, default=6)
     parser.add_argument("--num_heads", type=int, default=6)
 
-    # ---- Extensions (not in the reference CLI); the ones this package
-    # does not port yet are refused in main() when set ----
+    # ---- Extensions (not in the reference CLI) ----
     ext = parser.add_argument_group("extensions")
     ext.add_argument("--data_dir", type=str, default="./data",
                      help="[extension] dataset root directory")
@@ -234,28 +248,9 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def reject_unported(parser: argparse.ArgumentParser, asked: dict) -> None:
-    """argparse error naming every {flag: (was_asked_for, ROADMAP Queue A
-    item)} that is asked for: those features are not ported yet and are
-    never silently ignored."""
-    flags = [(flag, item) for flag, (on, item) in asked.items() if on]
-    if flags:
-        items = ", ".join(dict.fromkeys(item for _, item in flags))
-        parser.error(f"{', '.join(flag for flag, _ in flags)}: not ported "
-                     f"to the PyTorch package yet; see ROADMAP Queue A, "
-                     f"{items}")
-
-
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    seq = args.sequence_parallel > 1
-    reject_unported(parser, {
-        "--sequence_parallel with --model_parallel": (
-            seq and args.model_parallel > 1, "the compositions"),
-        "--pipeline_parallel with --sequence_parallel": (
-            seq and args.pipeline_parallel > 1, "the compositions"),
-    })
     regularised = [flag for flag, on in {
         "--drop_rate": args.drop_rate > 0,
         "--attn_drop_rate": args.attn_drop_rate > 0,

@@ -41,11 +41,14 @@ Two rings, chosen by `ring_dispatch`:
     "reference") and of a PE without a generator.
 
 `apply_cp` is models.vit.apply on this rank's token shard: the embedding
-runs redundantly on every rank (O(N·E)), each rank slices its tokens, the
-blocks run the ring, the head reads the cls row on shard 0 and an all-reduce
-re-replicates the logits over the ring (Megatron's g: its backward is the
-identity, so the gradients of the embedding, the blocks and the head come
-out partial over the ring, exactly one count per token).
+runs redundantly on every rank (O(N·E)), each rank slices its tokens
+(`shard_inputs`), the blocks run the ring (`_cp_block`), the head reads the
+cls row on shard 0 and an all-reduce re-replicates the logits over the
+ring (`ring_logits`; Megatron's g: its backward is the identity, so the
+gradients of the embedding, the blocks and the head come out partial over
+the ring, exactly one count per token). Given a model row, the same block
+and forward are the TP x CP ones (parallel/tp_cp.py): each rank runs its
+heads' share of the ring, with f and g over the row.
 """
 
 from __future__ import annotations
@@ -277,18 +280,28 @@ def ring_dispatch(cfg: ViTConfig, ring, n_valid, bias_kind, bias_arg,
 
 
 def _cp_block(bp: dict, x, cfg: ViTConfig, bias_arg, local_freqs, ring,
-              n_valid, bias_kind, bias_grid, generator=None):
+              n_valid, bias_kind, bias_grid, group=None, generator=None):
     """Pre-LN block on this rank's token shard x [B, Nl, E] (un-prefixed
     block params): every op is per token except the attention, which runs
     the ring. local_freqs: the shard's rows of the rope (cos, sin) tables,
-    or None. generator: models.vit.remat_block_fn's keyword; always None
-    (no dropout under context parallelism)."""
+    or None. group: a tensor-parallel rank's model row (the JAX
+    _tp_cp_block), or None: the block params are then the rank's shard
+    (qkv [3, H/T, Dh, E], proj and fc2 input columns, fc1 rows;
+    parallel/tensor_parallel.py) and bias_arg / local_freqs its heads',
+    with Megatron's f where each half takes the replicated activation and
+    g where its partial sums leave it (models.vit._row_parallel); without
+    one, f and g are the identity and the block is the one-device one.
+    generator: models.vit.remat_block_fn's argument; always None (no
+    dropout under context parallelism)."""
     del generator
     eps = cfg.layer_norm_eps
     h = layer_norm(x, bp["norm1.weight"], bp["norm1.bias"], eps)
+    h = distributed.identity_fwd_psum_bwd(h, group)
     bsz, nl, e = h.shape
-    nh, dh = cfg.num_heads, cfg.head_dim
-    qkv = linear(h, bp["attn.qkv.weight"])
+    dh = cfg.head_dim
+    qkv_w = bp["attn.qkv.weight"]
+    nh = qkv_w.numel() // (3 * dh * e)  # H, or a tensor-parallel rank's H/T
+    qkv = linear(h, qkv_w.reshape(-1, e))
     q, k, v = qkv.view(bsz, nl, 3, nh, dh).permute(2, 0, 3, 1, 4).unbind(0)
     if local_freqs is not None:  # identity rows cover cls and padding
         cos, sin = local_freqs
@@ -296,24 +309,29 @@ def _cp_block(bp: dict, x, cfg: ViTConfig, bias_arg, local_freqs, ring,
         k = rotate_half_split(k, cos[None], sin[None])
     out = ring_dispatch(cfg, ring, n_valid, bias_kind, bias_arg, bias_grid,
                         q, k, v, dh ** -0.5)
-    out = out.transpose(1, 2).reshape(bsz, nl, e)
-    x = x + linear(out, bp["attn.proj.weight"], bp["attn.proj.bias"])
+    out = out.transpose(1, 2).reshape(bsz, nl, nh * dh)
+    x = x + vit._row_parallel(out, bp["attn.proj.weight"],
+                              bp["attn.proj.bias"], group)
     h = layer_norm(x, bp["norm2.weight"], bp["norm2.bias"], eps)
+    h = distributed.identity_fwd_psum_bwd(h, group)
     h = linear(h, bp["mlp.fc1.weight"], bp["mlp.fc1.bias"])
     h = F.gelu(h, approximate="none")
-    return x + linear(h, bp["mlp.fc2.weight"], bp["mlp.fc2.bias"])
+    return x + vit._row_parallel(h, bp["mlp.fc2.weight"], bp["mlp.fc2.bias"],
+                                 group)
 
 
-def apply_cp(params: dict, images, cfg: ViTConfig, mesh):
-    """The context-parallel forward: models.vit.apply's contract on the
-    ranks of a data row of `mesh` (parallel.mesh.Mesh with a sequence axis;
-    None or one without it: a ring of one rank). Params are replicated,
-    every rank of the row takes the same images and returns the same
-    logits [B, num_classes] float32. Dropout is refused (as the JAX fit
-    refuses it under context parallelism)."""
-    if cfg.has_dropout:
-        raise ValueError("context parallelism does not support dropout")
-    ring = getattr(mesh, "seq_ring", None)
+def shard_inputs(params: dict, images, cfg: ViTConfig, ring, heads=None):
+    """What the blocks of a context-parallel forward take on this rank of
+    `ring` (None: a ring of one rank): (x [B, Nl, E], its token shard of
+    the embedding; pe, the blocks' PE arguments (bias_arg, local_freqs,
+    bias_kind, bias_grid); n, the global token count). The embedding runs
+    on every rank (O(N·E)); each rank keeps its rows of the padded
+    sequence and of the rope tables. heads: None, or a tensor-parallel
+    rank's (model_rank, local_h): the per-head PE arguments (the generated
+    bias' coefficients / table, a materialized bias, rope-mixed's tables)
+    are cut to its heads [model_rank·local_h, (model_rank+1)·local_h), as
+    the JAX _tp_cp_block cuts them (their gradients then come out partial
+    over the model axis)."""
     my, r_total = distributed.ring_position(ring)
     pe_mod = pe_registry.get(cfg.pos_encoding)
     dtype = vit._DTYPES[cfg.compute_dtype]
@@ -343,6 +361,8 @@ def apply_cp(params: dict, images, cfg: ViTConfig, mesh):
             bias_arg = full[:, rows]
     elif pe_mod.KIND == PE_KIND_QK_ROTATION:
         freqs_cis = pe_mod.freqs_cis(params, cfg, device=x.device)
+    if heads is not None:
+        bias_arg, freqs_cis = vit._local_pe(bias_arg, freqs_cis, *heads)
 
     x = fa._pad_seq(x, n_pad, 1)[:, rows]
     local_freqs = None
@@ -350,18 +370,56 @@ def apply_cp(params: dict, images, cfg: ViTConfig, mesh):
         cos, sin = fa._prep_freqs(freqs_cis, cfg.num_heads, n_pad,
                                   torch.float32, broadcast=False)
         local_freqs = (cos[:, rows], sin[:, rows])
+    return x, (bias_arg, local_freqs, bias_kind, bias_grid), n
 
+
+def ring_logits(params: dict, x, cfg: ViTConfig, ring):
+    """[B, num_classes] float32 logits of the blocks' output token shard x,
+    the same on every rank of `ring`: the final norm and the classifier on
+    the cls token (global token 0 = local row 0 of shard 0); the other
+    shards add zeros to the all-reduce that re-replicates the logits
+    (Megatron's g: its backward is the identity, so the gradients of the
+    embedding, the blocks and the head come out partial over the ring,
+    exactly one count per token)."""
+    my, _ = distributed.ring_position(ring)
+    x = layer_norm(x, params["norm.weight"], params["norm.bias"],
+                   cfg.layer_norm_eps)
+    logits = linear(x[:, 0], params["head.weight"], params["head.bias"])
+    logits = logits * float(my == 0)
+    group = ring.group if ring is not None and ring.size > 1 else None
+    return distributed.psum_identity_bwd(logits, group).float()
+
+
+def model_row(mesh, cfg: ViTConfig):
+    """(group, heads) of this rank's model row of `mesh`, which _cp_block
+    and shard_inputs take: its model group and (model_rank, H/T), or
+    (None, None) without a model axis (mesh None, or T = 1)."""
+    if mesh is None or mesh.model_parallel == 1:
+        return None, None
+    return mesh.model_group, (mesh.model_rank,
+                              cfg.num_heads // mesh.model_parallel)
+
+
+def apply_cp(params: dict, images, cfg: ViTConfig, mesh):
+    """The context-parallel forward: models.vit.apply's contract on the
+    ranks of a ring of `mesh` (parallel.mesh.Mesh with a sequence axis;
+    None or one without it: a ring of one rank). Params are replicated,
+    every rank of the ring takes the same images and returns the same
+    logits [B, num_classes] float32. With a model axis too (the TP x CP
+    forward, parallel/tp_cp.py) params are this rank's tensor-parallel
+    shard, the PE arguments its heads' and each block runs f and g over
+    its model row (model_row, _cp_block). Dropout is refused (as the JAX
+    fit refuses it under context parallelism)."""
+    if cfg.has_dropout:
+        raise ValueError("context parallelism does not support dropout")
+    ring = getattr(mesh, "seq_ring", None)
+    group, heads = model_row(mesh, cfg)
+    x, (bias_arg, local_freqs, bias_kind, bias_grid), n = shard_inputs(
+        params, images, cfg, ring, heads)
     block_fn = vit.remat_block_fn(cfg, _cp_block)
     for i in range(cfg.depth):
         bp = {name: params[f"blocks.{i}.{name}"]
               for name in vit.BLOCK_PARAM_NAMES}
         x = block_fn(bp, x, cfg, bias_arg, local_freqs, ring, n, bias_kind,
-                     bias_grid)
-    x = layer_norm(x, params["norm.weight"], params["norm.bias"],
-                   cfg.layer_norm_eps)
-    # cls = global token 0 = local row 0 of shard 0; the other shards add
-    # zeros to the sum that re-replicates the logits.
-    logits = linear(x[:, 0], params["head.weight"], params["head.bias"])
-    logits = logits * float(my == 0)
-    group = ring.group if ring is not None and ring.size > 1 else None
-    return distributed.psum_identity_bwd(logits, group).float()
+                     bias_grid, group)
+    return ring_logits(params, x, cfg, ring)

@@ -262,39 +262,64 @@ def _pack_pe(bias, freqs_cis) -> tuple:
     return tensors, rebuild
 
 
+def run_stages(params: dict, x_emb, mesh, n_micro: int, bias, freqs_cis,
+               block):
+    """This rank's stage of the GPipe schedule over the whole batch's
+    embedding x_emb [B, N, E] (pipeline_schedule on the mesh's stage
+    chain; None, or a mesh without a pipe axis: one stage): its blocks
+    (params "blocks.X" stacked [depth/P, ...]) applied in turn by
+    block(block_params, x, bias, freqs_cis), one block on one microbatch,
+    with the PE arguments bias (a tensor, a generated-bias marker or None)
+    and freqs_cis (a tuple of tensors or None) as leaves of the schedule's
+    graph. Returns the last stage's outputs (zeros on the other stages)."""
+    chain = mesh.pipe_chain if has_pipe_axis(mesh) else None
+    names = vit.BLOCK_PARAM_NAMES
+    blocks = [params[BLOCKS + name] for name in names]
+    pe, rebuild = _pack_pe(bias, freqs_cis)
+
+    def stage_fn(x, leaves):
+        stacked, (b, f) = leaves[:len(names)], rebuild(leaves[len(names):])
+        for j in range(stacked[0].shape[0]):
+            x = block({name: v[j] for name, v in zip(names, stacked)}, x, b,
+                      f)
+        return x
+
+    return pipeline_schedule(x_emb, stage_fn, blocks + pe, chain, n_micro)
+
+
+def last_stage_logits(logits, mesh):
+    """logits as every stage returns them: masked to the last stage's and
+    re-replicated over the stage chain by Megatron's g (its backward is
+    the identity: the head's gradient comes from the last stage alone)."""
+    chain = mesh.pipe_chain if has_pipe_axis(mesh) else None
+    s, p = distributed.chain_position(chain)
+    if p > 1:
+        logits = logits * float(s == p - 1)
+        logits = distributed.psum_identity_bwd(logits, chain.group)
+    return logits
+
+
 def apply_staged(params: dict, images, cfg: ViTConfig, mesh, n_micro: int,
                  bias, freqs_cis, impl: str, group=None):
     """The pipelined forward on this rank's local params (block params
     stacked [depth/P, ...]) with the blocks' PE arguments given (already
     cut to the rank's heads under a model axis, whose group f and g run
     over): every stage embeds the whole batch, the schedule runs the
-    stage's blocks (models.vit._block_body through remat_block_fn), the
-    head runs on the collected outputs, and the logits, masked to the last
-    stage, are re-replicated over the stage chain. Returns [B,
-    num_classes] float32 logits, the same on every stage."""
+    stage's blocks (models.vit._block_body through remat_block_fn;
+    run_stages), the head runs on the collected outputs, and the logits,
+    masked to the last stage, are re-replicated over the stage chain
+    (last_stage_logits). Returns [B, num_classes] float32 logits, the
+    same on every stage."""
     if cfg.has_dropout:
         raise ValueError("pipeline parallelism does not support dropout")
-    chain = mesh.pipe_chain if has_pipe_axis(mesh) else None
-    s, p = distributed.chain_position(chain)
     x_emb = vit.embed(params, images, cfg)
-    names = vit.BLOCK_PARAM_NAMES
-    blocks = [params[BLOCKS + name] for name in names]
-    pe, rebuild = _pack_pe(bias, freqs_cis)
     block_fn = vit.remat_block_fn(cfg, vit._block_body)
 
-    def stage_fn(x, leaves):
-        stacked, (b, f) = leaves[:len(names)], rebuild(leaves[len(names):])
-        for j in range(stacked[0].shape[0]):
-            block = {name: v[j] for name, v in zip(names, stacked)}
-            x = block_fn(block, x, cfg, b, f, impl, group)
-        return x
+    def block(block_params, x, b, f):
+        return block_fn(block_params, x, cfg, b, f, impl, group)
 
-    x = pipeline_schedule(x_emb, stage_fn, blocks + pe, chain, n_micro)
-    logits = vit.head(params, x, cfg)
-    if p > 1:
-        logits = logits * float(s == p - 1)
-        logits = distributed.psum_identity_bwd(logits, chain.group)
-    return logits
+    x = run_stages(params, x_emb, mesh, n_micro, bias, freqs_cis, block)
+    return last_stage_logits(vit.head(params, x, cfg), mesh)
 
 
 def apply_pp(params: dict, images, cfg: ViTConfig, mesh, n_micro: int):

@@ -1,7 +1,7 @@
 """Host-side training loop on one device, or on each rank of a process
-group (data, tensor, context and pipeline parallelism, ZeRO-1) — the
-data-, model-, sequence- and pipe-axis branches of the JAX package's
-train/loop.py.
+group (data, tensor, context and pipeline parallelism, their compositions,
+ZeRO-1) — the data-, model-, sequence- and pipe-axis branches of the JAX
+package's train/loop.py.
 
 Observable behavior is the reference orchestrator's: a timestamped CSV
 {log_dir}/{dataset}_{pos_encoding}_{%Y%m%d_%H%M%S}.csv with header
@@ -53,22 +53,6 @@ from vit_rpe_rope_tpu_torch.utils.flatten import Flattener
 
 POSTFIX_EVERY = 50  # progress refresh period in steps (forces a host sync)
 N_OPT_LEAVES = 4    # the JAX optimizer state's leaves on disk
-
-
-def _refuse_unported(tcfg: TrainConfig) -> None:
-    seq = tcfg.sequence_parallel > 1
-    asked = {
-        "sequence_parallel > 1 with model_parallel > 1": (
-            seq and tcfg.model_parallel > 1, "the compositions"),
-        "sequence_parallel > 1 with pipeline_parallel > 1": (
-            seq and tcfg.pipeline_parallel > 1, "the compositions"),
-    }
-    fields = [(name, item) for name, (on, item) in asked.items() if on]
-    if fields:
-        raise NotImplementedError(
-            f"TrainConfig {', '.join(name for name, _ in fields)}: not "
-            f"ported to the PyTorch package yet; see ROADMAP Queue A, "
-            f"{', '.join(dict.fromkeys(item for _, item in fields))}")
 
 
 def _layout(mesh):
@@ -317,8 +301,23 @@ def fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool = True,
     words: P dividing depth, M dividing the per-rank batch, dropout,
     grad_accum > 1; configs.TrainConfig refuses --zero1. Evaluation, the
     checkpoints and `_last.npz` see the params and moments gathered into
-    the reference layout, as under tensor parallelism."""
-    _refuse_unported(tcfg)
+    the reference layout, as under tensor parallelism.
+
+    The compositions with the sequence axis (the JAX fit's TP x CP and
+    PP x TP x CP branches, use_tpcp and use_pptpcp): sequence_parallel R
+    > 1 with model_parallel T > 1 needs D·R·T ranks on a D x R x T mesh
+    (parallel/tp_cp.py: each rank trains its token shard of its heads and
+    MLP rows); with pipeline_parallel P > 1 (and T >= 1), D·P·R·T ranks on
+    a D x P x R x T mesh (parallel/pp_tp_cp.py: each stage's blocks run
+    the ring, over T model ranks when T > 1). The params and moments are
+    the rank's shards as under TP and PP; evaluation runs the composed
+    forward on them (train_step.make_eval_step), while the CSV, the
+    checkpoints and `_last.npz` see them gathered into the reference
+    layout, so a run resumes at another world size. The JAX refusals, in
+    its words: dropout; grad_accum > 1 with a pipe axis; configs.
+    TrainConfig refuses --zero1 with TP x CP and with a pipe axis, and
+    q_chunk > 0 with a model or a pipe axis (so the bounded driver only
+    ever runs on a data x seq mesh)."""
     sanitizer = nan_check.debug_nans() if tcfg.debug_nans \
         else contextlib.nullcontext()
     with sanitizer:
@@ -440,9 +439,14 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
             train_fn = ts.make_train_step(cfg, opt_update, preprocess,
                                           accum=accum, seed=tcfg.seed,
                                           mesh=mesh, n_micro=n_micro)
-        eval_fn = ts.make_eval_step(cfg, preprocess, mesh=mesh)
+        eval_fn = ts.make_eval_step(cfg, preprocess, mesh=mesh,
+                                    n_micro=n_micro)
     eval_idx = ts.epoch_indices(len(bundle.test_y), tcfg.batch_size,
                                 False).to(device)
+    # Under a sequence axis the evaluation runs the train step's forward on
+    # the rank's train params (make_eval_step); elsewhere it takes the
+    # params gathered into the reference layout.
+    seq_eval = mesh is not None and mesh.seq_parallel > 1
 
     ckpt_path = None
     history = []
@@ -465,8 +469,8 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
             del ep_x, ep_y
             params = layout.gather_reference(train_params, cfg, mesh)
             _, test_loss, test_acc, _ = _run_epoch(
-                eval_fn, (params, None), test_x, test_y, eval_idx,
-                "Testing", False, verbose=verbose)
+                eval_fn, (train_params if seq_eval else params, None),
+                test_x, test_y, eval_idx, "Testing", False, verbose=verbose)
 
             host_params = ({k: v.detach().cpu() for k, v in params.items()}
                            if lead else None)

@@ -53,7 +53,7 @@ from vit_rpe_rope_tpu_torch.ops import launches
 from vit_rpe_rope_tpu_torch.ops.fused_adamw import hyper_rows, make_fused_adamw
 from vit_rpe_rope_tpu_torch.parallel import context_parallel, distributed
 from vit_rpe_rope_tpu_torch.parallel import pipeline_parallel, pp_tp
-from vit_rpe_rope_tpu_torch.parallel import tensor_parallel
+from vit_rpe_rope_tpu_torch.parallel import pp_tp_cp, tensor_parallel
 from vit_rpe_rope_tpu_torch.utils import nan_check
 from vit_rpe_rope_tpu_torch.utils.flatten import Flattener
 
@@ -422,24 +422,25 @@ def _reduce_over_mesh(params, cfg, mesh, grads, loss, correct, divisor):
     """The gradient sums of one step over a process group's mesh, then the
     division by `divisor` (None: none): the JAX reduce_grads.
 
-    Over the data axis (skipped for a model axis of one data row): the
-    gradients, the loss and the correct count go into ONE flat vector
-    (flat_layout's order of the rank's params, then the two metrics),
-    summed over the rank's model column by one all_reduce. Under context
-    parallelism that sum runs over the whole group (every rank's gradients
-    are partial over the ring), and the metrics, which every rank of a ring
-    holds alike, count on its first rank only (_ring_metrics). Over the model
-    axis: the per-head PE params' gradients
-    (tensor_parallel.model_sync_keys) are summed over the rank's data row
-    by one small all_reduce; the sharded params' gradients are local, the
-    replicated ones' identical on every model rank. Returns (grads list in
-    params' order, loss, correct)."""
+    Over the data and sequence axes (skipped for a model axis of one data
+    row and no sequence axis): the gradients, the loss and the correct
+    count go into ONE flat vector (flat_layout's order of the rank's
+    params, then the two metrics), summed over Mesh.data_group (the rank's
+    model column; the whole group under context parallelism alone) by one
+    all_reduce. Under a sequence axis every rank's gradients are partial
+    over the ring, and the metrics, which every rank of a ring holds
+    alike, count on its first rank only (_ring_metrics). Over the model
+    axis (tensor parallelism, and TP x CP): the per-head PE params'
+    gradients (tensor_parallel.model_sync_keys) are summed over the rank's
+    model row by one small all_reduce; the sharded params' gradients are
+    local, the replicated ones' identical on every model rank. Returns
+    (grads list in params' order, loss, correct)."""
     if pipeline_parallel.has_pipe_axis(mesh):
         return _reduce_over_pipe(params, cfg, mesh, grads, loss, correct,
                                  divisor)
     by_key = dict(zip(params, grads))
     flat = layout = None
-    if mesh.model_parallel == 1 or mesh.size > 1:
+    if mesh.model_parallel == 1 or mesh.size * mesh.seq_parallel > 1:
         layout = flat_layout(params, cfg)
         flat = torch.cat([by_key[k].reshape(-1) for k in layout.keys]
                          + [_ring_metrics(mesh, torch.stack([loss,
@@ -466,23 +467,25 @@ def _reduce_over_mesh(params, cfg, mesh, grads, loss, correct, divisor):
 
 def _reduce_over_pipe(params, cfg, mesh, grads, loss, correct, divisor):
     """_reduce_over_mesh on a mesh with a pipe axis (the JAX
-    make_pp_train_step's and make_pp_tp_train_step's reduce_grads), in
-    three all_reduces, each of one flat vector in params' order: the block
-    params' gradients (local to the rank's stage and model shard) with the
-    loss and the correct count over the data axis (Mesh.data_group: every
+    make_pp_train_step's, make_pp_tp_train_step's and
+    make_pp_tp_cp_train_step's reduce_grads), in three all_reduces, each
+    of one flat vector in params' order: the block params' gradients
+    (local to the rank's stage and model shard) with the loss and the
+    correct count over the data and sequence axes (Mesh.data_group: every
     stage holds the same logits, so the data ranks of one stage count each
-    example once); the replicated params' (partial per stage) over the
-    stages and the data axis (Mesh.replica_group); under a model axis the
-    per-head PE params' (tensor_parallel.model_sync_keys, partial over the
-    stages and the model axis too) over every rank. Every rank of a
-    group ends with the same sums."""
+    example once, and under a sequence axis the ring's first rank alone,
+    _ring_metrics); the replicated params' (partial per stage) over the
+    stages, the data and the sequence axes (Mesh.replica_group); under a
+    model axis the per-head PE params' (tensor_parallel.model_sync_keys,
+    partial over the stages and the model axis too) over every rank.
+    Every rank of a group ends with the same sums."""
     by_key = dict(zip(params, grads))
     sync = (tensor_parallel.model_sync_keys(params, cfg)
             if mesh.model_parallel > 1 else [])
     blocks = [k for k in params if k.startswith(pipeline_parallel.BLOCKS)]
     rest = [k for k in params
             if not k.startswith(pipeline_parallel.BLOCKS) and k not in sync]
-    metrics = torch.stack([loss, correct])
+    metrics = _ring_metrics(mesh, torch.stack([loss, correct]))
     for keys, group, extra in ((blocks, mesh.data_group, metrics),
                                (rest, mesh.replica_group, None),
                                (sync, None, None)):
@@ -515,8 +518,10 @@ def _ring_metrics(mesh, metrics):
 
 def _cp_forward(mesh):
     """The forward over `mesh`'s sequence axis: this rank's token shard
-    through parallel.context_parallel.apply_cp (no dropout under context
+    through parallel.context_parallel.apply_cp, with a model axis too its
+    heads' share (the TP x CP forward; no dropout under context
     parallelism)."""
+
     def apply_cp(params, images, cfg, generator=None):
         del generator
         return context_parallel.apply_cp(params, images, cfg, mesh)
@@ -527,10 +532,15 @@ def _cp_forward(mesh):
 def _pp_forward(mesh, n_micro: int):
     """The forward over `mesh`'s pipe axis: this rank's stage of the GPipe
     schedule at n_micro microbatches (0: the stage count), with the heads
-    of its model shard under a model axis (no dropout under pipeline
+    of its model shard under a model axis and the ring over its token
+    shard under a sequence axis (no dropout under pipeline
     parallelism)."""
-    fwd = (pp_tp.apply_pp_tp if mesh.model_parallel > 1
-           else pipeline_parallel.apply_pp)
+    if mesh.seq_parallel > 1:
+        fwd = pp_tp_cp.apply_pp_tp_cp
+    elif mesh.model_parallel > 1:
+        fwd = pp_tp.apply_pp_tp
+    else:
+        fwd = pipeline_parallel.apply_pp
     n_micro = n_micro or mesh.pipe_parallel
 
     def apply_pp(params, images, cfg, generator=None):
@@ -542,10 +552,11 @@ def _pp_forward(mesh, n_micro: int):
 
 def _mesh_forward(mesh, n_micro: int = 0):
     """(apply_fn, model_rank) of a train step over `mesh`: the PP forward
-    (_pp_forward) and None over a pipe axis; the CP forward (_cp_forward)
-    and None over a sequence axis; the TP forward and this rank's model
-    position over a model axis; or (None, None) without any (models.vit.
-    apply, two generators a row)."""
+    (_pp_forward, with the ring under a sequence axis) and None over a
+    pipe axis; the CP or TP x CP forward (_cp_forward) and None over a
+    sequence axis; the TP forward and this rank's model position over a
+    model axis; or (None, None) without any (models.vit.apply, two
+    generators a row)."""
     if pipeline_parallel.has_pipe_axis(mesh):
         return _pp_forward(mesh, n_micro), None
     if mesh is not None and mesh.seq_parallel > 1:
@@ -592,8 +603,14 @@ def make_train_step(cfg: ViTConfig, update, preprocess, accum: int = 1,
     params are the rank's stage (and model shard) of the depth-stacked
     layout (parallel.pipeline_parallel.shard_reference), the forward is
     its GPipe schedule at n_micro microbatches (0: the stage count), and
-    the gradients are summed as _reduce_over_pipe says. None: one device,
-    no collective."""
+    the gradients are summed as _reduce_over_pipe says. With a sequence
+    and a model axis (the JAX make_tp_cp_train_step) params are the
+    rank's tensor-parallel shard, the forward is context_parallel.apply_cp
+    on its token shard and heads, and the gradients are summed over the
+    data and sequence axes, the per-head PE params' over the model axis
+    too; with a pipe and a sequence axis (make_pp_tp_cp_train_step) the
+    forward is parallel.pp_tp_cp.apply_pp_tp_cp. None: one device, no
+    collective."""
     dp = mesh is not None and mesh.distributed
     apply_fn, model_rank = _mesh_forward(mesh, n_micro)
 
@@ -804,7 +821,7 @@ def _axes(mesh) -> str:
             else ", ".join(names[:-1]) + " and " + names[-1])
 
 
-def make_eval_step(cfg: ViTConfig, preprocess, mesh=None):
+def make_eval_step(cfg: ViTConfig, preprocess, mesh=None, n_micro: int = 0):
     """Returns eval_step(params, row, data_x, data_y, epoch_idx) -> metrics
     [loss, correct, count] of that index row (a fully padded row reports
     count 0 and loss 0). mesh: a process group's mesh: each data rank
@@ -814,11 +831,16 @@ def make_eval_step(cfg: ViTConfig, preprocess, mesh=None):
     (gathered) params, which every model rank evaluates alike, and so under
     pipeline parallelism does every stage (the sums over Mesh.data_group
     count each data rank once). Under context parallelism every rank of a
-    ring evaluates its token shard (context_parallel.apply_cp, the JAX
-    eval step's apply_fn) and the sums run over the whole group, each
-    ring's metrics counted once."""
+    ring evaluates its token shard with the train step's forward
+    (_mesh_forward: context_parallel.apply_cp, the JAX eval step's
+    apply_fn; under the compositions the composed forward, n_micro
+    microbatches under a pipe axis) on the rank's train params (the
+    replicated params themselves under context parallelism alone): the
+    sums run over Mesh.data_group (the whole group without a model or pipe
+    axis), each ring's metrics counted once."""
     dp = mesh is not None and mesh.distributed
-    apply_fn = _cp_forward(mesh) if dp and mesh.seq_parallel > 1 else None
+    apply_fn = (_mesh_forward(mesh, n_micro)[0]
+                if dp and mesh.seq_parallel > 1 else None)
 
     def eval_step(params, row, data_x, data_y, epoch_idx):
         with torch.no_grad():
