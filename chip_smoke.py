@@ -38,9 +38,11 @@ exits nonzero without a card, or when any phase fails. Phases:
    device table anew;
 8. training at full width through the train CLI (ViT-tiny/4 CIFAR
    defaults, synthetic CIFAR-10, one epoch) in rope-mixed and relative,
-   counting every kernel's launches (every dense one on the resident
-   route); the best checkpoint served by the Predictor reproduces the CSV's
-   test accuracy;
+   at the CLI's auto steps per dispatch (25 of the 100 steps and 20
+   evaluation rows a CUDA-graph replay, after one warm-up step and one
+   warm-up forward), counting every kernel's launches (every dense one on
+   the resident route); the best checkpoint served by the Predictor
+   reproduces the CSV's test accuracy;
 9. five train steps on the kernel path against the plain path (unfused
    attention + the AdamW twin) from one init on the same batches;
 10. times: a ViT-S/16@224 rope-mixed f32 train step at batch 64 with a
@@ -88,8 +90,11 @@ exits nonzero without a card, or when any phase fails. Phases:
    and in relative (on STREAM_EPOCH_TRAIN examples) and in rope-axial (the
    last two through the one-pass backward; rope-axial must learn, relative
    stays at chance on this task on either path) and ViT-S/16@384 (at depth
-   1), counting every kernel's
-   launches, the best checkpoint served by the Predictor;
+   1), each at the CLI's auto k (32 steps and 32 evaluation rows a CUDA
+   graph), counting every kernel's launches, the best checkpoint served
+   by the Predictor; the rope-mixed and relative epochs also at
+   --steps_per_dispatch 1, their CSV rows equal to the graphed ones', and
+   each epoch's img/s, capture seconds and peak device memory printed;
 14. times: each streaming kernel (the forward's wrapper by CUDA events,
    its kernel and prologue and the backward kernels by the profiler's
    device time), its twin, its bound and SDPA as the yardstick (its
@@ -148,8 +153,9 @@ exits nonzero without a card, or when any phase fails. Phases:
 17. regularised training and the visualizers: the ViT-tiny/4 train CLI at
    its defaults (rope-mixed) with --drop_rate 0.1 --drop_path_rate 0.1
    --augment, twice with seed 0 (the same CSV row) and once with seed 1
-   (another), each launching the attention kernels and AdamW exactly as
-   phase 8's unregularised epoch, its epoch img/s beside that one's; then
+   (another), each at the auto k with its draws inside the CUDA graph,
+   launching the attention kernels and AdamW exactly as phase 8's
+   unregularised epoch, its epoch img/s beside that one's; then
    with --attn_drop_rate 0.1 too (train steps on the unfused attention,
    evaluation on attn_fwd); both visualizer CLIs in a scratch directory
    whose checkpoints/ holds the regularised checkpoint and phase 8's
@@ -160,10 +166,13 @@ exits nonzero without a card, or when any phase fails. Phases:
    through the Predictor against its .npz.
 18. the k-step driver, remat, --debug_nans, --profile_dir and the C++
    decoders: (a) the ViT-tiny/4 train CLI at its defaults (rope-mixed, 100
-   steps of 128) with --steps_per_dispatch 1 and 4:
-   each epoch's img/s, the CUDA graph's capture time, exact launches (one
-   replay a dispatch of 4 captured steps after one warm-up step, AdamW
-   through its device-table entry) and the CSV rows compared; the AdamW
+   steps of 128) with --steps_per_dispatch 1 and 4 beside phase 8's auto
+   epoch, and the regularised epoch at 1 beside phase 17's auto one:
+   each epoch's img/s, the CUDA graphs' capture times, exact launches (one
+   replay a dispatch of k captured steps after one warm-up step, AdamW
+   through its device-table entry) and the CSV rows held equal bit for
+   bit; phase 8's checkpoint evaluated one row a call and 20 rows a CUDA
+   graph, the metrics bit-equal and equal to the CSV's; the AdamW
    table entry against the IEEE op-by-op reference bit for bit (3 live
    steps, 1 not live) and its times; (b) remat off, full, dots and softmax
    at ViT-S/16@224 rope-mixed f32 batch 64 and at the long-sequence model
@@ -1130,11 +1139,19 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
     defaults' dense route (--attention_impl flash_block, --num_heads, the
     regularisation flags, --steps_per_dispatch; True for a flag without a
     value; with --attn_drop_rate the train steps run the unfused attention,
-    as in the JAX package, and only evaluation launches the forward kernel;
-    with --steps_per_dispatch k > 1 each dispatch replays a CUDA graph of k
-    steps, after one warm-up step). keep: a path the best checkpoint is
-    copied to. n_train: the synthetic set's training examples (n_train // 5
-    test images; the CLI's set is 12,800 and 2,560)."""
+    as in the JAX package, and only evaluation launches the forward kernel).
+    The steps per dispatch are --steps_per_dispatch, else the CLI's auto
+    (the largest divisor of the epoch's steps up to 32 on the card), and
+    the evaluation rows per dispatch auto over its rows; both 1 with
+    --q_chunk. Where k > 1 each dispatch replays a CUDA graph of k captured
+    steps (or evaluation forwards), after one warm-up step (or forward),
+    and the run must report the graph's capture seconds. keep: a path the
+    best checkpoint is copied to. n_train: the synthetic set's training
+    examples (n_train // 5 test images; the CLI's set is 12,800 and
+    2,560). Returns the run's times, CSV row, launches, peak device memory
+    and the k it took."""
+    from vit_rpe_rope_tpu_torch.train import train_step as ts
+
     fa, fused_adamw, train_cli, serving, datasets = modules
     argv = ["--dataset", "cifar10", "--synthetic", "--epochs", "1",
             "--pos_encoding", pe_name, "--batch_size", str(batch)]
@@ -1154,11 +1171,13 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
         os.chdir(tmp)
         try:
             reset_counts(fa, fused_adamw)
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             with small_dataset(datasets, n_train=n_train, n_test=n_test):
                 summary = train_cli.main(argv)
             counts = read_counts(fa, fused_adamw)
             seconds = time.perf_counter() - t0
+            peak_bytes = torch.cuda.max_memory_allocated()
             routes = (check_resident(fa, f"train CLI {pe_name} {flags or ''}")
                       if model is None else None)
             with open(summary["log_file"]) as f:
@@ -1188,21 +1207,26 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
     row = dict(zip(header, rows[1])) if len(rows) > 1 else {}
     served_acc = 100.0 * float((preds == test.test_y).mean())
     steps, evals = n_train // batch, n_test // batch
+    # The CLI's k and k_eval (auto: the largest divisor up to 32 on the
+    # card; 1 with --q_chunk), and the rows each launches: one CUDA graph
+    # replay per dispatch of k captured steps or forwards (padded ones
+    # too) after one warm-up step or forward; AdamW through its table
+    # entry in a graph.
+    spd = int((flags or {}).get("steps_per_dispatch", 0))
+    spd = 1 if q_chunk else min(spd or ts.pick_steps_per_dispatch(steps),
+                                steps)
+    k_eval = 1 if q_chunk else ts.pick_steps_per_dispatch(evals)
+    train_rows = -(-steps // spd) * spd + 1 if spd > 1 else steps
+    eval_rows = -(-evals // k_eval) * k_eval + 1 if k_eval > 1 else evals
     fwd = "attn_fwd" if model is None else "attn_stream_fwd"
     expected = {"attn_fwd": 0, "attn_bwd": 0, "adamw": steps,
-                fwd: depth * (steps + evals)}
-    spd = int((flags or {}).get("steps_per_dispatch", 1))
+                fwd: depth * (train_rows + eval_rows)}
+    if spd > 1:
+        expected.update(adamw=0, adamw_table=train_rows)
     if model is None and (flags or {}).get("attn_drop_rate"):
-        expected["attn_fwd"] = depth * evals  # the train steps: the oracle
-    elif model is None and spd > 1:
-        # One CUDA graph replay per dispatch of spd captured steps (padded
-        # ones too), after one warm-up step; AdamW through its table entry.
-        graphed = -(-steps // spd) * spd + 1
-        expected.update(attn_fwd=depth * (graphed + evals),
-                        attn_bwd=depth * graphed, adamw=0,
-                        adamw_table=graphed)
+        expected["attn_fwd"] = depth * eval_rows  # the train steps: oracle
     elif model is None:
-        expected["attn_bwd"] = depth * steps
+        expected["attn_bwd"] = depth * train_rows
     elif q_chunk:
         # The bounded driver: chunk forwards in every train and eval step,
         # the one-pass backward per (q-chunk, key segment), no
@@ -1221,17 +1245,23 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
         biased = pe_name in ("relative", "polynomial")
         materialized = biased and grid * grid + 1 <= 2048
         if materialized or pe_name == "rope-mixed":
-            expected.update({name: depth * steps for name in STREAM_PASSES})
+            expected.update({name: depth * train_rows
+                             for name in STREAM_PASSES})
             if materialized:
-                expected["attn_stream_bwd_dbias"] = depth * steps
+                expected["attn_stream_bwd_dbias"] = depth * train_rows
         else:
-            expected["attn_stream_bwd_fused"] = depth * steps
+            expected["attn_stream_bwd_fused"] = depth * train_rows
     serve_expected = {"attn_fwd": 0, "attn_bwd": 0, "adamw": 0,
                       fwd: depth * (n_test // serve_bs)}
     expected = with_prologues(expected)
     serve_expected = with_prologues(serve_expected)
+    capture = (summary.get("capture_seconds"),
+               summary.get("eval_capture_seconds"))
     log(f"  train CLI {pe_name} {model or 'defaults'} {flags or ''}: "
-        f"{seconds:.1f} s, CSV "
+        f"{seconds:.1f} s, k {summary.get('steps_per_dispatch')} (expected "
+        f"{spd}), evaluation k {summary.get('eval_rows_per_dispatch')} "
+        f"(expected {k_eval}), capture seconds {capture}, peak device "
+        f"memory {peak_bytes / 2**30:.2f} GiB, CSV "
         f"{rows[0]} + {len(rows) - 1} row(s): {row}")
     log(f"    launches {counts} (expected {expected}); the Predictor on the "
         f"best checkpoint: {len(preds)} test images, accuracy "
@@ -1255,10 +1285,20 @@ def train_through_cli(pe_name, modules, model=None, batch=128, bar=None,
     if counts != expected or serve_counts != serve_expected:
         raise AssertionError(f"launch counts {counts}/{serve_counts} differ "
                              f"from {expected}/{serve_expected}")
+    if (summary["steps_per_dispatch"], summary["eval_rows_per_dispatch"]) \
+            != (spd, k_eval):
+        raise AssertionError(f"the CLI took k {summary['steps_per_dispatch']}"
+                             f" / {summary['eval_rows_per_dispatch']}, "
+                             f"expected {spd} / {k_eval}")
+    if (capture[0] is None) != (spd == 1) \
+            or (capture[1] is None) != (k_eval == 1):
+        raise AssertionError(f"capture seconds {capture} at k {spd} / "
+                             f"{k_eval}: a graph was not captured")
     return dict(seconds=seconds, csv=row, launches=counts, routes=routes,
-                served_acc=served_acc,
+                served_acc=served_acc, n_train=n_train,
                 images_per_s=summary["history"][0]["images_per_sec"],
-                capture_seconds=summary.get("capture_seconds"))
+                capture_seconds=capture[0], eval_capture_seconds=capture[1],
+                k=spd, k_eval=k_eval, peak_bytes=peak_bytes)
 
 
 def check_kernel_vs_plain_training(vit, ts, fused_adamw, datasets, cfg,
@@ -3336,8 +3376,10 @@ def check_regularised_training(train_modules, plain, plain_later, keep_dir):
     """Phase 17, path B: the ViT-tiny/4 train CLI at its defaults in
     rope-mixed with REGULARISED, twice with seed 0 and once with seed 1, then
     with --attn_drop_rate 0.1 as well; each run's launch counts are exact
-    (train_through_cli). The first three launch the attention kernels and
-    AdamW exactly as the unregularised epoch `plain` (phase 8) did; seed 0
+    (train_through_cli; at the CLI's auto k, one CUDA graph of 25 steps a
+    dispatch with the draws inside it). The first three launch the
+    attention kernels and AdamW exactly as the unregularised epoch `plain`
+    (phase 8) did; seed 0
     repeats its CSV row and seed 1 does not. The epochs' img/s are printed
     beside `plain`'s and `plain_later`'s (phase 16's, nearer in time: the
     epoch is host-bound). Returns the runs; the first one's best checkpoint
@@ -3357,18 +3399,19 @@ def check_regularised_training(train_modules, plain, plain_later, keep_dir):
             "rope-mixed", train_modules,
             flags={**REGULARISED, "attn_drop_rate": 0.1},
             bar=REGULARISED_BAR)}
-    keys = ("attn_fwd", "attn_bwd", "adamw")
-    want = {key: plain["launches"][key] for key in keys}
+    keys = ("attn_fwd", "attn_bwd", "adamw", "adamw_table")
+    want = {key: plain["launches"].get(key) for key in keys}
     log(f"  epoch img/s: unregularised (phase 8) "
         f"{plain['images_per_s']:.1f}, (phase 16) "
         f"{plain_later['images_per_s']:.1f}; "
         + "; ".join(f"{label} {run['images_per_s']:.1f}"
                     for label, run in runs.items()))
     log(f"  launches: unregularised {want}; "
-        + "; ".join(f"{label} {dict((k, run['launches'][k]) for k in keys)}"
+        + "; ".join(f"{label} "
+                    f"{dict((k, run['launches'].get(k)) for k in keys)}"
                     for label, run in runs.items()))
     for label in ("seed 0", "seed 0 again", "seed 1"):
-        got = {key: runs[label]["launches"][key] for key in keys}
+        got = {key: runs[label]["launches"].get(key) for key in keys}
         if got != want:
             raise AssertionError(f"regularised epoch ({label}) launched "
                                  f"{got}, the unregularised one {want}")
@@ -3520,49 +3563,138 @@ def check_visualizers(modules, keep_dir, device, test_images):
     return out
 
 
-# Phase 18 (a): the graph epoch.
+# Phase 18 (a): the graph epochs. GRAPH_K: an explicit k beside the auto
+# one (25 for the CLI's 100 steps).
 GRAPH_K = 4
+CSV_ROW_FIELDS = ("train_loss", "train_acc", "test_loss", "test_acc")
 
 
-def check_graph_epochs(train_modules):
+def steady_images_per_s(run) -> float:
+    """A train CLI run's epoch img/s without its graph's warm-up and
+    capture, which the train epoch's clock holds."""
+    seconds = run["n_train"] / run["images_per_s"]
+    return run["n_train"] / (seconds - (run["capture_seconds"] or 0.0))
+
+
+def compare_epochs(label, runs):
+    """Logs each run's img/s (with and without the graph's capture), k,
+    capture seconds and peak device memory beside the others' (one call,
+    one card) and raises unless every run's CSV row (train and test
+    columns) is the first one's, bit for bit; returns the runs' record."""
+    rows = {name: tuple(run["csv"][f] for f in CSV_ROW_FIELDS)
+            for name, run in runs.items()}
+    first = next(iter(rows.values()))
+    diffs = {name: {f: abs(float(a) - float(b)) for f, a, b in
+                    zip(CSV_ROW_FIELDS, row, first) if a != b}
+             for name, row in rows.items()}
+    log(f"  {label}: " + "; ".join(
+        f"{name} (k {run['k']}, evaluation k {run['k_eval']}) "
+        f"{run['images_per_s']:.1f} img/s ({steady_images_per_s(run):.1f} "
+        f"without the capture), capture "
+        f"{run['capture_seconds']} s, evaluation capture "
+        f"{run['eval_capture_seconds']} s, peak "
+        f"{run['peak_bytes'] / 2**30:.2f} GiB"
+        for name, run in runs.items()))
+    log(f"    CSV rows {CSV_ROW_FIELDS}: {rows}; differences from the "
+        f"first {diffs}")
+    if any(diffs.values()):
+        raise AssertionError(f"{label}: the CSV rows differ across the "
+                             f"steps per dispatch: {diffs}")
+    return {name: dict(k=run["k"], k_eval=run["k_eval"],
+                       images_per_s=run["images_per_s"],
+                       steady_images_per_s=steady_images_per_s(run),
+                       capture_seconds=run["capture_seconds"],
+                       eval_capture_seconds=run["eval_capture_seconds"],
+                       peak_bytes=run["peak_bytes"], csv=run["csv"],
+                       launches=run["launches"], seconds=run["seconds"])
+            for name, run in runs.items()}
+
+
+def check_eval_graph(train_modules, ckpt, csv_row, device, k=20):
+    """Phase 18a: phase 8's best checkpoint (its only epoch's params)
+    evaluated on the CLI's 2,560 synthetic test images in rows of 128,
+    one row a call (make_eval_step, eager) and k rows a call (one CUDA
+    graph replay): the metrics rows bit-equal, the CSV's test loss and
+    accuracy recomputed from them as the loop does, and the launches (the
+    graph's k captured forwards a replay plus one warm-up forward)."""
+    fa, fused_adamw, _, serving, datasets = train_modules
+    from vit_rpe_rope_tpu_torch.train import train_step as ts
+
+    params, cfg, mean, std, native, _ = serving.load_serving_state(ckpt)
+    params = {key: v.to(device) for key, v in params.items()}
+    pre = ts.make_preprocess(cfg, mean, std, native)
+    test = datasets.synthetic("cifar10", n_train=12800, n_test=2560, seed=0)
+    x = torch.from_numpy(test.test_x).to(device)
+    y = torch.from_numpy(test.test_y).to(device)
+    idx = ts.epoch_indices(len(test.test_y), 128, False).to(device)
+    out = {}
+    for rows_a_call in (1, k):
+        step = ts.make_eval_step(cfg, pre, k=rows_a_call)
+        reset_counts(fa, fused_adamw)
+        t0 = time.perf_counter()
+        metrics = torch.cat([
+            step(params, row, x, y, idx).reshape(-1, 3)
+            for row in range(0, idx.shape[0], rows_a_call)]).cpu().numpy()
+        seconds = time.perf_counter() - t0
+        kept = metrics[metrics[:, 2] > 0]
+        out[rows_a_call] = dict(
+            metrics=metrics, launches=read_counts(fa, fused_adamw),
+            seconds=seconds, capture_seconds=step.capture_seconds,
+            test_loss=float(kept[:, 0].mean()),
+            test_acc=100.0 * float(kept[:, 1].sum())
+            / max(float(kept[:, 2].sum()), 1.0))
+    one, graph = out[1], out[k]
+    same = np.array_equal(one["metrics"], graph["metrics"])
+    csv = (float(csv_row["test_loss"]), float(csv_row["test_acc"]))
+    expected = {"attn_fwd": cfg.depth * (20 + 1), "attn_bwd": 0, "adamw": 0}
+    log(f"  evaluation of phase 8's checkpoint, 20 rows of 128: k=1 "
+        f"{one['seconds']:.3f} s, k={k} {graph['seconds']:.3f} s (capture "
+        f"{graph['capture_seconds']} s); metrics bit-equal {same}; test "
+        f"loss / accuracy {one['test_loss']!r} / {one['test_acc']!r} and "
+        f"{graph['test_loss']!r} / {graph['test_acc']!r} (CSV {csv}); "
+        f"launches {one['launches']} / {graph['launches']} (expected "
+        f"{expected} for k={k})")
+    if not same or (graph["test_loss"], graph["test_acc"]) != csv \
+            or (one["test_loss"], one["test_acc"]) != csv:
+        raise AssertionError("the evaluation graph differs from one row a "
+                             "call or from the CSV")
+    if graph["launches"] != expected or graph["capture_seconds"] is None:
+        raise AssertionError(f"evaluation graph: launches "
+                             f"{graph['launches']}, expected {expected}")
+    return dict(bit_equal=same, csv=csv,
+                seconds={1: one["seconds"], k: graph["seconds"]},
+                capture_seconds=graph["capture_seconds"],
+                launches={1: one["launches"], k: graph["launches"]})
+
+
+def check_graph_epochs(train_modules, auto, regularised, ckpt, device):
     """Phase 18a: the ViT-tiny/4 train CLI at its defaults (rope-mixed, 100
-    steps of 128) with --steps_per_dispatch 1 and GRAPH_K, each with exact
-    launch counts (train_through_cli: the graph
-    epochs launch the attention kernels and AdamW's table entry once per
-    captured step and replay, after one warm-up step). Prints each epoch's
-    img/s, the graph's capture time and the CSV rows; the rows of the two
-    drivers are compared and any difference printed."""
-    runs = []
-    for k in (1, GRAPH_K):
-        run = train_through_cli("rope-mixed", train_modules,
-                                flags={"steps_per_dispatch": k})
-        runs.append((k, run))
-    fields = ("train_loss", "train_acc", "test_loss", "test_acc")
-    log("  graph epoch, ViT-tiny/4 rope-mixed, 100 steps of 128: "
-        + "; ".join(f"k={k} {run['images_per_s']:.1f} img/s"
-                    + (f" (capture {run['capture_seconds']:.3f} s)"
-                       if run["capture_seconds"] is not None else "")
-                    for k, run in runs))
-    rows = {k: tuple(run["csv"][f] for f in fields) for k, run in runs}
-    per_step = [run for k, run in runs if k == 1]
-    graphed = [run for k, run in runs if k == GRAPH_K]
-    diffs = {f: max(abs(float(a["csv"][f]) - float(b["csv"][f]))
-                    for a in per_step for b in graphed) for f in fields}
-    same = all(tuple(r["csv"][f] for f in fields) == rows[1]
-               for _, r in runs)
-    log(f"  CSV rows {fields}: k=1 {rows[1]}, k={GRAPH_K} {rows[GRAPH_K]}; "
-        f"bit-equal across both epochs: {same}; largest differences "
-        f"between the drivers {diffs}")
-    for k, run in runs:
-        log(f"    k={k} launches {run['launches']}")
-    if any(run["capture_seconds"] is None for run in graphed):
-        raise AssertionError("the k-step epoch captured no CUDA graph")
-    return dict(
-        runs=[dict(k=k, images_per_s=run["images_per_s"],
-                   capture_seconds=run["capture_seconds"], csv=run["csv"],
-                   launches=run["launches"], seconds=run["seconds"])
-              for k, run in runs],
-        rows_bit_equal=same, row_differences=diffs)
+    steps of 128) with --steps_per_dispatch 1, at auto (25 steps a
+    dispatch) and with GRAPH_K, in turns, beside phase 8's run at auto
+    (`auto`), and the regularised epoch
+    (REGULARISED, seed 0) at --steps_per_dispatch 1 beside phase 17's at
+    auto (`regularised`: its draws inside the graph, from generators
+    re-seeded per replay), each run with exact launch counts
+    (train_through_cli); within each group the CSV rows must be equal bit
+    for bit (compare_epochs). Then the evaluation graph against one row a
+    call on phase 8's checkpoint `ckpt` (check_eval_graph)."""
+    plain = {"auto (phase 8)": auto}
+    for name, k in (("k=1", 1), ("auto", 0), (f"k={GRAPH_K}", GRAPH_K)):
+        plain[name] = train_through_cli(
+            "rope-mixed", train_modules, flags={"steps_per_dispatch": k})
+    reg = {"auto": regularised, "k=1": train_through_cli(
+        "rope-mixed", train_modules,
+        flags={**REGULARISED, "steps_per_dispatch": 1}, bar=REGULARISED_BAR)}
+    out = dict(plain=compare_epochs("graph epochs, ViT-tiny/4 rope-mixed",
+                                    plain),
+               regularised=compare_epochs(
+                   "regularised graph epochs, ViT-tiny/4 rope-mixed", reg))
+    for group in (plain, reg):
+        for name, run in group.items():
+            log(f"    {name} launches {run['launches']}")
+    out["evaluation"] = check_eval_graph(train_modules, ckpt,
+                                         auto["csv"], device)
+    return out
 
 
 def check_adamw_table(fused_adamw, vit, cfg, device):
@@ -3803,8 +3935,18 @@ def small_dataset(datasets, n_train=1024, n_test=256, poison=False):
         datasets.get_dataset = real
 
 
+# The train CLI at its defaults, one step a dispatch: the runs of phases
+# 18c-d and 20-24 hold (and record) per-step launches and losses; a later
+# --steps_per_dispatch in their argv takes precedence. Their evaluation
+# keeps the CLI's auto rows per dispatch (one CUDA graph of 20 rows without
+# a process group, eager rows under one).
 TINY_ARGV = ["--dataset", "cifar10", "--synthetic", "--epochs", "1",
-             "--pos_encoding", "rope-mixed"]
+             "--pos_encoding", "rope-mixed", "--steps_per_dispatch", "1"]
+# A run of TINY_ARGV without a process group: 100 steps of 128, each
+# launching ViT-tiny/4's 6 blocks forward and backward, and 20 evaluation
+# rows in one graph after one warm-up forward.
+TINY_LAUNCHES = {"attn_fwd": 6 * (100 + 20 + 1), "attn_bwd": 6 * 100,
+                 "adamw": 100}
 
 
 def cli_row(train_cli, argv):
@@ -4624,13 +4766,19 @@ def check_world_one(train_modules):
     `_last.npz` against the plain run's, bit for bit (the world-size-1 run
     repeats the plain one), the launches and the step times."""
     graphed = -(-100 // GRAPH_K) * GRAPH_K + 1  # captured steps + warm-up
-    cases = (("nccl", [], True, None),
-             ("nccl_zero1", ["--zero1"], True, None),
+    # Under the process group the 20 evaluation rows run eagerly (no
+    # warm-up forward); without one, in a graph.
+    eager_eval = dict(TINY_LAUNCHES, attn_fwd=6 * (100 + 20))
+    cases = (("nccl", [], True, eager_eval),
+             ("nccl_zero1", ["--zero1"], True, eager_eval),
              ("zero1_graph", ["--zero1", "--steps_per_dispatch",
                               str(GRAPH_K)], False,
-              {"attn_fwd": 6 * (graphed + 20), "attn_bwd": 6 * graphed,
+              {"attn_fwd": 6 * (graphed + 21), "attn_bwd": 6 * graphed,
                "adamw": 0, "adamw_table": graphed}))
     runs = {"plain": cli_epoch(train_modules, [])}
+    if runs["plain"]["launches"] != TINY_LAUNCHES:
+        raise AssertionError(f"plain: launches {runs['plain']['launches']}, "
+                             f"expected {TINY_LAUNCHES}")
     for label, argv, group, _ in cases:
         runs[label] = cli_epoch(train_modules, argv,
                                 torchrun_env(1) if group else None)
@@ -4641,7 +4789,6 @@ def check_world_one(train_modules):
     out = {}
     for label, _, _, expected in cases:
         run = runs[label]
-        expected = expected or plain["launches"]
         diffs = state_differences(run["last"], plain["last"])
         same = run["row"] == plain["row"] and not diffs
         out[label] = dict(bit_equal=same, row=run["row"], differences=diffs,
@@ -4843,7 +4990,7 @@ def check_downsampling(train_modules, ts, datasets, device, keep_dir):
     on the card against the CPU on the same batch."""
     fa, fused_adamw, train_cli, serving, _ = train_modules
     run = cli_epoch(train_modules, ["--img_size", "16"], keep_dir=keep_dir)
-    expected = {"attn_fwd": 6 * 120, "attn_bwd": 6 * 100, "adamw": 100}
+    expected = TINY_LAUNCHES
     fields = csv_fields(run["row"])
     params, cfg, mean, std, native, _ = serving.load_serving_state(
         run["ckpt"], grid_size=4)
@@ -6133,6 +6280,7 @@ def main() -> int:
 
     # Phase 8's best checkpoints, for the visualizers of phase 17.
     keep_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    phase8_rope_mixed = os.path.join(keep_dir, "phase8_rope-mixed.npz")
     with phase("[8] training at full width through the train CLI", seconds):
         train_modules = (fa, fused_adamw, train_cli, serving, datasets)
         training = {pe_name: train_through_cli(
@@ -6208,20 +6356,32 @@ def main() -> int:
         # depth cut from 2 to 1, ViT-S/16@384 with its depth cut from 12 to
         # 1; the two long-sequence epochs held to no learning bar on
         # STREAM_EPOCH_TRAIN examples.
+        # Every epoch at the CLI's auto k (32 steps and 32 evaluation rows
+        # a CUDA graph); the rope-mixed and relative ones also at
+        # --steps_per_dispatch 1 beside them, their CSV rows compared.
         longseq_1 = dict(LONGSEQ, depth=1)
+        stream_graphs = {}
+        for pe_name, label in (("rope-mixed", "longseq"),
+                               ("relative", "longseq_relative")):
+            stream_graphs[label] = {
+                name: train_through_cli(
+                    pe_name, train_modules, model=longseq_1, batch=4,
+                    n_train=STREAM_EPOCH_TRAIN, flags=flags)
+                for name, flags in (("auto", None),
+                                    ("k=1", {"steps_per_dispatch": 1}))}
         stream_training = {
-            "longseq": train_through_cli(
-                "rope-mixed", train_modules, model=longseq_1, batch=4,
-                n_train=STREAM_EPOCH_TRAIN),
-            "longseq_relative": train_through_cli(
-                "relative", train_modules, model=longseq_1, batch=4,
-                n_train=STREAM_EPOCH_TRAIN),
+            "longseq": stream_graphs["longseq"]["auto"],
+            "longseq_relative": stream_graphs["longseq_relative"]["auto"],
             "longseq_rope_axial": train_through_cli(
                 "rope-axial", train_modules, model=longseq_1, batch=4,
                 bar=LEARN_BAR["rope-axial"]),
             "vit_s_384": train_through_cli(
                 "relative", train_modules, model=dict(VIT_S_384, depth=1),
                 batch=16)}
+        stream_training["graphs"] = {
+            label: compare_epochs(f"streaming graph epochs, {label} at "
+                                  f"depth 1", runs)
+            for label, runs in stream_graphs.items()}
 
     with phase("[14] streaming times on the card", seconds):
         stream_times = time_stream_kernels(fa, device)
@@ -6321,7 +6481,9 @@ def main() -> int:
                "--profile_dir, the C++ decoders", seconds):
         from vit_rpe_rope_tpu_torch.utils import native, nan_check
 
-        graph_epochs = check_graph_epochs(train_modules)
+        graph_epochs = check_graph_epochs(
+            train_modules, training["rope-mixed"], regularised["seed 0"],
+            phase8_rope_mixed, device)
         adamw_table_err, adamw_table = check_adamw_table(fused_adamw, vit,
                                                          vit_s, device)
         torch.cuda.empty_cache()
@@ -6530,9 +6692,13 @@ def main() -> int:
     fused_rel = fused_times["longseq N=4097"]["rel"]
     t_long = stream_times["longseq N=4097 rope-mixed f32"]
     t_384 = stream_times["vit-s/16@384 rel-bias f32"]
+    # Under the CLI's auto k the main path's AdamW runs through the table
+    # entry (adamw_table, phase 8's count); the by-value entry's count is
+    # the same epoch's at --steps_per_dispatch 1 (phase 18a).
+    by_value_adamw = graph_epochs["plain"]["k=1"]["launches"]["adamw"]
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
     log(f"card: {card}")
-    log(json.dumps({"kernels": [
+    kernels = {"kernels": [
         kernel_line("attn_fwd", "vit_rpe_rope_tpu_torch/ops/csrc/attn_fwd.cu",
                     "vit_rpe_rope_tpu/ops/flash_attention.py:70",
                     launches["attn_fwd"], max_abs_err,
@@ -6557,7 +6723,7 @@ def main() -> int:
                          pp_launches=pp("attn_bwd"))),
         kernel_line("adamw", "vit_rpe_rope_tpu_torch/ops/csrc/adamw.cu",
                     "vit_rpe_rope_tpu/ops/fused_adamw.py:51",
-                    launches["adamw"], adamw_err,
+                    by_value_adamw, adamw_err,
                     dict(adamw, dp_launches={k: [r["adamw"] for r in v]
                                              for k, v in dp_launches.items()},
                          tp_launches={k: [r["adamw"] for r in v]
@@ -6566,8 +6732,7 @@ def main() -> int:
                          comp_launches=comp("adamw"))),
         kernel_line("adamw_table", "vit_rpe_rope_tpu_torch/ops/csrc/adamw.cu",
                     "vit_rpe_rope_tpu/ops/fused_adamw.py:51",
-                    graph_epochs["runs"][1]["launches"]["adamw_table"],
-                    adamw_table_err, adamw_table),
+                    launches["adamw_table"], adamw_table_err, adamw_table),
         kernel_line("attn_stream_fwd", csrc + "attn_stream_fwd.cu",
                     jax_fa + ":873", stream_launches["attn_stream_fwd"],
                     stream_err["fwd"],
@@ -6641,7 +6806,13 @@ def main() -> int:
                     block_times["ViT-tiny/4 none"]["prologue_launches"],
                     block_prologue_err,
                     block_times["ViT-tiny/4 none"]["prologue"]),
-    ]}))
+    ]}
+    idle = [line["name"] for line in kernels["kernels"]
+            if not line["launches"]]
+    if idle:
+        raise AssertionError(f"kernels launched no time on their path: "
+                             f"{idle}")
+    log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -63,7 +63,10 @@ holds its own plans. int8 serving: torch._int_mm behind quant's padding at
 the head's shapes bit-equal to the CPU's int32; the serving forward's custom
 ops (torch.ops.vit_rpe_rope.*) bit-equal to the wrappers they wrap, counted
 as theirs; an artifact exported on the card bit-equal to the live Predictor
-at batches 1, 5 and 37."""
+at batches 1, 5 and 37. The CUDA graphs of the k-step driver and of k-row
+evaluation: bit for bit against the same steps or rows run eagerly, with
+dropout, drop-path, the augmentation and attention-prob dropout drawn
+inside the graph, and on the streaming route at N = 4,097."""
 
 import dataclasses
 
@@ -1753,21 +1756,25 @@ def test_adamw_table_entry_is_exact_bit_for_bit(cuda, case, live):
             assert torch.equal(x, y)
 
 
-def graph_run(k, accum, steps, device, graphed, pe="rope-mixed"):
-    """`steps` optimizer steps of ViT-tiny/4 (depth cut to 2) at batch 32
-    through make_train_multi_step, on the CUDA graph or (graphed False)
-    eagerly under the NaN sanitizer's flag; returns the params, the AdamW
-    state, the metrics, the launch counts and the driver."""
+def graph_run(k, accum, steps, device, graphed, pe="rope-mixed", batch=32,
+              augment=False, **model):
+    """`steps` optimizer steps of ViT-tiny/4 (depth cut to 2; `model`
+    overrides its fields) at batch `batch` through make_train_multi_step,
+    on the CUDA graph or (graphed False) eagerly under the NaN sanitizer's
+    flag; returns the params, the AdamW state, the metrics, the launch
+    counts and the driver."""
     from vit_rpe_rope_tpu_torch.configs import TrainConfig
     from vit_rpe_rope_tpu_torch.data import datasets
     from vit_rpe_rope_tpu_torch.ops import launches
     from vit_rpe_rope_tpu_torch.train import train_step as ts
     from vit_rpe_rope_tpu_torch.utils import nan_check
 
-    cfg = ViTConfig(depth=2, pos_encoding=pe)
-    bundle = datasets.synthetic("cifar10", n_train=32 * steps * accum - 5,
-                                n_test=8, seed=3)
-    pre = ts.make_preprocess(cfg, bundle.mean, bundle.std, 32)
+    cfg = ViTConfig(**{"depth": 2, "pos_encoding": pe, **model})
+    bundle = datasets.synthetic("cifar10",  # the last batch partial
+                                n_train=batch * steps * accum - batch // 8
+                                - 1, n_test=8, seed=3)
+    pre = ts.make_preprocess(cfg, bundle.mean, bundle.std, 32,
+                             augment=augment)
     params = vit.init_params(torch.Generator().manual_seed(3), cfg,
                              device=device)
     for v in params.values():
@@ -1775,9 +1782,9 @@ def graph_run(k, accum, steps, device, graphed, pe="rope-mixed"):
     init, update = ts.make_optimizer(TrainConfig(dataset="cifar10"), steps,
                                      params)
     state = init(params)
-    fn = ts.make_train_multi_step(cfg, update, pre, k, accum=accum)
+    fn = ts.make_train_multi_step(cfg, update, pre, k, accum=accum, seed=5)
     idx = ts.pad_epoch_indices(ts.epoch_indices(
-        len(bundle.train_y), 32, True, seed=3), k * accum).to(device)
+        len(bundle.train_y), batch, True, seed=3), k * accum).to(device)
     x, y = ts.epoch_order_data(torch.from_numpy(bundle.train_x).to(device),
                                torch.from_numpy(bundle.train_y).to(device),
                                idx)
@@ -1786,12 +1793,25 @@ def graph_run(k, accum, steps, device, graphed, pe="rope-mixed"):
     nan_check.ACTIVE = not graphed  # the driver's reason to run eagerly
     try:
         for row in range(0, idx.shape[0], k * accum):
-            params, state, m = fn(params, state, row, x, y, idx)
+            params, state, m = fn(params, state, row, x, y, idx, epoch=2)
             metrics.append(m)
     finally:
         nan_check.ACTIVE = False
     torch.cuda.synchronize()
     return params, state, torch.cat(metrics), launches.since(before), fn
+
+
+def assert_runs_equal(eager, graph, steps):
+    """Params, moments, AdamW count and metrics of two graph_run results,
+    bit for bit."""
+    assert graph[4].capture_seconds is not None
+    assert eager[4].capture_seconds is None
+    assert eager[1][2] == graph[1][2] == steps
+    assert torch.equal(eager[2], graph[2])
+    for key in eager[0]:
+        assert torch.equal(eager[0][key], graph[0][key]), key
+        assert torch.equal(eager[1][0][key], graph[1][0][key]), key
+        assert torch.equal(eager[1][1][key], graph[1][1][key]), key
 
 
 @pytest.mark.gpu
@@ -1805,14 +1825,7 @@ def test_graph_driver_is_the_eager_driver_bit_for_bit(cuda, k, accum, steps):
     step."""
     eager = graph_run(k, accum, steps, cuda, graphed=False)
     graph = graph_run(k, accum, steps, cuda, graphed=True)
-    assert graph[4].capture_seconds is not None
-    assert eager[4].capture_seconds is None
-    assert eager[1][2] == graph[1][2] == steps
-    assert torch.equal(eager[2], graph[2])
-    for key in eager[0]:
-        assert torch.equal(eager[0][key], graph[0][key]), key
-        assert torch.equal(eager[1][0][key], graph[1][0][key]), key
-        assert torch.equal(eager[1][1][key], graph[1][1][key]), key
+    assert_runs_equal(eager, graph, steps)
     dispatches = -(-steps // k)
     name = "vit_rpe_rope_tpu_torch.ops.flash_attention"
     adamw = "vit_rpe_rope_tpu_torch.ops.fused_adamw"
@@ -1824,6 +1837,106 @@ def test_graph_driver_is_the_eager_driver_bit_for_bit(cuda, k, accum, steps):
     assert eager[3][adamw, "LAUNCHES_ADAMW"] == steps
     assert (adamw, "LAUNCHES_ADAMW") not in graph[3]
     assert graph[3][adamw, "LAUNCHES_ADAMW_TABLE"] == dispatches * k + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,accum,steps,model", [
+    (4, 1, 8, dict(drop_rate=0.1, drop_path_rate=0.1)),
+    (3, 1, 4, dict(drop_rate=0.1, drop_path_rate=0.1)),
+    (2, 2, 4, dict(drop_rate=0.1, drop_path_rate=0.1)),
+    (2, 1, 4, dict(attn_drop_rate=0.1))])
+def test_graph_driver_draws_the_eager_draws(cuda, k, accum, steps, model):
+    """Steps that draw (dropout, drop-path and the augmentation; attention
+    -prob dropout on the unfused attention) captured with the graph's own
+    generators, re-seeded per replay from row_seeds, equal the eager
+    steps on step_generators' fresh generators bit for bit, and differ
+    from the same steps without draws (the draws reach the update)."""
+    eager = graph_run(k, accum, steps, cuda, graphed=False, augment=True,
+                      **model)
+    graph = graph_run(k, accum, steps, cuda, graphed=True, augment=True,
+                      **model)
+    assert_runs_equal(eager, graph, steps)
+    plain = graph_run(k, accum, steps, cuda, graphed=True)
+    assert not torch.equal(plain[2], graph[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pe", ["rope-mixed", "relative"])
+def test_streaming_graph_driver_is_the_eager_driver(cuda, pe):
+    """The long-sequence model (N = 4,097, depth 2, batch 4) on the
+    streaming route, two steps a dispatch over four: the graph (its
+    scratch allocated under capture, from the graph's pool) equals the
+    eager steps bit for bit, and counts each streaming kernel once per
+    captured step and replay plus the warm-up step: rope-mixed the
+    separate passes, relative (a generated bias above 2,048 tokens) the
+    one-pass backward, each with its prologue."""
+    model = dict(img_size=256, patch_size=4, embed_dim=128, num_heads=4)
+    eager = graph_run(2, 1, 4, cuda, graphed=False, pe=pe, batch=4, **model)
+    graph = graph_run(2, 1, 4, cuda, graphed=True, pe=pe, batch=4, **model)
+    assert_runs_equal(eager, graph, 4)
+    name = "vit_rpe_rope_tpu_torch.ops.flash_attention"
+    launched = {key[1]: n for key, n in graph[3].items() if key[0] == name}
+    kernels = (["LAUNCHES_STREAM_PROLOGUE", "LAUNCHES_STREAM_DQ",
+                "LAUNCHES_STREAM_DKV"] if pe == "rope-mixed" else
+               ["LAUNCHES_STREAM_FUSED", "LAUNCHES_STREAM_FUSED_PROLOGUE"])
+    for kernel in ["LAUNCHES_STREAM_FWD", "LAUNCHES_STREAM_FWD_PROLOGUE",
+                   *kernels]:
+        assert launched[kernel] == 2 * 5, kernel
+
+
+def eval_run(k, device, graphed, rows=10, batch=32):
+    """Evaluation of ViT-tiny/4 (depth 2, rope-mixed) over `rows` index
+    rows of `batch` (the last partial) padded to a multiple of k, k rows a
+    call, on the CUDA graph or (graphed False) eagerly under the NaN
+    sanitizer's flag; returns the metrics rows, the launch counts and the
+    step."""
+    from vit_rpe_rope_tpu_torch.data import datasets
+    from vit_rpe_rope_tpu_torch.ops import launches
+    from vit_rpe_rope_tpu_torch.train import train_step as ts
+    from vit_rpe_rope_tpu_torch.utils import nan_check
+
+    cfg = ViTConfig(depth=2, pos_encoding="rope-mixed")
+    bundle = datasets.synthetic("cifar10", n_train=8,
+                                n_test=rows * batch - 7, seed=4)
+    pre = ts.make_preprocess(cfg, bundle.mean, bundle.std, 32)
+    params = vit.init_params(torch.Generator().manual_seed(4), cfg,
+                             device=device)
+    step = ts.make_eval_step(cfg, pre, k=k)
+    idx = ts.pad_epoch_indices(ts.epoch_indices(len(bundle.test_y), batch,
+                                                False), k).to(device)
+    x = torch.from_numpy(bundle.test_x).to(device)
+    y = torch.from_numpy(bundle.test_y).to(device)
+    before = launches.counts()
+    nan_check.ACTIVE = not graphed
+    try:
+        out = torch.cat([step(params, row, x, y, idx).reshape(-1, 3)
+                         for row in range(0, idx.shape[0], k)])
+    finally:
+        nan_check.ACTIVE = False
+    torch.cuda.synchronize()
+    return out, launches.since(before), step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [5, 4])
+def test_eval_graph_is_the_per_row_evaluation(cuda, k):
+    """k evaluation rows replayed from one CUDA graph equal the k = 1
+    calls bit for bit (and the eager k rows), padded rows at count 0; the
+    graph counts each captured forward per replay, plus one warm-up
+    forward."""
+    one = eval_run(1, cuda, graphed=True)
+    eager = eval_run(k, cuda, graphed=False)
+    graph = eval_run(k, cuda, graphed=True)
+    n = -(-10 // k) * k
+    assert graph[0].shape == (n, 3)
+    assert torch.equal(graph[0][:10], one[0])
+    assert torch.equal(graph[0], eager[0])
+    assert (graph[0][10:] == 0).all()
+    assert graph[2].capture_seconds is not None
+    assert eager[2].capture_seconds is None
+    name = "vit_rpe_rope_tpu_torch.ops.flash_attention"
+    assert one[1][name, "LAUNCHES"] == 2 * 10
+    assert graph[1][name, "LAUNCHES"] == 2 * (n + 1)
 
 
 @pytest.mark.gpu

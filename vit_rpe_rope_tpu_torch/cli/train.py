@@ -13,8 +13,11 @@ which refuses --drop_rate, --attn_drop_rate, --drop_path_rate and
 on the unfused oracle (the mask lives on the probabilities). --remat
 recomputes each block in the backward (--remat_policy full, dots or
 softmax); --steps_per_dispatch k > 1 runs k steps per dispatch, one CUDA
-graph replay on the card (eagerly where the steps draw random numbers or
-under --debug_nans); --profile_dir writes a torch.profiler Chrome trace;
+graph replay on the card (eagerly under a process group, under
+--debug_nans, and where steps draw random numbers under --remat); auto
+(0, the default) is the largest divisor of the epoch's steps up to 32 on
+the card, 1 on the CPU and with --q_chunk, and the evaluation fuses its
+rows by the same rule; --profile_dir writes a torch.profiler Chrome trace;
 --debug_nans raises FloatingPointError at the first NaN.
 
 Data parallelism: launch one rank per device with torchrun, and each rank
@@ -183,7 +186,8 @@ def build_parser() -> argparse.ArgumentParser:
     ext.add_argument("--steps_per_dispatch", type=int, default=0,
                      help="[extension] train steps per dispatch: one CUDA "
                           "graph replay of k captured steps on the card "
-                          "(0 = auto: 1 on every device)")
+                          "(0 = auto: the largest divisor of the epoch's "
+                          "steps up to 32 on the card, 1 on the CPU)")
     ext.add_argument("--model_parallel", type=int, default=1,
                      help="[extension] tensor-parallel degree: shard attention"
                           " heads and the MLP hidden dim over the mesh's"

@@ -17,7 +17,11 @@ the run; debug_nans, the NaN sanitizer (utils/nan_check.py). With q_chunk
 > 0 the steps and the evaluation go through the bounded-program driver
 (train/bounded.py), one step per dispatch, as in the JAX package, also
 over data and sequence ranks (its per-q-chunk KV ring).
-steps_per_dispatch 0 (auto) is one step per dispatch on every device.
+steps_per_dispatch 0 (auto) is the JAX loop's rule
+(train_step.resolve_steps_per_dispatch): the largest divisor of the
+epoch's steps up to 32 on the card, 1 on the CPU and with q_chunk; the
+evaluation takes the same rule over its own rows (make_eval_step(k=), one
+CUDA-graph replay of k forwards on the card).
 
 Metric semantics match the reference: epoch train/test loss is the MEAN OF
 BATCH-MEAN losses; accuracy is 100 · correct / total examples. Metrics stay
@@ -256,7 +260,9 @@ def fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool = True,
     """Full training run on one device (default: the CUDA device; raises
     when there is none unless device="cpu"). Returns a summary dict
     (best_acc, log_file, ckpt_path, history, num_params, num_devices,
-    capture_seconds: the k-step driver's CUDA-graph capture, else None).
+    capture_seconds: the k-step driver's CUDA-graph capture, else None;
+    eval_capture_seconds: the evaluation graph's; steps_per_dispatch and
+    eval_rows_per_dispatch: the k and k_eval the run took).
     With tcfg.debug_nans the whole run is under the NaN sanitizer, which is
     off again when fit returns or raises.
 
@@ -422,12 +428,16 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
         opt_state = mesh_opt_from_disk(leaves, flattener, cfg, mesh,
                                        train_params, tcfg.zero1, device)
 
-    # Optimizer steps per dispatch: auto (0) stays 1 on every device; the
-    # bounded driver is host-scheduled, one step per dispatch.
-    k = 1 if tcfg.q_chunk > 0 else max(1, tcfg.steps_per_dispatch)
-    k = min(k, steps_per_epoch)
+    # Optimizer steps and evaluation rows per dispatch, by the JAX loop's
+    # rule: auto (0) fuses them on the card and stays at 1 on the CPU; the
+    # bounded driver is host-scheduled, one per dispatch.
+    bounded = tcfg.q_chunk > 0
+    k = ts.resolve_steps_per_dispatch(tcfg.steps_per_dispatch,
+                                      steps_per_epoch, device, bounded)
+    eval_steps = -(-len(bundle.test_y) // tcfg.batch_size)
+    k_eval = ts.resolve_steps_per_dispatch(0, eval_steps, device, bounded)
     stride = k * accum  # index rows per dispatch
-    if tcfg.q_chunk > 0:
+    if bounded:
         train_fn, eval_fn = _bounded_fns(cfg, tcfg, opt_update, preprocess,
                                          mesh)
     else:
@@ -440,9 +450,10 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
                                           accum=accum, seed=tcfg.seed,
                                           mesh=mesh, n_micro=n_micro)
         eval_fn = ts.make_eval_step(cfg, preprocess, mesh=mesh,
-                                    n_micro=n_micro)
-    eval_idx = ts.epoch_indices(len(bundle.test_y), tcfg.batch_size,
-                                False).to(device)
+                                    n_micro=n_micro, k=k_eval)
+    eval_idx = ts.pad_epoch_indices(
+        ts.epoch_indices(len(bundle.test_y), tcfg.batch_size, False),
+        k_eval).to(device)
     # Under a sequence axis the evaluation runs the train step's forward on
     # the rank's train params (make_eval_step); elsewhere it takes the
     # params gathered into the reference layout.
@@ -470,7 +481,8 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
             params = layout.gather_reference(train_params, cfg, mesh)
             _, test_loss, test_acc, _ = _run_epoch(
                 eval_fn, (train_params if seq_eval else params, None),
-                test_x, test_y, eval_idx, "Testing", False, verbose=verbose)
+                test_x, test_y, eval_idx, "Testing", False, k=k_eval,
+                verbose=verbose)
 
             host_params = ({k: v.detach().cpu() for k, v in params.items()}
                            if lead else None)
@@ -510,4 +522,7 @@ def _fit(cfg: ViTConfig, tcfg: TrainConfig, verbose: bool, device) -> dict:
                 num_devices=(len(mesh.ranks) if mesh is not None
                              and mesh.distributed else 1),
                 capture_seconds=getattr(
-                    train_fn, "capture_seconds", None))
+                    train_fn, "capture_seconds", None),
+                eval_capture_seconds=getattr(
+                    eval_fn, "capture_seconds", None),
+                steps_per_dispatch=k, eval_rows_per_dispatch=k_eval)

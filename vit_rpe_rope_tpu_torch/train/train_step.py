@@ -17,11 +17,14 @@ package's train/train_step.py.
   seeded from (seed, epoch, row) as the JAX package folds its key: one for
   the augmentation draws, one for the dropout masks, as the JAX step splits
   its key in two.
-* make_train_multi_step runs k optimizer steps per call: on the CUDA device
-  as one replay of a CUDA graph that holds the k steps, fed from the
-  epoch-ordered data (epoch_order_data) through static buffers; on the CPU,
-  and wherever a step draws random numbers or --debug_nans reads values on
-  the host, as the same k steps run eagerly.
+* make_train_multi_step runs k optimizer steps per call, and make_eval_step
+  k evaluation rows: on the CUDA device as one replay of a CUDA graph that
+  holds them, fed through static buffers (the train steps from the
+  epoch-ordered data, epoch_order_data; their draws from generators
+  registered with the capture and re-seeded per replay); on the CPU, under
+  a process group, under --debug_nans (it reads values on the host) and
+  for train steps that draw under remat, as the same k steps or rows run
+  eagerly. resolve_steps_per_dispatch is the JAX loop's rule for k.
 
 The JAX package's k-step drivers (make_train_multi_step,
 make_flat_train_multi_step over a flat depth-stacked vector,
@@ -41,6 +44,7 @@ into both packages, and replay one package's draws in the other).
 
 from __future__ import annotations
 
+import gc
 import time
 
 import numpy as np
@@ -256,6 +260,19 @@ def step_generators(seed: int, epoch: int, row: int, device, rank: int = 0,
     rank; `local` is spawned from them with the model rank folded in (the
     JAX fold_in of the model index), for the masks on a rank's own heads
     and MLP rows."""
+    gens = tuple(torch.Generator(device=device).manual_seed(s)
+                 for s in row_seeds(seed, epoch, row, rank, model_rank))
+    return gens if model_rank is None else (gens[0], gens[1:])
+
+
+def row_seeds(seed: int, epoch: int, row: int, rank: int = 0,
+              model_rank: int | None = None) -> list:
+    """The seeds of step_generators' generators for one train row, as
+    non-negative 63-bit ints: (augmentation, dropout), and with model_rank
+    the local dropout stream's third. Drawn from a numpy SeedSequence over
+    (seed, epoch, row[, rank]), the model rank its spawn key. The eager
+    steps seed fresh generators with them; the CUDA-graph steps re-seed
+    the graph's own generators with them before every replay."""
     entropy = [seed, epoch, row] + ([rank] if rank else [])
     seeds = list(np.random.SeedSequence(entropy).generate_state(
         2, dtype=np.uint64))
@@ -263,9 +280,7 @@ def step_generators(seed: int, epoch: int, row: int, device, rank: int = 0,
         seeds += list(np.random.SeedSequence(
             entropy, spawn_key=(model_rank,)).generate_state(
                 1, dtype=np.uint64))
-    gens = tuple(torch.Generator(device=device).manual_seed(
-        int(s) & ((1 << 63) - 1)) for s in seeds)
-    return gens if model_rank is None else (gens[0], gens[1:])
+    return [int(s) & ((1 << 63) - 1) for s in seeds]
 
 
 def _columns(mesh, batch: int):
@@ -350,6 +365,21 @@ def pick_steps_per_dispatch(steps_per_epoch: int, cap: int = 32) -> int:
         if steps_per_epoch % k == 0:
             best = k
     return best
+
+
+def resolve_steps_per_dispatch(k: int, steps: int, device,
+                               bounded: bool = False) -> int:
+    """The JAX loop's steps per dispatch: k = 0 (auto) fuses dispatches on
+    the accelerator (pick_steps_per_dispatch(steps), the largest divisor of
+    the epoch's steps up to 32, on a CUDA device) and stays at 1 on the
+    CPU; the bounded driver (--q_chunk) is host-scheduled, 1; the result
+    lies in [1, steps]. Evaluation takes auto over its own rows."""
+    if k == 0:
+        k = (pick_steps_per_dispatch(steps)
+             if torch.device(device).type == "cuda" else 1)
+    if bounded:
+        k = 1
+    return max(1, min(k, steps))
 
 
 def _loss_and_metrics(params, imgs, labels, mask, cfg, preprocess,
@@ -658,11 +688,20 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
     that fails raises. Launch counts (ops/launches) count the replays.
     fn.capture_seconds holds the warm-up and capture time.
 
+    Steps that draw random numbers (dropout, drop-path, augmentation,
+    attention-prob dropout) draw inside the graph from a fixed pair of
+    CUDA generators per index row of a dispatch, registered with the
+    capture; before every replay each pair is re-seeded with its row's
+    row_seeds, the seeds the eager steps give step_generators' fresh
+    generators. Philox draws depend on the seed and the offset alone, and
+    the capture starts each generator at offset 0 as a fresh one, so the
+    graph draws the eager steps' bits.
+
     The same k steps run eagerly on CPU tensors (the graph's plain
-    version), and on CUDA tensors where a step draws random numbers
-    (dropout, drop-path, augmentation: the per-row generators of
-    step_generators cannot be captured) or the NaN sanitizer is on (it
-    reads values on the host); the first eager call on CUDA says so on
+    version), and on CUDA tensors where the NaN sanitizer is on (it reads
+    values on the host) or where steps draw under remat (the recompute
+    restores the dropout generator's state through get_state / set_state,
+    which a capture cannot run); the first eager call on CUDA says so on
     stdout.
 
     mesh: a process group's mesh, as make_train_step's: each step takes this
@@ -737,33 +776,42 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
     def table_update(j, grads, state, p):
         return update.from_table(grads, state, p, graph["hyper"][j])
 
-    def capture(params, opt_state, x, y, idx):
+    def seed_rows(epoch, row):
+        """The graph's generators re-seeded for rows row .. row + stride
+        - 1 (offset 0, as step_generators' fresh ones)."""
+        for r, pair in enumerate(graph["gens"]):
+            for gen, s in zip(pair, row_seeds(seed, epoch, row + r)):
+                gen.manual_seed(s)
+
+    def capture(params, opt_state, x, y, idx, epoch, row):
         t0 = time.perf_counter()
         device = x.device
         graph.update(x=x.clone(), y=y.clone(), idx=idx.clone(),
-                     hyper=hyper_rows([(0.0, 1.0, 1.0, 0.0)] * k, device))
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):  # one step, its row not live
-            steps(params, opt_state, graph["x"], graph["y"], graph["idx"],
-                  table_update, n=1)
-        torch.cuda.current_stream(device).wait_stream(side)
-        before = launches.counts()
-        g = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(g):
-                _, _, metrics = steps(params, opt_state, graph["x"],
-                                      graph["y"], graph["idx"], table_update)
-        except Exception as e:
-            raise RuntimeError(f"capturing {k} train steps in a CUDA graph "
-                               f"failed: {e}") from e
-        captured = launches.since(before)
-        launches.add(captured, -1)  # recorded, not run
+                     hyper=hyper_rows([(0.0, 1.0, 1.0, 0.0)] * k, device),
+                     gens=[])
+        gens = None
+        if draws:
+            graph["gens"] = [(torch.Generator(device=device),
+                              torch.Generator(device=device))
+                             for _ in range(stride)]
+            seed_rows(epoch, row)
+
+            def gens(r):
+                return graph["gens"][r]
+
+        def record(n):
+            return steps(params, opt_state, graph["x"], graph["y"],
+                         graph["idx"], table_update, gens, n=n)[2]
+
+        # the warm-up: one step, its row not live
+        g, metrics, captured = _graph_of(
+            device, lambda: record(1), lambda: record(k), f"{k} train steps",
+            [gen for pair in graph["gens"] for gen in pair])
         graph.update(graph=g, metrics=metrics, launches=captured,
                      params=[p.data_ptr() for p in params.values()])
         fn.capture_seconds = time.perf_counter() - t0
 
-    def replay(params, opt_state, row, data_x, data_y, epoch_idx):
+    def replay(params, opt_state, row, data_x, data_y, epoch_idx, epoch):
         x, y, idx = stage(data_x, data_y, epoch_idx, row)
         mu, nu, count = opt_state
         rows = []
@@ -774,7 +822,7 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
             else:
                 rows.append((0.0, 1.0, 1.0, 0.0))
         if "graph" not in graph:
-            capture(params, opt_state, x, y, idx)
+            capture(params, opt_state, x, y, idx, epoch, row)
         elif graph["params"] != [p.data_ptr() for p in params.values()]:
             raise ValueError("the k-step graph was captured on other "
                              "parameter storages")
@@ -783,9 +831,25 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
         graph["idx"].copy_(idx)
         graph["hyper"].copy_(hyper_rows(rows, "cpu").pin_memory(),
                              non_blocking=True)
+        if graph["gens"]:
+            seed_rows(epoch, row)
         graph["graph"].replay()
         launches.add(graph["launches"])
         return params, (mu, nu, count), graph["metrics"].clone()
+
+    def eager_reason():
+        """Why the steps of a dispatch on CUDA tensors run eagerly, or
+        None."""
+        if dp:
+            return (f"the steps sum their gradients over a process group "
+                    f"({_axes(mesh)} parallelism)")
+        if nan_check.ACTIVE:
+            return "the NaN sanitizer reads values on the host"
+        if draws and cfg.remat:
+            return ("the train steps draw random numbers under remat, whose "
+                    "recompute restores the dropout generator's state by "
+                    "get_state / set_state, which a capture cannot run")
+        return None
 
     told = []
 
@@ -793,23 +857,58 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
         if data_x.device.type == "cpu":
             return eager(params, opt_state, row, data_x, data_y, epoch_idx,
                          epoch)
-        if dp or draws or nan_check.ACTIVE:
+        why = eager_reason()
+        if why is not None:
             if not told:
                 told.append(True)
-                axes = _axes(mesh)
-                why = (f"the steps sum their gradients over a process group "
-                       f"({axes} parallelism)" if dp else
-                       "the train steps draw random numbers (dropout, "
-                       "drop-path or augmentation)" if draws else
-                       "the NaN sanitizer reads values on the host")
                 print(f"steps_per_dispatch {k}: {why}, so the {k} steps of "
                       f"a dispatch run eagerly, without a CUDA graph")
             return eager(params, opt_state, row, data_x, data_y, epoch_idx,
                          epoch)
-        return replay(params, opt_state, row, data_x, data_y, epoch_idx)
+        return replay(params, opt_state, row, data_x, data_y, epoch_idx,
+                      epoch)
 
     fn.capture_seconds = None
     return fn
+
+
+def _graph_of(device, warm_up, record, what: str, generators=()):
+    """(graph, record()'s outputs, launch counts recorded) of one CUDA
+    graph: warm_up() runs once on a side stream (what a kernel or a table
+    sets up once happens there), then record() is captured, drawing from
+    `generators` (registered with the capture) as it does. Python's garbage
+    collector runs just before and is held off until the capture ends: the
+    drivers' closures hold their graphs in reference cycles, so a graph of
+    an earlier run lives until a collection, and destroying it while a
+    stream captures in the global mode (a collection that fell inside the
+    capture) invalidates the capture; torch.cuda.graph no longer collects
+    first by default. A capture that fails raises. The launch counts
+    (ops/launches) are taken back for the recording: each replay adds
+    them."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        warm_up()
+    torch.cuda.current_stream(device).wait_stream(side)
+    before = launches.counts()
+    g = torch.cuda.CUDAGraph()
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        for gen in generators:
+            g.register_generator_state(gen)
+        with torch.cuda.graph(g):
+            out = record()
+    except Exception as e:
+        raise RuntimeError(f"capturing {what} in a CUDA graph failed: "
+                           f"{e}") from e
+    finally:
+        if enabled:
+            gc.enable()
+    captured = launches.since(before)
+    launches.add(captured, -1)  # recorded, not run
+    return g, out, captured
 
 
 def _axes(mesh) -> str:
@@ -821,10 +920,13 @@ def _axes(mesh) -> str:
             else ", ".join(names[:-1]) + " and " + names[-1])
 
 
-def make_eval_step(cfg: ViTConfig, preprocess, mesh=None, n_micro: int = 0):
+def make_eval_step(cfg: ViTConfig, preprocess, mesh=None, n_micro: int = 0,
+                   k: int = 1):
     """Returns eval_step(params, row, data_x, data_y, epoch_idx) -> metrics
     [loss, correct, count] of that index row (a fully padded row reports
-    count 0 and loss 0). mesh: a process group's mesh: each data rank
+    count 0 and loss 0); with k > 1 (the JAX make_eval_step(k=)), [k, 3]
+    of rows row .. row + k - 1 (epoch_idx padded to a multiple of k with
+    pad_epoch_indices). mesh: a process group's mesh: each data rank
     evaluates its columns and the loss and correct sums are summed over the
     data ranks (one all_reduce; the count is the whole row's), as the JAX
     eval step psums them. Under tensor parallelism it takes the whole
@@ -837,27 +939,89 @@ def make_eval_step(cfg: ViTConfig, preprocess, mesh=None, n_micro: int = 0):
     microbatches under a pipe axis) on the rank's train params (the
     replicated params themselves under context parallelism alone): the
     sums run over Mesh.data_group (the whole group without a model or pipe
-    axis), each ring's metrics counted once."""
+    axis), each ring's metrics counted once.
+
+    With k > 1 on CUDA tensors the k forwards are captured once, on the
+    first call, into a torch.cuda.CUDAGraph after one warm-up forward (of
+    the call's first row, on a side stream), and every call fills a static
+    buffer with its k index rows by one device copy and replays the graph;
+    the graph reads the params and data_x / data_y it was captured on (a
+    call on other storages raises), and a capture that fails raises.
+    Launch counts count the replays; eval_step.capture_seconds holds the
+    warm-up and capture time. The k forwards run eagerly on CPU tensors
+    (the graph's plain version), under a process group (its all_reduce is
+    not captured) and under the NaN sanitizer, which the first such call
+    on CUDA says on stdout."""
     dp = mesh is not None and mesh.distributed
     apply_fn = (_mesh_forward(mesh, n_micro)[0]
                 if dp and mesh.seq_parallel > 1 else None)
 
+    def one(params, data_x, data_y, idx):
+        cols = _columns(mesh, idx.shape[0])
+        imgs, labels, mask = _gather_batch(data_x, data_y, idx[cols])
+        loss_sum, correct = _loss_and_metrics(params, imgs, labels, mask,
+                                              cfg, preprocess, apply_fn)
+        if dp:
+            count = _real_count(idx)
+            loss_sum, correct = mesh.sum_over_data(_ring_metrics(
+                mesh, torch.stack([loss_sum, correct])))
+        else:
+            count = mask.sum()
+        return torch.stack([loss_sum / count.clamp(min=1.0), correct, count])
+
+    def rows(params, data_x, data_y, idx):
+        return torch.stack([one(params, data_x, data_y, i) for i in idx])
+
+    graph = {}
+
+    def storages(params, data_x, data_y):
+        return ([p.data_ptr() for p in params.values()]
+                + [data_x.data_ptr(), data_y.data_ptr()])
+
+    def capture(params, data_x, data_y, idx):
+        t0 = time.perf_counter()
+        graph["idx"] = idx.clone()
+        g, metrics, captured = _graph_of(  # the warm-up: one forward
+            data_x.device,
+            lambda: one(params, data_x, data_y, graph["idx"][0]),
+            lambda: rows(params, data_x, data_y, graph["idx"]),
+            f"{k} evaluation rows")
+        graph.update(graph=g, metrics=metrics, launches=captured,
+                     storages=storages(params, data_x, data_y))
+        eval_step.capture_seconds = time.perf_counter() - t0
+
+    def replay(params, data_x, data_y, idx):
+        if "graph" not in graph:
+            capture(params, data_x, data_y, idx)
+        elif graph["storages"] != storages(params, data_x, data_y):
+            raise ValueError("the evaluation graph was captured on other "
+                             "parameter or data storages")
+        graph["idx"].copy_(idx)
+        graph["graph"].replay()
+        launches.add(graph["launches"])
+        return graph["metrics"].clone()
+
+    told = []
+
     def eval_step(params, row, data_x, data_y, epoch_idx):
         with torch.no_grad():
-            cols = _columns(mesh, epoch_idx.shape[1])
-            imgs, labels, mask = _gather_batch(data_x, data_y,
-                                               epoch_idx[row][cols])
-            loss_sum, correct = _loss_and_metrics(params, imgs, labels, mask,
-                                                  cfg, preprocess, apply_fn)
-            if dp:
-                count = _real_count(epoch_idx[row])
-                loss_sum, correct = mesh.sum_over_data(_ring_metrics(
-                    mesh, torch.stack([loss_sum, correct])))
-            else:
-                count = mask.sum()
-            return torch.stack([loss_sum / count.clamp(min=1.0), correct,
-                                count])
+            if k == 1:
+                return one(params, data_x, data_y, epoch_idx[row])
+            idx = epoch_idx[row:row + k]
+            if data_x.device.type == "cpu":
+                return rows(params, data_x, data_y, idx)
+            if dp or nan_check.ACTIVE:
+                if not told:
+                    told.append(True)
+                    why = (f"its rows sum their metrics over a process group "
+                           f"({_axes(mesh)} parallelism)" if dp else
+                           "the NaN sanitizer reads values on the host")
+                    print(f"evaluation, {k} rows per dispatch: {why}, so "
+                          f"they run eagerly, without a CUDA graph")
+                return rows(params, data_x, data_y, idx)
+            return replay(params, data_x, data_y, idx)
 
+    eval_step.capture_seconds = None
     return eval_step
 
 
