@@ -177,8 +177,11 @@ exits nonzero without a card, or when any phase fails. Phases:
    steps, 1 not live) and its times; (b) remat off, full, dots and softmax
    at ViT-S/16@224 rope-mixed f32 batch 64 and at the long-sequence model
    at N = 16,385 rope-axial batch 2: a train step's time, the peak memory
-   of a forward and backward, the attention launches (the forward twice
-   under remat) and the gradients against remat off; (c) a poisoned run
+   of a forward and backward (below remat off's under full and dots, at
+   most remat off's under softmax), the attention launches (the forward
+   twice under full and dots, once under softmax, which keeps the
+   kernels' outputs as JAX's policy keeps pallas_call's) and the
+   gradients bit-equal to remat off's; (c) a poisoned run
    under --debug_nans raises FloatingPointError, a clean one repeats its
    row; (d) --profile_dir writes a Chrome trace naming the kernels; (e)
    IDX and CIFAR files decoded by the C++ library (or numpy where it
@@ -306,6 +309,17 @@ exits nonzero without a card, or when any phase fails. Phases:
    (utils/trajectory_parity.train_port at its defaults) for COMP_TRAJ_STEPS
    steps on the card against the same steps on the CPU: each loss within
    COMP_TRAJ_TOL (relative), AdamW (row 11) once a step.
+25. bf16 training under remat, the JAX package's remat configuration at
+   full width: (a) ViT-S/16@224 rope-mixed at batch 64 with dropout and
+   drop-path 0.1, in f32 and in bf16, under remat off, full, dots and
+   softmax, the masks drawn from one seed: per dtype the phase 18b checks
+   (launches, gradients bit-equal to remat off's, peak memory), each bf16
+   loss within BF16_LOSS_TOL of the f32 one, a train step's time; (b) one
+   epoch of the train CLI at that width with --compute_dtype bfloat16
+   --remat --drop_path_rate 0.1 per policy on BF16_CLI_TRAIN synthetic
+   examples, at the CLI's auto k (16: one CUDA graph of 16 steps that
+   draw, captured once, no eager notice on stdout) and at
+   --steps_per_dispatch 1: the CSV rows bit-equal, exact launches.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -3795,75 +3809,100 @@ REMAT_CASES = (
      dict(LONGSEQ, img_size=512, pos_encoding="rope-axial"), 2, 512))
 
 
-def check_remat(vit, ts, fa, fused_adamw, ViTConfig, TrainConfig, device):
-    """Phase 18b: for each model and each of REMAT_POLICIES, one forward and
-    backward on the same params and images: the attention launches (the
-    recompute launches the forward again under every policy: the kernels'
-    ctypes launches are invisible to a selective policy), the peak device
-    memory above the params (torch.cuda.max_memory_allocated after
-    reset_peak_memory_stats, minus what was allocated before), every
-    gradient against remat off (as a share of its largest entry), and the
-    time of a whole train step (fwd, bwd, AdamW) by CUDA events."""
+def remat_runs(vit, ts, fa, fused_adamw, TrainConfig, base, batch, native,
+               device, draw_seed=None, profiled=False):
+    """Phases 18b and 25: for each of REMAT_POLICIES at config `base`, one
+    forward and backward on the same params and images (uint8 images at
+    `native` px, resized on the device): the attention launches, the peak
+    device memory above what was allocated before, as the caching
+    allocator's peak of requested bytes (the tensors the program holds:
+    exact for the same allocations, where allocated bytes carry the
+    rounding of whichever cached block served a request) and of allocated
+    bytes (torch.cuda.max_memory_allocated), the loss, every gradient
+    against remat off (bit for bit, and the largest difference as a share
+    of the gradient's largest entry). Then the time of a whole train step
+    (fwd, bwd, AdamW; its draws from the train row's generators) by CUDA
+    events, the policies in turns, two rounds; profiled: a profiler pass
+    of two steps each (the device's busy ms). draw_seed: the forward
+    draws its dropout and drop-path masks from a generator of this seed
+    (the same masks under every policy); None: no draws."""
     from vit_rpe_rope_tpu_torch.data import datasets
 
-    out = {}
     mean, std = datasets.NORMALIZATION["cifar10"]
-    for label, fields, batch, native in REMAT_CASES:
-        base = ViTConfig(**fields)
-        rng = np.random.default_rng(18)
-        images = torch.from_numpy(rng.integers(
-            0, 256, (batch, native, native, 3), dtype=np.uint8)).to(device)
-        labels = torch.from_numpy(np.arange(batch, dtype=np.int32) % 10).to(
-            device)
-        pre = ts.make_preprocess(base, mean, std, native)
-        x = pre(images)
-        params = {k: v.requires_grad_() for k, v in vit.init_params(
-            torch.Generator().manual_seed(18), base, device=device).items()}
-        reference = None
-        out[label] = {}
-        for policy in REMAT_POLICIES:
-            cfg = (base if policy is None else
-                   dataclasses.replace(base, remat=True,
-                                       remat_policy=policy))
+    rng = np.random.default_rng(18)
+    images = torch.from_numpy(rng.integers(
+        0, 256, (batch, native, native, 3), dtype=np.uint8)).to(device)
+    labels = torch.from_numpy(np.arange(batch, dtype=np.int32) % 10).to(
+        device)
+    pre = ts.make_preprocess(base, mean, std, native)
+    x = pre(images)
+    params = {k: v.requires_grad_() for k, v in vit.init_params(
+        torch.Generator().manual_seed(18), base, device=device).items()}
+    reference = None
+    out, steps = {}, {}
+    for policy in REMAT_POLICIES:
+        cfg = (base if policy is None else
+               dataclasses.replace(base, remat=True, remat_policy=policy))
 
-            def grads():
-                logits = vit.apply(params, x, cfg)
-                loss = torch.nn.functional.cross_entropy(logits,
-                                                         labels.long())
-                return torch.autograd.grad(loss, list(params.values()))
+        def grads():
+            gen = (None if draw_seed is None else
+                   torch.Generator(device=device).manual_seed(draw_seed))
+            logits = vit.apply(params, x, cfg, gen)
+            loss = torch.nn.functional.cross_entropy(logits, labels.long())
+            return loss.detach(), torch.autograd.grad(
+                loss, list(params.values()))
 
-            grads()  # warm-up
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            base_bytes = torch.cuda.memory_allocated()
-            reset_counts(fa, fused_adamw)
-            g = grads()
-            counts = read_counts(fa, fused_adamw)
-            peak = torch.cuda.max_memory_allocated() - base_bytes
-            if reference is None:
-                reference, share = g, 0.0
-                bitwise = True
-            else:
-                share = max(float((a - b).abs().max())
-                            / max(float(b.abs().max()), 1e-30)
-                            for a, b in zip(g, reference))
-                bitwise = all(torch.equal(a, b) for a, b in zip(g, reference))
-            del g
-            step_params = {k: v.detach().clone().requires_grad_()
-                           for k, v in params.items()}
-            init, update = ts.make_optimizer(TrainConfig(dataset="cifar10"),
-                                             100, step_params)
-            step = ts.make_train_step(cfg, update, pre)
-            idx = torch.arange(batch, device=device)[None]
-            state = [step_params, init(step_params)]
+        grads()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        base_requested = torch.cuda.memory_stats()[
+            "requested_bytes.all.current"]
+        reset_counts(fa, fused_adamw)
+        loss, g = grads()
+        counts = read_counts(fa, fused_adamw)
+        peak = torch.cuda.max_memory_allocated() - base_bytes
+        peak_requested = torch.cuda.memory_stats()[
+            "requested_bytes.all.peak"] - base_requested
+        if reference is None:
+            reference, share = g, 0.0
+            bitwise = True
+        else:
+            share = max(float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-30)
+                        for a, b in zip(g, reference))
+            bitwise = all(torch.equal(a, b) for a, b in zip(g, reference))
+        del g
+        name = policy or "off"
+        out[name] = dict(peak_bytes=peak, peak_requested=peak_requested,
+                         launches=counts, loss=float(loss),
+                         grad_share_vs_off=share, grads_bit_equal=bitwise)
+        log(f"  remat {name:7s} {base.compute_dtype}, batch {batch}: peak "
+            f"{peak_requested / 2**20:.1f} MiB requested ("
+            f"{peak / 2**20:.1f} MiB allocated) above the params in "
+            f"fwd+bwd, loss {float(loss)!r}, launches {counts}, gradients "
+            f"vs remat off: largest share {share:.3e} (bit-equal {bitwise})")
+        step_params = {k: v.detach().clone().requires_grad_()
+                       for k, v in params.items()}
+        init, update = ts.make_optimizer(TrainConfig(dataset="cifar10"),
+                                         100, step_params)
+        step = ts.make_train_step(cfg, update, pre)
+        idx = torch.arange(batch, device=device)[None]
+        state = [step_params, init(step_params)]
 
-            def run():
-                state[0], state[1], m = step(state[0], state[1], 0, images,
-                                             labels, idx)
-                return m
+        def run(step=step, state=state):
+            state[0], state[1], m = step(state[0], state[1], 0, images,
+                                         labels, idx)
+            return m
 
-            n_steps = 5 if label.startswith("ViT-S") else 3
+        run()
+        steps[name] = run
+    del params, reference, x
+    torch.cuda.empty_cache()
+    n_steps = 5 if batch == 64 else 3
+    for round_ in range(2):
+        for name, run in steps.items():
             run()
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
@@ -3875,42 +3914,220 @@ def check_remat(vit, ts, fa, fused_adamw, ViTConfig, TrainConfig, device):
             end.record()
             end.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-            device_ms = start.elapsed_time(end) / n_steps
-            del state, step_params, step
-            name = policy or "off"
-            out[label][name] = dict(
-                step_ms=wall_ms, device_ms=device_ms, peak_bytes=peak,
-                launches=counts, grad_share_vs_off=share,
-                grads_bit_equal=bitwise)
-            log(f"  remat {name:7s} {label}, batch {batch}: {wall_ms:.2f} ms "
-                f"a train step ({device_ms:.2f} ms between device events), "
-                f"peak {peak / 2**20:.1f} MiB above the params in fwd+bwd, "
-                f"launches {counts}, gradients vs remat off: largest share "
-                f"{share:.3e} (bit-equal {bitwise})")
-            torch.cuda.empty_cache()
-        off = out[label]["off"]["launches"]
-        fwd = max(("attn_fwd", "attn_stream_fwd"),
-                  key=lambda key: off.get(key, 0))
-        if not off.get(fwd):
-            raise AssertionError(f"{label}: no attention forward launched")
-        for name in ("full", "dots", "softmax"):
-            got = out[label][name]
-            if got["launches"].get(fwd) != 2 * off[fwd]:
-                raise AssertionError(f"remat {name} {label}: {fwd} launched "
-                                     f"{got['launches'].get(fwd)} times, "
-                                     f"expected 2 x {off[fwd]}")
-            if got["grad_share_vs_off"] > 1e-6:
-                raise AssertionError(f"remat {name} {label}: gradients "
-                                     f"differ from remat off by "
-                                     f"{got['grad_share_vs_off']:.3e}")
-        for name in ("full", "dots"):
-            if out[label][name]["peak_bytes"] >= out[label]["off"][
-                    "peak_bytes"]:
-                raise AssertionError(f"remat {name} {label} holds no less "
-                                     f"memory than remat off")
-        del params, reference, x
-        torch.cuda.empty_cache()
+            out[name].setdefault("step_ms", []).append(wall_ms)
+            out[name].setdefault("device_ms", []).append(
+                start.elapsed_time(end) / n_steps)
+    for name, run in steps.items():
+        log(f"  remat {name:7s} {base.compute_dtype}: "
+            f"{out[name]['step_ms'][0]:.2f} / {out[name]['step_ms'][1]:.2f}"
+            f" ms a train step in turns ("
+            f"{out[name]['device_ms'][0]:.2f} / "
+            f"{out[name]['device_ms'][1]:.2f} ms between device events)")
+        if profiled:
+            out[name]["profile"] = profile_train_step(run)
+    del steps
+    torch.cuda.empty_cache()
     return out
+
+
+def attention_fwd_name(runs):
+    """The attention forward remat off's run launched (dense or
+    streaming)."""
+    off = runs["off"]["launches"]
+    fwd = max(("attn_fwd", "attn_stream_fwd"), key=lambda k: off.get(k, 0))
+    if not off.get(fwd):
+        raise AssertionError("no attention forward launched")
+    return fwd
+
+
+def check_remat(vit, ts, fa, fused_adamw, ViTConfig, TrainConfig, device):
+    """Phase 18b: remat_runs for each of REMAT_CASES, held by
+    check_remat_policies: the recompute of "full" and "dots" launches the
+    attention forward again, as JAX recomputes pallas_call; "softmax"
+    keeps the kernels' outputs, as remat off does."""
+    out = {}
+    for label, fields, batch, native in REMAT_CASES:
+        log(f"  {label}:")
+        out[label] = remat_runs(vit, ts, fa, fused_adamw, TrainConfig,
+                                ViTConfig(**fields), batch, native, device)
+        check_remat_policies(label, out[label], attention_fwd_name(
+            out[label]))
+    return out
+
+
+REMAT_FWD_TIMES = {"full": 2, "dots": 2, "softmax": 1}
+
+
+def check_remat_policies(label, runs, fwd):
+    """Phases 18b and 25: each policy's attention forward launches (twice
+    remat off's under "full" and "dots", remat off's under "softmax"), its
+    gradients bit-equal to remat off's, and its peak memory (below remat
+    off's under "full" and "dots", at most remat off's under "softmax"; in
+    requested bytes)."""
+    off = runs["off"]
+    for name, times in REMAT_FWD_TIMES.items():
+        got = runs[name]
+        if got["launches"].get(fwd) != times * off["launches"][fwd]:
+            raise AssertionError(f"remat {name} {label}: {fwd} launched "
+                                 f"{got['launches'].get(fwd)} times, "
+                                 f"expected {times} x "
+                                 f"{off['launches'][fwd]}")
+        if not got["grads_bit_equal"]:
+            raise AssertionError(f"remat {name} {label}: gradients differ "
+                                 f"from remat off by "
+                                 f"{got['grad_share_vs_off']:.3e}")
+        peak, off_peak = got["peak_requested"], off["peak_requested"]
+        if not (peak <= off_peak if name == "softmax" else peak < off_peak):
+            raise AssertionError(f"remat {name} {label} holds "
+                                 f"{got['peak_bytes']} bytes, remat off "
+                                 f"{off['peak_bytes']}")
+
+
+# Phase 25: the JAX package's remat configuration trained at full width:
+# ViT-S/16@224 rope-mixed at batch 64 with dropout and drop-path, in bf16
+# beside f32, under each remat policy (VALIDATION.md pairs "dots" with
+# bf16), then through the train CLI.
+BF16_REMAT_FIELDS = dict(VIT_S, pos_encoding="rope-mixed", drop_rate=0.1,
+                         drop_path_rate=0.1)
+# The first loss of the bf16 forward against the f32 one on the same
+# params, images and masks, relative: bf16 activations carry a relative
+# error near 2^-8 into every product (the CPU tests' bound against the JAX
+# package's bf16 step).
+BF16_LOSS_TOL = 2e-2
+# The CLI epochs: 1,024 synthetic examples (16 steps of 64: auto k = 16,
+# one CUDA graph a dispatch) and 256 test images (4 evaluation rows).
+BF16_CLI_TRAIN = 1024
+BF16_CLI_ARGV = ["--dataset", "cifar10", "--synthetic", "--epochs", "1",
+                 "--pos_encoding", "rope-mixed", "--batch_size", "64",
+                 "--img_size", "224", "--patch_size", "16",
+                 "--embed_dim", "384", "--depth", "12", "--num_heads", "6",
+                 "--compute_dtype", "bfloat16", "--drop_path_rate", "0.1",
+                 "--remat"]
+
+
+def bf16_cli_epoch(train_modules, policy, k):
+    """One epoch of the train CLI (BF16_CLI_ARGV, --remat_policy policy,
+    --steps_per_dispatch k: 0 is the CLI's auto) in a scratch directory,
+    its stdout kept (and logged), the counts reset just before and read
+    just after, and the k-step driver's CUDA-graph captures counted.
+    Returns the CSV row, the launches, the k taken, the captures, the
+    capture seconds, img/s, the peak device memory and the stdout."""
+    from vit_rpe_rope_tpu_torch.train import train_step as ts
+
+    fa, fused_adamw, train_cli, _, datasets = train_modules
+    graph_of, captures = ts._graph_of, []
+
+    def counted(device, warm_up, record, what, *args, **kw):
+        captures.append(what)
+        return graph_of(device, warm_up, record, what, *args, **kw)
+
+    argv = BF16_CLI_ARGV + ["--remat_policy", policy,
+                            "--steps_per_dispatch", str(k)]
+    cwd = os.getcwd()
+    stdout = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        ts._graph_of = counted
+        try:
+            reset_counts(fa, fused_adamw)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with small_dataset(datasets, n_train=BF16_CLI_TRAIN,
+                               n_test=BF16_CLI_TRAIN // 4), \
+                    contextlib.redirect_stdout(stdout):
+                summary = train_cli.main(argv)
+            counts = read_counts(fa, fused_adamw)
+            seconds = time.perf_counter() - t0
+            with open(summary["log_file"]) as f:
+                row = list(f)[1].strip()
+        finally:
+            ts._graph_of = graph_of
+            os.chdir(cwd)
+    text = stdout.getvalue()
+    log("    | " + "\n    | ".join(text.strip().splitlines()[-6:]))
+    return dict(row=row, launches=counts, k=summary["steps_per_dispatch"],
+                k_eval=summary["eval_rows_per_dispatch"],
+                train_captures=sum(w.endswith("train steps")
+                                   for w in captures),
+                capture_seconds=summary.get("capture_seconds"),
+                images_per_s=summary["history"][0]["images_per_sec"],
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                seconds=seconds, eager_notice="eagerly" in text)
+
+
+def bf16_cli_launches(policy, k, depth=12, steps=16, evals=4):
+    """The launches of a bf16_cli_epoch run: k = 0 (auto, 16) replays one
+    CUDA graph of 16 captured steps after one warm-up step; the
+    evaluation's 4 rows one graph after one warm-up forward. The train
+    steps launch the attention forward twice a block under "full" and
+    "dots" (the recompute), once under "softmax"."""
+    train_rows = steps + 1 if k != 1 else steps
+    fwd = REMAT_FWD_TIMES[policy] * depth * train_rows + depth * (evals + 1)
+    if k == 1:
+        return {"attn_fwd": fwd, "attn_bwd": depth * steps, "adamw": steps}
+    return {"attn_fwd": fwd, "attn_bwd": depth * train_rows, "adamw": 0,
+            "adamw_table": train_rows}
+
+
+def check_bf16_remat(vit, ts, fa, fused_adamw, ViTConfig, TrainConfig,
+                     train_modules, device):
+    """Phase 25: (a) remat_runs of BF16_REMAT_FIELDS in f32 and bf16, the
+    masks drawn from one seed: per dtype, check_remat_policies (launches,
+    gradients bit-equal to remat off's, peak memory); each bf16 loss
+    within BF16_LOSS_TOL of the f32 one. (b) one train CLI epoch per
+    policy with --compute_dtype bfloat16 --remat --drop_path_rate 0.1 at
+    the CLI's auto k (one CUDA graph of 16 steps that draw, captured once,
+    no eager notice on stdout) and at --steps_per_dispatch 1: the CSV rows
+    bit-equal, the row finite, exact launches."""
+    steps = {}
+    for dtype in ("float32", "bfloat16"):
+        log(f"  ViT-S/16@224 rope-mixed {dtype}, dropout and drop-path 0.1:")
+        steps[dtype] = remat_runs(
+            vit, ts, fa, fused_adamw, TrainConfig,
+            ViTConfig(**BF16_REMAT_FIELDS, compute_dtype=dtype), 64, 32,
+            device, draw_seed=25, profiled=True)
+        check_remat_policies(f"ViT-S/16@224 {dtype}", steps[dtype],
+                             "attn_fwd")
+    for name, run in steps["bfloat16"].items():
+        want = steps["float32"][name]["loss"]
+        rel = abs(run["loss"] - want) / abs(want)
+        run["loss_vs_f32"] = rel
+        if not rel <= BF16_LOSS_TOL:
+            raise AssertionError(f"bf16 remat {name}: loss {run['loss']} "
+                                 f"against f32 {want} ({rel:.3e})")
+    log("  bf16 losses against f32, relative: " + ", ".join(
+        f"{name} {run['loss_vs_f32']:.3e}"
+        for name, run in steps["bfloat16"].items()))
+    cli = {}
+    for policy in REMAT_FWD_TIMES:
+        runs = {k: bf16_cli_epoch(train_modules, policy, k) for k in (0, 1)}
+        auto, one = runs[0], runs[1]
+        log(f"  train CLI bf16 --remat_policy {policy}: auto k "
+            f"{auto['k']} ({auto['train_captures']} capture, "
+            f"{auto['capture_seconds']} s) {auto['images_per_s']:.1f} img/s "
+            f"in {auto['seconds']:.1f} s, k=1 {one['images_per_s']:.1f} img/s;"
+            f" peak {auto['peak_bytes'] / 2**30:.2f} / "
+            f"{one['peak_bytes'] / 2**30:.2f} GiB; CSV {auto['row']} / "
+            f"{one['row']}; launches {auto['launches']} / {one['launches']}")
+        for k, run in runs.items():
+            want = with_prologues(bf16_cli_launches(policy, k))
+            if run["launches"] != want:
+                raise AssertionError(f"bf16 CLI {policy} k={k}: launches "
+                                     f"{run['launches']}, expected {want}")
+            if not all(math.isfinite(float(v))
+                       for v in run["row"].split(",")):
+                raise AssertionError(f"bf16 CLI {policy}: row {run['row']}")
+        if auto["row"] != one["row"]:
+            raise AssertionError(f"bf16 CLI {policy}: the CSV row at auto k "
+                                 f"{auto['row']} differs from k=1's "
+                                 f"{one['row']}")
+        if auto["k"] != 16 or auto["train_captures"] != 1 \
+                or auto["eager_notice"] or auto["capture_seconds"] is None:
+            raise AssertionError(f"bf16 CLI {policy}: k {auto['k']}, "
+                                 f"{auto['train_captures']} captures, eager "
+                                 f"notice {auto['eager_notice']}")
+        cli[policy] = runs
+    return dict(steps=steps, cli=cli)
 
 
 @contextlib.contextmanager
@@ -6573,6 +6790,12 @@ def main() -> int:
                "harness", seconds):
         compositions = check_compositions(train_modules, datasets, vit)
 
+    with phase("[25] bf16 training under remat at ViT-S/16@224 (each "
+               "policy beside f32 with dropout and drop-path; the train CLI "
+               "at auto k, one CUDA graph of steps that draw)", seconds):
+        bf16_remat = check_bf16_remat(vit, ts, fa, fused_adamw, ViTConfig,
+                                      TrainConfig, train_modules, device)
+
     summary = {"card": card, "attention": attn, "serving": serve_times,
                "serving_profile": serve_trace, "training": training,
                "kernel_vs_plain_losses": paths, "train_step": step_times,
@@ -6611,7 +6834,7 @@ def main() -> int:
                "tensor_parallel": tensor_parallel,
                "context_parallel": context_parallel,
                "pipeline_parallel": pipeline_parallel,
-               "compositions": compositions,
+               "compositions": compositions, "bf16_remat": bf16_remat,
                "phase_seconds": seconds}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -66,7 +66,9 @@ as theirs; an artifact exported on the card bit-equal to the live Predictor
 at batches 1, 5 and 37. The CUDA graphs of the k-step driver and of k-row
 evaluation: bit for bit against the same steps or rows run eagerly, with
 dropout, drop-path, the augmentation and attention-prob dropout drawn
-inside the graph, and on the streaming route at N = 4,097."""
+inside the graph, under each remat policy too (the recompute's draws from
+generators registered with the capture), and on the streaming route at
+N = 4,097."""
 
 import dataclasses
 
@@ -1858,6 +1860,51 @@ def test_graph_driver_draws_the_eager_draws(cuda, k, accum, steps, model):
     assert_runs_equal(eager, graph, steps)
     plain = graph_run(k, accum, steps, cuda, graphed=True)
     assert not torch.equal(plain[2], graph[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rates", [
+    dict(drop_rate=0.1, drop_path_rate=0.1),
+    dict(drop_rate=0.1, drop_path_rate=0.1, attn_drop_rate=0.1)])
+@pytest.mark.parametrize("policy", ["full", "dots", "softmax"])
+@pytest.mark.parametrize("k,accum,steps", [(4, 1, 8), (2, 2, 4)])
+def test_graph_driver_draws_the_eager_draws_under_remat(cuda, k, accum,
+                                                        steps, policy, rates):
+    """Remat steps that draw, captured: the recompute of "full" and "dots"
+    draws the forward's masks again from generators of its own registered
+    with the capture (models.vit.GraphDraws), "softmax" recomputes nothing
+    but the unfused attention's probabilities; the graph equals the eager
+    steps bit for bit, and these equal the steps without remat. On the
+    kernels (no attention-prob dropout) the train steps launch the
+    attention forward twice a block under "full" and "dots", once under
+    "softmax"."""
+    remat = dict(remat=True, remat_policy=policy, **rates)
+    eager = graph_run(k, accum, steps, cuda, graphed=False, **remat)
+    graph = graph_run(k, accum, steps, cuda, graphed=True, **remat)
+    assert_runs_equal(eager, graph, steps)
+    plain = graph_run(k, accum, steps, cuda, graphed=False, **rates)
+    assert torch.equal(plain[2], graph[2])
+    for key in plain[0]:
+        assert torch.equal(plain[0][key], graph[0][key]), key
+    if "attn_drop_rate" not in rates:
+        name = "vit_rpe_rope_tpu_torch.ops.flash_attention"
+        rows = (-(-steps // k) * k + 1) * accum
+        times = 1 if policy == "softmax" else 2
+        assert graph[3][name, "LAUNCHES"] == times * 2 * rows
+        assert graph[3][name, "LAUNCHES_BWD"] == 2 * rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_step_that_draws_is_captured(cuda, policy, capsys):
+    """The k-step driver captures remat steps that draw (dropout,
+    drop-path, the augmentation) without raising and without the eager
+    notice; a capture that fails would raise."""
+    graph = graph_run(2, 1, 2, cuda, graphed=True, augment=True, remat=True,
+                      remat_policy=policy, drop_rate=0.1, drop_path_rate=0.1)
+    assert graph[4].capture_seconds is not None
+    assert "eagerly" not in capsys.readouterr().out
+    assert all(torch.isfinite(graph[2]).reshape(-1))
 
 
 @pytest.mark.gpu

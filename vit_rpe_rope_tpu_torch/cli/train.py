@@ -11,14 +11,14 @@ Runs on the CUDA device; --device cpu runs on the CPU. --q_chunk (and
 which refuses --drop_rate, --attn_drop_rate, --drop_path_rate and
 --augment, as the JAX package's does. --attn_drop_rate runs the attention
 on the unfused oracle (the mask lives on the probabilities). --remat
-recomputes each block in the backward (--remat_policy full, dots or
+rematerializes each block in the backward (--remat_policy full, dots or
 softmax); --steps_per_dispatch k > 1 runs k steps per dispatch, one CUDA
-graph replay on the card (eagerly under a process group, under
---debug_nans, and where steps draw random numbers under --remat); auto
-(0, the default) is the largest divisor of the epoch's steps up to 32 on
-the card, 1 on the CPU and with --q_chunk, and the evaluation fuses its
-rows by the same rule; --profile_dir writes a torch.profiler Chrome trace;
---debug_nans raises FloatingPointError at the first NaN.
+graph replay on the card (eagerly under a process group and under
+--debug_nans); auto (0, the default) is the largest divisor of the
+epoch's steps up to 32 on the card, 1 on the CPU and with --q_chunk, and
+the evaluation fuses its rows by the same rule; --profile_dir writes a
+torch.profiler Chrome trace; --debug_nans raises FloatingPointError at the
+first NaN.
 
 Data parallelism: launch one rank per device with torchrun, and each rank
 takes its share of every batch (the world size must divide --batch_size);

@@ -21,8 +21,8 @@ Inputs are NHWC, as in the JAX package. `apply` is differentiable end to end
 explicit torch.Generator (the JAX package's `rng`): with one, the config's
 dropout, attention-prob dropout and drop-path rates apply, their masks drawn
 from it in the forward's order; without one the forward is deterministic.
-With cfg.remat each block is recomputed in the backward
-(`remat_block_fn`), under one of the JAX package's three policies. With a
+With cfg.remat each block is rematerialized under one of the JAX package's
+three policies (`remat_block_fn`). With a
 tensor-parallel mesh the same forward runs on one rank's shard of the heads
 and MLP rows (parallel/tensor_parallel.py), with Megatron's f and g around
 each block half.
@@ -30,6 +30,7 @@ each block half.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -302,87 +303,168 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 def _dots_policy(ctx, op, *args, **kwargs):
     """JAX's dots_with_no_batch_dims_saveable: the outputs of products
     without batch dimensions (the block's linears) are saved; everything
-    else, the attention's batched products included, is recomputed."""
+    else, the attention's batched products and collectives included, is
+    recomputed."""
     del ctx, args, kwargs
     save = op in _DOTS
     return (torch_checkpoint.CheckpointPolicy.MUST_SAVE if save
             else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _softmax_policy(ctx, op, *args, **kwargs):
-    """Everything is saved except the float32 attention probabilities of
-    the unfused attention, which ops/reference_attention.py computes under
-    the tag "attn_softmax" (JAX's checkpoint_name). The kernels materialize
-    no probabilities, so on their route everything is saved. Collectives
-    (the c10d ops: a context-parallel ring's send and recv) run again in
-    the recompute on every rank, as under "dots": a cached send would leave
-    its peer's recv waiting."""
-    del ctx, args, kwargs
-    recompute = (reference_attention.current_tag() == "attn_softmax"
-                 or getattr(op, "namespace", None) == "c10d")
-    return (torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE if recompute
-            else torch_checkpoint.CheckpointPolicy.MUST_SAVE)
+class GraphDraws:
+    """Where the recompute of a remat block that draws gets its generator
+    inside a CUDA graph capture (train_step.make_train_multi_step).
 
+    Philox draws depend on the seed and the offset alone. Under capture a
+    generator's offset is a device value that each replay fills in plus
+    an offset within the graph that only grows, so the recompute cannot
+    rewind the forward's generator to where the block began. It draws from
+    a generator of its own instead: registered with the capture and set,
+    before every replay (prepare), to the forward generator's seed and to
+    the offset at which the block's forward began drawing. Every row's
+    dropout generator starts at offset 0, so those offsets are the same in
+    every row; they are read (get_offset) in the eager warm-up step.
 
-_POLICIES = {"dots": _dots_policy, "softmax": _softmax_policy}
+    Usage: the warm-up runs under measuring(), then allocate(rows) gives
+    the generators to register, the capture runs under capturing(), and
+    prepare() runs after the rows' generators are re-seeded and before
+    each replay."""
 
+    def __init__(self):
+        self.offsets = []    # of the first row's generator, a block each
+        self._first = None
+        self._mode = None
+        self._pool = []
+        self._bound = []     # (replay generator, forward generator, offset)
+        self._calls = {}
 
-def _replaying_draws(fn, generator):
-    """fn, made to draw the same masks when checkpoint recomputes it: the
-    generator's state at the first call is set again for every later call
-    (the recompute), and the state that call found is put back after it.
-    (checkpoint's preserve_rng_state covers the global generators only,
-    never an explicit one.) generator may be a tuple of generators (the
-    tensor-parallel block's shared and local streams): each is replayed."""
-    if generator is None:
-        return fn
-    gens = generator if isinstance(generator, tuple) else (generator,)
-    states = [g.get_state() for g in gens]
-    calls = [0]
-
-    def run(*args):
-        calls[0] += 1
-        if calls[0] == 1:
-            return fn(*args)
-        after = [g.get_state() for g in gens]
-        for g, state in zip(gens, states):
-            g.set_state(state)
+    @contextlib.contextmanager
+    def _active(self, mode):
+        global _GRAPH_DRAWS
+        outer, _GRAPH_DRAWS, self._mode = _GRAPH_DRAWS, self, mode
         try:
-            return fn(*args)
+            yield
         finally:
-            for g, state in zip(gens, after):
-                g.set_state(state)
+            _GRAPH_DRAWS, self._mode = outer, None
 
-    return run
+    def measuring(self):
+        return self._active("measure")
+
+    def capturing(self):
+        return self._active("capture")
+
+    def allocate(self, rows: int, device) -> list:
+        """A replay generator per block of each of `rows` rows."""
+        self._pool = [torch.Generator(device=device)
+                      for _ in range(rows * len(self.offsets))]
+        return list(self._pool)
+
+    def prepare(self):
+        for replay, gen, offset in self._bound:
+            replay.manual_seed(gen.initial_seed())
+            replay.set_offset(offset)
+
+    def _replays(self, gen):
+        """The recompute's generator for a block about to draw from
+        `gen`."""
+        if self._mode == "measure":
+            if self._first is None:
+                self._first = gen
+            if gen is self._first:
+                self.offsets.append(gen.get_offset())
+            return _clone_replays(gen)
+        j = self._calls.get(id(gen), 0)
+        self._calls[id(gen)] = j + 1
+        if j >= len(self.offsets) or not self._pool:
+            raise RuntimeError("more remat blocks drew in the capture than "
+                               "in the warm-up step")
+        replay = self._pool.pop()
+        self._bound.append((replay, gen, self.offsets[j]))
+        return lambda: replay
+
+
+_GRAPH_DRAWS = None  # the GraphDraws of the capture under way, if any
+
+
+def _clone_replays(gen):
+    """A source of generators that draw what `gen` draws from here on: a
+    fresh copy of its state at this call for each recompute."""
+    state = gen.clone_state()
+    return state.clone_state
+
+
+def _replay_source(generator):
+    """Called where a remat block's forward begins: a function that gives
+    the generator (or tuple: the tensor-parallel block's shared and local
+    streams) its recompute draws from, so that it draws the forward's
+    masks again, bit for bit. (checkpoint's preserve_rng_state covers the
+    global generators only, never an explicit one.) Eager: a copy of the
+    generator's state. Inside a CUDA graph capture: the registered
+    generator of GraphDraws, which no other state can stand for."""
+    gens = generator if isinstance(generator, tuple) else (generator,)
+    if _GRAPH_DRAWS is not None:
+        if len(gens) > 1:
+            raise ValueError("a captured remat block draws from one "
+                             "generator")
+        return _GRAPH_DRAWS._replays(generator)
+    sources = [_clone_replays(g) for g in gens]
+    if len(sources) == 1:
+        return sources[0]
+    return lambda: tuple(source() for source in sources)
 
 
 def remat_block_fn(cfg: ViTConfig, fn):
-    """`fn` (a block: _block_body's signature, the generator as keyword)
+    """`fn` (a block: _block_body's signature, the generator last)
     recomputed in the backward per cfg.remat / cfg.remat_policy, identity
     when remat is off: the single home of the policy mapping, as in the JAX
-    package. Each call goes through torch.utils.checkpoint (non-reentrant);
-    "full" recomputes everything, "dots" and "softmax" are selective
-    (_dots_policy, _softmax_policy). A call without grad runs fn as it is.
+    package. A call without grad runs fn as it is.
 
-    The attention kernels launch through ctypes, which a policy cannot see:
-    it sees only the torch.empty of their outputs. So under every policy
-    the recompute launches the attention forward again (bit-identical
-    output); a remat train step launches it twice per block."""
+    "full" and "dots" run each call through torch.utils.checkpoint
+    (non-reentrant): "full" recomputes everything, "dots" saves the
+    block's linears (_dots_policy). The attention kernels launch through
+    ctypes, which a policy cannot see, so both launch the attention
+    forward again in the recompute, as jax.checkpoint recomputes
+    pallas_call under both. The recompute draws the forward's masks again
+    from a generator of its own (_replay_source).
+
+    "softmax" is JAX's policy that saves every value but the probabilities
+    named "attn_softmax". jax.checkpoint applies a policy to the residuals,
+    the values the backward needs, and those are what autograd holds for
+    the plain block. So the block runs as it is, and only the unfused
+    attention changes: inside reference_attention.not_saving it holds the
+    shifted logits, the probabilities' input, in their place and
+    recomputes the probabilities in the backward. The kernel routes
+    (flash, flash_block) name nothing: there the block is remat off's,
+    its kernels' outputs saved, the attention forward launched once."""
     if not cfg.remat:
         return fn
-    policy = _POLICIES.get(cfg.remat_policy)
+    if cfg.remat_policy == "softmax":
+        def saving_all_but_probs(*args, generator=None):
+            with reference_attention.not_saving(
+                    reference_attention.ATTN_SOFTMAX):
+                return fn(*args, generator)
+
+        return saving_all_but_probs
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _dots_policy)
 
     def checkpointed(*args, generator=None):
-        run = _replaying_draws(fn, generator)
         if not torch.is_grad_enabled():
-            return run(*args, generator)
-        kw = {}
-        if policy is not None:
-            kw["context_fn"] = functools.partial(
-                torch_checkpoint.create_selective_checkpoint_contexts, policy)
+            return fn(*args, generator)
+        replays = None if generator is None else _replay_source(generator)
+        calls = [0]
+
+        def run(*args):
+            calls[0] += 1
+            if calls[0] == 1 or replays is None:
+                return fn(*args, generator)
+            return fn(*args, replays())
+
         # The port draws nothing from the global generators.
-        return torch_checkpoint.checkpoint(run, *args, generator,
-                                           use_reentrant=False,
+        return torch_checkpoint.checkpoint(run, *args, use_reentrant=False,
                                            preserve_rng_state=False, **kw)
 
     return checkpointed

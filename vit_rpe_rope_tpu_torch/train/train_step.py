@@ -22,9 +22,9 @@ package's train/train_step.py.
   holds them, fed through static buffers (the train steps from the
   epoch-ordered data, epoch_order_data; their draws from generators
   registered with the capture and re-seeded per replay); on the CPU, under
-  a process group, under --debug_nans (it reads values on the host) and
-  for train steps that draw under remat, as the same k steps or rows run
-  eagerly. resolve_steps_per_dispatch is the JAX loop's rule for k.
+  a process group and under --debug_nans (it reads values on the host),
+  as the same k steps or rows run eagerly. resolve_steps_per_dispatch is
+  the JAX loop's rule for k.
 
 The JAX package's k-step drivers (make_train_multi_step,
 make_flat_train_multi_step over a flat depth-stacked vector,
@@ -44,6 +44,7 @@ into both packages, and replay one package's draws in the other).
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import time
 
@@ -695,13 +696,15 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
     row_seeds, the seeds the eager steps give step_generators' fresh
     generators. Philox draws depend on the seed and the offset alone, and
     the capture starts each generator at offset 0 as a fresh one, so the
-    graph draws the eager steps' bits.
+    graph draws the eager steps' bits. Under remat ("full", "dots") the
+    recompute of each block draws the forward's masks again from a
+    generator of its own, registered too and set before every replay to
+    its row's seed and the block's offset (models.vit.GraphDraws, the
+    offsets read in the warm-up step).
 
     The same k steps run eagerly on CPU tensors (the graph's plain
     version), and on CUDA tensors where the NaN sanitizer is on (it reads
-    values on the host) or where steps draw under remat (the recompute
-    restores the dropout generator's state through get_state / set_state,
-    which a capture cannot run); the first eager call on CUDA says so on
+    values on the host); the first eager call on CUDA says so on
     stdout.
 
     mesh: a process group's mesh, as make_train_step's: each step takes this
@@ -788,7 +791,7 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
         device = x.device
         graph.update(x=x.clone(), y=y.clone(), idx=idx.clone(),
                      hyper=hyper_rows([(0.0, 1.0, 1.0, 0.0)] * k, device),
-                     gens=[])
+                     gens=[], draws=None)
         gens = None
         if draws:
             graph["gens"] = [(torch.Generator(device=device),
@@ -799,15 +802,26 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
             def gens(r):
                 return graph["gens"][r]
 
-        def record(n):
-            return steps(params, opt_state, graph["x"], graph["y"],
-                         graph["idx"], table_update, gens, n=n)[2]
+        # the remat recompute's generators (models.vit.GraphDraws)
+        replays = vit.GraphDraws() if draws and cfg.remat else None
+
+        def record(n, mode):
+            with (getattr(replays, mode)() if replays
+                  else contextlib.nullcontext()):
+                return steps(params, opt_state, graph["x"], graph["y"],
+                             graph["idx"], table_update, gens, n=n)[2]
+
+        def generators():
+            rows = [gen for pair in graph["gens"] for gen in pair]
+            return rows + (replays.allocate(stride, device) if replays
+                           else [])
 
         # the warm-up: one step, its row not live
         g, metrics, captured = _graph_of(
-            device, lambda: record(1), lambda: record(k), f"{k} train steps",
-            [gen for pair in graph["gens"] for gen in pair])
+            device, lambda: record(1, "measuring"),
+            lambda: record(k, "capturing"), f"{k} train steps", generators)
         graph.update(graph=g, metrics=metrics, launches=captured,
+                     draws=replays,
                      params=[p.data_ptr() for p in params.values()])
         fn.capture_seconds = time.perf_counter() - t0
 
@@ -833,6 +847,8 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
                              non_blocking=True)
         if graph["gens"]:
             seed_rows(epoch, row)
+        if graph["draws"] is not None:
+            graph["draws"].prepare()
         graph["graph"].replay()
         launches.add(graph["launches"])
         return params, (mu, nu, count), graph["metrics"].clone()
@@ -845,10 +861,6 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
                     f"({_axes(mesh)} parallelism)")
         if nan_check.ACTIVE:
             return "the NaN sanitizer reads values on the host"
-        if draws and cfg.remat:
-            return ("the train steps draw random numbers under remat, whose "
-                    "recompute restores the dropout generator's state by "
-                    "get_state / set_state, which a capture cannot run")
         return None
 
     told = []
@@ -872,11 +884,12 @@ def make_train_multi_step(cfg: ViTConfig, update, preprocess, k: int,
     return fn
 
 
-def _graph_of(device, warm_up, record, what: str, generators=()):
+def _graph_of(device, warm_up, record, what: str, generators=list):
     """(graph, record()'s outputs, launch counts recorded) of one CUDA
     graph: warm_up() runs once on a side stream (what a kernel or a table
     sets up once happens there), then record() is captured, drawing from
-    `generators` (registered with the capture) as it does. Python's garbage
+    the generators that generators() gives after the warm-up (registered
+    with the capture) as it does. Python's garbage
     collector runs just before and is held off until the capture ends: the
     drivers' closures hold their graphs in reference cycles, so a graph of
     an earlier run lives until a collection, and destroying it while a
@@ -896,7 +909,7 @@ def _graph_of(device, warm_up, record, what: str, generators=()):
     enabled = gc.isenabled()
     gc.disable()
     try:
-        for gen in generators:
+        for gen in generators():
             g.register_generator_state(gen)
         with torch.cuda.graph(g):
             out = record()
